@@ -1,0 +1,620 @@
+"""The standard metric catalog — every family the subsystems emit.
+
+ONE declaration site (names, types, label sets, docs) serves three
+consumers: the subsystems fetch their metric objects here (get-or-
+create semantics make first-come irrelevant), the exporter pre-declares
+everything at startup so a single scrape always shows the full family
+set (a dashboard can be built against an idle process), and
+docs/observability.md's Grafana-ready catalog table is this module in
+prose. Add a family here first; hvdlint keeps env knobs honest, this
+file keeps metric names honest.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from horovod_tpu_torch.obs.registry import MetricRegistry, registry
+
+
+def serving_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The serving plane: request lifecycle counters, occupancy
+    gauges, and the TTFT/TPOT/queue-wait/e2e latency histograms
+    (docs/serving.md's vocabulary, now scrapeable)."""
+    reg = reg or registry()
+    return {
+        "events": reg.counter(
+            "hvd_serving_events_total",
+            "Serving request/tick lifecycle events by kind "
+            "(submitted, rejected, completed, cancelled, timed_out, "
+            "aborted, tokens_out, prefill_tokens, prefill_chunks, "
+            "ticks, ticks_overlapped, host_syncs, restarts, "
+            "requeued, faults_injected)", ("event",)),
+        # Engine-scoped gauges carry an `engine` label: several
+        # engines can coexist in one process, and unlabeled gauges
+        # would overwrite each other (engine B's construction would
+        # erase engine A's restart generation).
+        "queue_depth": reg.gauge(
+            "hvd_serving_queue_depth",
+            "Requests waiting in the admission queue", ("engine",)),
+        "slots_busy": reg.gauge(
+            "hvd_serving_slots_busy",
+            "Decode slots currently holding a request", ("engine",)),
+        "slots_total": reg.gauge(
+            "hvd_serving_slots_total",
+            "Configured decode-batch width (slot pool size)",
+            ("engine",)),
+        "slot_occupancy": reg.gauge(
+            "hvd_serving_slot_occupancy",
+            "slots_busy / slots_total (the continuous-batching "
+            "fullness the scheduler exists to maximize)",
+            ("engine",)),
+        "engine_generation": reg.gauge(
+            "hvd_serving_engine_generation",
+            "Dispatch-thread generation per engine (bumps on each "
+            "watchdog in-place restart; restarts vs counter resets)",
+            ("engine",)),
+        "compiles": reg.counter(
+            "hvd_serving_compiles_total",
+            "First-time-shape XLA compiles in the slot pool "
+            "(0 growth inside a warmed serving window)"),
+        # Sharded serving (docs/serving.md "Sharded serving"): mesh
+        # width per engine, and per-shard block occupancy — one host
+        # allocator decision drives every shard, so the per-shard rows
+        # agree by construction; the `shard` label makes per-device
+        # KV accounting scrapeable on a real pod.
+        "mesh_devices": reg.gauge(
+            "hvd_serving_mesh_devices",
+            "Devices in the engine's serving mesh (1 = unsharded; "
+            "KV head shards ride the HVD_SERVE_MESH_AXIS axis)",
+            ("engine",)),
+        "kv_blocks_free_shard": reg.gauge(
+            "hvd_kv_blocks_free_per_shard",
+            "Paged-KV block shards on the free list, per mesh shard",
+            ("engine", "shard")),
+        "kv_blocks_used_shard": reg.gauge(
+            "hvd_kv_blocks_used_per_shard",
+            "Paged-KV block shards owned by live sequences, per mesh "
+            "shard", ("engine", "shard")),
+        "kv_blocks_cached_shard": reg.gauge(
+            "hvd_kv_blocks_cached_per_shard",
+            "Refcount-0 prefix-cache-resident block shards, per mesh "
+            "shard", ("engine", "shard")),
+        # Paged KV cache + shared-prefix caching (docs/serving.md
+        # "Paged KV cache"): block occupancy per engine and the
+        # process-wide prefix-cache accounting.
+        "kv_blocks_free": reg.gauge(
+            "hvd_kv_blocks_free",
+            "Paged-KV blocks on the free list", ("engine",)),
+        "kv_blocks_used": reg.gauge(
+            "hvd_kv_blocks_used",
+            "Paged-KV blocks owned by live sequences (refcount >= 1)",
+            ("engine",)),
+        "kv_blocks_cached": reg.gauge(
+            "hvd_kv_blocks_cached",
+            "Refcount-0 blocks kept resident by the shared-prefix "
+            "cache (LRU-evictable)", ("engine",)),
+        "prefix_hits": reg.counter(
+            "hvd_prefix_cache_hits_total",
+            "Block-aligned prompt-prefix blocks served from the "
+            "resident cache at admission (prefill skipped)"),
+        "prefix_misses": reg.counter(
+            "hvd_prefix_cache_misses_total",
+            "Block-aligned prompt-prefix blocks queried but not "
+            "resident at admission"),
+        "prefix_evictions": reg.counter(
+            "hvd_prefix_cache_evictions_total",
+            "Cached prefix blocks reclaimed by allocation "
+            "(LRU, oldest first)"),
+        "prefill_tokens_skipped": reg.counter(
+            "hvd_serving_prefill_tokens_skipped_total",
+            "Prompt tokens never prefilled because the shared-prefix "
+            "cache already held them (the TTFT the cache deleted)"),
+        # Speculative decoding (docs/serving.md "Decode fast path"):
+        # the draft-verify acceptance accounting — acceptance rate =
+        # spec_accepted / spec_proposed, and tokens retired per tick
+        # follows 1 + rate x k.
+        "spec_proposed": reg.counter(
+            "hvd_serving_spec_proposed_total",
+            "Draft tokens proposed to the target model across "
+            "speculative-decode rounds (k per live lane per round)"),
+        "spec_accepted": reg.counter(
+            "hvd_serving_spec_accepted_total",
+            "Draft proposals the target model's greedy verify "
+            "accepted (acceptance rate = accepted / proposed; each "
+            "accepted proposal is one decode tick the target never "
+            "ran)"),
+        "ttft": reg.histogram(
+            "hvd_serving_ttft_seconds",
+            "Time to first token: submit -> first token out "
+            "(queue wait + prefill)"),
+        "tpot": reg.histogram(
+            "hvd_serving_tpot_seconds",
+            "Time per output token after the first (steady-state "
+            "streaming rate)"),
+        "queue_wait": reg.histogram(
+            "hvd_serving_queue_wait_seconds",
+            "Submit -> prefill start (admission latency)"),
+        "e2e": reg.histogram(
+            "hvd_serving_e2e_seconds",
+            "Submit -> request completion"),
+    }
+
+
+def router_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The serving-fleet plane (serving/router.py, docs/serving.md
+    "Fleet failover"): replica-level routing, retry-budget spend,
+    hedging, and token-exact request migration across replica
+    deaths."""
+    reg = reg or registry()
+    return {
+        "requests": reg.counter(
+            "hvd_router_requests_total",
+            "Router-level request outcomes (completed, failed, "
+            "cancelled, timed_out, shed)", ("outcome",)),
+        "retries": reg.counter(
+            "hvd_router_retries_total",
+            "Submit retries on another replica after a shed/closed "
+            "first answer (token-bucket gated, HVD_RETRY_BUDGET)"),
+        "retry_budget": reg.gauge(
+            "hvd_router_retry_budget_tokens",
+            "Retry-budget tokens currently available (refills at "
+            "capacity/60 per second)"),
+        "hedges": reg.counter(
+            "hvd_router_hedges_total",
+            "Slow-to-first-token requests duplicated on a second "
+            "replica (delay = the HVD_HEDGE_QUANTILE TTFT quantile)"),
+        "hedge_wins": reg.counter(
+            "hvd_router_hedge_wins_total",
+            "Hedged requests whose DUPLICATE answered first (the "
+            "primary was cancelled)"),
+        "migrations": reg.counter(
+            "hvd_router_migrations_total",
+            "In-flight requests moved off a dead replica via "
+            "forced-prefix resubmission (token-exact)"),
+        "migrated_tokens": reg.counter(
+            "hvd_router_migrated_tokens_total",
+            "Already-generated tokens carried across migrations as "
+            "forced prefixes (decode work the failover did NOT "
+            "redo at the client's expense)"),
+        "replica_deaths": reg.counter(
+            "hvd_router_replica_deaths_total",
+            "Replicas the router declared dead (dispatch gone or "
+            "engine closed outside a drain)"),
+        "replacements": reg.counter(
+            "hvd_router_replacements_total",
+            "Cold replacement engines built for dead/drained "
+            "replicas (HVD_ROUTER_REPLACEMENTS budget)"),
+        "replicas": reg.gauge(
+            "hvd_router_replicas",
+            "Fleet size by replica state (up, draining, dead)",
+            ("state",)),
+        "failover": reg.histogram(
+            "hvd_router_failover_seconds",
+            "Replica-death detection to the migrated request "
+            "re-queued on a healthy replica, per request"),
+        "ttft": reg.histogram(
+            "hvd_router_ttft_seconds",
+            "Client-visible time to first token THROUGH the router "
+            "(includes retries, hedges and failovers; "
+            "hvd_serving_ttft_seconds is per-engine)"),
+    }
+
+
+def resilience_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The resilience plane: every recovery path's counters
+    (docs/resilience.md), StallMonitor trips included."""
+    reg = reg or registry()
+    return {
+        "restarts": reg.counter(
+            "hvd_resilience_restarts_total",
+            "Serving-engine in-place watchdog restarts"),
+        "requeued": reg.counter(
+            "hvd_resilience_requeued_total",
+            "In-flight requests replayed across an engine restart"),
+        "faults_injected": reg.counter(
+            "hvd_resilience_faults_injected_total",
+            "Chaos-injection sites fired, by site (HVD_CHAOS)",
+            ("site",)),
+        "stalls": reg.counter(
+            "hvd_resilience_stalls_total",
+            "Operations pending past the stall-warning threshold "
+            "(utils/stall.py)"),
+        "rollbacks": reg.counter(
+            "hvd_resilience_rollbacks_total",
+            "NaN/loss-spike rollbacks to the last good checkpoint "
+            "(ElasticTrainer)"),
+        "emergency_saves": reg.counter(
+            "hvd_resilience_emergency_saves_total",
+            "Emergency checkpoints cut on a preemption signal"),
+        "recovery": reg.histogram(
+            "hvd_resilience_recovery_seconds",
+            "Fault -> requeued-and-running latency per watchdog "
+            "restart (time-to-requeue)"),
+        "resumes": reg.counter(
+            "hvd_resilience_resumes_total",
+            "Training resumes from a step checkpoint "
+            "(ElasticTrainer.resume with a restorable step)"),
+        "cursor_fallbacks": reg.counter(
+            "hvd_resilience_cursor_fallbacks_total",
+            "Resumes whose data-pipeline cursor was missing/corrupt/"
+            "incompatible — degraded to the epoch boundary "
+            "(docs/resilience.md 'Exact resume')"),
+        "resume_gap": reg.gauge(
+            "hvd_resilience_resume_gap_batches",
+            "Batches replayed by the LAST resume relative to the "
+            "exact cursor (0 = exactly-once; >0 only on a cursor "
+            "fallback)"),
+        "train_recovery": reg.histogram(
+            "hvd_resilience_train_recovery_seconds",
+            "Checkpoint-discovery-to-restored latency per training "
+            "resume (state + optimizer + data cursor + host RNG)"),
+    }
+
+
+def elastic_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The elastic-membership plane (resilience/membership.py,
+    docs/resilience.md "Elastic membership"): world generation,
+    resize/death/join accounting, and the shard-rebalance cost of
+    every committed resize."""
+    reg = reg or registry()
+    return {
+        "generation": reg.gauge(
+            "hvd_elastic_generation",
+            "Monotonic elastic-world generation (0 = launch world; "
+            "+1 per committed resize — restarts vs resizes "
+            "disambiguate on this)"),
+        "world_size": reg.gauge(
+            "hvd_elastic_world_size",
+            "Committed world size after the newest resize (equals "
+            "the launch size at generation 0)"),
+        "resizes": reg.counter(
+            "hvd_elastic_resizes_total",
+            "Committed world resizes by kind (shrink, grow, steady — "
+            "steady = membership changed, size did not)", ("kind",)),
+        "rank_deaths": reg.counter(
+            "hvd_elastic_rank_deaths_total",
+            "Members removed from the world by heartbeat-lease "
+            "expiry (preemption, crash, partition)"),
+        "rank_joins": reg.counter(
+            "hvd_elastic_rank_joins_total",
+            "Members admitted to the world via a join announcement"),
+        "heartbeats_missed": reg.counter(
+            "hvd_elastic_heartbeats_missed_total",
+            "Heartbeat writes that did not land (chaos "
+            "heartbeat_drop or a transport fault) — lease math "
+            "tolerates isolated misses"),
+        "rebalance": reg.histogram(
+            "hvd_elastic_rebalance_seconds",
+            "Per-resize shard-rebalance latency: rollback to the "
+            "committed TrainSnapshot through the migrated cursor "
+            "installed (ElasticTrainer resize path)"),
+        "records_reassigned": reg.counter(
+            "hvd_elastic_records_reassigned_total",
+            "Records of interrupted epochs repartitioned across the "
+            "new world by shard rebalancing (the untrained-remainder "
+            "union, docs/resilience.md)"),
+    }
+
+
+def detector_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The unified failure-detection plane (resilience/detector.py,
+    docs/resilience.md "Failure detection"): graduated suspicion
+    states, transition accounting, and the flap-damping evidence that
+    a slow-but-alive peer is being drained, not flapped dead."""
+    reg = reg or registry()
+    return {
+        "peers": reg.gauge(
+            "hvd_detector_peers",
+            "Registered peers by suspicion state (alive, suspect, "
+            "dead) at the newest sweep", ("state",)),
+        "transitions": reg.counter(
+            "hvd_detector_transitions_total",
+            "Suspicion-state transitions per peer, by destination "
+            "state (to=suspect is a drain, to=dead the failover/"
+            "resize verdict, to=alive a recovery)", ("peer", "to")),
+        "flaps": reg.counter(
+            "hvd_detector_flaps_total",
+            "Recoveries to ALIVE per peer — bounded by hysteresis + "
+            "flap damping (HVD_DETECTOR_FLAP_MAX per "
+            "HVD_DETECTOR_FLAP_WINDOW_S; a damped peer holds at "
+            "SUSPECT instead of flapping)", ("peer",)),
+        "sweeps": reg.counter(
+            "hvd_detector_sweeps_total",
+            "Evidence-evaluation sweeps by the shared detector "
+            "thread (one thread per process, however many "
+            "consumers)"),
+    }
+
+
+def training_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The training plane: step cadence, throughput, and the MFU
+    gauge (analytic FLOPs over the device's peak,
+    utils/profile_analysis.py math)."""
+    reg = reg or registry()
+    return {
+        "steps": reg.counter(
+            "hvd_training_steps_total", "Training steps completed"),
+        "step_time": reg.histogram(
+            "hvd_training_step_seconds",
+            "Host-side step cadence (dispatch-to-dispatch; device "
+            "time belongs to jax.profiler — docs/timeline.md)"),
+        "tokens_per_s": reg.gauge(
+            "hvd_training_tokens_per_s",
+            "Training throughput (tokens or examples per second, "
+            "per the step's declared work)"),
+        "mfu": reg.gauge(
+            "hvd_training_mfu",
+            "Model FLOPs utilization: declared FLOPs/step over the "
+            "device's peak (utils/profile_analysis.py)"),
+    }
+
+
+def collective_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """Eager-collective dispatch counts by op (SPMD in-graph
+    collectives are compiled away and invisible to the host), plus the
+    straggler-attribution family (obs/straggler.py): per-exchange
+    cross-rank skew of host-side dispatch time and the rank it
+    accuses."""
+    reg = reg or registry()
+    return {
+        "dispatched": reg.counter(
+            "hvd_collectives_total",
+            "Eager collective dispatches by op", ("op",)),
+        "skew": reg.histogram(
+            "hvd_collective_skew_seconds",
+            "Cross-rank skew of mean collective/fusion-cycle dispatch "
+            "time per straggler exchange (slowest rank's mean minus "
+            "fastest's; obs/straggler.py)"),
+        "straggler_rank": reg.gauge(
+            "hvd_collective_straggler_rank",
+            "Slowest rank in the newest straggler exchange (reads 0 "
+            "before any exchange — gate on "
+            "hvd_collective_exchanges_total)"),
+        "exchanges": reg.counter(
+            "hvd_collective_exchanges_total",
+            "Straggler timing-window exchanges completed "
+            "(every HVD_STRAGGLER_CYCLES dispatches)"),
+    }
+
+
+def slo_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The SLO plane (obs/slo.py): multi-window burn rates per
+    objective and the breach transitions that flip /healthz."""
+    reg = reg or registry()
+    return {
+        "burn_rate": reg.gauge(
+            "hvd_slo_burn_rate",
+            "Error-budget burn rate per objective and window (1.0 = "
+            "burning exactly the budget; >= the configured threshold "
+            "on BOTH windows = fast burn)", ("objective", "window")),
+        "breaching": reg.gauge(
+            "hvd_slo_breaching",
+            "1 while the objective is fast-burning (both windows over "
+            "the burn threshold); /healthz reads 503 meanwhile",
+            ("objective",)),
+        "breaches": reg.counter(
+            "hvd_slo_breaches_total",
+            "Fast-burn breach TRANSITIONS per objective (entering "
+            "breach, not per evaluation)", ("objective",)),
+    }
+
+
+def flight_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The crash flight recorder's own accounting (obs/flightrec.py)."""
+    reg = reg or registry()
+    return {
+        "bundles": reg.counter(
+            "hvd_flightrec_bundles_total",
+            "Flight-recorder bundles written to HVD_FLIGHT_DIR, by "
+            "trigger reason", ("reason",)),
+    }
+
+
+def event_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The structured-event log's own volume counter."""
+    reg = reg or registry()
+    return {
+        "events": reg.counter(
+            "hvd_events_total",
+            "Structured events emitted to the JSONL event log, "
+            "by kind", ("kind",)),
+    }
+
+
+def disagg_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """Disaggregated serving (docs/serving.md "Disaggregated
+    serving"): KV-block transfers between prefill and decode pools,
+    the digest-verify outcomes, the fallback ladder, and the handoff
+    latency from prefill-complete to decode-pool admission."""
+    reg = reg or registry()
+    return {
+        "transfers": reg.counter(
+            "hvd_disagg_transfers_total",
+            "KV-block transfers between pools by outcome (exported, "
+            "ingested, rejected, export_failed)", ("outcome",)),
+        "blocks": reg.counter(
+            "hvd_disagg_blocks_total",
+            "KV blocks newly adopted into a destination pool's "
+            "prefix cache via transfer ingest"),
+        "bytes": reg.counter(
+            "hvd_disagg_bytes_total",
+            "KV bytes shipped in accepted block transfers"),
+        "verify_failures": reg.counter(
+            "hvd_disagg_verify_failures_total",
+            "Transfers rejected on ingest: chain/byte digest "
+            "mismatch or incompatible geometry (each one falls back "
+            "to token-level recompute)"),
+        "fallbacks": reg.counter(
+            "hvd_disagg_fallbacks_total",
+            "Handoffs that degraded to the token-level "
+            "forced-prefix recompute, by reason (prefill_failed, "
+            "export_failed, verify_failed, no_prefill_capacity)",
+            ("reason",)),
+        "handoffs": reg.counter(
+            "hvd_disagg_handoffs_total",
+            "Prefill->decode handoffs the DisaggRouter completed "
+            "(the request resumed on a decode replica)"),
+        "handoff": reg.histogram(
+            "hvd_disagg_handoff_seconds",
+            "Prefill-complete to decode-pool submit latency (the "
+            "disaggregation seam's own cost)"),
+    }
+
+
+def preempt_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The preemption plane (docs/serving.md "Overload control"):
+    token-exact evictions of lower-priority decode streams when a
+    higher-priority head cannot be admitted, by mode — `swap` shelves
+    the victim's KV blocks in the host-RAM SwapStore (re-grafted on
+    resume, only the sub-block tail re-prefills) and `recompute` drops
+    them (resume re-prefills the forced prefix)."""
+    reg = reg or registry()
+    return {
+        "preemptions": reg.counter(
+            "hvd_preempt_total",
+            "Decode streams preempted to admit higher-priority work "
+            "or unstrand a watermark-admitted lane, by mode (swap = "
+            "KV shelved in the SwapStore, recompute = KV dropped)",
+            ("mode",)),
+        "tokens": reg.counter(
+            "hvd_preempt_tokens_total",
+            "Token accounting across preempt/resume cycles, by kind "
+            "(recomputed = prefilled again on resume, swapped_in = "
+            "restored from shelved blocks without recompute)",
+            ("kind",)),
+        "swap_bytes": reg.counter(
+            "hvd_preempt_swap_bytes_total",
+            "KV bytes shelved into the SwapStore by swap preemptions"),
+        "swap_store_bytes": reg.gauge(
+            "hvd_preempt_swap_store_bytes",
+            "Host-RAM bytes currently held by the engine's SwapStore "
+            "(bounded by HVD_SWAP_BYTES)", ("engine",)),
+        "swap_store_entries": reg.gauge(
+            "hvd_preempt_swap_store_entries",
+            "Preempted streams currently shelved in the SwapStore",
+            ("engine",)),
+    }
+
+
+def tenant_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The per-tenant isolation plane (docs/serving.md "Overload
+    control"): tenant-scoped SLO burn rates and the brownout ladder —
+    a fast-burning tenant is degraded (no hedging → spec-k cap →
+    preemption) instead of flipping the fleet-wide /healthz 503."""
+    reg = reg or registry()
+    return {
+        "burn_rate": reg.gauge(
+            "hvd_tenant_slo_burn_rate",
+            "Per-tenant error-budget burn rate per objective and "
+            "window (the tenant-scoped twin of hvd_slo_burn_rate)",
+            ("tenant", "objective", "window")),
+        "breaching": reg.gauge(
+            "hvd_tenant_slo_breaching",
+            "1 while the tenant's objective is fast-burning on both "
+            "windows (feeds the brownout ladder, NOT /healthz)",
+            ("tenant", "objective")),
+        "breaches": reg.counter(
+            "hvd_tenant_slo_breaches_total",
+            "Per-tenant fast-burn breach TRANSITIONS per objective",
+            ("tenant", "objective")),
+        "requests": reg.counter(
+            "hvd_tenant_requests_total",
+            "Engine-level request outcomes per tenant (submitted, "
+            "shed, preempted)", ("tenant", "outcome")),
+        "brownout_level": reg.gauge(
+            "hvd_tenant_brownout_level",
+            "The tenant's brownout rung (0 normal, 1 no hedging, "
+            "2 + spec-k capped, 3 + lowest-priority streams "
+            "preempted)", ("tenant",)),
+        "brownout_transitions": reg.counter(
+            "hvd_tenant_brownout_transitions_total",
+            "Brownout ladder transitions per tenant, by direction "
+            "(escalate, recover) — every rung change is also a "
+            "serving.brownout event", ("tenant", "direction")),
+        "hedges_suppressed": reg.counter(
+            "hvd_tenant_hedges_suppressed_total",
+            "Router hedges skipped because the tenant sits at "
+            "brownout level >= 1", ("tenant",)),
+    }
+
+
+def phase_metrics(reg: Optional[MetricRegistry] = None) -> Dict:
+    """The critical-path anatomy plane (obs/spans.py): per-request
+    phase durations from the span-tree decomposition — queue_wait,
+    admission, prefill, transfer_export/verify/ingest, decode,
+    preempt_paused, migration_gap. Fleet-mergeable like every fixed-
+    bucket histogram; exemplars carry the trace_id whose waterfall
+    explains the observation."""
+    reg = reg or registry()
+    return {
+        "phase": reg.histogram(
+            "hvd_request_phase_seconds",
+            "Per-request critical-path phase durations decomposed "
+            "from the causal span tree (phase = queue_wait, "
+            "admission, prefill, transfer_export, transfer_verify, "
+            "transfer_ingest, decode, preempt_paused, "
+            "migration_gap); the phases of one completed request sum "
+            "to its client-observed latency", ("phase",)),
+    }
+
+
+def fleet_metrics(reg: MetricRegistry) -> Dict:
+    """The fleet aggregator's own accounting (obs/aggregate.py).
+    Constructed on the aggregator's per-collect registry — `reg` is
+    REQUIRED (no global default): these families describe one merged
+    snapshot, never the process-local scrape, so landing them on the
+    global registry would be a bug. Not part of
+    `declare_standard_metrics` for the same reason. The merged
+    per-family `*_fleet`/`*_rank_skew` names are derived dynamically
+    from the rank families and are intentionally outside this
+    catalog."""
+    return {
+        "ranks": reg.gauge(
+            "hvd_fleet_ranks",
+            "Ranks contributing to this fleet snapshot"),
+        "ranks_failed": reg.gauge(
+            "hvd_fleet_ranks_failed",
+            "Ranks whose snapshot pull failed this collect"),
+    }
+
+
+def fleet_straggler_metrics(reg: MetricRegistry) -> Dict:
+    """Fleet-level straggler attribution from the merged collective
+    windows (obs/aggregate.py). Separate from `fleet_metrics` because
+    these gauges exist only when a straggler report merged — an
+    unconditional 0-valued hvd_fleet_straggler_rank would accuse
+    rank 0."""
+    return {
+        "straggler_rank": reg.gauge(
+            "hvd_fleet_straggler_rank",
+            "Slowest rank by mean collective/fusion-cycle dispatch "
+            "time in the merged windows"),
+        "straggler_skew": reg.gauge(
+            "hvd_fleet_straggler_skew_seconds",
+            "Cross-rank skew of mean collective dispatch time in "
+            "the merged windows (slowest - fastest)"),
+    }
+
+
+def declare_standard_metrics(
+        reg: Optional[MetricRegistry] = None) -> Dict[str, Dict]:
+    """Idempotently declare every standard family; the exporter calls
+    this at startup so any scrape exposes the complete catalog."""
+    reg = reg or registry()
+    return {
+        "serving": serving_metrics(reg),
+        "router": router_metrics(reg),
+        "resilience": resilience_metrics(reg),
+        "elastic": elastic_metrics(reg),
+        "detector": detector_metrics(reg),
+        "training": training_metrics(reg),
+        "collectives": collective_metrics(reg),
+        "disagg": disagg_metrics(reg),
+        "preempt": preempt_metrics(reg),
+        "tenant": tenant_metrics(reg),
+        "slo": slo_metrics(reg),
+        "flightrec": flight_metrics(reg),
+        "events": event_metrics(reg),
+        "phases": phase_metrics(reg),
+    }

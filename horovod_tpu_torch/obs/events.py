@@ -1,0 +1,325 @@
+"""Bounded structured-event log (JSONL).
+
+Metrics answer "how much / how fast"; this log answers "what
+happened": the DISCRETE occurrences an operator greps for during an
+incident — engine restarts, request requeues, shed requests, chaos
+fires, stall warnings, first-time-shape compiles, preemption signals,
+NaN rollbacks. Each event is one JSON object per line with a
+monotonic ``seq``, a wall-clock ``ts``, a ``kind``, and free-form
+fields (``trace_id`` whenever the event belongs to a request, the
+tracing leg of docs/observability.md).
+
+Bounded on BOTH sides: the in-memory ring keeps the newest ``maxlen``
+events for `/metrics.json` / `tail()` / the flight recorder's bundle
+(``maxlen`` defaults to the ``HVD_EVENTS_RING`` knob, 2048 — size it
+to how much run-up a post-mortem should capture), and the JSONL file
+(enabled by ``HVD_EVENTS_LOG=/path``) rotates once past ``max_bytes``
+(one ``.1`` generation) so an incident log can never fill a disk.
+File faults warn-and-disable, the Timeline's contract: observability
+must never cost the workload.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import sys
+import threading
+import time
+from typing import Dict, List, Optional
+
+from horovod_tpu_torch.obs import catalog
+
+from horovod_tpu_torch.analysis import lockcheck
+
+__all__ = ["EventLog", "EVENT_CATALOG", "emit", "tail", "get",
+           "configure", "event_table_md"]
+
+
+DEFAULT_RING = 2048
+
+# Every event ``kind`` the subsystems may emit, with the one-line
+# description an operator reads in docs/observability.md (the event
+# table there is generated from this dict by ``python -m
+# horovod_tpu_torch.analysis --write-event-table``). hvdlint's HVD011 pins
+# both directions: an emit of an undeclared kind and a declared kind
+# nothing emits are findings. Keep kinds literal at emit sites —
+# that is what makes an incident greppable.
+EVENT_CATALOG: Dict[str, str] = {
+    "chaos.fire":
+        "A chaos-injection site fired (resilience/chaos.py)",
+    "collective.straggler":
+        "Straggler attribution: one rank's collective dispatch is "
+        "skewed beyond threshold (obs/straggler.py)",
+    "detector.dead":
+        "Phi-accrual detector declared a peer dead",
+    "detector.recovered":
+        "A suspect/dead peer's heartbeats resumed",
+    "detector.suspect":
+        "Phi-accrual detector marked a peer suspect",
+    "disagg.export_failed":
+        "KV-block export from the prefill pool failed; handoff "
+        "falls back to token-level recompute",
+    "disagg.handoff":
+        "Prefill->decode handoff completed (request resumed on a "
+        "decode replica)",
+    "disagg.prefill_dead":
+        "A prefill replica was declared dead by the disagg router",
+    "disagg.prefill_failed":
+        "Prefill execution failed; request fell back to the decode "
+        "pool's own prefill",
+    "disagg.prefill_replace":
+        "A dead prefill replica was replaced from the spawner",
+    "disagg.transfer_ingested":
+        "A KV-block transfer passed digest verify and was adopted "
+        "by the destination pool",
+    "disagg.transfer_rejected":
+        "A KV-block transfer failed digest/geometry verify on "
+        "ingest (falls back to recompute)",
+    "flightrec.dump":
+        "A flight-recorder post-mortem bundle was written",
+    "membership.rank_death":
+        "Membership sweep observed a member's lease expire",
+    "membership.rank_join":
+        "Membership sweep admitted a newly announced member",
+    "membership.resize":
+        "A membership generation change committed (world resize)",
+    "profile.start":
+        "jax.profiler trace collection started",
+    "profile.stop":
+        "jax.profiler trace collection stopped",
+    "router.drain":
+        "A replica was put into drain (no new placements)",
+    "router.drained":
+        "A draining replica finished its in-flight work",
+    "router.hedge":
+        "A hedge request was launched against a second replica",
+    "router.hedge_suppressed":
+        "A hedge was skipped (tenant brownout >= 1)",
+    "router.migrate":
+        "An in-flight request began KV migration to another replica",
+    "router.migrate_failed":
+        "A migration attempt failed (request continues or retries)",
+    "router.migrate_terminal":
+        "A migration failed terminally; the request errored",
+    "router.migrated_complete":
+        "A migrated request completed on its destination replica",
+    "router.replace":
+        "A dead replica was replaced from the spawner",
+    "router.replacement_budget_exhausted":
+        "A replica death could not be replaced: replacement budget "
+        "spent",
+    "router.replica_dead":
+        "The router declared a replica dead",
+    "router.retry":
+        "A failed request was retried on another replica",
+    "router.retry_budget_exhausted":
+        "A retry was denied: the retry budget is spent",
+    "serving.brownout":
+        "A tenant moved on the brownout ladder (escalate/recover)",
+    "serving.compile":
+        "First-time-shape XLA compile in the slot pool / pager",
+    "serving.contain":
+        "The engine contained a poisoned request after repeated "
+        "restart loops",
+    "serving.preempt":
+        "A decode stream was preempted (swap or recompute) to admit "
+        "higher-priority work",
+    "serving.queue_drop":
+        "An admitted request was dropped from the queue (deadline "
+        "or preemption policy)",
+    "serving.restart":
+        "The engine watchdog restarted the dispatch thread in place",
+    "serving.retire":
+        "A decode stream was retired by the overload controller",
+    "serving.shed":
+        "Admission shed a request (queue full / brownout / "
+        "watermark)",
+    "serving.submit":
+        "A request entered the engine queue",
+    "serving.swap_restore_failed":
+        "A preempted stream's shelved KV could not be restored; "
+        "resume fell back to recompute",
+    "slo.breach":
+        "A fleet SLO objective entered fast-burn breach",
+    "slo.clear":
+        "A breaching SLO objective recovered",
+    "slo.tenant_breach":
+        "A tenant-scoped SLO objective entered fast-burn breach",
+    "slo.tenant_clear":
+        "A breaching tenant-scoped objective recovered",
+    "stall":
+        "The stall watchdog saw a collective exceed its warning "
+        "time (utils/stall.py)",
+    "training.cursor_fallback":
+        "Resume could not honor the exact data cursor; fell back to "
+        "epoch start",
+    "training.emergency_save":
+        "A preemption signal triggered an emergency checkpoint",
+    "training.resize":
+        "Elastic training re-sharded onto a new world size",
+    "training.resume":
+        "Training resumed from a snapshot (exact or fallback "
+        "cursor)",
+    "training.rollback":
+        "A non-finite loss rolled training back to the last "
+        "snapshot",
+}
+
+
+def event_table_md() -> str:
+    """The docs/observability.md event table, generated from
+    `EVENT_CATALOG` (the drift-pinned twin of config.env_table_md)."""
+    lines = ["| kind | meaning |", "| --- | --- |"]
+    for kind in sorted(EVENT_CATALOG):
+        desc = " ".join(EVENT_CATALOG[kind].split())
+        lines.append(f"| `{kind}` | {desc} |")
+    return "\n".join(lines) + "\n"
+
+
+def _ring_capacity() -> int:
+    """The in-memory ring size: the registered ``HVD_EVENTS_RING``
+    knob (floor 1 — a zero/negative value must not silently create an
+    unbounded deque)."""
+    from horovod_tpu_torch.runtime.config import env_int
+    return max(1, env_int("HVD_EVENTS_RING", DEFAULT_RING))
+
+
+class EventLog:
+    def __init__(self, path: Optional[str] = None, *,
+                 maxlen: Optional[int] = None,
+                 max_bytes: int = 8 * 1024 * 1024):
+        if maxlen is None:
+            maxlen = _ring_capacity()
+        self._lock = lockcheck.register(
+            "EventLog._lock", threading.Lock())
+        self._ring: collections.deque = collections.deque(maxlen=maxlen)
+        self._seq = 0
+        self._path = path or None
+        self._max_bytes = max_bytes
+        self._bytes = 0
+        self._disabled = False
+        self._fh = None   # persistent append handle (lazy; rotation
+        #                   reopens) — per-event open/close would put
+        #                   two syscalls inside the lock every emit
+        self._counter = catalog.event_metrics()["events"]
+        if self._path:
+            try:
+                self._bytes = os.path.getsize(self._path)
+            except OSError:
+                self._bytes = 0
+
+    @property
+    def path(self) -> Optional[str]:
+        return self._path
+
+    def emit(self, kind: str, **fields) -> Dict:
+        """Record one event; returns the record (already stamped)."""
+        with self._lock:
+            self._seq += 1
+            rec = {"ts": round(time.time(), 6), "seq": self._seq,
+                   "kind": kind}
+            rec.update(fields)
+            self._ring.append(rec)
+            if self._path and not self._disabled:
+                self._write_locked(rec)
+        self._counter.inc(kind=kind)
+        return rec
+
+    def _write_locked(self, rec: Dict):
+        line = json.dumps(rec, default=repr) + "\n"
+        try:
+            if self._bytes + len(line) > self._max_bytes:
+                # One rotation generation: the previous .1 is dropped.
+                self._close_fh_locked()
+                os.replace(self._path, self._path + ".1")
+                self._bytes = 0
+            if self._fh is None:
+                self._fh = open(self._path, "a")
+            self._fh.write(line)
+            self._fh.flush()   # line-durable: tail -f sees each event
+            self._bytes += len(line)
+        except OSError as e:
+            # Warn-and-disable (the Timeline's unwritable-file
+            # contract): a full disk must cost the event log, never
+            # the serving request or train step that emitted.
+            self._disabled = True
+            self._close_fh_locked()
+            sys.stderr.write(
+                f"WARNING: error writing the event log "
+                f"{self._path!r}, disabling it: {e}\n")
+
+    def _close_fh_locked(self):
+        if self._fh is not None:
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+            self._fh = None
+
+    def close(self):
+        """Release the file handle (the ring stays readable)."""
+        with self._lock:
+            self._close_fh_locked()
+
+    def tail(self, n: int = 100) -> List[Dict]:
+        with self._lock:
+            return list(self._ring)[-n:]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+
+_LOG: Optional[EventLog] = None
+_LOG_LOCK = lockcheck.register(
+    "events._LOG_LOCK", threading.Lock())
+
+
+def get() -> EventLog:
+    """The process-global log, built lazily from ``HVD_EVENTS_LOG``
+    (unset = in-memory ring only)."""
+    global _LOG
+    with _LOG_LOCK:
+        if _LOG is None:
+            from horovod_tpu_torch.runtime.config import env_str
+            _LOG = EventLog(env_str("HVD_EVENTS_LOG") or None)
+        return _LOG
+
+
+def configure(path: Optional[str] = None, *,
+              maxlen: Optional[int] = None,
+              max_bytes: int = 8 * 1024 * 1024) -> EventLog:
+    """Install a fresh global log (programmatic twin of
+    ``HVD_EVENTS_LOG``; bench and tests point it at a temp file).
+    Returns the new log; the previous one is simply dropped — for a
+    scoped swap that must not clobber a user-configured log, use
+    `install` and restore the returned previous one."""
+    global _LOG
+    with _LOG_LOCK:
+        _LOG = EventLog(path, maxlen=maxlen, max_bytes=max_bytes)
+        return _LOG
+
+
+def install(log: Optional[EventLog]) -> Optional[EventLog]:
+    """Swap the global log, returning the PREVIOUS one (which may be
+    None if nothing ever emitted). The scoped-use twin of `configure`:
+    save the return value and re-install it when done, so a temporary
+    redirect (bench's trace check, a test) never silently disables a
+    log the user configured via ``HVD_EVENTS_LOG``."""
+    global _LOG
+    with _LOG_LOCK:
+        prev, _LOG = _LOG, log
+        return prev
+
+
+def emit(kind: str, **fields) -> Dict:
+    """One-line event hook for the subsystems: stamps ts/seq/kind,
+    mirrors a ``hvd_events_total{kind=...}`` count, appends to the
+    ring (and the JSONL file when configured)."""
+    return get().emit(kind, **fields)
+
+
+def tail(n: int = 100) -> List[Dict]:
+    return get().tail(n)

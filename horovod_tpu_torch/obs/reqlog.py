@@ -1,0 +1,283 @@
+"""Versioned request-log record/replay (JSONL).
+
+ROADMAP 1(c): autoscaler and overload policies should be tuned
+against replayed production-shaped traffic, not Poisson toys. This
+module records the WORKLOAD SHAPE of a live engine/router — arrival
+times (relative to the log's start), prompt/output budgets,
+tenant/priority lanes, and the prefix-sharing structure — and
+`bench.py --serving --replay <log>` re-serves it open-loop at a
+``--replay-speed`` factor, emitting the same artifact schema as a
+synthetic run.
+
+Privacy/size by construction: prompts are NOT stored. Each record
+carries the prompt's block-aligned blake2b CHAIN digests (the exact
+digests serving/paging.py keys its prefix cache on — h_i commits to
+the whole prefix behind block i), truncated to 12 hex chars as
+prefix-group ids. Replay synthesizes tokens deterministically FROM
+those digests, so two recorded prompts sharing k prefix blocks replay
+as two prompts sharing k prefix blocks — the prefix-cache hit pattern
+the record run saw is the hit pattern the replay exercises — while
+the actual token values never leave the process that served them.
+
+Format: line 1 is a header ``{"reqlog": 1, "t0": ..., "block": 16}``;
+every following line is one arrival. Bump ``SCHEMA`` on any field
+change — `load` refuses logs from a newer schema. Enable on a live
+process with ``HVD_REQLOG=/path`` (every client-entry submit records;
+internal legs — migrations, hedges, disagg handoffs — do not), or
+programmatically via `configure`/`install`. File faults
+warn-and-disable, the EventLog contract.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import sys
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from horovod_tpu_torch.analysis import lockcheck
+
+__all__ = ["SCHEMA", "RequestLog", "get", "configure", "install",
+           "record", "load", "prefix_chain", "synthesize_prompt",
+           "prefix_pattern"]
+
+SCHEMA = 1
+
+# Block size the chain digests are computed over — the
+# HVD_KV_BLOCK_SIZE default, so recorded groups line up with the
+# paged pool's cache keys on a default-configured engine.
+DEFAULT_BLOCK = 16
+
+# Digest hex chars kept per block: 48 bits is plenty to keep a log's
+# worth of prefix groups collision-free, at a third of the line cost.
+_HEX = 12
+
+
+def prefix_chain(prompt, block: int = DEFAULT_BLOCK) -> List[str]:
+    """Truncated blake2b chain digests of ``prompt``'s full blocks —
+    the same h_i = H(h_{i-1} || block_i) chain serving/paging.py
+    hashes for the prefix cache (int64 token bytes), so a recorded
+    group id IS a cache-key identity."""
+    # hvd: disable=HVD001(prompt is host-side admission tokens, never a device array — no sync)
+    toks = np.ascontiguousarray(np.asarray(prompt, np.int64))
+    out: List[str] = []
+    h = b""
+    for i in range(int(toks.shape[0]) // block):
+        h = hashlib.blake2b(h + toks[i * block:(i + 1) * block]
+                            .tobytes(), digest_size=16).digest()
+        out.append(h.hex()[:_HEX])
+    return out
+
+
+class RequestLog:
+    """Append-only JSONL workload recorder (thread-safe; submit-path
+    cheap: one hash chain + one line write under the lock)."""
+
+    def __init__(self, path: str, *, block: int = DEFAULT_BLOCK):
+        self._lock = lockcheck.register(
+            "RequestLog._lock", threading.Lock())
+        self._path = path
+        self._block = block
+        self._t0: Optional[float] = None
+        self._fh = None
+        self._disabled = False
+        self._count = 0
+
+    @property
+    def path(self) -> str:
+        return self._path
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def record(self, prompt, max_new_tokens: int, *,
+               tenant: str = "", priority: int = 0,
+               trace_id: str = "") -> Optional[Dict]:
+        """Record one client arrival; returns the record (None once
+        the log is disabled by a write fault)."""
+        chain = prefix_chain(prompt, self._block)
+        now = time.time()
+        with self._lock:
+            if self._disabled:
+                return None
+            if self._t0 is None:
+                self._t0 = now
+                self._write_locked({"reqlog": SCHEMA,
+                                    "t0": round(now, 6),
+                                    "block": self._block})
+                if self._disabled:
+                    return None
+            rec = {"t": round(now - self._t0, 6),
+                   # hvd: disable=HVD001(prompt is host-side admission tokens, never a device array — no sync)
+                   "prompt_len": int(np.asarray(prompt).shape[0]),
+                   "max_new": int(max_new_tokens),
+                   "tenant": tenant, "priority": int(priority),
+                   "prefix": chain, "trace_id": trace_id}
+            self._write_locked(rec)
+            if not self._disabled:
+                self._count += 1
+        return rec
+
+    def _write_locked(self, rec: Dict):
+        try:
+            if self._fh is None:
+                self._fh = open(self._path, "a")
+            self._fh.write(json.dumps(rec) + "\n")
+            self._fh.flush()
+        except OSError as e:
+            self._disabled = True
+            self._close_fh_locked()
+            sys.stderr.write(
+                f"WARNING: error writing the request log "
+                f"{self._path!r}, disabling it: {e}\n")
+
+    def _close_fh_locked(self):
+        if self._fh is not None:
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+            self._fh = None
+
+    def close(self):
+        with self._lock:
+            self._close_fh_locked()
+
+
+# ---------------------------------------------------------------------------
+# The process-global recorder (HVD_REQLOG)
+# ---------------------------------------------------------------------------
+
+_LOG: Optional[RequestLog] = None
+_RESOLVED = False
+_LOG_LOCK = lockcheck.register(
+    "reqlog._LOG_LOCK", threading.Lock())
+
+
+def get() -> Optional[RequestLog]:
+    """The process-global request log, from ``HVD_REQLOG`` (None when
+    unset — recording is strictly opt-in)."""
+    global _LOG, _RESOLVED
+    with _LOG_LOCK:
+        if not _RESOLVED:
+            from horovod_tpu_torch.runtime.config import env_str
+            path = env_str("HVD_REQLOG")
+            _LOG = RequestLog(path) if path else None
+            _RESOLVED = True
+        return _LOG
+
+
+def configure(path: Optional[str], *,
+              block: int = DEFAULT_BLOCK) -> Optional[RequestLog]:
+    """Install a fresh global log (None disables recording)."""
+    global _LOG, _RESOLVED
+    with _LOG_LOCK:
+        _LOG = RequestLog(path, block=block) if path else None
+        _RESOLVED = True
+        return _LOG
+
+
+def install(log: Optional[RequestLog]) -> Optional[RequestLog]:
+    """Swap the global log, returning the previous one (scoped-use
+    twin of `configure`, the events/spans pattern)."""
+    global _LOG, _RESOLVED
+    with _LOG_LOCK:
+        prev = _LOG if _RESOLVED else None
+        _LOG, _RESOLVED = log, True
+        return prev
+
+
+def record(prompt, max_new_tokens: int, *, tenant: str = "",
+           priority: int = 0, trace_id: str = ""):
+    """Client-entry hook for engine/router submit paths: records when
+    a global log is configured, free no-op otherwise. Callers invoke
+    this ONLY where a trace is minted (a fresh client arrival), so
+    migrations/hedges/disagg legs never double-record."""
+    log = get()
+    if log is not None:
+        log.record(prompt, max_new_tokens, tenant=tenant,
+                   priority=priority, trace_id=trace_id)
+
+
+# ---------------------------------------------------------------------------
+# Load + replay synthesis
+# ---------------------------------------------------------------------------
+
+def load(path: str) -> Tuple[Dict, List[Dict]]:
+    """(header, arrival records) from one log. Raises ValueError on a
+    missing/mismatched header or a newer schema."""
+    with open(path) as f:
+        lines = [ln for ln in (l.strip() for l in f) if ln]
+    if not lines:
+        raise ValueError(f"request log {path!r} is empty")
+    header = json.loads(lines[0])
+    if not isinstance(header, dict) or "reqlog" not in header:
+        raise ValueError(
+            f"request log {path!r} has no header line "
+            f"(expected {{'reqlog': {SCHEMA}, ...}})")
+    if int(header["reqlog"]) > SCHEMA:
+        raise ValueError(
+            f"request log {path!r} is schema {header['reqlog']}; "
+            f"this build reads <= {SCHEMA}")
+    records = [json.loads(ln) for ln in lines[1:]]
+    return header, records
+
+
+def _digest_tokens(seed: bytes, n: int, vocab: int) -> np.ndarray:
+    """``n`` deterministic tokens expanded from ``seed`` (blake2b
+    counter mode) — same seed, same tokens, which is what carries the
+    recorded prefix-sharing structure into the synthesized prompts."""
+    out = b""
+    ctr = 0
+    while len(out) < n:
+        out += hashlib.blake2b(seed + ctr.to_bytes(4, "big"),
+                               digest_size=32).digest()
+        ctr += 1
+    arr = np.frombuffer(out[:n], np.uint8).astype(np.int64) % vocab
+    return arr
+
+
+def synthesize_prompt(rec: Dict, vocab: int,
+                      block: int = DEFAULT_BLOCK) -> np.ndarray:
+    """A prompt with the record's length and prefix identity: each
+    chain digest expands to the SAME ``block`` tokens wherever it
+    recurs (across records too), so shared recorded prefixes are
+    shared synthesized prefixes — the replay hits the prefix cache
+    exactly where the recorded run did."""
+    n = int(rec["prompt_len"])
+    chain = rec.get("prefix") or []
+    parts = [_digest_tokens(bytes.fromhex(d), block, vocab)
+             for d in chain[:n // block]]
+    tail = n - block * len(parts)
+    if tail:
+        seed = hashlib.blake2b(
+            (chain[-1] if chain else "root").encode()
+            + b"|tail|" + str(n).encode(), digest_size=16).digest()
+        parts.append(_digest_tokens(seed, tail, vocab))
+    if not parts:
+        return np.zeros((0,), np.int64)
+    return np.concatenate(parts)
+
+
+def prefix_pattern(records: List[Dict]) -> List[Tuple[int, ...]]:
+    """Canonical prefix-group structure: every digest replaced by its
+    first-occurrence ordinal across the log. Two logs with equal
+    patterns describe the same sharing topology even though their
+    digest VALUES differ (a replayed log's digests are hashes of the
+    synthesized tokens, not the originals)."""
+    ids: Dict[str, int] = {}
+    out = []
+    for rec in records:
+        row = []
+        for d in rec.get("prefix") or []:
+            if d not in ids:
+                ids[d] = len(ids)
+            row.append(ids[d])
+        out.append(tuple(row))
+    return out

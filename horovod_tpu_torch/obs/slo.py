@@ -1,0 +1,439 @@
+"""SLO monitoring — multi-window error-budget burn rates.
+
+Raw latency gauges tell an operator what IS; an SLO tells them what
+to do about it. This module evaluates the serving objectives —
+TTFT / TPOT latency thresholds and the shed (rejection) rate — as
+**burn rates** over two windows, the SRE-workbook shape: with a
+target of 99% good events, a burn rate of 1.0 spends the 1% error
+budget exactly on schedule; a burn of 14.4 exhausts a 30-day budget
+in two days. A breach ("fast burn") requires BOTH windows over the
+threshold — the long window proves the bleed is sustained, the short
+window proves it is STILL happening (so a recovered incident stops
+paging by itself). While any objective is breaching, the monitor's
+health provider reports ``healthy: false`` and ``/healthz`` answers
+**503** — load balancers drain a degraded replica without reading a
+dashboard.
+
+Objectives come from the ``HVD_SLO`` knob (or programmatically)::
+
+    HVD_SLO="ttft=0.5,tpot=0.1,shed=0.02,target=0.99,fast=60,slow=600"
+
+``ttft`` / ``tpot`` are latency thresholds in SECONDS (a request is
+"bad" for the objective when it exceeds them); ``shed`` is the
+allowed rejection fraction (its own budget); ``target`` is the good
+fraction for the latency objectives (budget = 1 - target); ``fast``/
+``slow`` are the window lengths in seconds; ``burn`` overrides the
+fast-burn threshold (default 14.4). `ServingEngine` wires its request
+stream in automatically when the knob (or ``slo=``) is set, and
+``bench.py --serving`` records the objectives / burn rates / breach
+count in its artifact.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+from horovod_tpu_torch.analysis import lockcheck
+
+__all__ = ["Objective", "SLOMonitor", "DEFAULT_FAST_BURN",
+           "DEFAULT_FAST_WINDOW_S", "DEFAULT_SLOW_WINDOW_S"]
+
+# The SRE-workbook fast-burn page threshold: 14.4x budget spend
+# (a 30-day budget gone in 2 days).
+DEFAULT_FAST_BURN = 14.4
+DEFAULT_FAST_WINDOW_S = 300.0
+DEFAULT_SLOW_WINDOW_S = 3600.0
+
+
+@dataclass(frozen=True)
+class Objective:
+    """One service-level objective.
+
+    kind "latency": an event is bad when its value exceeds
+    ``threshold_s``; ``budget`` is the allowed bad fraction
+    (1 - target). kind "rate": events arrive pre-judged good/bad
+    (e.g. admitted vs shed) and ``budget`` is the allowed bad
+    fraction directly."""
+
+    name: str
+    kind: str                    # "latency" | "rate"
+    threshold_s: float = 0.0
+    budget: float = 0.01
+
+    def __post_init__(self):
+        if self.kind not in ("latency", "rate"):
+            raise ValueError(
+                f"objective {self.name!r}: kind must be 'latency' or "
+                f"'rate', got {self.kind!r}")
+        if not 0 < self.budget < 1:
+            raise ValueError(
+                f"objective {self.name!r}: budget must be in (0, 1), "
+                f"got {self.budget}")
+
+
+class SLOMonitor:
+    """Burn-rate evaluator over a bounded per-objective event ring.
+
+    ``record`` is the hot-path feed (append + evict, O(evicted));
+    ``evaluate`` computes both windows' burn rates, publishes the
+    ``hvd_slo_*`` gauges, counts breach TRANSITIONS, and emits
+    ``slo.breach`` / ``slo.clear`` events. `health()` is the
+    /healthz provider body (``healthy: false`` while breaching).
+    """
+
+    def __init__(self, objectives: List[Objective], *,
+                 fast_window_s: float = DEFAULT_FAST_WINDOW_S,
+                 slow_window_s: float = DEFAULT_SLOW_WINDOW_S,
+                 fast_burn: float = DEFAULT_FAST_BURN,
+                 _tenant: Optional[str] = None):
+        if not objectives:
+            raise ValueError("SLOMonitor needs at least one objective")
+        if fast_window_s >= slow_window_s:
+            raise ValueError(
+                f"fast window ({fast_window_s}s) must be shorter than "
+                f"the slow window ({slow_window_s}s)")
+        self.objectives: Dict[str, Objective] = {
+            o.name: o for o in objectives}
+        if len(self.objectives) != len(objectives):
+            raise ValueError("objective names must be unique")
+        self.fast_window_s = float(fast_window_s)
+        self.slow_window_s = float(slow_window_s)
+        self.fast_burn = float(fast_burn)
+        # The max possible burn is 1/budget (100% bad events): a
+        # budget x fast_burn product over 1 means the breach — and
+        # the 503 drain it arms — can NEVER fire. That is a silently
+        # dead protection path, so it warns loudly at construction
+        # (the spec grammar can't reject it: target/burn may arrive
+        # in either order).
+        # Per-tenant isolation (docs/serving.md "Overload control"):
+        # the engine-wide monitor (``_tenant=None``) lazily spawns one
+        # CHILD monitor per tenant with the same objectives/windows.
+        # Children publish the labeled ``hvd_tenant_slo_*`` family and
+        # feed `tenant_breaching()` (the brownout ladder's input); they
+        # NEVER touch the parent's breach state, so one tenant burning
+        # its budget cannot flip the replica-wide /healthz to 503.
+        self._tenant = _tenant
+        self._children: Dict[str, "SLOMonitor"] = {}
+        for o in self.objectives.values():
+            if _tenant is None and o.budget * self.fast_burn > 1.0:
+                import sys
+                sys.stderr.write(
+                    f"WARNING: SLO objective {o.name!r}: budget "
+                    f"{o.budget:g} x burn threshold "
+                    f"{self.fast_burn:g} > 1 — the max possible burn "
+                    f"rate is {1.0 / o.budget:g}, so a breach (and "
+                    f"the /healthz 503) can never fire; tighten "
+                    f"target= or lower burn=\n")
+        self._lock = lockcheck.register(
+            "SLOMonitor._lock", threading.Lock())
+        # name -> deque of [second_ts, n, bad] BUCKETS (newest right):
+        # bounding by 1-second time buckets instead of raw events
+        # keeps the slow window intact at ANY request rate (a raw
+        # event ring silently truncates the long window exactly when
+        # traffic is heavy — the case burn rates exist for); memory is
+        # O(slow_window_s) per objective.
+        self._rings: Dict[str, collections.deque] = {
+            n: collections.deque() for n in self.objectives}
+        self._breaching: Dict[str, bool] = {
+            n: False for n in self.objectives}
+        self._breach_count = 0
+        from horovod_tpu_torch.obs import catalog as _obs_catalog
+        self._m = _obs_catalog.slo_metrics()
+        self._tm = _obs_catalog.tenant_metrics()
+
+    # -- the feed -----------------------------------------------------
+
+    def _child(self, tenant: str) -> "SLOMonitor":
+        with self._lock:
+            mon = self._children.get(tenant)
+            if mon is None:
+                mon = SLOMonitor(list(self.objectives.values()),
+                                 fast_window_s=self.fast_window_s,
+                                 slow_window_s=self.slow_window_s,
+                                 fast_burn=self.fast_burn,
+                                 _tenant=tenant)
+                self._children[tenant] = mon
+        return mon
+
+    def record(self, name: str, value: Optional[float] = None, *,
+               good: Optional[bool] = None,
+               now: Optional[float] = None,
+               tenant: Optional[str] = None):
+        """One event for objective ``name``: a latency observation
+        (``value`` seconds) or a pre-judged ``good`` flag (rate
+        objectives). Unknown names are ignored (an engine feeding
+        'tpot' into a ttft-only monitor is configuration, not a
+        crash). A non-empty ``tenant`` ALSO feeds that tenant's child
+        monitor — the per-tenant burn the brownout ladder reads."""
+        if tenant:
+            self._child(tenant).record(name, value, good=good, now=now)
+        obj = self.objectives.get(name)
+        if obj is None:
+            return
+        if obj.kind == "latency":
+            if value is None:
+                raise ValueError(
+                    f"latency objective {name!r} needs value=")
+            bad = float(value) > obj.threshold_s
+        else:
+            if good is None:
+                raise ValueError(
+                    f"rate objective {name!r} needs good=")
+            bad = not good
+        now = time.time() if now is None else now
+        sec = int(now)
+        with self._lock:
+            ring = self._rings[name]
+            if ring and ring[-1][0] == sec:
+                ring[-1][1] += 1
+                ring[-1][2] += bad
+            else:
+                ring.append([sec, 1, int(bad)])
+            horizon = now - self.slow_window_s
+            while ring and ring[0][0] < horizon:
+                ring.popleft()
+
+    # -- evaluation ---------------------------------------------------
+
+    @staticmethod
+    def _window_stats(ring, horizon: float):
+        n = bad = 0
+        # Newest-first scan, stopping at the horizon: the fast window
+        # only ever touches its own tail. (Window edges quantize to
+        # the 1-second bucket granularity — noise relative to the
+        # minutes-long windows burn rates are read over.)
+        for sec, cnt, nbad in reversed(ring):
+            if sec < horizon:
+                break
+            n += cnt
+            bad += nbad
+        return n, bad
+
+    def evaluate(self, now: Optional[float] = None) -> Dict[str, Dict]:
+        """Both windows' burn rates per objective; publishes gauges,
+        counts breach transitions, emits breach/clear events."""
+        now = time.time() if now is None else now
+        out: Dict[str, Dict] = {}
+        transitions = []
+        with self._lock:
+            for name, obj in self.objectives.items():
+                ring = self._rings[name]
+                horizon = now - self.slow_window_s
+                while ring and ring[0][0] < horizon:
+                    ring.popleft()
+                n_slow = sum(cnt for _, cnt, _ in ring)
+                bad_slow = sum(nbad for _, _, nbad in ring)
+                n_fast, bad_fast = self._window_stats(
+                    ring, now - self.fast_window_s)
+                burn_slow = ((bad_slow / n_slow) / obj.budget
+                             if n_slow else 0.0)
+                burn_fast = ((bad_fast / n_fast) / obj.budget
+                             if n_fast else 0.0)
+                breaching = (burn_fast >= self.fast_burn
+                             and burn_slow >= self.fast_burn)
+                was = self._breaching[name]
+                if breaching != was:
+                    self._breaching[name] = breaching
+                    transitions.append((name, breaching,
+                                        burn_fast, burn_slow))
+                    if breaching:
+                        self._breach_count += 1
+                out[name] = {
+                    "kind": obj.kind,
+                    "threshold_s": obj.threshold_s,
+                    "budget": obj.budget,
+                    "burn_rate_fast": round(burn_fast, 4),
+                    "burn_rate_slow": round(burn_slow, 4),
+                    "n_fast": n_fast,
+                    "n_slow": n_slow,
+                    "breaching": breaching,
+                }
+        # Metric/event publication OUTSIDE the lock (the registry has
+        # its own locks; a scrape evaluating via the health provider
+        # must not serialize against the submit-path record()). Child
+        # monitors publish the tenant-labeled family instead — their
+        # breaches page per-tenant dashboards, never the replica-wide
+        # hvd_slo_* gauges the load balancer's 503 path reads.
+        ten = self._tenant
+        for name, st in out.items():
+            if ten is None:
+                self._m["burn_rate"].set(st["burn_rate_fast"],
+                                         objective=name, window="fast")
+                self._m["burn_rate"].set(st["burn_rate_slow"],
+                                         objective=name, window="slow")
+                self._m["breaching"].set(
+                    1.0 if st["breaching"] else 0.0, objective=name)
+            else:
+                self._tm["burn_rate"].set(
+                    st["burn_rate_fast"], tenant=ten,
+                    objective=name, window="fast")
+                self._tm["burn_rate"].set(
+                    st["burn_rate_slow"], tenant=ten,
+                    objective=name, window="slow")
+                self._tm["breaching"].set(
+                    1.0 if st["breaching"] else 0.0, tenant=ten,
+                    objective=name)
+        if transitions:
+            from horovod_tpu_torch.obs import events as _events
+            for name, breaching, bf, bs in transitions:
+                if breaching:
+                    if ten is None:
+                        self._m["breaches"].inc(objective=name)
+                        _events.emit("slo.breach", objective=name,
+                                     burn_rate_fast=round(bf, 4),
+                                     burn_rate_slow=round(bs, 4))
+                    else:
+                        self._tm["breaches"].inc(tenant=ten,
+                                                 objective=name)
+                        _events.emit("slo.tenant_breach", tenant=ten,
+                                     objective=name,
+                                     burn_rate_fast=round(bf, 4),
+                                     burn_rate_slow=round(bs, 4))
+                elif ten is None:
+                    _events.emit("slo.clear", objective=name)
+                else:
+                    _events.emit("slo.tenant_clear", tenant=ten,
+                                 objective=name)
+        return out
+
+    def tenant_breaching(self, now: Optional[float] = None
+                         ) -> Dict[str, List[str]]:
+        """{tenant: objectives in fast burn} — the brownout ladder's
+        feed. Evaluates every child so the answer is current; tenants
+        with no breaching objective are omitted."""
+        with self._lock:
+            kids = list(self._children.items())
+        now = time.time() if now is None else now
+        out: Dict[str, List[str]] = {}
+        for tenant, mon in kids:
+            mon.evaluate(now)
+            bad = mon.breaching()
+            if bad:
+                out[tenant] = bad
+        return out
+
+    def breaching(self) -> List[str]:
+        """Objectives currently in breach (as of the last evaluate)."""
+        with self._lock:
+            return [n for n, b in self._breaching.items() if b]
+
+    @property
+    def breach_count(self) -> int:
+        with self._lock:
+            return self._breach_count
+
+    def health(self) -> Dict:
+        """The /healthz provider body: evaluating on every probe keeps
+        the breach state fresh without a background thread, and
+        ``healthy: false`` flips the endpoint to 503 through the
+        registry's existing degradation path."""
+        state = self.evaluate()
+        bad = [n for n, st in state.items() if st["breaching"]]
+        return {
+            "healthy": not bad,
+            "breaching": bad,
+            "breach_count": self.breach_count,
+            "objectives": {n: {"burn_rate_fast": st["burn_rate_fast"],
+                               "burn_rate_slow": st["burn_rate_slow"]}
+                           for n, st in state.items()},
+        }
+
+    def summary(self) -> Dict:
+        """The bench-artifact block: objectives, burn rates, breach
+        count."""
+        state = self.evaluate()
+        return {
+            "objectives": {
+                n: {"kind": st["kind"],
+                    "threshold_s": st["threshold_s"],
+                    "budget": st["budget"]}
+                for n, st in state.items()},
+            "burn_rates": {
+                n: {"fast": st["burn_rate_fast"],
+                    "slow": st["burn_rate_slow"]}
+                for n, st in state.items()},
+            "windows_s": {"fast": self.fast_window_s,
+                          "slow": self.slow_window_s},
+            "fast_burn_threshold": self.fast_burn,
+            "breaching": [n for n, st in state.items()
+                          if st["breaching"]],
+            "breach_count": self.breach_count,
+            "tenants_breaching": self.tenant_breaching(),
+        }
+
+    # -- construction from the knob -----------------------------------
+
+    @classmethod
+    def from_spec(cls, spec: str) -> Optional["SLOMonitor"]:
+        """Parse an ``HVD_SLO`` spec. Empty/None disables (returns
+        None); malformed fields raise a `ValueError` naming the
+        offending part (the chaos-spec contract: a typo'd objective
+        must fail loudly, not silently monitor nothing)."""
+        if not spec:
+            return None
+        objectives: List[Objective] = []
+        target = 0.99
+        fast, slow, burn = (DEFAULT_FAST_WINDOW_S,
+                            DEFAULT_SLOW_WINDOW_S, DEFAULT_FAST_BURN)
+        latency: Dict[str, float] = {}
+        shed_budget = None
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(
+                    f"bad SLO spec field {part!r} (grammar: "
+                    f"ttft=<s>,tpot=<s>,shed=<frac>,target=<frac>,"
+                    f"fast=<s>,slow=<s>,burn=<x>)")
+            key, _, raw = part.partition("=")
+            key = key.strip()
+            try:
+                val = float(raw)
+            except ValueError:
+                raise ValueError(
+                    f"bad SLO spec value {raw!r} for {key!r} "
+                    f"(must be a number)") from None
+            if key in ("ttft", "tpot"):
+                latency[key] = val
+            elif key == "shed":
+                shed_budget = val
+            elif key == "target":
+                target = val
+            elif key == "fast":
+                fast = val
+            elif key == "slow":
+                slow = val
+            elif key == "burn":
+                burn = val
+            else:
+                raise ValueError(
+                    f"unknown SLO objective/option {key!r} in "
+                    f"{part!r}")
+        if not 0 < target < 1:
+            raise ValueError(
+                f"SLO target must be in (0, 1), got {target}")
+        for name, threshold in latency.items():
+            objectives.append(Objective(
+                name, "latency", threshold_s=threshold,
+                budget=1.0 - target))
+        if shed_budget is not None:
+            objectives.append(Objective(
+                "shed", "rate", budget=shed_budget))
+        if not objectives:
+            raise ValueError(
+                f"HVD_SLO={spec!r} declares options but no objective "
+                f"(need at least one of ttft=/tpot=/shed=)")
+        return cls(objectives, fast_window_s=fast, slow_window_s=slow,
+                   fast_burn=burn)
+
+    @classmethod
+    def from_env(cls) -> Optional["SLOMonitor"]:
+        """The engine's construction-time hook: build from ``HVD_SLO``
+        (None when unset — SLO monitoring is opt-in)."""
+        from horovod_tpu_torch.runtime.config import env_str
+        return cls.from_spec(env_str("HVD_SLO"))

@@ -1,0 +1,751 @@
+"""Causal request spans — the tree-structured successor to flat
+``trace_id`` stamping.
+
+The original Horovod's flagship debugging tool was the Timeline: a
+Chrome-trace view of what every rank was doing and WHY a step was
+slow (Sergeev & Del Balso, arXiv:1802.05799 §5). This module is that
+idea pointed at one serving request's life: every seam the request
+crosses — admission lane, chunked prefill, disagg block
+export/verify/ingest, decode, preemption pause, cross-replica
+migration gap — records one span (``trace_id``/``span_id``/
+``parent_id``, wall + monotonic clocks, free-form attrs) into a
+bounded in-memory ring, optionally mirrored to an ``HVD_TRACE_LOG``
+JSONL (one completed span per line). ``HVD_TRACE_SAMPLE`` head-samples
+whole traces deterministically from the trace id, so every process a
+request visits makes the SAME keep/drop decision and a sampled trace
+is never half-recorded.
+
+Three consumers read the ring:
+
+* `chrome_trace` renders a trace (or the whole ring) as Chrome/
+  Perfetto trace-event JSON — load it at ui.perfetto.dev;
+* `waterfall` renders the text waterfall an operator reads in a
+  terminal (also ``python -m horovod_tpu_torch.obs.spans <trace.jsonl>``,
+  and attached to flight-recorder bundles for the slowest trace);
+* `phase_anatomy` decomposes the tree into the fixed phase anatomy —
+  queue_wait, admission, prefill, transfer_export/verify/ingest,
+  decode, preempt_paused, migration_gap — feeding the
+  ``hvd_request_phase_seconds{phase=}`` histograms, so "TTFT p95
+  regressed" becomes "the admission phase regressed".
+
+Span NAMES are a contract: every ``begin_span``/``record_span``
+literal must appear in `SPAN_CATALOG` (hvdlint HVD012 pins both drift
+directions, the HVD010/011 pattern). Trace identity lives here too —
+`mint_trace_id` / `new_span_id` — with ``obs.tracing`` kept as a
+compat shim over this module.
+
+Observability must never cost the workload: file faults
+warn-and-disable (the Timeline/EventLog contract), and recording is a
+couple of dict writes under one lock.
+"""
+
+from __future__ import annotations
+
+import binascii
+import collections
+import json
+import os
+import sys
+import threading
+import time
+from typing import Dict, List, Optional
+
+from horovod_tpu_torch.analysis import lockcheck
+
+__all__ = [
+    "SPAN_CATALOG", "SPAN_PHASE", "PHASES", "Span", "SpanRecorder",
+    "begin_span", "end_span", "record_span", "trace", "tail", "get",
+    "configure", "install", "chrome_trace", "waterfall",
+    "phase_anatomy", "observe_request", "flight_section",
+    "span_table_md", "mint_trace_id", "new_trace_id", "new_span_id",
+    "span_args", "main",
+]
+
+DEFAULT_RING = 4096
+
+# Every span name the subsystems may record, with the one-line
+# description an operator reads in docs/observability.md (hvdlint's
+# HVD012 pins both drift directions: a begin_span/record_span literal
+# not declared here, and a declared name nothing records). Keep names
+# literal at record sites — that is what makes a waterfall greppable.
+SPAN_CATALOG: Dict[str, str] = {
+    "disagg.handoff":
+        "Prefill-complete to decode-pool submit: the disaggregation "
+        "seam (export + placement retries live inside it)",
+    "router.attempt":
+        "One placement of a request on one replica (submit to "
+        "terminal answer from that engine)",
+    "router.hedge":
+        "A duplicate placement launched against a second replica "
+        "after the hedge TTFT quantile passed",
+    "router.migration_gap":
+        "Replica death detected to the migrated request resubmitted "
+        "on a healthy replica (the failover hole in the stream)",
+    "router.request":
+        "Root span of a router-submitted request (client-observed "
+        "latency through retries, hedges and migrations)",
+    "serving.admission":
+        "Queue-head pop to prefill schedule: slot+block admission, "
+        "swap restore credit, prefix-cache match",
+    "serving.decode":
+        "First token to retirement: the continuous-batching decode "
+        "stream",
+    "serving.preempt_paused":
+        "Preemption to re-admission: the stream is off the device "
+        "(KV swapped to host or dropped for recompute)",
+    "serving.prefill":
+        "Admission to first token: interleaved chunked prefill",
+    "serving.prefill_chunk":
+        "One prefill chunk streamed through the pool (child of "
+        "serving.prefill)",
+    "serving.queued":
+        "Engine submit to queue-head pop: the WFQ admission-lane "
+        "wait",
+    "serving.request":
+        "Root span of a direct-engine request (submit to future "
+        "resolution)",
+    "serving.restart_requeue":
+        "A watchdog restart re-queued this request for token-exact "
+        "replay (instant marker; the fresh serving.queued follows)",
+    "serving.spec_round":
+        "One speculative draft-verify round's share of a lane "
+        "(attrs carry proposed/accepted)",
+    "transfer.export":
+        "KV-block export from the source pool into a host "
+        "BlockTransfer (chain digests stamped)",
+    "transfer.ingest":
+        "Verified transfer blocks adopted into the destination "
+        "pool's prefix cache",
+    "transfer.verify":
+        "Chain + byte digest verification of an inbound transfer "
+        "on the destination",
+}
+
+# Span name -> critical-path phase. Spans OUTSIDE this map (roots,
+# attempts, chunks, spec rounds) structure the tree but own no phase
+# time themselves; within overlapping phase spans the LATEST-starting
+# one wins its interval (most-specific: transfer.ingest inside the
+# destination's serving.prefill owns the ingest slice).
+SPAN_PHASE: Dict[str, str] = {
+    "disagg.handoff": "transfer_export",
+    "router.migration_gap": "migration_gap",
+    "serving.admission": "admission",
+    "serving.decode": "decode",
+    "serving.preempt_paused": "preempt_paused",
+    "serving.prefill": "prefill",
+    "serving.queued": "queue_wait",
+    "transfer.export": "transfer_export",
+    "transfer.ingest": "transfer_ingest",
+    "transfer.verify": "transfer_verify",
+}
+
+# The fixed anatomy every request decomposes into (the
+# hvd_request_phase_seconds label values, docs/observability.md).
+PHASES = ("queue_wait", "admission", "prefill", "transfer_export",
+          "transfer_verify", "transfer_ingest", "decode",
+          "preempt_paused", "migration_gap")
+
+# Root span names: ending one of these closes a request's tree (the
+# recorder tracks the slowest completed root for flight bundles).
+_ROOTS = ("serving.request", "router.request")
+
+
+# ---------------------------------------------------------------------------
+# Trace identity (absorbed from obs/tracing.py)
+# ---------------------------------------------------------------------------
+
+def mint_trace_id() -> str:
+    """16 hex chars of OS randomness (64 bits — W3C traceparent's
+    low half; enough that a pod's worth of requests cannot collide)."""
+    return binascii.hexlify(os.urandom(8)).decode()
+
+
+# Compat alias: call sites predating the span module use this name.
+new_trace_id = mint_trace_id
+
+
+def new_span_id() -> str:
+    """8 hex chars; unique within one trace."""
+    return binascii.hexlify(os.urandom(4)).decode()
+
+
+def span_args(trace_id: str, **extra) -> dict:
+    """The Timeline span ``args`` payload for a traced request."""
+    out = {"trace_id": trace_id}
+    out.update(extra)
+    return out
+
+
+def span_table_md() -> str:
+    """The docs/observability.md span table, generated from
+    `SPAN_CATALOG` (the drift-pinned twin of events.event_table_md)."""
+    lines = ["| span | phase | meaning |", "| --- | --- | --- |"]
+    for name in sorted(SPAN_CATALOG):
+        desc = " ".join(SPAN_CATALOG[name].split())
+        phase = SPAN_PHASE.get(name, "-")
+        lines.append(f"| `{name}` | {phase} | {desc} |")
+    return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# The recorder
+# ---------------------------------------------------------------------------
+
+class Span:
+    """One recorded segment of a trace. ``t1 == 0.0`` while open;
+    `end` stamps it from the monotonic clock so durations never see a
+    wall-clock step."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "t0",
+                 "t1", "attrs", "pid", "_mono0")
+
+    def __init__(self, name: str, trace_id: str, parent_id: str,
+                 attrs: Dict):
+        self.name = name
+        self.trace_id = trace_id
+        self.parent_id = parent_id
+        self.span_id = new_span_id()
+        self.t0 = time.time()
+        self.t1 = 0.0
+        self._mono0 = time.monotonic()
+        self.attrs = attrs
+        self.pid = os.getpid()
+
+    def to_dict(self) -> Dict:
+        return {"trace_id": self.trace_id, "span_id": self.span_id,
+                "parent_id": self.parent_id, "name": self.name,
+                "t0": round(self.t0, 6), "t1": round(self.t1, 6),
+                "pid": self.pid, "attrs": dict(self.attrs)}
+
+
+def _sample_rate() -> float:
+    from horovod_tpu_torch.runtime.config import env_float
+    return env_float("HVD_TRACE_SAMPLE", 1.0)
+
+
+def sampled(trace_id: str, rate: float) -> bool:
+    """Deterministic head sampling: the keep/drop decision is a pure
+    function of the trace id, so every replica/process a request
+    visits agrees — a kept trace is complete, a dropped one absent,
+    never half of each."""
+    if rate >= 1.0:
+        return True
+    if rate <= 0.0:
+        return False
+    try:
+        frac = int(trace_id[:8] or "0", 16) / float(1 << 32)
+    except ValueError:
+        frac = (hash(trace_id) & 0xffffffff) / float(1 << 32)
+    return frac < rate
+
+
+class SpanRecorder:
+    """Thread-safe bounded span store: a ring of the newest spans, a
+    per-trace index for `/trace/<id>` and the anatomy observers, and
+    an optional JSONL mirror (one line per COMPLETED span)."""
+
+    def __init__(self, path: Optional[str] = None, *,
+                 maxlen: Optional[int] = None,
+                 sample: Optional[float] = None,
+                 max_bytes: int = 8 * 1024 * 1024):
+        self._lock = lockcheck.register(
+            "SpanRecorder._lock", threading.Lock())
+        self._maxlen = DEFAULT_RING if maxlen is None else max(1, maxlen)
+        self._sample = _sample_rate() if sample is None else sample
+        self._ring: collections.deque = collections.deque()
+        self._by_trace: Dict[str, List[Span]] = {}
+        self._open: Dict[str, Span] = {}
+        self._path = path or None
+        self._max_bytes = max_bytes
+        self._bytes = 0
+        self._disabled = False
+        self._fh = None   # persistent append handle (lazy; rotation
+        #                   reopens) — the EventLog pattern
+        self._slowest: Optional[tuple] = None   # (duration_s, trace_id)
+        if self._path:
+            try:
+                self._bytes = os.path.getsize(self._path)
+            except OSError:
+                self._bytes = 0
+
+    @property
+    def path(self) -> Optional[str]:
+        return self._path
+
+    # -- recording ----------------------------------------------------
+
+    def begin(self, name: str, *, trace_id: str, parent_id: str = "",
+              **attrs) -> str:
+        """Open a span; returns its span_id ("" for a sampled-out
+        trace — `end` on "" is a no-op, so call sites never branch)."""
+        if not trace_id or not sampled(trace_id, self._sample):
+            return ""
+        sp = Span(name, trace_id, parent_id, attrs)
+        with self._lock:
+            self._append_locked(sp)
+            self._open[sp.span_id] = sp
+        return sp.span_id
+
+    def end(self, span_id: str, **attrs):
+        """Close an open span (idempotent; unknown/"" ids no-op).
+        Duration comes from the monotonic clock."""
+        if not span_id:
+            return
+        with self._lock:
+            sp = self._open.pop(span_id, None)
+            if sp is None:
+                return
+            sp.t1 = sp.t0 + (time.monotonic() - sp._mono0)
+            if attrs:
+                sp.attrs.update(attrs)
+            if self._path and not self._disabled:
+                self._write_locked(sp)
+            if sp.name in _ROOTS:
+                dur = sp.t1 - sp.t0
+                if self._slowest is None or dur > self._slowest[0]:
+                    self._slowest = (dur, sp.trace_id)
+
+    def record(self, name: str, *, trace_id: str, parent_id: str = "",
+               t0: Optional[float] = None, duration: float = 0.0,
+               **attrs) -> str:
+        """Record an already-timed (or instant) span in one call — the
+        batched-work flavor (spec rounds, restart markers) where
+        begin/end bookkeeping per lane would cost more than the span
+        is worth."""
+        if not trace_id or not sampled(trace_id, self._sample):
+            return ""
+        sp = Span(name, trace_id, parent_id, attrs)
+        if t0 is not None:
+            sp.t0 = t0
+        sp.t1 = sp.t0 + max(0.0, duration)
+        with self._lock:
+            self._append_locked(sp)
+            if self._path and not self._disabled:
+                self._write_locked(sp)
+        return sp.span_id
+
+    def annotate(self, span_id: str, **attrs):
+        """Attach attrs to a still-open span (no-op when unknown)."""
+        if not span_id:
+            return
+        with self._lock:
+            sp = self._open.get(span_id)
+            if sp is not None:
+                sp.attrs.update(attrs)
+
+    def _append_locked(self, sp: Span):
+        self._ring.append(sp)
+        self._by_trace.setdefault(sp.trace_id, []).append(sp)
+        while len(self._ring) > self._maxlen:
+            old = self._ring.popleft()
+            tr = self._by_trace.get(old.trace_id)
+            if tr is not None:
+                try:
+                    tr.remove(old)
+                except ValueError:
+                    pass
+                if not tr:
+                    # The whole trace aged out: /trace/<id> now 404s.
+                    del self._by_trace[old.trace_id]
+            # hvd: disable=HVD004(_append_locked runs with self._lock held — every caller is inside a `with self._lock` block, per the name)
+            self._open.pop(old.span_id, None)
+
+    # -- the JSONL mirror (EventLog's rotation + warn-and-disable) ----
+
+    def _write_locked(self, sp: Span):
+        line = json.dumps(sp.to_dict(), default=repr) + "\n"
+        try:
+            if self._bytes + len(line) > self._max_bytes:
+                self._close_fh_locked()
+                os.replace(self._path, self._path + ".1")
+                self._bytes = 0
+            if self._fh is None:
+                self._fh = open(self._path, "a")
+            self._fh.write(line)
+            self._fh.flush()
+            self._bytes += len(line)
+        except OSError as e:
+            self._disabled = True
+            self._close_fh_locked()
+            sys.stderr.write(
+                f"WARNING: error writing the trace log "
+                f"{self._path!r}, disabling it: {e}\n")
+
+    def _close_fh_locked(self):
+        if self._fh is not None:
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+            self._fh = None
+
+    def close(self):
+        """Release the file handle (the ring stays readable)."""
+        with self._lock:
+            self._close_fh_locked()
+
+    # -- reading ------------------------------------------------------
+
+    def trace(self, trace_id: str) -> Optional[List[Dict]]:
+        """All resident spans of one trace (start-ordered), or None
+        for an unknown/evicted/sampled-out id."""
+        with self._lock:
+            spans = self._by_trace.get(trace_id)
+            if not spans:
+                return None
+            out = [sp.to_dict() for sp in spans]
+        out.sort(key=lambda s: s["t0"])
+        return out
+
+    def tail(self, n: int = 200) -> List[Dict]:
+        with self._lock:
+            return [sp.to_dict() for sp in list(self._ring)[-n:]]
+
+    def trace_ids(self) -> List[str]:
+        with self._lock:
+            return list(self._by_trace)
+
+    def slowest(self) -> Optional[str]:
+        """Trace id of the slowest COMPLETED request still resident
+        (the flight-bundle waterfall's subject)."""
+        with self._lock:
+            if (self._slowest is None
+                    or self._slowest[1] not in self._by_trace):
+                return None
+            return self._slowest[1]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+
+# ---------------------------------------------------------------------------
+# The process-global recorder (the EventLog get/configure/install trio)
+# ---------------------------------------------------------------------------
+
+_REC: Optional[SpanRecorder] = None
+_REC_LOCK = lockcheck.register(
+    "spans._REC_LOCK", threading.Lock())
+
+
+def get() -> SpanRecorder:
+    """The process-global recorder, built lazily from
+    ``HVD_TRACE_LOG`` / ``HVD_TRACE_SAMPLE`` (unset = ring only,
+    sample everything)."""
+    global _REC
+    with _REC_LOCK:
+        if _REC is None:
+            from horovod_tpu_torch.runtime.config import env_str
+            _REC = SpanRecorder(env_str("HVD_TRACE_LOG") or None)
+        return _REC
+
+
+def configure(path: Optional[str] = None, *,
+              maxlen: Optional[int] = None,
+              sample: Optional[float] = None) -> SpanRecorder:
+    """Install a fresh global recorder (programmatic twin of the env
+    knobs). For a scoped swap use `install` and restore the previous
+    recorder when done."""
+    global _REC
+    with _REC_LOCK:
+        _REC = SpanRecorder(path, maxlen=maxlen, sample=sample)
+        return _REC
+
+
+def install(rec: Optional[SpanRecorder]) -> Optional[SpanRecorder]:
+    """Swap the global recorder, returning the PREVIOUS one (may be
+    None). Bench's trace check and the tests use this so a temporary
+    redirect never clobbers a user-configured HVD_TRACE_LOG."""
+    global _REC
+    with _REC_LOCK:
+        prev, _REC = _REC, rec
+        return prev
+
+
+def begin_span(name: str, *, trace_id: str, parent_id: str = "",
+               **attrs) -> str:
+    """Open one causal span on the global recorder; returns the
+    span_id to pass to `end_span` (and as children's ``parent_id``).
+    Keep ``name`` a literal from `SPAN_CATALOG` (hvdlint HVD012)."""
+    return get().begin(name, trace_id=trace_id, parent_id=parent_id,
+                       **attrs)
+
+
+def end_span(span_id: str, **attrs):
+    get().end(span_id, **attrs)
+
+
+def record_span(name: str, *, trace_id: str, parent_id: str = "",
+                t0: Optional[float] = None, duration: float = 0.0,
+                **attrs) -> str:
+    """Record a pre-timed/instant span on the global recorder (same
+    SPAN_CATALOG contract as `begin_span`)."""
+    return get().record(name, trace_id=trace_id, parent_id=parent_id,
+                        t0=t0, duration=duration, **attrs)
+
+
+def trace(trace_id: str) -> Optional[List[Dict]]:
+    return get().trace(trace_id)
+
+
+def tail(n: int = 200) -> List[Dict]:
+    return get().tail(n)
+
+
+# ---------------------------------------------------------------------------
+# Chrome/Perfetto export
+# ---------------------------------------------------------------------------
+
+def _tid(trace_id: str) -> int:
+    """Stable small thread-id per trace so each request renders as
+    its own Perfetto track."""
+    try:
+        return int(trace_id[:6] or "0", 16)
+    except ValueError:
+        return hash(trace_id) & 0xffffff
+
+
+def chrome_trace(spans: List[Dict]) -> Dict:
+    """Chrome/Perfetto trace-event JSON for a span list (one trace or
+    the whole ring). Complete ``ph: "X"`` events in microseconds; an
+    open span renders zero-width at its start. Load the dump at
+    chrome://tracing or ui.perfetto.dev."""
+    evs = []
+    for s in sorted(spans, key=lambda s: s["t0"]):
+        t1 = s.get("t1") or s["t0"]
+        args = {"trace_id": s["trace_id"], "span_id": s["span_id"],
+                "parent_id": s.get("parent_id", "")}
+        args.update(s.get("attrs") or {})
+        evs.append({
+            "name": s["name"],
+            "cat": s["name"].split(".", 1)[0],
+            "ph": "X",
+            "ts": round(s["t0"] * 1e6, 3),
+            "dur": round(max(0.0, t1 - s["t0"]) * 1e6, 3),
+            "pid": s.get("pid", 0),
+            "tid": _tid(s["trace_id"]),
+            "args": args,
+        })
+    return {"traceEvents": evs, "displayTimeUnit": "ms"}
+
+
+# ---------------------------------------------------------------------------
+# Text waterfall
+# ---------------------------------------------------------------------------
+
+def waterfall(spans: List[Dict], *, width: int = 40) -> str:
+    """The terminal rendering of one trace: parent/child indentation,
+    per-span offset + duration, the phase tag, and a proportional
+    bar. Orphans (parent evicted) render at the root level."""
+    if not spans:
+        return "(no spans)\n"
+    spans = sorted(spans, key=lambda s: s["t0"])
+    by_id = {s["span_id"]: s for s in spans}
+    kids: Dict[str, List[Dict]] = {}
+    roots: List[Dict] = []
+    for s in spans:
+        pid = s.get("parent_id", "")
+        if pid and pid in by_id:
+            kids.setdefault(pid, []).append(s)
+        else:
+            roots.append(s)
+    t_min = min(s["t0"] for s in spans)
+    t_max = max(max(s.get("t1") or s["t0"] for s in spans),
+                max(s["t0"] for s in spans))
+    total = max(t_max - t_min, 1e-9)
+    tid = spans[0]["trace_id"]
+    lines = [f"trace {tid}  ({total * 1e3:.2f}ms, "
+             f"{len(spans)} spans)"]
+
+    def render(s: Dict, depth: int):
+        t0 = s["t0"] - t_min
+        t1 = (s.get("t1") or t_max) - t_min
+        open_mark = "" if s.get("t1") else " (open)"
+        a = int(round(t0 / total * width))
+        b = max(a + 1, int(round(t1 / total * width)))
+        bar = " " * a + "#" * min(b - a, width - a)
+        phase = SPAN_PHASE.get(s["name"])
+        tag = f"  [{phase}]" if phase else ""
+        label = "  " * depth + s["name"]
+        lines.append(
+            f"  {label:<32} {t0 * 1e3:9.2f}ms "
+            f"+{(t1 - t0) * 1e3:9.2f}ms |{bar:<{width}}|"
+            f"{tag}{open_mark}")
+        for c in kids.get(s["span_id"], ()):
+            render(c, depth + 1)
+
+    for r in roots:
+        render(r, 0)
+    return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# Critical-path phase anatomy
+# ---------------------------------------------------------------------------
+
+def phase_anatomy(spans: List[Dict]) -> Dict[str, float]:
+    """Decompose one trace's spans into the fixed phase anatomy.
+
+    Interval sweep over the phase spans' boundary points; each segment
+    goes to the covering phase span with the LATEST start (most
+    specific wins — transfer.ingest inside the destination prefill
+    owns its slice), uncovered interior gaps carry the previous
+    segment's phase forward (seam slivers between contiguous phases),
+    and open spans are clipped at the trace end. The result sums to
+    the phase-covered extent of the trace — within epsilon of the
+    client-observed latency, which the acceptance test pins at 5%.
+    """
+    if not spans:
+        return {}
+    t_end = max(max(s.get("t1") or 0.0 for s in spans),
+                max(s["t0"] for s in spans))
+    phased = []
+    for s in spans:
+        ph = SPAN_PHASE.get(s["name"])
+        if ph is None:
+            continue
+        t0 = s["t0"]
+        t1 = s.get("t1") or 0.0
+        if t1 <= t0:
+            t1 = t_end   # open span: clip at trace end
+        if t1 > t0:
+            phased.append((t0, t1, ph))
+    if not phased:
+        return {}
+    pts = sorted({p for t0, t1, _ in phased for p in (t0, t1)})
+    segs = []   # (length, phase-or-None)
+    for a, b in zip(pts, pts[1:]):
+        mid = (a + b) / 2.0
+        best = None
+        for t0, t1, ph in phased:
+            if t0 <= mid < t1 and (best is None or t0 > best[0]):
+                best = (t0, ph)
+        segs.append((b - a, best[1] if best else None))
+    # Forward-fill interior gaps; backward-fill a leading gap.
+    first = next((ph for _, ph in segs if ph), None)
+    out: Dict[str, float] = {}
+    prev = first
+    for length, ph in segs:
+        ph = ph or prev
+        prev = ph
+        out[ph] = out.get(ph, 0.0) + length
+    return out
+
+
+def observe_request(trace_id: str, *,
+                    rec: Optional[SpanRecorder] = None
+                    ) -> Dict[str, float]:
+    """Feed one completed request's phase anatomy into the
+    ``hvd_request_phase_seconds{phase=}`` histograms (exemplar =
+    the trace id, the grep key back into this module). Called where a
+    ROOT span ends successfully — the engine's finalize for direct
+    requests, the router's completion path for routed ones — so a
+    multi-leg (migrated, disagg) request is observed exactly once.
+    No-op for sampled-out/evicted traces. Returns the anatomy."""
+    rec = rec or get()
+    spans = rec.trace(trace_id)
+    if not spans:
+        return {}
+    anat = phase_anatomy(spans)
+    if anat:
+        from horovod_tpu_torch.obs import catalog as _catalog
+        hist = _catalog.phase_metrics()["phase"]
+        for ph, secs in anat.items():
+            hist.observe(secs, exemplar={"trace_id": trace_id},
+                         phase=ph)
+    return anat
+
+
+def flight_section(*, rec: Optional[SpanRecorder] = None,
+                   tail_n: int = 200) -> Dict:
+    """The flight-recorder bundle's ``spans`` section: the newest
+    ring spans plus the slowest completed trace's waterfall — the SLO
+    breach post-mortem reads WHERE that request's time went without a
+    live process to query."""
+    rec = rec or get()
+    out: Dict = {"ring": rec.tail(tail_n)}
+    slow = rec.slowest()
+    if slow is not None:
+        spans = rec.trace(slow) or []
+        out["slowest_trace_id"] = slow
+        out["slowest_anatomy"] = phase_anatomy(spans)
+        out["slowest_waterfall"] = waterfall(spans)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The pretty-printer (python -m horovod_tpu_torch.obs.spans <trace.jsonl>)
+# ---------------------------------------------------------------------------
+
+def load_jsonl(path: str) -> List[Dict]:
+    """Spans from an ``HVD_TRACE_LOG`` JSONL (bad lines skipped —
+    a rotation boundary or torn tail must not kill the reader)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(rec, dict) and "span_id" in rec:
+                out.append(rec)
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.obs.spans",
+        description="Render span waterfalls / Chrome traces from an "
+                    "HVD_TRACE_LOG JSONL.")
+    ap.add_argument("path", help="trace log (JSONL, one span per line)")
+    ap.add_argument("--trace", default=None,
+                    help="render only this trace_id")
+    ap.add_argument("--chrome", default=None, metavar="OUT",
+                    help="also write Chrome/Perfetto trace-event "
+                         "JSON here")
+    ap.add_argument("--anatomy", action="store_true",
+                    help="print the per-trace phase anatomy instead "
+                         "of waterfalls")
+    args = ap.parse_args(argv)
+    try:
+        spans = load_jsonl(args.path)
+    except OSError as e:
+        sys.stderr.write(f"cannot read {args.path!r}: {e}\n")
+        return 1
+    by_trace: Dict[str, List[Dict]] = {}
+    for s in spans:
+        by_trace.setdefault(s["trace_id"], []).append(s)
+    if args.trace is not None:
+        if args.trace not in by_trace:
+            sys.stderr.write(
+                f"trace {args.trace!r} not in {args.path!r} "
+                f"({len(by_trace)} traces)\n")
+            return 1
+        by_trace = {args.trace: by_trace[args.trace]}
+    if args.chrome:
+        merged = [s for tr in by_trace.values() for s in tr]
+        with open(args.chrome, "w") as f:
+            json.dump(chrome_trace(merged), f)
+        print(f"wrote {args.chrome} ({len(merged)} events)")
+    for tid in sorted(by_trace,
+                      key=lambda t: min(s["t0"] for s in by_trace[t])):
+        tr = sorted(by_trace[tid], key=lambda s: s["t0"])
+        if args.anatomy:
+            anat = phase_anatomy(tr)
+            total = sum(anat.values())
+            print(f"trace {tid}  ({total * 1e3:.2f}ms phased)")
+            for ph in PHASES:
+                if ph in anat:
+                    print(f"  {ph:<16} {anat[ph] * 1e3:9.2f}ms")
+        else:
+            sys.stdout.write(waterfall(tr))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,422 @@
+"""Chaos injection: deterministic, replayable faults at named sites.
+
+The subsystems this repo claims are robust (checkpoint I/O, the train
+step, collectives, the serving engine) are instrumented with *sites* —
+single-line hooks of the form::
+
+    from horovod_tpu_torch.resilience import chaos
+    if chaos.fires("ckpt_write_fail"):
+        raise chaos.ChaosError("injected checkpoint write failure")
+
+A site costs one module-global load and a ``None`` check when chaos is
+disarmed (the common case), so production paths pay nothing
+measurable. When a `ChaosMonkey` is installed — programmatically or
+via the ``HVD_CHAOS`` environment variable — sites fire according to
+their armed spec, and every fire is counted so tests can assert the
+fault actually happened.
+
+Spec grammar (comma-separated sites)::
+
+    HVD_CHAOS="ckpt_write_fail:2,collective_slow:1:delay=0.5"
+    HVD_CHAOS="serving_tick_stall:1:delay=2:p=0.5"  HVD_CHAOS_SEED=7
+
+``site:count`` fires on the first ``count`` opportunities
+(``count=-1`` = every opportunity); ``p=<float>`` makes each
+opportunity fire with that probability from a per-site RNG seeded by
+``HVD_CHAOS_SEED`` ^ hash(site) — the same seed replays the same
+fault schedule; ``delay=<seconds>`` parameterizes slow/hang sites.
+
+Instrumented sites (docs/resilience.md has the full table):
+
+======================  ==================================================
+site                    instrumented at
+======================  ==================================================
+ckpt_write_fail         `utils/checkpoint.py::save` (each write attempt)
+ckpt_kill               `utils/checkpoint.py::save_step` — process
+                        death DURING a save: after the staging write,
+                        before the atomic rename (no discoverable step)
+train_crash             `resilience/elastic.py::after_step` — process
+                        death mid-epoch: the step's work is done,
+                        nothing checkpointed yet
+data_read_fail          `data/__init__.py` shard open, read mode
+data_write_fail         `data/__init__.py` shard open, write mode
+collective_slow         `ops/collectives.py` op entry (host-side; under
+                        jit this fires at trace/dispatch time)
+step_exception          `models/train.py` step invocation
+grad_nan                `models/train.py` step result (NaNs loss+params)
+serving_dispatch_crash  `serving/engine.py` dispatch-loop top
+serving_tick_stall      `serving/scheduler.py` inside the tick bracket
+                        (cooperative: ends early once abandoned)
+serving_deadline_storm  `serving/scheduler.py` — expires every queued
+                        request's deadline at once
+router.replica_kill     `serving/router.py` monitor sweep — hard-kills
+                        the busiest replica (no drain)
+======================  ==================================================
+
+The authoritative site list is GENERATED from source (`scan_sites` /
+`site_table_md` below — docs/resilience.md's table is written by
+``python -m horovod_tpu_torch.analysis --write-chaos-table`` and drift-pinned
+by a test), so a new site cannot ship undocumented.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import random
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+from horovod_tpu_torch.runtime.config import env_int, env_str
+
+
+class ChaosError(RuntimeError):
+    """The exception injected faults raise — typed so recovery code
+    (and tests) can target injected failures without catching real
+    programming errors by accident."""
+
+
+@dataclass
+class _Site:
+    name: str
+    count: int = 1               # fires remaining; -1 = unbounded
+    prob: float = 1.0            # per-opportunity fire probability
+    delay: float = 0.0           # seconds, for slow/hang sites
+    fired: int = 0               # fires so far
+    seen: int = 0                # opportunities so far
+    rng: random.Random = field(default_factory=random.Random)
+
+
+class ChaosMonkey:
+    """A set of armed sites. Thread-safe: sites fire from submit
+    threads, the serving dispatch thread, and training loops alike."""
+
+    def __init__(self, spec: str = "", *, seed: int = 0):
+        self._seed = seed
+        self._lock = threading.Lock()
+        self._sites: Dict[str, _Site] = {}
+        if spec:
+            self.arm_spec(spec)
+
+    def arm(self, site: str, count: int = 1, *, prob: float = 1.0,
+            delay: float = 0.0) -> "ChaosMonkey":
+        """Arm `site` to fire `count` times (-1 = always), each
+        opportunity firing with probability `prob`. Returns self so
+        arms chain."""
+        import zlib
+        with self._lock:
+            s = _Site(site, count=count, prob=prob, delay=delay)
+            # Deterministic per-site stream: same seed ⇒ same schedule,
+            # independent of what other sites consume. crc32, not
+            # hash() — str hashing is salted per process and must not
+            # change the replayed fault schedule.
+            s.rng.seed((self._seed << 16)
+                       ^ zlib.crc32(site.encode()))
+            self._sites[site] = s
+        return self
+
+    def arm_spec(self, spec: str) -> "ChaosMonkey":
+        """Parse and arm an ``HVD_CHAOS``-style spec string. Malformed
+        fields raise a `ValueError` naming the offending part — a
+        typo'd spec must fail loudly and legibly, not as a bare
+        float() traceback at import."""
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            fields = part.split(":")
+            name = fields[0]
+            count, prob, delay = 1, 1.0, 0.0
+            for f in fields[1:]:
+                try:
+                    if f.startswith("p="):
+                        prob = float(f[2:])
+                    elif f.startswith("delay="):
+                        delay = float(f[6:])
+                    else:
+                        count = int(f)
+                except ValueError:
+                    raise ValueError(
+                        f"bad chaos spec field {f!r} in {part!r} "
+                        f"(grammar: site:count[:p=<float>]"
+                        f"[:delay=<seconds>])") from None
+            self.arm(name, count, prob=prob, delay=delay)
+        return self
+
+    def fires(self, site: str) -> bool:
+        """One opportunity at `site`: True when the armed fault should
+        trigger now (and consumes one fire)."""
+        with self._lock:
+            s = self._sites.get(site)
+            if s is None:
+                return False
+            s.seen += 1
+            if s.count == 0:
+                return False
+            if s.prob < 1.0 and s.rng.random() >= s.prob:
+                return False
+            if s.count > 0:
+                s.count -= 1
+            s.fired += 1
+            return True
+
+    def delay_of(self, site: str, default: float = 1.0) -> float:
+        with self._lock:
+            s = self._sites.get(site)
+            return default if s is None or s.delay <= 0 else s.delay
+
+    def fired(self, site: str) -> int:
+        with self._lock:
+            s = self._sites.get(site)
+            return 0 if s is None else s.fired
+
+    def counts(self) -> Dict[str, int]:
+        """{site: fires so far} — the test/bench assertion surface."""
+        with self._lock:
+            return {n: s.fired for n, s in self._sites.items()}
+
+    def disarm(self, site: Optional[str] = None):
+        with self._lock:
+            if site is None:
+                self._sites.clear()
+            else:
+                self._sites.pop(site, None)
+
+
+# The module-level switch every site checks. None ⇒ disabled ⇒ a site
+# is one global load + `is None`.
+_active: Optional[ChaosMonkey] = None
+
+
+def install(monkey: Optional[ChaosMonkey]) -> Optional[ChaosMonkey]:
+    """Install (or with None, remove) the process-global monkey."""
+    global _active
+    _active = monkey
+    return monkey
+
+
+def active() -> Optional[ChaosMonkey]:
+    return _active
+
+
+def _record_fire(site: str):
+    """Observability for a fired fault (docs/observability.md): the
+    per-site ``hvd_resilience_faults_injected_total`` counter and a
+    structured event. Only runs on the (rare) fire path, so the
+    zero-overhead-when-disarmed contract of `fires` is untouched."""
+    from horovod_tpu_torch.obs import catalog as _obs_catalog
+    from horovod_tpu_torch.obs import events as _events
+    from horovod_tpu_torch.obs import flightrec as _flightrec
+    _obs_catalog.resilience_metrics()["faults_injected"].inc(
+        site=site)
+    _events.emit("chaos.fire", site=site)
+    # A chaos fire is an incident by construction — capture the state
+    # the fault lands in (no-op unless HVD_FLIGHT_DIR is set). The
+    # chaos.fire event above is in the ring BEFORE the dump, so the
+    # bundle's newest event names its own trigger.
+    _flightrec.trigger("chaos.fire", site=site)
+
+
+def fires(site: str) -> bool:
+    """The zero-overhead-when-disabled site hook."""
+    m = _active
+    if m is None:
+        return False
+    hit = m.fires(site)
+    if hit:
+        _record_fire(site)
+    return hit
+
+
+def slow_site(site: str, default_delay: float = 1.0) -> bool:
+    """The shared slow/hang site body: when `site` fires, block the
+    calling thread for its armed ``delay`` (modeling a host parked on
+    a dead peer's rendezvous). Returns whether it fired. Same
+    zero-overhead shape as `fires` when disarmed."""
+    m = _active
+    if m is None or not m.fires(site):
+        return False
+    _record_fire(site)
+    import time
+    time.sleep(m.delay_of(site, default_delay))
+    return True
+
+
+def delay_of(site: str, default: float = 1.0) -> float:
+    m = _active
+    return default if m is None else m.delay_of(site, default)
+
+
+def fired(site: str) -> int:
+    m = _active
+    return 0 if m is None else m.fired(site)
+
+
+def arm(site: str, count: int = 1, *, prob: float = 1.0,
+        delay: float = 0.0) -> ChaosMonkey:
+    """Arm one site on the installed monkey (installing a fresh one if
+    chaos was disabled) — the programmatic entry bench.py uses."""
+    m = _active or install(ChaosMonkey(seed=_env_seed()))
+    return m.arm(site, count, prob=prob, delay=delay)
+
+
+@contextlib.contextmanager
+def armed(spec: str, *, seed: int = 0):
+    """Test scoping: install a monkey for the with-block, restore the
+    previous one (usually None) after::
+
+        with chaos.armed("ckpt_write_fail:2") as monkey:
+            ...
+        assert monkey.fired("ckpt_write_fail") == 2
+    """
+    prev = _active
+    monkey = ChaosMonkey(spec, seed=seed)
+    install(monkey)
+    try:
+        yield monkey
+    finally:
+        install(prev)
+
+
+# ---------------------------------------------------------------------------
+# The generated site table (docs/resilience.md). `_SITE_DOCS` holds the
+# one-line fault model per site; WHERE each site is instrumented is
+# scanned from source, so the docs table cannot drift from the code —
+# a site added without a `_SITE_DOCS` entry fails the drift test, and a
+# `_SITE_DOCS` entry whose site no longer exists is dropped from the
+# table (and fails the test too).
+# ---------------------------------------------------------------------------
+
+_SITE_DOCS: Dict[str, str] = {
+    "ckpt_write_fail": "checkpoint I/O failure (GCS 5xx, ENOSPC)",
+    "ckpt_kill": "process death DURING a save — after the staging "
+                 "write, before the atomic rename",
+    "train_crash": "process death mid-epoch — step done, nothing "
+                   "checkpointed yet",
+    "data_read_fail": "input-pipeline shard-open fault (read mode)",
+    "data_write_fail": "dataset-write shard-open fault "
+                       "(`write_shards`)",
+    "collective_slow": "slow/hung collective (dead peer rendezvous)",
+    "step_exception": "worker exception mid-step",
+    "grad_nan": "NaN gradients poisoning loss+params",
+    "serving_dispatch_crash": "serving dispatch thread dies",
+    "serving_tick_stall": "hung decode tick (cooperative: ends early "
+                          "once abandoned)",
+    "serving_deadline_storm": "every queued request's deadline "
+                              "expires at once",
+    "router.replica_kill": "abrupt replica death mid-stream — the "
+                           "router must migrate its in-flight "
+                           "requests token-exactly",
+    "rank_death": "training rank dies mid-epoch (preemption/crash): "
+                  "heartbeat lease lapses, survivors must resize and "
+                  "rebalance shards",
+    "rank_join": "a new rank announces itself mid-run — the world "
+                 "must grow with a new generation",
+    "heartbeat_drop": "a heartbeat write is lost in transit — lease "
+                      "math must tolerate isolated misses without a "
+                      "false death",
+    "kv_drop": "a rendezvous-KV round-trip is lost in transit — the "
+               "shared RetryPolicy must absorb isolated drops "
+               "(typed KVTransportError on exhaustion)",
+    "kv_delay": "a slow rendezvous-KV round-trip (congested "
+                "coordinator) — leases must tolerate it",
+    "kv_partition": "ASYMMETRIC partition: this process's KV writes "
+                    "stop landing while reads still work — the "
+                    "minority member must adopt the commit that "
+                    "excludes it and exit MembershipError, never "
+                    "split-brain at the old generation",
+    "disagg.block_corrupt": "a transferred KV block's bytes flip in "
+                            "flight (prefill->decode handoff) — the "
+                            "byte-digest verify must reject the "
+                            "graft and the stream fall back to "
+                            "token-level recompute, bitwise-exact",
+    "serving.overload_storm": "overload storm: every known tenant "
+                              "escalates one brownout rung per "
+                              "firing (hedging off -> spec-k capped "
+                              "-> lowest-priority streams "
+                              "preempted) — degradation must be "
+                              "graduated and per-tenant, never a "
+                              "fleet-wide 503",
+}
+
+_SITE_CALL_RE = (r'(?:chaos\s*\.\s*)?(?:fires|slow_site)\(\s*'
+                 r'[\'"]([\w.]+)[\'"]')
+
+# Sites whose name is BUILT at runtime (the literal-call regex cannot
+# see them); only these get the quoted-name fallback in `scan_sites` —
+# scanning every documented name would let a mere mention of another
+# site in a hook-calling file fabricate an "instrumented in" row.
+_VARIABLE_SITES = ("data_read_fail", "data_write_fail")
+
+
+def scan_sites(root: Optional[str] = None) -> Dict[str, list]:
+    """{site: sorted relative paths that instrument it}, scanned from
+    the package source: literal ``chaos.fires("x")`` /
+    ``chaos.slow_site("x")`` calls, plus — for documented sites whose
+    name is built at runtime (the data read/write pair) — quoted
+    occurrences of the site name in files that call the hooks."""
+    import os
+    import re
+    if root is None:
+        root = os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))
+    me = os.path.abspath(__file__)
+    sources = {}
+    for dirpath, _dirnames, filenames in os.walk(root):
+        if "__pycache__" in dirpath:
+            continue
+        for fn in filenames:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            if os.path.abspath(path) == me:
+                continue   # this module's own docs/defs are not sites
+            with open(path, "r", encoding="utf-8") as f:
+                sources[os.path.relpath(path, root)] = f.read()
+    out: Dict[str, list] = {}
+    for rel, text in sources.items():
+        for site in re.findall(_SITE_CALL_RE, text):
+            out.setdefault(site, set()).add(rel)
+        if "chaos.fires(" in text or "chaos.slow_site(" in text:
+            for site in _VARIABLE_SITES:
+                if f'"{site}"' in text or f"'{site}'" in text:
+                    out.setdefault(site, set()).add(rel)
+    return {site: sorted(files) for site, files in sorted(out.items())}
+
+
+def site_table_md() -> str:
+    """The chaos-site table as GitHub markdown — the generated section
+    of docs/resilience.md (``python -m horovod_tpu_torch.analysis
+    --write-chaos-table``; a drift test pins the doc to this exact
+    output). Undocumented scanned sites render loudly so the drift
+    test, not a reader, catches them first."""
+    rows = ["| site | instrumented in | fault modeled |",
+            "| --- | --- | --- |"]
+    for site, files in scan_sites().items():
+        doc = _SITE_DOCS.get(
+            site, "(UNDOCUMENTED — add to chaos._SITE_DOCS)")
+        where = ", ".join(f"`horovod_tpu_torch/{f}`" for f in files)
+        rows.append(f"| `{site}` | {where} | {doc} |")
+    return "\n".join(rows) + "\n"
+
+
+def _env_seed() -> int:
+    return env_int("HVD_CHAOS_SEED", 0)
+
+
+def _init_from_env():
+    """Arm from ``HVD_CHAOS`` at import — how subprocess runs (the CI
+    chaos smoke, hvdrun workers) get their faults. A malformed spec
+    fails the import loudly with the offending field named (chaos
+    that silently fails to arm would let a broken resilience drill
+    pass green)."""
+    spec = env_str("HVD_CHAOS")
+    if spec:
+        try:
+            install(ChaosMonkey(spec, seed=_env_seed()))
+        except ValueError as e:
+            raise ValueError(
+                f"HVD_CHAOS={spec!r}: {e}") from None
+
+
+_init_from_env()

@@ -1,0 +1,498 @@
+"""Request-level serving metrics: TTFT / TPOT / throughput with
+p50/p95/p99, queue depth, and slot occupancy.
+
+The vocabulary is the standard serving triple:
+
+* **TTFT** (time to first token): submit → first token out — queue
+  wait + prefill; the interactive-latency number.
+* **TPOT** (time per output token): decode time / (tokens - 1) — the
+  steady-state streaming rate a user sees after the first token.
+* **tokens/s**: completed output tokens per wall-clock second — the
+  capacity number the continuous-batching scheduler exists to maximize
+  (keep the decode batch full ⇒ tokens/s holds as load rises while
+  TTFT degrades gracefully).
+
+Percentiles come from a bounded reservoir (newest `maxlen` samples) —
+serving metrics answer "how is it behaving NOW", so recency beats
+completeness and memory stays O(1) under unbounded load.
+
+Since the obs plane landed, `EngineMetrics` is ALSO a registrant of
+the process-wide `horovod_tpu_torch.obs` registry: every counter mirrors
+into ``hvd_serving_events_total{event=...}``, the gauges into the
+``hvd_serving_*`` gauge family, and each finished request's latencies
+into the fixed-bucket ``hvd_serving_{ttft,tpot,queue_wait,e2e}_seconds``
+histograms (exemplar = the request's ``trace_id``), so one Prometheus
+scrape sees every engine in the process. The per-engine `snapshot()`
+dict remains the engine-scoped view (`metrics_snapshot()`).
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Dict, Optional
+
+from horovod_tpu_torch.obs import catalog as _obs_catalog
+
+from horovod_tpu_torch.analysis import lockcheck
+
+
+class Series:
+    """Bounded sample reservoir with percentile readout."""
+
+    def __init__(self, maxlen: int = 4096):
+        self._buf: collections.deque = collections.deque(maxlen=maxlen)
+
+    def add(self, value: float):
+        self._buf.append(float(value))
+
+    def __len__(self) -> int:
+        return len(self._buf)
+
+    @staticmethod
+    def _rank(xs, q: float) -> float:
+        """Nearest-rank pick from an ALREADY-SORTED sample list."""
+        rank = min(len(xs) - 1, max(0, int(round(q / 100.0
+                                                 * (len(xs) - 1)))))
+        return xs[rank]
+
+    def percentile(self, q: float) -> Optional[float]:
+        """Nearest-rank percentile (q in [0, 100]); None when empty.
+        One-off readout — `summary()` is the batch API and sorts the
+        reservoir exactly once for all its percentiles."""
+        if not self._buf:
+            return None
+        return self._rank(sorted(self._buf), q)
+
+    def mean(self) -> Optional[float]:
+        if not self._buf:
+            return None
+        return sum(self._buf) / len(self._buf)
+
+    def summary(self, scale: float = 1.0, nd: int = 2) -> Dict:
+        """{p50, p95, p99, mean, n} with values scaled (e.g. 1e3 for
+        ms). Sorts the reservoir ONCE for all three percentiles —
+        `snapshot()` calls this per series, and the old
+        percentile-per-call shape paid O(n log n) twice per series
+        per scrape."""
+        if not self._buf:
+            return {"p50": None, "p95": None, "p99": None,
+                    "mean": None, "n": 0}
+        xs = sorted(self._buf)
+        return {"p50": round(self._rank(xs, 50) * scale, nd),
+                "p95": round(self._rank(xs, 95) * scale, nd),
+                "p99": round(self._rank(xs, 99) * scale, nd),
+                "mean": round((sum(xs) / len(xs)) * scale, nd),
+                "n": len(xs)}
+
+
+class EngineMetrics:
+    """The engine's counters, gauges, and latency series.
+
+    Counter/series writes come from both the submit threads (submitted
+    / rejected) and the dispatch thread (everything else) — one lock
+    covers them; reads (`snapshot`) take the same lock so a scrape
+    never sees a torn update.
+    """
+
+    def __init__(self, engine_label: str = "0", slo=None):
+        self._lock = lockcheck.register(
+            "EngineMetrics._lock", threading.Lock())
+        self._t0 = time.time()
+        # Optional obs.slo.SLOMonitor: this class is the single point
+        # every finished request and every shed decision already flows
+        # through, so it is also the SLO feed — TTFT/TPOT latencies
+        # and the admitted-vs-shed stream land in the burn-rate rings
+        # without a second instrumentation site.
+        self._slo = slo
+        # Set by close(): once the engine's labeled gauge rows have
+        # been removed from the shared registry, a dispatch thread
+        # still draining must not re-create them (zombie rows would
+        # defeat the live-engines-only cardinality contract). The
+        # flag is read/flipped and the gauge writes/removals happen
+        # UNDER self._lock, so a write and the close can never
+        # interleave remove-then-set.
+        self._closed = False
+        # Monotonic per-snapshot sequence: lets a scraper distinguish
+        # an engine RESTART (scrape_seq keeps climbing, uptime_s keeps
+        # climbing, engine_generation bumps) from a counter RESET
+        # (scrape_seq/uptime_s start over — a new engine/process).
+        self._scrape_seq = 0
+        # The process-wide obs families this engine registers into;
+        # engine-scoped gauges are labeled by `engine_label` so
+        # coexisting engines never overwrite each other's gauges.
+        self._engine_label = str(engine_label)
+        self._obs = _obs_catalog.serving_metrics()
+        self._obs_res = _obs_catalog.resilience_metrics()
+        self._obs_pre = _obs_catalog.preempt_metrics()
+        # Counters.
+        self.submitted = 0
+        self.rejected = 0          # shed at the full queue
+        self.completed = 0         # eos or token budget
+        self.cancelled = 0
+        self.timed_out = 0         # deadline exceeded (queue or decode)
+        self.aborted = 0           # non-drain shutdown took the slot
+        self.tokens_out = 0        # generated tokens, completed or not
+        # First tokens sampled at prefill completion — produced by
+        # the prefill forward, not a decode tick, so tokens_per_tick
+        # excludes them (else a plain engine reads > 1.0).
+        self.prefill_first_tokens = 0
+        self.prefill_tokens = 0
+        self.prefill_chunks = 0    # interleaved prefill chunks streamed
+        self.ticks = 0             # decode ticks executed
+        # Hot-path pipelining counters (the tentpole's evidence):
+        # host_syncs counts EXPOSED device->host syncs — reads issued
+        # with no newer device work queued behind them (per-request
+        # first tokens, drain ticks, every tick at pipeline_depth=0);
+        # ticks_overlapped counts tick reads that hid behind the next
+        # tick's compute. host_syncs/tokens_out is the
+        # serialization-per-token number the async ring drives from
+        # ~1 toward ~1/request.
+        self.host_syncs = 0
+        self.ticks_overlapped = 0
+        # Self-healing counters (engine watchdog, docs/resilience.md).
+        self.restarts = 0          # in-place engine restarts
+        self.requeued = 0          # in-flight requests replayed
+        self.faults_injected = 0   # chaos sites fired inside serving
+        # Paged-KV / shared-prefix counters (docs/serving.md "Paged KV
+        # cache"): block-level prefix-cache accounting plus the TTFT
+        # evidence — prompt tokens admission never had to prefill.
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_evictions = 0
+        self.prefill_tokens_skipped = 0
+        # Speculative decoding (docs/serving.md "Decode fast path"):
+        # draft-verify rounds, proposal/acceptance accounting, and
+        # how many rounds actually retired > 1 token (the multi-
+        # token-tick evidence ci.sh --spec-check asserts on).
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_multi_token_ticks = 0
+        # Overload control plane (docs/serving.md "Overload control"):
+        # token-exact preemption, swap-shelf traffic and the brownout
+        # ladder — the evidence ci.sh --preempt-check asserts on.
+        self.preemptions_swap = 0
+        self.preemptions_recompute = 0
+        self.preempt_tokens_recomputed = 0
+        self.preempt_tokens_swapped_in = 0
+        self.preempt_swap_bytes = 0
+        self.preempt_swap_restore_failures = 0
+        self.brownout_transitions = 0
+        self.hedges_suppressed = 0
+        # Gauges (set by the engine each loop).
+        self.queue_depth = 0
+        self.slots_busy = 0
+        self.num_slots = 0
+        # High-water mark of concurrently resident sequences (decoding
+        # + mid-prefill) — the paged pool's effective-concurrency
+        # evidence (can exceed a byte-equivalent fixed pool's
+        # num_slots).
+        self.peak_active = 0
+        # Paged-KV block occupancy (None until a paged pool reports).
+        self.kv_blocks_free = None
+        self.kv_blocks_used = None
+        self.kv_blocks_cached = None
+        self.pipeline_depth = 0    # engine config (0 = sync ticks)
+        # Sharded serving (docs/serving.md "Sharded serving"): mesh
+        # width (1 = unsharded) and axis sizes, set once by the
+        # engine; observe_kv fans block occupancy out per shard.
+        self.mesh_devices = 1
+        self.mesh_shape = None
+        self.warmup_s = None       # startup precompile cost, if run
+        # Latency series (seconds).
+        self.queue_wait_s = Series()
+        self.ttft_s = Series()
+        self.tpot_s = Series()
+        self.e2e_s = Series()
+        # Fault → requeued-and-running latency per watchdog restart
+        # (time-to-requeue): the robustness cost bench --chaos tracks.
+        self.recovery_s = Series()
+
+    def observe_recovery(self, dt_s: float):
+        with self._lock:
+            self.recovery_s.add(dt_s)
+        self._obs_res["recovery"].observe(dt_s)
+
+    def observe_pipeline(self, depth: int):
+        with self._lock:
+            self.pipeline_depth = depth
+
+    def observe_warmup(self, seconds: float):
+        with self._lock:
+            self.warmup_s = seconds
+
+    def count(self, name: str, n: int = 1):
+        with self._lock:
+            setattr(self, name, getattr(self, name) + n)
+        self._obs["events"].inc(n, event=name)
+        # The watchdog counters are ALSO the resilience plane's
+        # restarts/requeued families, and the prefix-cache counters
+        # the dedicated hvd_prefix_cache_* family (one source of
+        # truth per number; chaos owns the per-site faults_injected
+        # breakdown).
+        if name == "restarts":
+            self._obs_res["restarts"].inc(n)
+        elif name == "requeued":
+            self._obs_res["requeued"].inc(n)
+        elif name in ("prefix_hits", "prefix_misses",
+                      "prefix_evictions", "prefill_tokens_skipped",
+                      "spec_proposed", "spec_accepted"):
+            self._obs[name].inc(n)
+        elif name == "preemptions_swap":
+            self._obs_pre["preemptions"].inc(n, mode="swap")
+        elif name == "preemptions_recompute":
+            self._obs_pre["preemptions"].inc(n, mode="recompute")
+        elif name == "preempt_tokens_recomputed":
+            self._obs_pre["tokens"].inc(n, kind="recomputed")
+        elif name == "preempt_tokens_swapped_in":
+            self._obs_pre["tokens"].inc(n, kind="swapped_in")
+        elif name == "preempt_swap_bytes":
+            self._obs_pre["swap_bytes"].inc(n)
+
+    def observe_admission(self, admitted: bool, *, tenant: str = ""):
+        """One admission decision into the SLO shed-rate objective
+        (bad = shed). Called by `submit` AFTER the queue answered, so
+        a shed request contributes exactly one (bad) event — counting
+        from `submitted`/`rejected` would double-count sheds.
+        (record() of an undeclared objective is a no-op, so a
+        ttft-only monitor costs nothing here.)"""
+        if self._slo is not None:
+            # tenant kwarg only when tenanted: a bare record() keeps
+            # working against pre-tenant monitor stubs.
+            if tenant:
+                self._slo.record("shed", good=admitted, tenant=tenant)
+            else:
+                self._slo.record("shed", good=admitted)
+
+    def observe_peak(self, active: int):
+        """High-water mark of concurrently resident sequences."""
+        with self._lock:
+            if active > self.peak_active:
+                self.peak_active = active
+
+    def observe_mesh(self, devices: int, shape=None):
+        """Record the engine's serving-mesh width (constructor-time,
+        once): the `hvd_serving_mesh_devices` gauge row plus the
+        snapshot fields /metrics.json serves."""
+        with self._lock:
+            self.mesh_devices = max(1, int(devices))
+            self.mesh_shape = dict(shape) if shape else None
+            if self._closed:
+                return
+            self._obs["mesh_devices"].set(self.mesh_devices,
+                                          engine=self._engine_label)
+
+    def observe_kv(self, stats: Dict):
+        """Fold one paged-pool block-occupancy report into the gauges
+        (engine loop cadence; `stats` = `PagedSlotPool.kv_stats()`).
+        The shared-registry writes stay under this object's lock so
+        they exclude `close()`'s row removal (see `_closed`)."""
+        eng = self._engine_label
+        with self._lock:
+            self.kv_blocks_free = stats["blocks_free"]
+            self.kv_blocks_used = stats["blocks_used"]
+            self.kv_blocks_cached = stats["blocks_cached"]
+            if self._closed:
+                return
+            self._obs["kv_blocks_free"].set(stats["blocks_free"],
+                                            engine=eng)
+            self._obs["kv_blocks_used"].set(stats["blocks_used"],
+                                            engine=eng)
+            self._obs["kv_blocks_cached"].set(stats["blocks_cached"],
+                                              engine=eng)
+            # Per-shard rows only when actually sharded (the shard
+            # label adds no cardinality to unsharded engines). A host
+            # block id names a mesh-wide shard set, so every shard's
+            # occupancy IS the pool's — emitted per shard so a pod
+            # scrape sees per-device KV without arithmetic.
+            if self.mesh_devices > 1:
+                for i in range(self.mesh_devices):
+                    s = str(i)
+                    self._obs["kv_blocks_free_shard"].set(
+                        stats["blocks_free"], engine=eng, shard=s)
+                    self._obs["kv_blocks_used_shard"].set(
+                        stats["blocks_used"], engine=eng, shard=s)
+                    self._obs["kv_blocks_cached_shard"].set(
+                        stats["blocks_cached"], engine=eng, shard=s)
+
+    def observe_gauges(self, queue_depth: int, slots_busy: int,
+                       num_slots: int):
+        eng = self._engine_label
+        with self._lock:
+            self.queue_depth = queue_depth
+            self.slots_busy = slots_busy
+            self.num_slots = num_slots
+            if self._closed:
+                # A dispatch thread draining through shutdown races
+                # close(): its gauge write after the row removal
+                # would resurrect a dead engine's rows on /metrics.
+                return
+            self._obs["queue_depth"].set(queue_depth, engine=eng)
+            self._obs["slots_busy"].set(slots_busy, engine=eng)
+            self._obs["slots_total"].set(num_slots, engine=eng)
+            if num_slots:
+                self._obs["slot_occupancy"].set(
+                    slots_busy / num_slots, engine=eng)
+
+    def observe_swap_store(self, stats: Dict):
+        """Swap-shelf occupancy gauges (SwapStore.stats()), refreshed
+        by the dispatch loop alongside the KV gauges."""
+        eng = self._engine_label
+        with self._lock:
+            if self._closed:
+                return
+            self._obs_pre["swap_store_bytes"].set(
+                stats["bytes_used"], engine=eng)
+            self._obs_pre["swap_store_entries"].set(
+                stats["entries"], engine=eng)
+
+    def observe_request(self, *, t_submit: float, t_prefill: float,
+                        t_first: float, t_done: float, n_tokens: int,
+                        trace_id: str = "", tenant: str = ""):
+        """Fold one finished request into the series (called by the
+        dispatcher at retire time, successful finishes only).
+        ``trace_id`` becomes the shared-registry histograms' exemplar
+        — the metrics leg of request tracing."""
+        with self._lock:
+            self.queue_wait_s.add(t_prefill - t_submit)
+            self.ttft_s.add(t_first - t_submit)
+            if n_tokens > 1:
+                self.tpot_s.add((t_done - t_first) / (n_tokens - 1))
+            self.e2e_s.add(t_done - t_submit)
+        ex = {"trace_id": trace_id} if trace_id else None
+        self._obs["queue_wait"].observe(t_prefill - t_submit,
+                                        exemplar=ex)
+        self._obs["ttft"].observe(t_first - t_submit, exemplar=ex)
+        if n_tokens > 1:
+            self._obs["tpot"].observe(
+                (t_done - t_first) / (n_tokens - 1), exemplar=ex)
+        self._obs["e2e"].observe(t_done - t_submit, exemplar=ex)
+        if self._slo is not None:
+            # The latency objectives' feed (obs/slo.py): each retired
+            # request is one good/bad event per declared objective
+            # (tenant kwarg only when tenanted — see
+            # observe_admission).
+            kw = {"tenant": tenant} if tenant else {}
+            self._slo.record("ttft", t_first - t_submit, **kw)
+            if n_tokens > 1:
+                self._slo.record(
+                    "tpot", (t_done - t_first) / (n_tokens - 1), **kw)
+
+    def close(self):
+        """Drop this engine's labeled gauge rows from the shared
+        registry (shutdown path): a dead engine's frozen queue-depth
+        must not linger on /metrics forever, and per-engine series
+        cardinality must track live engines, not every engine the
+        process ever built. Counters/histograms are process-lifetime
+        aggregates and stay. Runs under the lock WITH the `_closed`
+        flip so a concurrent `observe_gauges`/`observe_kv` (the
+        dispatch thread mid-drain) either lands wholly before the
+        removal or is rejected — never remove-then-set (a scrape
+        would see a dead engine's rows forever)."""
+        eng = self._engine_label
+        with self._lock:
+            self._closed = True
+            for name in ("queue_depth", "slots_busy", "slots_total",
+                         "slot_occupancy", "engine_generation",
+                         "kv_blocks_free", "kv_blocks_used",
+                         "kv_blocks_cached", "mesh_devices"):
+                self._obs[name].remove(engine=eng)
+            for name in ("swap_store_bytes", "swap_store_entries"):
+                self._obs_pre[name].remove(engine=eng)
+            for i in range(self.mesh_devices):
+                for name in ("kv_blocks_free_shard",
+                             "kv_blocks_used_shard",
+                             "kv_blocks_cached_shard"):
+                    self._obs[name].remove(engine=eng, shard=str(i))
+
+    def snapshot(self) -> Dict:
+        """One JSON-ready dict: counters, gauges, p50/p95/p99
+        latencies (ms), the engine-lifetime output tokens/s, plus the
+        scraper-disambiguation pair (`scrape_seq`, `uptime_s`)."""
+        with self._lock:
+            self._scrape_seq += 1
+            dt = max(time.time() - self._t0, 1e-9)
+            return {
+                "scrape_seq": self._scrape_seq,
+                "uptime_s": round(dt, 3),
+                "submitted": self.submitted,
+                "rejected": self.rejected,
+                "completed": self.completed,
+                "cancelled": self.cancelled,
+                "timed_out": self.timed_out,
+                "aborted": self.aborted,
+                "tokens_out": self.tokens_out,
+                "prefill_tokens": self.prefill_tokens,
+                "prefill_first_tokens": self.prefill_first_tokens,
+                "prefill_chunks": self.prefill_chunks,
+                "ticks": self.ticks,
+                "ticks_overlapped": self.ticks_overlapped,
+                "host_syncs": self.host_syncs,
+                "host_syncs_per_token": (
+                    round(self.host_syncs / self.tokens_out, 4)
+                    if self.tokens_out else None),
+                "pipeline_depth": self.pipeline_depth,
+                "mesh_devices": self.mesh_devices,
+                "mesh": self.mesh_shape,
+                "warmup_s": (round(self.warmup_s, 3)
+                             if self.warmup_s is not None else None),
+                "restarts": self.restarts,
+                "requeued": self.requeued,
+                "faults_injected": self.faults_injected,
+                "recovery_ms": self.recovery_s.summary(1e3),
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_evictions": self.prefix_evictions,
+                "prefill_tokens_skipped": self.prefill_tokens_skipped,
+                "prefix_hit_rate": (
+                    round(self.prefix_hits
+                          / (self.prefix_hits + self.prefix_misses), 4)
+                    if self.prefix_hits + self.prefix_misses else None),
+                "spec_rounds": self.spec_rounds,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "spec_acceptance_rate": (
+                    round(self.spec_accepted / self.spec_proposed, 4)
+                    if self.spec_proposed else None),
+                "spec_multi_token_ticks": self.spec_multi_token_ticks,
+                "preemptions_swap": self.preemptions_swap,
+                "preemptions_recompute": self.preemptions_recompute,
+                "preempt_tokens_recomputed":
+                    self.preempt_tokens_recomputed,
+                "preempt_tokens_swapped_in":
+                    self.preempt_tokens_swapped_in,
+                "preempt_swap_bytes": self.preempt_swap_bytes,
+                "preempt_swap_restore_failures":
+                    self.preempt_swap_restore_failures,
+                "brownout_transitions": self.brownout_transitions,
+                "hedges_suppressed": self.hedges_suppressed,
+                # Tokens retired per decode tick ACROSS ALL LANES,
+                # excluding the prefill-sampled first tokens (which
+                # cost no tick): ~busy-lane count without spec
+                # decode, x (1 + acceptance_rate x k) per lane with
+                # it — the accepted-tokens-per-tick number the bench
+                # matrix records per config (compare legs at the
+                # same occupancy).
+                "tokens_per_tick": (
+                    round((self.tokens_out
+                           - self.prefill_first_tokens)
+                          / self.ticks, 4)
+                    if self.ticks else None),
+                "kv_blocks_free": self.kv_blocks_free,
+                "kv_blocks_used": self.kv_blocks_used,
+                "kv_blocks_cached": self.kv_blocks_cached,
+                "peak_active": self.peak_active,
+                "queue_depth": self.queue_depth,
+                "slots_busy": self.slots_busy,
+                "num_slots": self.num_slots,
+                "slot_occupancy": (round(self.slots_busy
+                                         / self.num_slots, 3)
+                                   if self.num_slots else None),
+                "tokens_per_s": round(self.tokens_out / dt, 2),
+                "queue_wait_ms": self.queue_wait_s.summary(1e3),
+                "ttft_ms": self.ttft_s.summary(1e3),
+                "tpot_ms": self.tpot_s.summary(1e3),
+                "e2e_ms": self.e2e_s.summary(1e3),
+            }
