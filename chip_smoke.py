@@ -14,13 +14,15 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    bf16: flash forward at the generate path's [4, 512, 8, 128] and at
    [1, 2048, 8, 128] (causal), plus GQA + window + q_offset and a
    ragged Sk; flash decode at 8 lanes, W=2048, H=8, Hkv 8 and 2, with
-   per-lane lengths spread over 1..2048.
+   per-lane lengths spread over 1..2048. The decode kernel run one key
+   short (length - 1, a planted fault) must fail the same check.
 3. Full-width `generate` (the repo's serving bench model: vocab 32768,
    12 layers, 8 heads of 128, max_len 2048, bf16, attn_impl="flash",
    decode_prefix_impl="pallas", random weights from seed 0): 4 prompts
    x 512 -> 128 greedy tokens through both kernels; teacher-forced
    last-position logits of the prefill and the first 8 ticks against
-   the same model on the plain versions.
+   the same model on the plain versions; the plain decode run one key
+   short must fail that comparison.
 4. Full-width `ServingEngine`: 8 slots, 16 requests with prompts of
    32..512 tokens and 64 new tokens each; TTFT/TPOT p50 and tokens/s.
 5. A ``{"kernels": [...]}`` line (launches on the main path, CUDA-event
@@ -45,18 +47,24 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-# Kernel vs plain version on identical inputs. f32: both sides compute
-# in f32 and differ by summation order only (up to 2048 keys) -> 1e-4.
-# bf16: the f32 results differ by summation order and are rounded to
-# bf16 (2^-8 relative) on both sides, so one rounding flip is allowed:
-# |err| <= 2e-2 + 1e-2 * |ref|.
-TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 1e-2)}
-LSE_TOL = 1e-3
+# Kernel vs plain version on identical inputs, |err| <= atol + rtol *
+# |ref|. f32: both sides compute in f32 and differ by summation order
+# only; the readings are <= 5.4e-7 (out) and <= 9.5e-7 (lse) over up to
+# 2048 keys, so 1e-5 leaves a 10x margin. bf16: the f32 results differ
+# by summation order and are rounded to bf16 on both sides, so one
+# rounding flip (up to 2^-7 relative) is allowed by the 1e-2 relative
+# term; the 2e-3 absolute term covers outputs near 0, where the
+# readings are 2.4e-4 (decode) and 1.95e-3 (forward).
+TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-3, 1e-2)}
+LSE_TOL = 1e-5
 # Teacher-forced logits, kernels vs plain versions, bf16 model: the
 # residual stream is bf16 through 12 layers and every bf16 rounding
-# flip of an attention output (2^-8 relative) propagates, so the logits
-# (std ~0.6 at this init) may differ by a few bf16 ulps.
-LOGIT_TOL = 0.15
+# flip of an attention output propagates; the reading is 0.0293. The
+# plain decode run one key short (a planted fault, checked every run)
+# reads 0.0929 with argmax agreement 0.972, so the tolerance sits
+# between the two and the agreement floor above the fault's.
+LOGIT_TOL = 0.06
+MIN_ARGMAX_AGREEMENT = 0.99
 
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:321",
@@ -115,7 +123,10 @@ def check_kernels(tfa, dev):
     """Phase 2: each kernel against its plain version on the card."""
     import torch
     g = torch.Generator(device=dev).manual_seed(1234)
-    path_err = {}   # bf16 error at the path's shapes, per kernel
+    # Per kernel: bf16 error at the path's shapes, the largest f32 and
+    # lse errors over all cases.
+    errs = {"flash_fwd": {"max_abs_err_f32": 0.0, "lse_max_abs_err": 0.0},
+            "flash_decode": {"max_abs_err_f32": 0.0}}
     fwd_cases = [
         ("path [4,512,8,128] causal", (4, 512, 512, 8, 8),
          dict(causal=True)),
@@ -140,8 +151,12 @@ def check_kernels(tfa, dev):
             if not (ok and lok):
                 raise AssertionError(f"flash_fwd {dtype} {name}: out err "
                                      f"{err}, lse err {lerr}")
-            if name.startswith("path") and dtype == "bfloat16":
-                path_err["flash_fwd"] = err
+            e = errs["flash_fwd"]
+            e["lse_max_abs_err"] = max(e["lse_max_abs_err"], lerr)
+            if dtype == "float32":
+                e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
+            elif name.startswith("path"):
+                e["max_abs_err"] = err
     lengths = torch.linspace(1, 2048, 8).round().int().to(dev)
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -160,9 +175,23 @@ def check_kernels(tfa, dev):
             if not ok:
                 raise AssertionError(f"flash_decode {dtype} Hkv {hkv}: "
                                      f"err {err}")
-            if dtype == "bfloat16" and hkv == 8:
-                path_err["flash_decode"] = err
-    return path_err
+            e = errs["flash_decode"]
+            if dtype == "float32":
+                e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
+            elif hkv == 8:
+                e["max_abs_err"] = err
+                # The check must see an off-by-one length: the kernel
+                # run one key short against the plain version.
+                short = tfa.flash_decode_cuda(q, kc, vc,
+                                              (lengths - 1).clamp(min=1))
+                ferr, fok = max_err(short, ref, TOL[dtype])
+                log(f"flash_decode planted fault (length - 1): "
+                    f"max_abs_err {ferr:.3e}, caught {not fok}")
+                if fok:
+                    raise AssertionError("the decode check does not see "
+                                         "an off-by-one length")
+                e["planted_fault_err"] = ferr
+    return errs
 
 
 def time_kernels(tfa, dev):
@@ -245,10 +274,12 @@ def teacher_forced_logits(model, prompt, forced, n_ticks):
 
 class plain_attention:
     """Context: the model's attention runs the kernels' PLAIN versions
-    on the card (the comparison model; the port itself never does)."""
+    on the card (the comparison model; the port itself never does).
+    ``decode`` replaces the plain decode (a planted fault)."""
 
-    def __init__(self, model, tfa):
+    def __init__(self, model, tfa, decode=None):
         self.model, self.tfa = model, tfa
+        self.decode = decode or tfa.flash_decode_plain
 
     def __enter__(self):
         tfa = self.tfa
@@ -260,7 +291,7 @@ class plain_attention:
         for attn, _ in self.saved:
             attn.attn_fn = fwd
         self.saved_decode = tfa.flash_decode_attention
-        tfa.flash_decode_attention = tfa.flash_decode_plain
+        tfa.flash_decode_attention = self.decode
         return self
 
     def __exit__(self, *exc):
@@ -295,25 +326,43 @@ def run_generate(model, tfa, dev):
     if launches != want:
         raise AssertionError(f"generate launches {launches} != {want}")
     gen = out[:, 512:]
+    def one_key_short(q, k, v, length):
+        return tfa.flash_decode_plain(q, k, v, length - 1)
+
     with torch.no_grad():
         k_logits = teacher_forced_logits(model, prompt, gen, 8)
         with plain_attention(model, tfa):
             p_logits = teacher_forced_logits(model, prompt, gen, 8)
+        with plain_attention(model, tfa, decode=one_key_short):
+            f_logits = teacher_forced_logits(model, prompt, gen, 8)
     torch.cuda.synchronize()
     err = float((k_logits - p_logits).abs().max())
     agree = float((k_logits.argmax(-1) == p_logits.argmax(-1))
                   .float().mean())
+    fault_err = float((f_logits - p_logits).abs().max())
+    fault_agree = float((f_logits.argmax(-1) == p_logits.argmax(-1))
+                        .float().mean())
     finite = bool(torch.isfinite(k_logits).all())
     log(f"teacher-forced logits (prefill + 8 ticks), kernels vs plain: "
         f"max_abs_err {err:.4f} (tol {LOGIT_TOL}), argmax agreement "
-        f"{agree:.3f}, |logit| max {float(p_logits.abs().max()):.3f}")
+        f"{agree:.3f} (min {MIN_ARGMAX_AGREEMENT}), |logit| max "
+        f"{float(p_logits.abs().max()):.3f}")
+    log(f"teacher-forced logits, planted decode fault (length - 1) vs "
+        f"plain: max_abs_err {fault_err:.4f}, argmax agreement "
+        f"{fault_agree:.3f}")
     if not finite or err > LOGIT_TOL:
         raise AssertionError(f"generate logits differ: {err}")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"generate argmax agreement {agree}")
+    if fault_err <= LOGIT_TOL:
+        raise AssertionError(f"the logits check does not see an "
+                             f"off-by-one decode length ({fault_err})")
     if not torch.equal(k_logits.argmax(-1)[:, :-1], gen[:, :8]):
         raise AssertionError("generate's greedy tokens are not the argmax "
                              "of its own teacher-forced logits")
     return dict(seconds=dt, launches=launches, logits_max_abs_err=err,
-                argmax_agreement=agree)
+                argmax_agreement=agree, planted_fault_logits_err=fault_err,
+                planted_fault_argmax_agreement=fault_agree)
 
 
 def run_engine(model, tfa, dev):
@@ -430,9 +479,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"horovod_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": main_launches[name],
-            "max_abs_err": errs[name], "ms": t["ms"],
+            "max_abs_err": errs[name]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{k: v for k, v in errs[name].items()
+               if k != "max_abs_err"}})
         log(f"{name}: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms "
             f"plain, {t['library_ms']:.4f} ms library, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']} "

@@ -156,12 +156,14 @@ class TransformerBlock(nn.Module):
                              f"{cfg.mlp_impl!r}")
 
     def forward(self, x, cache: Optional[LayerCache] = None,
-                chunked_prefill: bool = False):
+                chunked_prefill: bool = False,
+                prefix_len: Optional[int] = None):
         mask = None
         if self.attn_fn is None and cache is None:
             pos = torch.arange(x.shape[-2], device=x.device)
             mask = banded_causal_mask(pos, pos, self.window)[None, None]
-        x = x + self.attn(self.ln_attn(x), mask, cache, chunked_prefill)
+        x = x + self.attn(self.ln_attn(x), mask, cache, chunked_prefill,
+                          prefix_len)
         return x + self.mlp(self.ln_mlp(x))
 
 
@@ -268,13 +270,17 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: Optional[KVCache] = None,
                 *, chunked_prefill: bool = False,
+                prefix_len: Optional[int] = None,
                 return_hidden: bool = False):
         """``cache`` None: the training-mode forward. With a `KVCache`:
         a decode call appending ``tokens`` [lanes, S] at each lane's
         fill (the caller advances ``cache.index`` afterwards);
         ``chunked_prefill`` picks the any-fill prefix path for S > 1
-        instead of the one-pass empty-cache prefill. ``return_hidden``
-        returns ``(hidden [B, S, d], head [V, d])`` instead of logits."""
+        instead of the one-pass empty-cache prefill; ``prefix_len``, a
+        host-side upper bound on every lane's fill after the call, bounds
+        the plain prefix loop to the filled slices (None: all of them).
+        ``return_hidden`` returns ``(hidden [B, S, d], head [V, d])``
+        instead of logits."""
         B, S = tokens.shape
         x = self.embed[tokens]
         if self.embed_scale is not None:
@@ -291,7 +297,7 @@ class TransformerLM(nn.Module):
         x = x.to(self.dtype)
         for i, blk in enumerate(self.blocks):
             x = blk(x, None if cache is None else cache.layer(i),
-                    chunked_prefill)
+                    chunked_prefill, prefix_len)
         x = self.ln_f(x)
         head = self.head()
         if return_hidden:
@@ -373,11 +379,11 @@ def sample_token(logits: torch.Tensor, temperature: torch.Tensor,
 
 
 def _last_logits(model: TransformerLM, cache: KVCache, toks, *,
-                 chunked_prefill: bool = False) -> torch.Tensor:
+                 prefix_len: Optional[int] = None) -> torch.Tensor:
     """One decode call; projects ONLY the last position through the LM
     head (prefill never materializes [B, P, V] logits) and advances
     every lane's fill by the call's length."""
-    hidden, head = model(toks, cache, chunked_prefill=chunked_prefill,
+    hidden, head = model(toks, cache, prefix_len=prefix_len,
                          return_hidden=True)
     cache.index += toks.shape[1]
     return (hidden[:, -1] @ head.to(hidden.dtype).T).float()
@@ -459,11 +465,13 @@ def _generate_scan(model, cache, prompt, generator, steps, temperature,
     tok = pick(_last_logits(model, cache, prompt))
     done = (tok == eos) if eos is not None else None
     out = [tok]
-    for _ in range(steps - 1):
+    P = prompt.shape[1]
+    for t in range(steps - 1):
         if early_stop and bool(done.all()):
             out.append(torch.full_like(tok, pad))
             continue
-        nxt = pick(_last_logits(model, cache, tok[:, None]))
+        nxt = pick(_last_logits(model, cache, tok[:, None],
+                                prefix_len=P + t + 1))
         if eos is not None:
             nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
             done = done | (nxt == eos)
@@ -509,11 +517,16 @@ def slot_reset(cache: KVCache, slot: int):
 
 @torch.no_grad()
 def slot_prefill_chunk(dec_model: Callable, cache: KVCache, slot: int,
-                       chunk: torch.Tensor) -> torch.Tensor:
+                       chunk: torch.Tensor,
+                       fill: Optional[int] = None) -> torch.Tensor:
     """Append one [C]-token prompt chunk into slot ``slot`` (in place)
-    and return its last-position logits [V] f32 on the device."""
+    and return its last-position logits [V] f32 on the device.
+    ``fill``: the slot's fill before the chunk, as the host knows it;
+    the attention then reads only the filled cache slices."""
     sub = cache.lanes(slot)
-    hidden, head = dec_model(chunk[None, :], sub)
+    hidden, head = dec_model(
+        chunk[None, :], sub,
+        prefix_len=None if fill is None else fill + chunk.shape[0])
     sub.index += chunk.shape[0]
     return (hidden[0, -1] @ head.to(hidden.dtype).T).float()
 

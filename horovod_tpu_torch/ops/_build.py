@@ -7,7 +7,9 @@ minutes a `torch.utils.cpp_extension` build costs). The first call of
 file started together, into ``build/kernels/`` beside the package (the
 directory `.gitignore` lists), and loads the results with `ctypes`.
 Library file names carry a hash of the source and the flags, so an
-edited source never loads a stale build.
+edited source never loads a stale build. The compiler's ``-Xptxas -v``
+report is kept beside each library (``<library>.ptxas.txt``), so a
+cached build still reports its registers and shared memory.
 
 Nothing here runs at import time: the CPU tests import every module,
 and a CPU-only install has no `nvcc`.
@@ -33,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> the compiler's `-Xptxas -v` report (registers, shared memory,
-# spills per kernel instantiation) from the build this process loaded.
+# spills per kernel instantiation) of the library this process loaded.
 ptxas_reports: Dict[str, str] = {}
 
 
@@ -59,6 +61,10 @@ def _target(src: pathlib.Path) -> pathlib.Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
+def _report_path(lib: pathlib.Path) -> pathlib.Path:
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile (if needed) and load every kernel library; returns
     {source stem: CDLL}. Idempotent and thread-safe."""
@@ -82,21 +88,24 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         failed = []
         for stem, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
-            ptxas_reports[stem] = log
             if proc.returncode != 0:
                 failed.append(f"{stem}.cu (nvcc exit {proc.returncode}):"
                               f"\n{log}")
                 continue
+            _report_path(out).write_text(log)
             os.replace(tmp, out)
         if failed:
             raise KernelBuildError("kernel build failed:\n"
                                    + "\n".join(failed))
         for src in sources:
+            lib = _target(src)
             try:
-                _libs[src.stem] = ctypes.CDLL(str(_target(src)))
+                _libs[src.stem] = ctypes.CDLL(str(lib))
             except OSError as e:
-                raise KernelBuildError(
-                    f"loading {_target(src)} failed: {e}") from e
+                raise KernelBuildError(f"loading {lib} failed: {e}") from e
+            report = _report_path(lib)
+            ptxas_reports[src.stem] = (report.read_text() if report.exists()
+                                       else "")
         return dict(_libs)
 
 

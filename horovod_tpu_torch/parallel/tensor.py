@@ -185,7 +185,8 @@ class ParallelSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 cache: Optional[LayerCache] = None,
-                chunked_prefill: bool = False) -> torch.Tensor:
+                chunked_prefill: bool = False,
+                prefix_len: Optional[int] = None) -> torch.Tensor:
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
         F_, Fkv = H * D, Hkv * D
         qkv = self.qkv(x)
@@ -194,7 +195,8 @@ class ParallelSelfAttention(nn.Module):
         k = qkv[..., F_:F_ + Fkv].unflatten(-1, (Hkv, D))
         v = qkv[..., F_ + Fkv:].unflatten(-1, (Hkv, D))
         if cache is not None:
-            o = self._decode_attention(q, k, v, cache, chunked_prefill)
+            o = self._decode_attention(q, k, v, cache, chunked_prefill,
+                                       prefix_len)
         else:
             pos = torch.arange(q.shape[-3], device=q.device)
             q, k = self._maybe_rope(q, k, pos)
@@ -244,7 +246,8 @@ class ParallelSelfAttention(nn.Module):
         cache.k[lanes, rows] = k.to(cache.k.dtype)
         cache.v[lanes, rows] = v.to(cache.v.dtype)
 
-    def _prefix_attention(self, q, cache: LayerCache, S: int):
+    def _prefix_attention(self, q, cache: LayerCache, S: int,
+                          prefix_len: Optional[int] = None):
         """Attention of S new queries against each lane's filled prefix.
 
         ``decode_prefix_impl="pallas"`` with S == 1: the flash-decode
@@ -252,12 +255,17 @@ class ParallelSelfAttention(nn.Module):
         per-lane lengths as a device int32 tensor — no host sync.
         Otherwise the plain prefix loop, the `lax.fori_loop` of the JAX
         package in f32 online-softmax form: q scaled in the compute
-        dtype, p rounded to the cache dtype before P.V. The loop runs
-        over EVERY ``decode_prefix_block`` slice of the cache (a static
-        count, so no host sync reads the fill): a slice wholly past a
-        lane's fill is masked to the f32 minimum, which leaves that
-        lane's m, l and acc bit-for-bit unchanged (alpha = 1, p = 0), so
-        the result equals the data-dependent trip count's."""
+        dtype, p rounded to the cache dtype before P.V.
+
+        The loop reads ceil(prefix_len / block) slices of
+        ``decode_prefix_block`` rows, as the JAX package's data-dependent
+        trip count does. ``prefix_len`` is the caller's host-side upper
+        bound on every lane's fill after this call (the slot pool and
+        `generate` track it), so no host sync reads the device index.
+        Without it the loop runs over every slice of the cache. Either
+        way the result is the same: a slice wholly past a lane's fill is
+        masked to the f32 minimum, which leaves that lane's m, l and acc
+        bit-for-bit unchanged (alpha = 1, p = 0)."""
         i = cache.index
         W = cache.k.shape[1]
         if self.decode_prefix_impl == "pallas" and S == 1:
@@ -275,7 +283,8 @@ class ParallelSelfAttention(nn.Module):
         m = torch.full((B, H, S), neg, device=dev)
         l = torch.zeros(B, H, S, device=dev)
         acc = torch.zeros(B, H, S, D, device=dev)
-        for start in range(0, W, blk):
+        stop = W if prefix_len is None else min(W, max(1, prefix_len))
+        for start in range(0, stop, blk):
             kb = self._repeat_kv(cache.k[:, start:start + blk])
             vb = self._repeat_kv(cache.v[:, start:start + blk])
             logits = torch.einsum("bqhd,bkhd->bhqk", qs, kb.float())
@@ -293,7 +302,8 @@ class ParallelSelfAttention(nn.Module):
         return out.transpose(1, 2).to(dtype)
 
     def _decode_attention(self, q, k, v, cache: LayerCache,
-                          chunked_prefill: bool):
+                          chunked_prefill: bool,
+                          prefix_len: Optional[int] = None):
         if self.window is not None:
             raise NotImplementedError(
                 "sliding-window decode (the rolling window cache) is a "
@@ -314,7 +324,7 @@ class ParallelSelfAttention(nn.Module):
             return self._causal_block_attn(q, k, v)
         blk = self.decode_prefix_block
         if blk and W % min(blk, W) == 0:
-            return self._prefix_attention(q, cache, S)
+            return self._prefix_attention(q, cache, S, prefix_len)
         keep = banded_causal_mask(pos, torch.arange(W, device=q.device))
         return dot_product_attention(q, self._repeat_kv(cache.k),
                                      self._repeat_kv(cache.v),

@@ -1,25 +1,19 @@
 """Environment-variable configuration surface.
 
-Parity with the reference's env-var config system (SURVEY §5.6): the reference
-reads `HOROVOD_FUSION_THRESHOLD` (bytes, 0 disables, default 64 MB;
-`horovod/tensorflow/mpi_ops.cc:165,1278-1281`) and `HOROVOD_TIMELINE`
-(`mpi_ops.cc:1272-1275`), plus a 60 s stall-warning threshold
-(`mpi_ops.cc:228`) and 5 ms background tick (`mpi_ops.cc:1292`). The TPU
-build keeps the same variable names so existing Horovod deployment recipes
-carry over, and adds TPU-specific knobs: `HVD_FUSION_MB` (megabyte alias
-of the fusion threshold), `HVD_PREFILL_CHUNK_BUDGET` (serving: prompt
-tokens streamed per dispatch step — docs/serving.md "Performance
-tuning").
+The single source of truth for every ``HVD_*`` / ``HOROVOD_*``
+environment knob the port reads: each knob is declared in the `KNOBS`
+registry below, and other modules read the environment only through
+the `env_str` / `env_int` / `env_float` accessors, which refuse
+unregistered names. `env_table_md` renders the registry as a markdown
+table.
 
-This module is additionally the SINGLE SOURCE OF TRUTH for every
-``HVD_*`` / ``HOROVOD_*`` environment knob the codebase reads: each
-knob is declared in the `KNOBS` registry below, other modules read the
-environment only through the `env_str` / `env_int` / `env_float`
-accessors (which refuse unregistered names), and `hvdlint`'s HVD005
-rule flags any raw ``os.environ`` read of a knob outside this file.
-The registry also generates the environment-knob table in
-`docs/troubleshooting.md` (``python -m horovod_tpu_torch.analysis
---write-env-table``), so the docs cannot drift from the code.
+Only knobs that a ported module reads are registered. A knob of the
+JAX package whose consumer is not ported yet (fusion, paged KV,
+speculative decoding, the router and fleet, the metrics exporter,
+profiling, elastic membership, checkpoints, ...) is registered by the
+slice that ports its consumer; ROADMAP.md lists them until then.
+``HVD_SERVE_MESH`` and ``HVD_WEIGHT_QUANT`` are read so that a setting
+raises `NotImplementedError` instead of being ignored.
 """
 
 from __future__ import annotations
@@ -28,39 +22,11 @@ import dataclasses
 import os
 from typing import Dict, Optional
 
-DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes, mpi_ops.cc:165
-DEFAULT_STALL_WARNING_TIME = 60.0            # seconds, mpi_ops.cc:228
-DEFAULT_CYCLE_TIME_MS = 5.0                  # mpi_ops.cc:1292 (latency floor)
+DEFAULT_STALL_WARNING_TIME = 60.0            # seconds
 # Serving: max prompt tokens the dispatch loop streams per scheduling
-# step (interleaved chunked prefill, docs/serving.md "Performance
-# tuning"); <= 0 disables interleaving (whole prompt at once).
+# step (interleaved chunked prefill); <= 0 disables interleaving (whole
+# prompt at once).
 DEFAULT_PREFILL_CHUNK_BUDGET = 128
-# Serving: paged KV cache geometry (docs/serving.md "Paged KV cache").
-# Block size in tokens (must divide max_len); block count 0 = auto
-# (num_slots x max_len / block_size — byte-parity with the fixed slot
-# pool); prefix cache on by default when paging is on.
-DEFAULT_KV_BLOCK_SIZE = 16
-# Serving fleet (docs/serving.md "Fleet failover"): the ServingRouter's
-# defaults — replica count, monitor sweep cadence (failover-detection
-# latency floor), cold-replacement budget, the TTFT quantile deriving
-# the hedge delay (<= 0 disables hedging), and the retry-budget token
-# bucket capacity for shed/failed submits.
-DEFAULT_ROUTER_REPLICAS = 2
-DEFAULT_ROUTER_POLL_S = 0.02
-DEFAULT_ROUTER_REPLACEMENTS = 4
-DEFAULT_HEDGE_QUANTILE = 0.95
-DEFAULT_RETRY_BUDGET = 16
-# Serving decode fast path (docs/serving.md "Decode fast path"):
-# speculative-decode proposals per round (the draft-verify depth).
-DEFAULT_SPEC_K = 4
-# Disaggregated serving (docs/serving.md "Disaggregated serving"):
-# prefill/decode pool widths and the KV-block transfer mode.
-DEFAULT_DISAGG_PREFILL = 1
-DEFAULT_DISAGG_DECODE = 1
-DEFAULT_DISAGG_TRANSFER = "host"
-# Overload control (docs/serving.md "Overload control"): the
-# preemption swap shelf's host-RAM byte budget.
-DEFAULT_SWAP_BYTES = 256 << 20
 
 
 # ---------------------------------------------------------------------------
@@ -70,8 +36,7 @@ DEFAULT_SWAP_BYTES = 256 << 20
 @dataclasses.dataclass(frozen=True)
 class Knob:
     """One declared environment variable: its type, default, the
-    module that consumes it, and a one-line doc (the troubleshooting
-    table row)."""
+    module that consumes it, and a one-line doc (the table row)."""
 
     name: str
     kind: str          # "int" | "float" | "str" | "flag"
@@ -86,8 +51,8 @@ KNOBS: Dict[str, Knob] = {}
 def register_knob(name: str, kind: str, default: str, consumer: str,
                   doc: str) -> Knob:
     """Declare one environment knob. Every ``HVD_*``/``HOROVOD_*``
-    variable the codebase reads must be declared here (hvdlint HVD005
-    enforces it); re-registration with identical fields is a no-op."""
+    variable the port reads must be declared here; re-registration
+    with identical fields is a no-op."""
     knob = Knob(name, kind, default, consumer, doc)
     prev = KNOBS.get(name)
     if prev is not None and prev != knob:
@@ -103,8 +68,7 @@ def _require_registered(name: str):
         raise KeyError(
             f"environment variable {name!r} is not in the "
             f"horovod_tpu_torch.runtime.config knob registry; declare it "
-            f"with register_knob() so docs and hvdlint (HVD005) see "
-            f"it")
+            f"with register_knob()")
 
 
 def env_str(name: str, default: str = "") -> str:
@@ -140,9 +104,7 @@ def env_float(name: str, default: float) -> float:
 
 
 def env_table_md() -> str:
-    """The environment-knob table, rendered as GitHub markdown — the
-    generated section of docs/troubleshooting.md (tests pin the doc to
-    this exact output so the table cannot drift from the registry)."""
+    """The environment-knob table, rendered as GitHub markdown."""
     rows = ["| Variable | Type | Default | Read by | Meaning |",
             "| --- | --- | --- | --- | --- |"]
     for name in sorted(KNOBS):
@@ -157,194 +119,69 @@ def env_table_md() -> str:
 # outside this file fetch values via the env_* accessors above)
 
 register_knob(
-    "HOROVOD_FUSION_THRESHOLD", "int", str(DEFAULT_FUSION_THRESHOLD),
-    "runtime/config.py",
-    "Tensor-fusion bucket size in bytes (0 disables fusion); the "
-    "reference's knob, docs/tensor-fusion.md")
-register_knob(
-    "HVD_FUSION_MB", "float", "64", "runtime/config.py",
-    "Megabyte alias of the fusion threshold (accepts fractions); "
-    "HOROVOD_FUSION_THRESHOLD wins when both are set")
-register_knob(
     "HVD_PREFILL_CHUNK_BUDGET", "int", str(DEFAULT_PREFILL_CHUNK_BUDGET),
-    "runtime/config.py",
+    "serving/engine.py",
     "Serving: max prompt tokens streamed per dispatch step "
-    "(interleaved chunked prefill; <= 0 streams whole prompts), "
-    "docs/serving.md")
+    "(interleaved chunked prefill; <= 0 streams whole prompts)")
 register_knob(
-    "HVD_KV_BLOCK_SIZE", "int", str(DEFAULT_KV_BLOCK_SIZE),
-    "runtime/config.py",
-    "Serving: paged-KV block size in tokens (must divide the model's "
-    "max_len; ServingEngine(paged=True)), docs/serving.md")
+    "HVD_WEIGHT_QUANT", "str", "(unset)", "serving/engine.py",
+    "Serving: weight-only quantization at ServingEngine construction; "
+    "any setting raises NotImplementedError until the int8 slice of "
+    "the port lands")
 register_knob(
-    "HVD_KV_BLOCKS", "int", "0", "runtime/config.py",
-    "Serving: paged-KV device block count (0 = auto: num_slots x "
-    "max_len / block_size, byte-parity with the fixed slot pool), "
-    "docs/serving.md")
-register_knob(
-    "HVD_PREFIX_CACHE", "int", "1", "runtime/config.py",
-    "Serving: shared-prefix caching over the paged KV pool (0 "
-    "disables matching/publishing; blocks then free eagerly), "
-    "docs/serving.md")
-register_knob(
-    "HVD_PAGED_KERNEL", "str", "auto", "runtime/config.py",
-    "Serving: paged-attention dispatch — 'auto'/'lax' walk only the "
-    "FILLED blocks of each lane's table (bitwise-equal to the "
-    "legacy gather), 'pallas' adds the fused Pallas decode kernel, "
-    "'off' keeps the full-span gather (the fallback oracle), "
-    "docs/serving.md 'Decode fast path'")
-register_knob(
-    "HVD_SPEC_K", "int", str(DEFAULT_SPEC_K), "runtime/config.py",
-    "Serving: speculative-decode proposals per round when "
-    "ServingEngine(spec_draft=...) doesn't pass spec_k (1..k tokens "
-    "retired per tick), docs/serving.md 'Decode fast path'")
-register_knob(
-    "HVD_WEIGHT_QUANT", "str", "(unset)", "runtime/config.py",
-    "Serving: weight-only quantization applied at ServingEngine "
-    "construction when weight_quant= isn't passed ('int8' stores "
-    "block matmul kernels int8 + per-channel scales), "
-    "docs/serving.md 'Decode fast path'")
-register_knob(
-    "HVD_SERVE_MESH", "str", "(unset)", "runtime/config.py",
-    "Serving: shard the engine over a model-parallel mesh when "
-    "ServingEngine(mesh=) isn't passed — a device count ('4' = "
-    "model=4 over the first 4 devices) or 'axis=N[,axis=N...]' axis "
-    "sizes; unset = unsharded, docs/serving.md 'Sharded serving'")
-register_knob(
-    "HVD_SERVE_MESH_AXIS", "str", "model", "runtime/config.py",
-    "Serving: mesh axis name the KV-cache head shards ride (KV heads "
-    "partition with their query groups' tensor-parallel shards), "
-    "docs/serving.md 'Sharded serving'")
-register_knob(
-    "HOROVOD_TIMELINE", "str", "(unset)", "runtime/config.py",
-    "Write a Chrome-trace timeline to this path, docs/timeline.md")
+    "HVD_SERVE_MESH", "str", "(unset)", "serving/engine.py",
+    "Serving: the engine's model-parallel mesh; any setting raises "
+    "NotImplementedError until the sharded-serving slice of the port "
+    "lands")
 register_knob(
     "HOROVOD_STALL_CHECK_TIME", "float", str(DEFAULT_STALL_WARNING_TIME),
-    "runtime/config.py",
-    "Seconds before a pending collective / serving tick warns as "
-    "stalled (utils/stall.py)")
-register_knob(
-    "HOROVOD_CYCLE_TIME", "float", str(DEFAULT_CYCLE_TIME_MS),
-    "runtime/config.py",
-    "Background dispatch tick in milliseconds (fusion latency floor)")
-register_knob(
-    "HOROVOD_ALLREDUCE_DTYPE", "str", "(unset)", "runtime/config.py",
-    "Reduce gradients in this dtype (e.g. bfloat16) before casting "
-    "back")
-register_knob(
-    "HOROVOD_MESH_AXIS", "str", "data", "runtime/config.py",
-    "Name of the default data-parallel mesh axis")
-register_knob(
-    "HOROVOD_NO_NATIVE", "flag", "(unset)", "runtime/config.py",
-    "Non-empty disables the C++ control plane (pure-Python fallback)")
-register_knob(
-    "HOROVOD_XLA_COMBINER", "str", "pin", "runtime/config.py",
-    "'pin' disables XLA's collective combiner so fusion buckets "
-    "survive compilation; 'xla' lets the backend re-merge "
-    "(ops/fusion.py)")
-register_knob(
-    "HOROVOD_FLASH_BWD", "str", "pallas", "ops/flash_attention.py",
-    "Flash-attention backward kernel override: 'pallas' (fused) or "
-    "'recompute' (escape hatch if the fused backward misbehaves)")
-register_knob(
-    "HVD_IO_RETRIES", "int", "3", "resilience/retry.py",
-    "Checkpoint/data I/O retry attempts under the shared RetryPolicy "
-    "(0 disables retries)")
-register_knob(
-    "HVD_CKPT_KEEP", "int", "0", "utils/checkpoint.py",
-    "Default step-checkpoint retention for save_step callers that "
-    "don't pass keep= (GC prunes oldest beyond N; 0 = keep all), "
-    "docs/resilience.md")
+    "serving/engine.py",
+    "Seconds before a pending serving tick warns as stalled "
+    "(utils/stall.py)")
 register_knob(
     "HVD_CHAOS", "str", "(unset)", "resilience/chaos.py",
-    "Arm chaos-injection sites: 'site:count[:p=..][:delay=..],...' "
-    "(docs/resilience.md)")
+    "Arm chaos-injection sites: 'site:count[:p=..][:delay=..],...'")
 register_knob(
     "HVD_CHAOS_SEED", "int", "0", "resilience/chaos.py",
     "Seed for the deterministic per-site chaos fault schedule")
 register_knob(
-    "HOROVOD_PLATFORM", "str", "auto", "runtime/bootstrap.py",
-    "Force the jax platform before backend init (e.g. 'cpu' workers "
-    "on a TPU box); hvdrun sets it for workers")
-register_knob(
-    "HOROVOD_KV", "str", "(unset)", "runtime/bootstrap.py",
-    "host:port of the launcher's rendezvous KV server "
-    "(multi-controller bootstrap); set by hvdrun")
-register_knob(
-    "HOROVOD_RANK", "int", "(launcher)", "runtime/bootstrap.py",
-    "Process rank, set by hvdrun (OMPI_COMM_WORLD_RANK / PMI_RANK "
-    "are honored as fallbacks)")
-register_knob(
-    "HOROVOD_SIZE", "int", "(launcher)", "runtime/bootstrap.py",
-    "World size, set by hvdrun")
-register_knob(
-    "HOROVOD_LOCAL_RANK", "int", "(launcher)", "runtime/bootstrap.py",
-    "Rank within the host, set by hvdrun")
-register_knob(
-    "HOROVOD_LOCAL_SIZE", "int", "(launcher)", "runtime/bootstrap.py",
-    "Processes on this host, set by hvdrun")
-register_knob(
-    "HOROVOD_COORDINATOR", "str", "(launcher)", "runtime/bootstrap.py",
-    "jax.distributed coordinator address, set by hvdrun")
-register_knob(
-    "HVD_BENCH_PROBE_BUDGET_S", "float", "(unset)", "bench.py",
-    "Caps the benchmark's backend probe loop (seconds) before the "
-    "CPU fallback engages")
-register_knob(
-    "HVD_METRICS_PORT", "int", "(unset)", "obs/exporter.py",
-    "Serve Prometheus /metrics + /healthz + /metrics.json on this "
-    "port (0 = ephemeral; binds 127.0.0.1 — wider exposure is a "
-    "programmatic host= opt-in); honored by hvd.init() and "
-    "ServingEngine construction, unset disables the exporter, "
-    "docs/observability.md")
-register_knob(
     "HVD_EVENTS_LOG", "str", "(unset)", "obs/events.py",
     "Append the structured JSONL event log (restarts, requeues, "
     "sheds, chaos fires, stalls, compiles) to this path "
-    "(size-rotated), docs/observability.md")
+    "(size-rotated)")
+register_knob(
+    "HVD_EVENTS_RING", "int", "2048", "obs/events.py",
+    "In-memory structured-event ring capacity (the flight-recorder "
+    "bundle's run-up depth)")
 register_knob(
     "HVD_TRACE_LOG", "str", "(unset)", "obs/spans.py",
     "Mirror every completed causal request span to this JSONL path "
     "(size-rotated); render waterfalls / Chrome traces with "
-    "python -m horovod_tpu_torch.obs.spans, docs/observability.md "
-    "'Request tracing'")
+    "python -m horovod_tpu_torch.obs.spans")
 register_knob(
     "HVD_TRACE_SAMPLE", "float", "1.0", "obs/spans.py",
     "Head-sampling rate for causal span recording (0..1, "
-    "deterministic on the trace id so every replica keeps or drops "
-    "the SAME traces; 1.0 records everything)")
+    "deterministic on the trace id; 1.0 records everything)")
 register_knob(
     "HVD_REQLOG", "str", "(unset)", "obs/reqlog.py",
     "Record every client-entry submit (arrival time, prompt/output "
     "budgets, tenant/priority, prefix-group chain digests) to this "
-    "JSONL request log; re-serve it with bench.py --serving "
-    "--replay, docs/observability.md 'Record/replay'")
-register_knob(
-    "HVD_PROFILE_DIR", "str", "(unset)", "obs/profiling.py",
-    "Opt-in jax.profiler trace session directory "
-    "(obs.profiling.profiler_session); analyze captures with "
-    "utils/profile_analysis.py")
-register_knob(
-    "HVD_EVENTS_RING", "int", "2048", "obs/events.py",
-    "In-memory structured-event ring capacity (the /metrics.json "
-    "tail window and the flight-recorder bundle's run-up depth), "
-    "docs/observability.md")
+    "JSONL request log")
 register_knob(
     "HVD_LOCK_CHECK", "int", "0", "analysis/lockcheck.py",
     "1 = wrap every lockcheck.register()-ed lock in the runtime "
     "order witness (records acquisition edges, flags inversions); "
-    "0 = hand back the raw lock, zero overhead (docs/analysis.md)")
+    "0 = hand back the raw lock, zero overhead")
 register_knob(
     "HVD_LOCK_CHECK_OUT", "str", "(unset)", "analysis/lockcheck.py",
     "With HVD_LOCK_CHECK=1: write the observed lock-order graph and "
-    "any inversions as JSON to this path at process exit (the CI "
-    "zero-inversion gate's evidence)")
+    "any inversions as JSON to this path at process exit")
 register_knob(
     "HVD_FLIGHT_DIR", "str", "(unset)", "obs/flightrec.py",
     "Crash flight recorder: dump a post-mortem bundle (event ring + "
     "metric snapshot + in-flight trace_ids + config) here on watchdog "
-    "restarts, chaos fires, stall trips, NaN rollbacks and dispatch "
-    "crashes; unset disables, docs/observability.md")
+    "restarts, chaos fires, stall trips and dispatch crashes; unset "
+    "disables")
 register_knob(
     "HVD_FLIGHT_KEEP", "int", "8", "obs/flightrec.py",
     "Flight-recorder retention: newest N bundles kept, oldest pruned "
@@ -353,138 +190,20 @@ register_knob(
     "HVD_SLO", "str", "(unset)", "obs/slo.py",
     "SLO objectives as burn-rate spec, e.g. 'ttft=0.5,tpot=0.1,"
     "shed=0.02,target=0.99,fast=60,slow=600'; a fast-burn breach "
-    "flips /healthz to 503, docs/observability.md")
+    "marks the engine's SLO health component unhealthy")
 register_knob(
-    "HVD_FLEET_RANKS", "str", "(unset)", "obs/aggregate.py",
-    "Comma-separated per-rank exporter base URLs (host:port) the "
-    "/fleet endpoint aggregates; unset = this process's registry "
-    "alone, docs/observability.md")
-register_knob(
-    "HVD_STRAGGLER_CYCLES", "int", "64", "obs/straggler.py",
-    "Collective dispatches per straggler timing-window exchange "
-    "(0 disables the periodic exchange; windows still accumulate "
-    "for the fleet collector)")
-register_knob(
-    "HVD_ROUTER_REPLICAS", "int", str(DEFAULT_ROUTER_REPLICAS),
-    "runtime/config.py",
-    "Serving fleet: ServingRouter replica count when the caller "
-    "doesn't pass num_replicas (bench --router / examples), "
-    "docs/serving.md 'Fleet failover'")
-register_knob(
-    "HVD_ROUTER_POLL", "float", str(DEFAULT_ROUTER_POLL_S),
-    "runtime/config.py",
-    "Serving fleet: router monitor sweep interval in seconds "
-    "(health checks, hedge scans, migration processing, chaos "
-    "kills) — the failover-detection latency floor")
-register_knob(
-    "HVD_ROUTER_REPLACEMENTS", "int", str(DEFAULT_ROUTER_REPLACEMENTS),
-    "runtime/config.py",
-    "Serving fleet: cold replacements the router may build for "
-    "dead/drained replicas over its lifetime (the factory-call "
-    "budget; the fleet shrinks once spent)")
-register_knob(
-    "HVD_HEDGE_QUANTILE", "float", str(DEFAULT_HEDGE_QUANTILE),
-    "runtime/config.py",
-    "Serving fleet: TTFT quantile (0, 1] deriving the hedge delay — "
-    "a request with no first token after the fleet's q-th TTFT "
-    "quantile is duplicated on a second replica and the loser "
-    "cancelled; <= 0 disables hedging")
-register_knob(
-    "HVD_LEASE_S", "float", "2.0", "resilience/membership.py",
-    "Elastic membership: heartbeat lease in seconds — a rank whose "
-    "newest heartbeat is older than this is declared dead and the "
-    "world resizes (docs/resilience.md 'Elastic membership')")
-register_knob(
-    "HVD_HEARTBEAT_S", "float", "(lease/4)",
-    "resilience/membership.py",
-    "Elastic membership: heartbeat write cadence in seconds "
-    "(default lease/4 — the lease tolerates isolated dropped beats)")
-register_knob(
-    "HVD_PREEMPT_GRACE_S", "float", "30", "resilience/elastic.py",
-    "Preemption grace window in seconds: how long after a preemption "
-    "notice (SIGUSR1/SIGTERM) the host is expected to survive — "
-    "PreemptionHandler.grace_remaining() budgets the emergency "
-    "checkpoint against it (docs/resilience.md)")
-register_knob(
-    "HVD_DETECTOR_SWEEP_S", "float", "0.05",
-    "resilience/detector.py",
-    "Failure detector: shared sweep-thread cadence in seconds (per-"
-    "peer poll intervals may ask for faster; floor 0.005), "
-    "docs/resilience.md 'Failure detection'")
-register_knob(
-    "HVD_DETECTOR_HYSTERESIS", "int", "2",
-    "resilience/detector.py",
-    "Failure detector: consecutive good observations required to "
-    "leave SUSPECT (recovery hysteresis; death is never gated)")
-register_knob(
-    "HVD_DETECTOR_FLAP_WINDOW_S", "float", "30",
-    "resilience/detector.py",
-    "Failure detector: flap-damping window — recoveries inside it "
-    "count against HVD_DETECTOR_FLAP_MAX")
-register_knob(
-    "HVD_DETECTOR_FLAP_MAX", "int", "4",
-    "resilience/detector.py",
-    "Failure detector: recoveries allowed per flap window before the "
-    "peer is damped (held at SUSPECT — drained, not resurrected — "
-    "until the window decays)")
-register_knob(
-    "HVD_ELASTIC_DRILL_TIMEOUT_S", "float", "300",
-    "resilience/drill.py",
-    "Multi-process elastic drill: wall-clock budget for the whole "
-    "hvdrun-launched worker world (the job is killed past it)")
-register_knob(
-    "HVD_RETRY_BUDGET", "int", str(DEFAULT_RETRY_BUDGET),
-    "runtime/config.py",
-    "Serving fleet: router retry-budget token-bucket capacity for "
-    "shed/failed submits (refills at capacity/60 per second; 0 "
-    "disables retries — first answer wins)")
-register_knob(
-    "HVD_DISAGG", "flag", "0",
-    "serving/disagg.py",
-    "Disaggregated serving: 1 makes ServingRouter construct a "
-    "DisaggRouter — requests prefill on a dedicated pool, migrate "
-    "their KV blocks to a decode pool at prefill-complete "
-    "(docs/serving.md \"Disaggregated serving\")")
-register_knob(
-    "HVD_DISAGG_PREFILL", "int", str(DEFAULT_DISAGG_PREFILL),
-    "serving/disagg.py",
-    "Disaggregated serving: prefill-pool replica count (sized "
-    "independently of the decode pool — the MPMD split's point)")
-register_knob(
-    "HVD_DISAGG_DECODE", "int", str(DEFAULT_DISAGG_DECODE),
-    "serving/disagg.py",
-    "Disaggregated serving: decode-pool replica count (the base "
-    "router fleet; HVD_ROUTER_REPLICAS is ignored when disagg is "
-    "on)")
-register_knob(
-    "HVD_DISAGG_TRANSFER", "str", DEFAULT_DISAGG_TRANSFER,
-    "serving/transfer.py",
-    "KV-block transfer mode between pools: 'host' bounces rows "
-    "through host memory (any layout pair), 'device' keeps them "
-    "device-resident and device_puts into the destination layout")
-register_knob(
-    "HVD_PREEMPT", "flag", "0",
-    "serving/engine.py",
+    "HVD_PREEMPT", "flag", "0", "serving/engine.py",
     "Overload control: 1 lets a blocked higher-priority request "
     "preempt strictly lower-priority decode streams token-exactly "
-    "(swap or recompute), and switches paged admission to optimistic "
-    "watermark reservations (docs/serving.md \"Overload control\")")
+    "(recompute on the fixed slot pool)")
 register_knob(
-    "HVD_SWAP_BYTES", "int", str(DEFAULT_SWAP_BYTES),
-    "serving/overload.py",
-    "Overload control: host-RAM byte budget for the preemption swap "
-    "shelf (preempted streams' KV blocks awaiting resume); 0 "
-    "degrades every preemption to recompute")
-register_knob(
-    "HVD_TENANT_WEIGHTS", "str", "",
-    "serving/admission.py",
+    "HVD_TENANT_WEIGHTS", "str", "", "serving/engine.py",
     "Overload control: per-tenant WFQ weights, "
     "'name=<w>,name=<w>,...' — admission serves tenant lanes in "
     "weight proportion and caps each named tenant's queue share at "
     "weight/total; empty = every tenant weighs 1, no caps")
 register_knob(
-    "HVD_BROWNOUT", "flag", "1",
-    "serving/overload.py",
+    "HVD_BROWNOUT", "flag", "1", "serving/engine.py",
     "Overload control: per-tenant graduated degradation ladder "
     "(1 no hedging -> 2 spec-k capped -> 3 lowest-priority streams "
     "preempted), driven by per-tenant SLO fast burn and the "
@@ -497,126 +216,33 @@ register_knob(
 
 @dataclasses.dataclass
 class Config:
-    """Runtime configuration, resolved from the environment at init() time.
-
-    Attributes mirror the reference's knobs; `refresh()` re-reads the
-    environment (used by tests and by `hvd.init()`).
+    """Runtime configuration, resolved from the environment;
+    `refresh()` re-reads it (tests call it after setting a variable).
     """
 
-    fusion_threshold: int = DEFAULT_FUSION_THRESHOLD
-    timeline_path: str = ""
     stall_warning_time: float = DEFAULT_STALL_WARNING_TIME
-    cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
     prefill_chunk_budget: int = DEFAULT_PREFILL_CHUNK_BUDGET
-    # Paged KV cache (serving): block size in tokens, device block
-    # count (0 = auto byte-parity with the fixed pool), and the
-    # shared-prefix cache switch.
-    kv_block_size: int = DEFAULT_KV_BLOCK_SIZE
-    kv_blocks: int = 0
-    prefix_cache: bool = True
-    # Decode fast path (docs/serving.md): paged-attention dispatch
-    # mode, draft-verify depth, and the construction-time weight
-    # quantization default ("" = off).
-    paged_kernel: str = "auto"
-    spec_k: int = DEFAULT_SPEC_K
+    # Later slices: read only so that a setting raises.
     weight_quant: str = ""
-    # Sharded serving (docs/serving.md "Sharded serving"): the default
-    # engine mesh ("" = unsharded) and the axis the KV head shards
-    # ride.
     serve_mesh: str = ""
-    serve_mesh_axis: str = "model"
-    # Serving fleet (ServingRouter, docs/serving.md "Fleet failover").
-    router_replicas: int = DEFAULT_ROUTER_REPLICAS
-    router_poll_s: float = DEFAULT_ROUTER_POLL_S
-    router_replacements: int = DEFAULT_ROUTER_REPLACEMENTS
-    hedge_quantile: float = DEFAULT_HEDGE_QUANTILE
-    retry_budget: int = DEFAULT_RETRY_BUDGET
-    # Disaggregated serving (docs/serving.md "Disaggregated
-    # serving"): the DisaggRouter switch, the independent pool
-    # widths, and the KV-block transfer mode.
-    disagg: int = 0
-    disagg_prefill: int = DEFAULT_DISAGG_PREFILL
-    disagg_decode: int = DEFAULT_DISAGG_DECODE
-    disagg_transfer: str = DEFAULT_DISAGG_TRANSFER
-    # Overload control plane (docs/serving.md "Overload control"):
-    # token-exact preemption switch, swap-shelf byte budget,
+    # Overload control plane: token-exact preemption switch,
     # per-tenant WFQ weights, and the brownout ladder switch.
     preempt: bool = False
-    swap_bytes: int = DEFAULT_SWAP_BYTES
     tenant_weights: str = ""
     brownout: bool = True
-    # TPU-specific additions
-    allreduce_dtype: str = ""          # e.g. "bfloat16" to reduce in bf16
-    mesh_axis_name: str = "data"       # default 1-D data-parallel axis
-    use_native: bool = True            # load the C++ control plane
-    # "pin" (default): disable XLA's backend AllReduceCombiner in the
-    # train-step compile so HOROVOD_FUSION_THRESHOLD's bucket
-    # granularity survives to the executed module; "xla": let the
-    # backend re-merge (ops/fusion.py combiner_override_options).
-    xla_combiner: str = "pin"
 
     def refresh(self) -> "Config":
-        # HOROVOD_FUSION_THRESHOLD (exact bytes, the reference's knob)
-        # wins; HVD_FUSION_MB (megabytes, accepts fractions) is the
-        # ergonomic alias — "HVD_FUSION_MB=8" == threshold 8 MiB.
-        if env_str("HOROVOD_FUSION_THRESHOLD"):
-            self.fusion_threshold = _env_int(
-                "HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD)
-        elif env_str("HVD_FUSION_MB"):
-            self.fusion_threshold = int(
-                _env_float("HVD_FUSION_MB",
-                           DEFAULT_FUSION_THRESHOLD / (1 << 20))
-                * (1 << 20))
-        else:
-            self.fusion_threshold = DEFAULT_FUSION_THRESHOLD
-        self.prefill_chunk_budget = _env_int(
+        self.prefill_chunk_budget = env_int(
             "HVD_PREFILL_CHUNK_BUDGET", DEFAULT_PREFILL_CHUNK_BUDGET)
-        self.kv_block_size = _env_int("HVD_KV_BLOCK_SIZE",
-                                      DEFAULT_KV_BLOCK_SIZE)
-        self.kv_blocks = _env_int("HVD_KV_BLOCKS", 0)
-        self.prefix_cache = _env_int("HVD_PREFIX_CACHE", 1) != 0
-        self.paged_kernel = env_str("HVD_PAGED_KERNEL", "auto")
-        self.spec_k = _env_int("HVD_SPEC_K", DEFAULT_SPEC_K)
         self.weight_quant = env_str("HVD_WEIGHT_QUANT")
         self.serve_mesh = env_str("HVD_SERVE_MESH")
-        self.serve_mesh_axis = env_str("HVD_SERVE_MESH_AXIS", "model")
-        self.router_replicas = _env_int("HVD_ROUTER_REPLICAS",
-                                        DEFAULT_ROUTER_REPLICAS)
-        self.router_poll_s = _env_float("HVD_ROUTER_POLL",
-                                        DEFAULT_ROUTER_POLL_S)
-        self.router_replacements = _env_int(
-            "HVD_ROUTER_REPLACEMENTS", DEFAULT_ROUTER_REPLACEMENTS)
-        self.hedge_quantile = _env_float("HVD_HEDGE_QUANTILE",
-                                         DEFAULT_HEDGE_QUANTILE)
-        self.retry_budget = _env_int("HVD_RETRY_BUDGET",
-                                     DEFAULT_RETRY_BUDGET)
-        self.disagg = _env_int("HVD_DISAGG", 0)
-        self.disagg_prefill = _env_int("HVD_DISAGG_PREFILL",
-                                       DEFAULT_DISAGG_PREFILL)
-        self.disagg_decode = _env_int("HVD_DISAGG_DECODE",
-                                      DEFAULT_DISAGG_DECODE)
-        self.disagg_transfer = env_str("HVD_DISAGG_TRANSFER",
-                                       DEFAULT_DISAGG_TRANSFER)
-        self.preempt = _env_int("HVD_PREEMPT", 0) != 0
-        self.swap_bytes = _env_int("HVD_SWAP_BYTES",
-                                   DEFAULT_SWAP_BYTES)
+        self.preempt = env_int("HVD_PREEMPT", 0) != 0
         self.tenant_weights = env_str("HVD_TENANT_WEIGHTS")
-        self.brownout = _env_int("HVD_BROWNOUT", 1) != 0
-        self.timeline_path = env_str("HOROVOD_TIMELINE")
-        self.stall_warning_time = _env_float(
+        self.brownout = env_int("HVD_BROWNOUT", 1) != 0
+        self.stall_warning_time = env_float(
             "HOROVOD_STALL_CHECK_TIME", DEFAULT_STALL_WARNING_TIME)
-        self.cycle_time_ms = _env_float(
-            "HOROVOD_CYCLE_TIME", DEFAULT_CYCLE_TIME_MS)
-        self.allreduce_dtype = env_str("HOROVOD_ALLREDUCE_DTYPE")
-        self.mesh_axis_name = env_str("HOROVOD_MESH_AXIS", "data")
-        self.use_native = env_str("HOROVOD_NO_NATIVE") == ""
-        self.xla_combiner = env_str("HOROVOD_XLA_COMBINER", "pin")
         return self
 
-
-# Backwards-compatible aliases (pre-registry internal helpers).
-_env_int = env_int
-_env_float = env_float
 
 config = Config()
 config.refresh()

@@ -113,7 +113,7 @@ class Request:
     # submit() and carried for the request's whole life — across the
     # queue, prefill chunks, pipelined ticks AND watchdog-restart
     # requeues (dataclasses.replace preserves it), so the event log,
-    # Timeline span args and metric exemplars all correlate on it.
+    # the span tree and metric exemplars all correlate on it.
     trace_id: str = ""
     t_submit: float = 0.0
     t_prefill: float = 0.0           # dispatcher: prefill started

@@ -27,9 +27,8 @@ Usage::
         out = h.result(timeout=30)        # CompletedRequest
         print(out.tokens, out.finish_reason, out.ttft_s)
 
-With ``HOROVOD_TIMELINE`` set (or `start_timeline`), every request
-renders as its own trace process with QUEUE → PREFILL → DECODE spans
-in chrome://tracing.
+Every request is traced as a causal span tree (`obs.spans`): queue
+wait, admission, prefill and decode under one root per request.
 """
 
 from __future__ import annotations
@@ -60,7 +59,7 @@ from horovod_tpu_torch.serving.admission import (
 )
 from horovod_tpu_torch.serving.metrics import EngineMetrics
 from horovod_tpu_torch.serving.scheduler import (
-    CompletedRequest, ContinuousBatchingScheduler, _span,
+    CompletedRequest, ContinuousBatchingScheduler,
 )
 from horovod_tpu_torch.serving.slots import SlotPool
 from horovod_tpu_torch.utils.stall import StallMonitor
@@ -93,7 +92,7 @@ class RequestHandle:
     @property
     def trace_id(self) -> str:
         """The request's observability id — the key into the event
-        log, the Timeline span args, and the histogram exemplars
+        log, the span recorder, and the histogram exemplars
         (docs/observability.md); survives watchdog-restart requeues."""
         return self._req.trace_id
 
@@ -490,7 +489,6 @@ class ServingEngine:
                 self.brownout.touch(req.tenant)
             self._obs_tenant["requests"].inc(tenant=req.tenant,
                                              outcome="submitted")
-        _span("begin_span", req.id, "QUEUE", trace_id=req.trace_id)
         req.span_ids["queued"] = _spans.begin_span(
             "serving.queued", trace_id=req.trace_id,
             parent_id=req.parent_span or req.span_ids.get("root", ""),
@@ -503,7 +501,6 @@ class ServingEngine:
             if req.tenant:
                 self._obs_tenant["requests"].inc(tenant=req.tenant,
                                                  outcome="shed")
-            _span("end_span", req.id, "QUEUE")
             _spans.end_span(req.span_ids.pop("queued", ""),
                             status="shed")
             _spans.end_span(req.span_ids.pop("root", ""),
@@ -513,7 +510,6 @@ class ServingEngine:
                          queue_depth=len(self.queue))
             raise
         except EngineClosedError:
-            _span("end_span", req.id, "QUEUE")
             _spans.end_span(req.span_ids.pop("queued", ""),
                             status="closed")
             _spans.end_span(req.span_ids.pop("root", ""),

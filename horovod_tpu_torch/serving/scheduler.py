@@ -121,32 +121,6 @@ class _PendingTick:
     snapshot: Dict[int, Request] = field(default_factory=dict)
 
 
-def _timeline():
-    """The process-global Horovod timeline, or None (spans are then
-    no-ops) — the same handle `utils.timeline.step_bracket` reads."""
-    try:
-        from horovod_tpu_torch.runtime import state as _state
-        return _state.global_state().timeline
-    except (ImportError, AttributeError):
-        return None   # interpreter teardown / pre-init introspection
-
-
-def _span(method: str, request_id: int, name: str,
-          trace_id: str = ""):
-    """Emit a request-span Timeline verb; begin_span additionally
-    stamps the request's ``trace_id`` into the span ``args`` (the
-    Timeline leg of request tracing — one id follows the request
-    across QUEUE/PREFILL/DECODE and engine restarts)."""
-    tl = _timeline()
-    if tl is None:
-        return
-    if method == "begin_span" and trace_id:
-        tl.begin_span(f"request:{request_id}", name,
-                      args={"trace_id": trace_id})
-    else:
-        getattr(tl, method)(f"request:{request_id}", name)
-
-
 # Distinguishes stall-bracket names across scheduler generations: a
 # superseded thread's finally-end() must never cancel the successor's
 # identically-numbered pending tick (both count from shared metrics).
@@ -468,9 +442,6 @@ class ContinuousBatchingScheduler:
                     or req.span_ids.get("root", ""),
                     prompt_tokens=int(full.shape[0]),
                     prefix_cached=adm.skipped)
-                _span("end_span", req.id, "QUEUE")
-                _span("begin_span", req.id, "PREFILL",
-                      trace_id=req.trace_id)
                 # Registered BEFORE any device work so a fault inside
                 # it (compile failure, OOM) leaves the request findable
                 # by the engine's crash containment — never a future
@@ -584,7 +555,6 @@ class ContinuousBatchingScheduler:
         self.pool.free(slot)
         # hvd: disable=HVD004(active is dispatch-thread-owned; the handoff lock only orders the container handoff, and abandon() snapshots wholesale)
         self.active.pop(slot, None)
-        _span("end_span", req.id, "DECODE")
         _spans.end_span(req.span_ids.pop("decode", ""),
                         status="preempted", mode=mode)
         # The pause span stays OPEN across the requeue — the resume's
@@ -653,9 +623,6 @@ class ContinuousBatchingScheduler:
         # Sampled by the prefill forward, not a decode tick — the
         # tokens_per_tick metric excludes it.
         self.metrics.count("prefill_first_tokens")
-        _span("end_span", req.id, "PREFILL")
-        _span("begin_span", req.id, "DECODE",
-              trace_id=req.trace_id)
         _spans.end_span(req.span_ids.pop("prefill", ""))
         req.span_ids["decode"] = _spans.begin_span(
             "serving.decode", trace_id=req.trace_id,
@@ -668,15 +635,11 @@ class ContinuousBatchingScheduler:
         deadline-expired); its future already carries the exception."""
         self.metrics.count("cancelled" if kind == "cancelled"
                            else "timed_out")
-        _span("end_span", req.id, "QUEUE")
         _spans.end_span(req.span_ids.pop("queued", ""),
                         status=kind)
         _spans.end_span(req.span_ids.pop("paused", ""),
                         status=kind)
         _spans.end_span(req.span_ids.pop("root", ""), status=kind)
-        tl = _timeline()
-        if tl is not None:
-            tl.mark(f"request:{req.id}", kind.upper())
         _events.emit("serving.queue_drop", request_id=req.id,
                      trace_id=req.trace_id, reason=kind)
 
@@ -715,7 +678,6 @@ class ContinuousBatchingScheduler:
         self.pool.free(slot)
         # hvd: disable=HVD004(dispatch-thread-owned retire; abandon() clearing concurrently makes this a benign no-op, tolerated by _resolve)
         self.active.pop(slot, None)
-        _span("end_span", req.id, "DECODE")
         _spans.end_span(req.span_ids.pop("decode", ""),
                         status=reason)
         self._finalize(req, reason, now)
@@ -735,15 +697,11 @@ class ContinuousBatchingScheduler:
             self.prefilling.pop(slot, None)
             self._prefill_order.remove(slot)
         self.pool.free(slot)
-        _span("end_span", job.req.id, "PREFILL")
         _spans.end_span(job.req.span_ids.pop("prefill", ""),
                         status=reason)
         self._finalize(job.req, reason, time.time())
 
     def _finalize(self, req: Request, reason: str, now: float):
-        tl = _timeline()
-        if tl is not None:
-            tl.mark(f"request:{req.id}", reason.upper())
         _events.emit("serving.retire", request_id=req.id,
                      trace_id=req.trace_id, reason=reason,
                      tokens=len(req.tokens))

@@ -120,6 +120,11 @@ class SlotPool:
         self._gens: List[Optional[torch.Generator]] = [None] * num_slots
         self._sampled: set = set()
         self._free: List[int] = list(range(num_slots))
+        # Host mirror of each slot's fill while it prefills (prompt
+        # tokens streamed in so far): bounds the prefix loop of the
+        # next chunk to the filled cache slices without reading the
+        # device index.
+        self._fill: List[int] = [0] * num_slots
         # Two pinned host buffers alternate under the one-deep ring:
         # tick N+2 reuses tick N's buffer only after N was synced.
         pin = dev.type == "cuda"
@@ -194,6 +199,7 @@ class SlotPool:
         self.maybe_compiling = ("reset",) not in self._seen_shapes
         try:
             slot_reset(self._cache, slot)
+            self._fill[slot] = 0
             self._live[slot] = False
             self._done[slot] = False
             self._note_shape(("reset",))
@@ -217,7 +223,8 @@ class SlotPool:
                 # is enqueued like any kernel.
                 toks = toks.pin_memory().to(self.device, non_blocking=True)
             logits = slot_prefill_chunk(self.dec_model, self._cache, slot,
-                                        toks)
+                                        toks, fill=self._fill[slot])
+            self._fill[slot] += c
             self._note_shape(("prefill", c))
             return logits
         finally:
@@ -348,6 +355,7 @@ class SlotPool:
         if slot in self._free:
             raise ValueError(f"slot {slot} is already free")
         slot_reset(self._cache, slot)
+        self._fill[slot] = 0
         self._live[slot] = False
         self._done[slot] = False
         self._toks[slot] = 0

@@ -174,3 +174,47 @@ def test_later_slices_raise():
                          dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="window"):
         tt.generate(m, torch.zeros(1, 3, dtype=torch.long), 2)
+
+
+@pytest.mark.parametrize("prompt_len", [5, 13, 27])
+def test_prefix_loop_reads_only_filled_slices(pairs, monkeypatch,
+                                              prompt_len):
+    """The slot pool's prefill chunks bound the plain prefix loop by the
+    host-known fill: bitwise the loop over the whole cache, reading
+    ceil(fill / decode_prefix_block) slices instead of all of them."""
+    from horovod_tpu_torch.parallel.tensor import ParallelSelfAttention
+    _, params, _ = pairs["llama_rope_gqa"]
+    tm = tt.TransformerLM(VOCAB, LAYERS, HEADS, HEAD_DIM, max_len=MAX_LEN,
+                          dtype=torch.float32, device="cpu",
+                          decode_prefix_block=8,
+                          **PRESETS["llama_rope_gqa"])
+    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    dec = tt.slot_decode_model(tm)
+    prompt = torch.from_numpy(_tokens(1, prompt_len, seed=prompt_len))[0]
+    reads = []
+    repeat_kv = ParallelSelfAttention._repeat_kv
+
+    def counted(self, t):
+        reads[-1] += 1
+        return repeat_kv(self, t)
+    monkeypatch.setattr(ParallelSelfAttention, "_repeat_kv", counted)
+
+    caches = {b: tt.init_slot_cache(tm, 2) for b in ("full", "bounded")}
+    fill, want = 0, 0
+    for c in tt.prefill_chunks(prompt_len, 4):
+        chunk = prompt[fill:fill + c]
+        reads.append(0)
+        full = tt.slot_prefill_chunk(dec, caches["full"], 1, chunk)
+        reads.append(0)
+        bounded = tt.slot_prefill_chunk(dec, caches["bounded"], 1, chunk,
+                                        fill=fill)
+        assert torch.equal(full, bounded)
+        fill += c
+        # K and V of each slice, in every layer
+        assert reads[-2] == 2 * LAYERS * (MAX_LEN // 8)
+        assert reads[-1] == 2 * LAYERS * -(-fill // 8)
+        want += -(-fill // 8)
+    for a, b in zip(caches["full"].k + caches["full"].v,
+                    caches["bounded"].k + caches["bounded"].v):
+        assert torch.equal(a, b)
+    assert sum(reads[1::2]) == 2 * LAYERS * want
