@@ -8,14 +8,21 @@ serves on the card.
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
 1. Card and build: the card's name and power limit (nvidia-smi), then
-   both CUDA kernels built from ``horovod_tpu_torch/csrc`` with nvcc
-   (the ``-Xptxas -v`` register / shared-memory lines are printed).
+   the three CUDA kernels built from ``horovod_tpu_torch/csrc`` with
+   nvcc, one process per source started together (the ``-Xptxas -v``
+   register / shared-memory lines are printed).
 2. Each kernel against its plain PyTorch version on the card, f32 and
    bf16: flash forward at the generate path's [4, 512, 8, 128] and at
    [1, 2048, 8, 128] (causal), plus GQA + window + q_offset and a
    ragged Sk; flash decode at 8 lanes, W=2048, H=8, Hkv 8 and 2, with
    per-lane lengths spread over 1..2048. The decode kernel run one key
    short (length - 1, a planted fault) must fail the same check.
+2b. The paged-decode kernel against its plain version, f32 and bf16:
+   8 lanes, max_len 2048, block_size 16, H=8, D=128, Hkv 8 and 2, fills
+   spread over 0..2047 plus 15, 16 and 2048, each lane's table a random
+   permutation of pool blocks. The same call with one lane's first
+   table entry swapped with the entry holding its fill (a planted
+   fault) must fail the check.
 3. Full-width `generate` (the repo's serving bench model: vocab 32768,
    12 layers, 8 heads of 128, max_len 2048, bf16, attn_impl="flash",
    decode_prefix_impl="pallas", random weights from seed 0): 4 prompts
@@ -23,16 +30,26 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    last-position logits of the prefill and the first 8 ticks against
    the same model on the plain versions; the plain decode run one key
    short must fail that comparison.
+3b. Teacher-forced logits on the paged primitives (same model, block
+   pools of 16-token blocks, shuffled tables): 4 prompts x 512 prefilled
+   through `paged_prefill_chunk`, then 8 single-token steps through the
+   paged-decode kernel, against the same steps on its plain version.
 4. Full-width `ServingEngine`: 8 slots, 16 requests with prompts of
    32..512 tokens and 64 new tokens each; TTFT/TPOT p50 and tokens/s.
+4b. Full-width paged `ServingEngine(paged=True, paged_kernel="pallas")`:
+   16 slots over 1025 blocks of 16 tokens (the 8-slot fixed pool's KV
+   bytes), a burst of 24 requests, each a shared 256-token system
+   prompt plus a 32..256-token tail, 64 new tokens each; TTFT/TPOT p50,
+   tokens/s, ticks, prefix hits, prefill tokens skipped, peak lanes.
+   Then the same burst on the fixed 8-slot pool (the same KV bytes).
 5. A ``{"kernels": [...]}`` line (launches on the main path, CUDA-event
    times of kernel / plain version / one PyTorch library call, and the
    roofline bound), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
-set to 0 just before each main-path phase (generate, engine) and read
-just after. Launches made to compare or time a kernel do not count.
+set to 0 just before each main-path phase (generate, engine, paged
+engine) and read just after. Launches made to compare or time a kernel do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
 
@@ -69,6 +86,7 @@ MIN_ARGMAX_AGREEMENT = 0.99
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:321",
     "flash_decode": "horovod_tpu/ops/flash_attention.py:1105",
+    "paged_decode": "horovod_tpu/ops/paged_attention.py:287",
 }
 
 
@@ -194,6 +212,69 @@ def check_kernels(tfa, dev):
     return errs
 
 
+def paged_case(g, dev, dt, hkv, fills, *, bs=16, T=128):
+    """One paged-decode input set: 8 lanes over a pool of 8 x T + 1
+    blocks, each lane's table a random permutation of pool blocks."""
+    import torch
+    L = len(fills)
+    nb = L * T + 1
+    kp = torch.randn(nb, bs, hkv, 128, device=dev, generator=g).to(dt)
+    vp = torch.randn(nb, bs, hkv, 128, device=dev, generator=g).to(dt)
+    tables = torch.stack([
+        torch.randperm(nb - 1, device=dev, generator=g)[:T] + 1
+        for _ in range(L)]).int()
+    q = torch.randn(L, 8, 128, device=dev, generator=g).to(dt)
+    kn = torch.randn(L, hkv, 128, device=dev, generator=g).to(dt)
+    vn = torch.randn(L, hkv, 128, device=dev, generator=g).to(dt)
+    fill = torch.tensor(fills, dtype=torch.int32, device=dev)
+    return q, kn, vn, tables, fill, kp, vp
+
+
+PAGED_FILLS = [0, 15, 16, 700, 1024, 1500, 2047, 2048]
+
+
+def check_paged(tpa, dev):
+    """Phase 2b: the paged-decode kernel against its plain version."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(4321)
+    errs = {"max_abs_err_f32": 0.0}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for hkv in (8, 2):
+            args = paged_case(g, dev, dt, hkv, PAGED_FILLS)
+            out = tpa.paged_decode_cuda(*args)
+            ref = tpa.paged_decode_plain(*args)
+            torch.cuda.synchronize()
+            err, ok = max_err(out, ref, TOL[dtype])
+            log(f"paged_decode {dtype:8s} lanes 8 max_len 2048 bs 16 H 8 "
+                f"Hkv {hkv} fills {PAGED_FILLS} max_abs_err {err:.3e}")
+            if not ok:
+                raise AssertionError(f"paged_decode {dtype} Hkv {hkv}: "
+                                     f"err {err}")
+            if dtype == "float32":
+                errs["max_abs_err_f32"] = max(errs["max_abs_err_f32"], err)
+            elif hkv == 8:
+                errs["max_abs_err"] = err
+                # The check must see a table fault: lane 4's first entry
+                # swapped with the entry holding its fill (swapping two
+                # wholly attended blocks would be invisible — attention
+                # is a function of the SET of rotated key/value rows).
+                q, kn, vn, tables, fill, kp, vp = args
+                bad = tables.clone()
+                j = PAGED_FILLS[4] // 16
+                bad[4, [0, j]] = tables[4, [j, 0]]
+                fout = tpa.paged_decode_cuda(q, kn, vn, bad, fill, kp, vp)
+                ferr, fok = max_err(fout, ref, TOL[dtype])
+                log(f"paged_decode planted fault (lane 4 entries 0 and "
+                    f"{j} swapped): max_abs_err {ferr:.3e}, caught "
+                    f"{not fok}")
+                if fok:
+                    raise AssertionError("the paged-decode check does not "
+                                         "see a swapped table entry")
+                errs["planted_fault_err"] = ferr
+    return errs
+
+
 def time_kernels(tfa, dev):
     """Kernel, plain-version and library times at the path's shapes,
     and the roofline bound computed from these inputs."""
@@ -243,6 +324,38 @@ def time_kernels(tfa, dev):
         bound_by="operations" if t_flop >= t_byte else "bytes",
         library="torch.nn.functional.scaled_dot_product_attention "
                 "(equal lengths)")
+
+    # The paged tick at 8 lanes, each attending 2048 positions (fill
+    # 2047: 2047 pool rows through shuffled tables + the merged row).
+    from horovod_tpu_torch.ops import paged_attention as tpa
+    bs, T = 16, W // 16
+    q8, kn, vn, tables, fill, kp, vp = paged_case(
+        g, dev, bf, Hkv, [W - 1] * L, bs=bs, T=T)
+    npos = int(fill.sum().item())                    # pool rows read
+    nbytes = (npos * Hkv * D * 2 * 2 + 2 * L * Hkv * D * 2
+              + 2 * L * H * D * 2 + L * T * 4 + L * 4)
+    flops = 4.0 * (npos + L) * H * D
+    t_flop, t_byte = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    qg = q8[:, :, None]                              # [L, H, 1, D]
+
+    def gather_sdpa():
+        kg = kp[tables.long()].flatten(1, 2).transpose(1, 2)
+        vg = vp[tables.long()].flatten(1, 2).transpose(1, 2)
+        return F.scaled_dot_product_attention(qg, kg, vg)
+
+    rows["paged_decode"] = dict(
+        shape=[L, W, H, Hkv, D], dtype="bfloat16", block_size=bs,
+        fill=W - 1,
+        ms=cuda_time_ms(lambda: tpa.paged_decode_cuda(
+            q8, kn, vn, tables, fill, kp, vp), iters=50),
+        plain_ms=cuda_time_ms(lambda: tpa.paged_decode_plain(
+            q8, kn, vn, tables, fill, kp, vp), iters=5, warmup=1),
+        library_ms=cuda_time_ms(gather_sdpa, iters=50),
+        bound_ms=max(t_flop, t_byte) * 1e3,
+        bound_by="operations" if t_flop >= t_byte else "bytes",
+        library="k_pool[table] gather + scaled_dot_product_attention "
+                "(two calls: no single PyTorch call reads through a "
+                "block table)")
 
     # One 2048-token sequence: the compute-bound reference shape.
     B2, S2 = 1, 2048
@@ -365,27 +478,30 @@ def run_generate(model, tfa, dev):
                 planted_fault_argmax_agreement=fault_agree)
 
 
-def run_engine(model, tfa, dev):
-    """Phase 4: full-width ServingEngine, 8 slots, 16 requests."""
-    import numpy as np
+def serve_burst(model, prompts, new, kernels, **engine_kw):
+    """Submit ``prompts`` as one burst to a warmed `ServingEngine`
+    (``new`` tokens each) and wait for all of them. The launch counts
+    of ``kernels`` ({name: wrapper}) are set to 0 just before the burst
+    and read just after it. Returns (results, snapshot, seconds,
+    launches, KV bytes of the pool)."""
     import torch
     from horovod_tpu_torch.serving import ServingEngine
-    rs = np.random.RandomState(3)
-    prompts = [rs.randint(0, model.vocab_size, (int(n),))
-               for n in rs.randint(32, 513, 16)]
-    new = 64
-    with ServingEngine(model, num_slots=8, max_queue=16,
-                       warmup=True) as eng:
+    with ServingEngine(model, max_queue=len(prompts), warmup=True,
+                       **engine_kw) as eng:
+        pool = eng.pool
+        leaves = ([t for pair in pool._pools for t in pair]
+                  if engine_kw.get("paged") else
+                  pool._cache.k + pool._cache.v)
+        kv_bytes = sum(t.numel() * t.element_size() for t in leaves)
         torch.cuda.synchronize()
-        tfa.flash_fwd_cuda.launches = 0
-        tfa.flash_decode_cuda.launches = 0
+        for fn in kernels.values():
+            fn.launches = 0
         t0 = time.time()
         handles = [eng.submit(p, new) for p in prompts]
         results = [h.result(timeout=600) for h in handles]
         torch.cuda.synchronize()
         dt = time.time() - t0
-        launches = {"flash_fwd": tfa.flash_fwd_cuda.launches,
-                    "flash_decode": tfa.flash_decode_cuda.launches}
+        launches = {k: fn.launches for k, fn in kernels.items()}
         snap = eng.metrics_snapshot()
     for r in results:
         if len(r.tokens) != new or r.finish_reason != "length":
@@ -394,18 +510,134 @@ def run_engine(model, tfa, dev):
                                  f"{r.finish_reason}")
         if not ((r.tokens >= 0) & (r.tokens < model.vocab_size)).all():
             raise AssertionError(f"request {r.request_id}: bad token ids")
-    ticks = snap["ticks"]
-    if launches["flash_decode"] < ticks * model.num_layers:
-        raise AssertionError(f"decode launches {launches['flash_decode']}"
-                             f" < ticks {ticks} x {model.num_layers}")
     tokens = sum(len(r.tokens) for r in results)
-    info = dict(seconds=dt, ticks=ticks, launches=launches,
+    return dict(seconds=dt, ticks=snap["ticks"], launches=launches,
                 completed=snap["completed"], tokens=tokens,
                 tokens_per_s=tokens / dt,
                 ttft_ms_p50=snap["ttft_ms"]["p50"],
                 tpot_ms_p50=snap["tpot_ms"]["p50"],
+                prefix_hits=snap["prefix_hits"],
+                prefill_tokens_skipped=snap["prefill_tokens_skipped"],
+                peak_active=snap["peak_active"], kv_bytes=kv_bytes,
                 prompt_tokens=int(sum(len(p) for p in prompts)))
+
+
+def run_engine(model, kernels):
+    """Phase 4: full-width ServingEngine, 8 slots, 16 requests."""
+    import numpy as np
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, model.vocab_size, (int(n),))
+               for n in rs.randint(32, 513, 16)]
+    info = serve_burst(model, prompts, 64, kernels, num_slots=8)
+    launches, ticks = info["launches"], info["ticks"]
+    if launches["flash_decode"] < ticks * model.num_layers:
+        raise AssertionError(f"decode launches {launches['flash_decode']}"
+                             f" < ticks {ticks} x {model.num_layers}")
     return info
+
+
+class plain_paged_decode:
+    """Context: the paged S=1 attention runs the kernel's PLAIN version
+    (the walk at the block size) on the card — the comparison model."""
+
+    def __init__(self, tpa):
+        self.tpa = tpa
+
+    def __enter__(self):
+        self.saved = self.tpa.paged_decode_attention
+        self.tpa.paged_decode_attention = self.tpa.paged_decode_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.tpa.paged_decode_attention = self.saved
+
+
+def paged_teacher_forced(model, tpa, dev):
+    """Phase 3b: teacher-forced logits on the paged primitives, the
+    paged-decode kernel vs its plain version."""
+    import torch
+    from horovod_tpu_torch.models import transformer as tt
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, P, n_ticks, bs = 4, 512, 8, 16
+    prompt = torch.randint(0, model.vocab_size, (B, P), device=dev,
+                           generator=g)
+    forced = torch.randint(0, model.vocab_size, (B, n_ticks), device=dev,
+                           generator=g)
+    spec = tt.paged_cache_spec(model, bs)
+    nb = B * spec.blocks_per_seq + 1
+    perm = torch.randperm(nb - 1, device=dev, generator=g) + 1
+    tables = perm.view(B, spec.blocks_per_seq).int()
+
+    def run():
+        pools = tt.init_paged_pools(model, spec, nb)
+        fills = torch.zeros(B, dtype=torch.int32, device=dev)
+        outs = []
+        for b in range(B):
+            for off in range(0, P, 128):
+                last = tt.paged_prefill_chunk(
+                    model, spec, pools, tables, fills, b,
+                    prompt[b, off:off + 128], paged_kernel="pallas",
+                    fill=off)
+            outs.append([last])
+        for t in range(n_ticks):
+            for b in range(B):
+                outs[b].append(tt.paged_prefill_chunk(
+                    model, spec, pools, tables, fills, b,
+                    forced[b, t:t + 1], paged_kernel="pallas",
+                    fill=P + t))
+        return torch.stack([torch.stack(o) for o in outs])
+
+    with torch.no_grad():
+        before = tpa.paged_decode_cuda.launches
+        k_logits = run()
+        launched = tpa.paged_decode_cuda.launches - before
+        with plain_paged_decode(tpa):
+            p_logits = run()
+    torch.cuda.synchronize()
+    if launched != B * n_ticks * model.num_layers:
+        raise AssertionError(f"paged teacher forcing launched the kernel "
+                             f"{launched} times, not "
+                             f"{B * n_ticks * model.num_layers}")
+    err = float((k_logits - p_logits).abs().max())
+    agree = float((k_logits.argmax(-1) == p_logits.argmax(-1))
+                  .float().mean())
+    finite = bool(torch.isfinite(k_logits).all())
+    log(f"paged teacher-forced logits (prefill + {n_ticks} ticks), kernel "
+        f"vs plain: max_abs_err {err:.4f} (tol {LOGIT_TOL}), argmax "
+        f"agreement {agree:.3f} (min {MIN_ARGMAX_AGREEMENT}), |logit| max "
+        f"{float(p_logits.abs().max()):.3f}")
+    if not finite or err > LOGIT_TOL:
+        raise AssertionError(f"paged logits differ: {err}")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"paged argmax agreement {agree}")
+    return dict(logits_max_abs_err=err, argmax_agreement=agree)
+
+
+def run_paged_engine(model, kernels):
+    """Phase 4b: the full-width paged engine through the paged-decode
+    kernel, 16 slots over the 8-slot fixed pool's KV bytes; then the
+    same burst on that fixed 8-slot pool (same KV bytes), the paged
+    pool's yardstick."""
+    import numpy as np
+    rs = np.random.RandomState(5)
+    system = rs.randint(0, model.vocab_size, (256,))
+    prompts = [np.concatenate([system, rs.randint(0, model.vocab_size,
+                                                  (int(n),))])
+               for n in rs.randint(32, 257, 24)]
+    paged = serve_burst(model, prompts, 64, kernels, num_slots=16,
+                        paged=True, paged_kernel="pallas",
+                        kv_block_size=16, kv_blocks=1025)
+    ticks = paged["ticks"]
+    if paged["prefill_tokens_skipped"] <= 0:
+        raise AssertionError("the paged engine skipped no prefill tokens "
+                             "(no prefix-cache hit)")
+    if paged["launches"]["paged_decode"] < ticks * model.num_layers:
+        raise AssertionError(f"paged_decode launches "
+                             f"{paged['launches']['paged_decode']} < "
+                             f"ticks {ticks} x {model.num_layers}")
+    paged["fixed_same_burst"] = serve_burst(model, prompts, 64, kernels,
+                                            num_slots=8)
+    return paged
 
 
 def main() -> int:
@@ -424,6 +656,7 @@ def main() -> int:
                                                       serving_params)
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as tfa
+    from horovod_tpu_torch.ops import paged_attention as tpa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -445,6 +678,7 @@ def main() -> int:
                 log(f"ptxas[{stem}] {line.strip()}")
 
     errs = check_kernels(tfa, dev)
+    errs["paged_decode"] = check_paged(tpa, dev)
 
     t0 = time.time()
     model = TransformerLM(32768, 12, 8, 128, max_len=2048,
@@ -460,18 +694,37 @@ def main() -> int:
         f"built in {time.time() - t0:.1f} s")
 
     gen = run_generate(model, tfa, dev)
-    eng = run_engine(model, tfa, dev)
+    paged_tf = paged_teacher_forced(model, tpa, dev)
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda,
+               "paged_decode": tpa.paged_decode_cuda}
+    eng = run_engine(model, kernels)
     label = f"[{smi}]"
     log(f"engine 16 req x 64 new, 8 slots: {eng['seconds']:.2f} s, "
         f"{eng['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{eng['ttft_ms_p50']} ms, TPOT p50 {eng['tpot_ms_p50']} ms, "
         f"{eng['ticks']} ticks, launches {eng['launches']} {label}")
+    peng = run_paged_engine(model, kernels)
+    log(f"paged engine 24 req (256 shared + 32..256 tail) x 64 new, 16 "
+        f"slots, 1025 blocks x 16 ({peng['kv_bytes'] / 1e9:.3f} GB KV): "
+        f"{peng['seconds']:.2f} s, {peng['tokens_per_s']:.1f} tokens/s, "
+        f"TTFT p50 {peng['ttft_ms_p50']} ms, TPOT p50 "
+        f"{peng['tpot_ms_p50']} ms, {peng['ticks']} ticks, prefix hits "
+        f"{peng['prefix_hits']}, prefill tokens skipped "
+        f"{peng['prefill_tokens_skipped']}, peak lanes "
+        f"{peng['peak_active']}, launches {peng['launches']} {label}")
+    fx = peng["fixed_same_burst"]
+    log(f"the same burst on the fixed pool, 8 slots "
+        f"({fx['kv_bytes'] / 1e9:.3f} GB KV): {fx['seconds']:.2f} s, "
+        f"{fx['tokens_per_s']:.1f} tokens/s, TTFT p50 {fx['ttft_ms_p50']} "
+        f"ms, TPOT p50 {fx['tpot_ms_p50']} ms, {fx['ticks']} ticks, peak "
+        f"lanes {fx['peak_active']} {label}")
 
     timing = time_kernels(tfa, dev)
-    main_launches = {k: gen["launches"][k] + eng["launches"][k]
-                     for k in REPLACES}
+    main_launches = {k: gen["launches"].get(k, 0) + eng["launches"][k]
+                     + peng["launches"][k] for k in REPLACES}
     kernels = []
-    for name in ("flash_fwd", "flash_decode"):
+    for name in REPLACES:
         t = timing[name]
         if main_launches[name] <= 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -495,6 +748,7 @@ def main() -> int:
     record = dict(card=smi, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernels=kernels, timing=timing, generate=gen, engine=eng,
+                  paged_teacher_forced=paged_tf, paged_engine=peng,
                   seconds=time.time() - t_start)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -12,12 +12,18 @@ one:
     block_i/attn/{qkv,out}/{kernel,bias}   -> blocks.i.attn.{qkv,out}.*
     block_i/mlp/{wi,wo,gate,up,down}/...   -> blocks.i.mlp.*
     ln_f/{scale,bias}                      -> ln_f.*
+
+`paged_pools_from_jax(pools)` maps the JAX package's paged KV pools
+(`init_paged_pools`: one [num_blocks, 1, block_size, Hkv, D] array
+per KV leaf of the decode cache, in flatten order) onto the port's
+per-layer ``(k_pool, v_pool)`` pairs, so both packages can be fed the
+same cache state.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,3 +65,38 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             t = torch.from_numpy(np.array(arr))
         sd[".".join(parts)] = t
     return sd
+
+
+def paged_pools_from_jax(pools: Sequence) -> List[Tuple[torch.Tensor,
+                                                       torch.Tensor]]:
+    """The port's per-layer ``(k_pool, v_pool)`` [num_blocks,
+    block_size, Hkv, D] tensors from the JAX package's pool list (numpy
+    arrays [num_blocks, 1, block_size, Hkv, D], one per KV leaf in the
+    decode cache's flatten order). Flatten order sorts the layer names
+    as strings (``block_10`` before ``block_2``) and puts
+    ``cached_key`` before ``cached_value`` within a layer; int8-KV
+    scale pools are a later slice and raise."""
+    if len(pools) % 2:
+        raise ValueError(
+            f"expected a (key, value) pool pair per layer, got "
+            f"{len(pools)} pools (int8-KV scale pools are a later "
+            f"slice of the port)")
+    n = len(pools) // 2
+    order = sorted(range(n), key=lambda i: f"block_{i}")
+    out: List = [None] * n
+    for j, layer in enumerate(order):
+        pair = []
+        for arr in pools[2 * j:2 * j + 2]:
+            arr = np.asarray(arr)
+            if arr.ndim != 5 or arr.shape[1] != 1:
+                raise ValueError(
+                    f"pool leaf must be [num_blocks, 1, block_size, Hkv, "
+                    f"D], got {arr.shape}")
+            if arr.dtype.name == "bfloat16":
+                t = torch.from_numpy(arr.astype(np.float32)).to(
+                    torch.bfloat16)
+            else:
+                t = torch.from_numpy(np.array(arr))
+            pair.append(t[:, 0].contiguous())
+        out[layer] = tuple(pair)
+    return out

@@ -14,8 +14,10 @@ batched call over all lanes with per-lane fill and position tensors.
 
 Attention kernels: ``dot`` (materialized softmax), ``blockwise``
 (online-softmax loop) and ``flash`` (the CUDA flash-forward kernel,
-its plain version on the CPU). Sequence-parallel attention, MoE,
-LoRA, int8 weights/KV and the paged cache are later slices.
+its plain version on the CPU). The ``paged_*`` functions are the
+device surface of `serving.paging.PagedSlotPool` (block pools read
+through block tables). Sequence-parallel attention, MoE, LoRA and
+int8 weights/KV are later slices.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from torch import nn
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  blockwise_attention,
                                                  check_window)
-from horovod_tpu_torch.parallel.tensor import (LayerCache, ParallelMLP,
+from horovod_tpu_torch.parallel.tensor import (LayerCache,
+                                               PagedLayerCache, ParallelMLP,
                                                ParallelSelfAttention,
                                                ParallelSwiGLU)
 
@@ -582,3 +585,224 @@ def slot_decode_tick(dec_model: Callable, cache: KVCache,
     nxt = sample_token(logits, temps, top_ps, noise)
     emit = torch.where(done, eos.to(nxt.dtype), nxt)
     return emit, done | (emit == eos)
+
+
+# ---------------------------------------------------------------------------
+# The paged slot cache (the device surface of `serving.paging`).
+#
+# Device KV lives in per-layer block pools [num_blocks, block_size, Hkv,
+# D] shared by every lane; each lane indexes them through its row of the
+# block table [num_slots, blocks_per_seq] int32, and its true fill is
+# one int32 per lane, shared by every layer. Block 0 is the NULL block:
+# never allocated, never attended; masked lanes route their dead writes
+# there. Three modes (`serving.paging._resolve_paged_kernel`):
+#
+# * "off" — each call gathers every lane's whole table into a linear
+#   [lanes, max_len] view (`_paged_view`), runs the linear decode path
+#   on it and scatters the call's new rows back into their blocks (the
+#   oracle);
+# * "lax" — attention walks only the filled blocks through the tables
+#   (`ops.paged_attention.paged_prefix_attention`) at the model's
+#   decode_prefix_block granularity, the S=1 tick going to the
+#   paged-decode kernel when the model's decode_prefix_impl is "pallas";
+# * "pallas" — as "lax", with every S=1 call on the paged-decode kernel
+#   (CUDA on the card, its plain version on the CPU). S > 1 prefill
+#   chunks never reach the kernel and keep walking at the model's
+#   decode_prefix_block (the JAX package walks them at the block size:
+#   the same values, ~16x fewer steps at 256-token granularity).
+#
+# Unlike the JAX package, whose programs return new pools, the pools,
+# tables and fills here are updated IN PLACE.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PagedCacheSpec:
+    """Block geometry of one paged slot cache: ``block_size`` tokens per
+    block, ``blocks_per_seq`` table entries per lane (max_len /
+    block_size)."""
+
+    block_size: int
+    blocks_per_seq: int
+
+    @property
+    def view_len(self) -> int:
+        return self.block_size * self.blocks_per_seq
+
+
+def paged_cache_spec(model: TransformerLM,
+                     block_size: int) -> PagedCacheSpec:
+    """The paged geometry of ``model``: ``block_size`` must divide
+    max_len exactly (the gathered view is then shape-identical to the
+    linear cache), and the model must have no sliding window (a
+    rolling buffer has no block-aligned prefix to page or share)."""
+    if model.window is not None:
+        raise ValueError(
+            "paged KV cache requires window=None (a rolling-window "
+            "cache has no block-aligned prefix to page or share)")
+    if block_size < 1 or model.max_len % block_size:
+        raise ValueError(
+            f"block_size must divide max_len={model.max_len} exactly, "
+            f"got {block_size}")
+    return PagedCacheSpec(int(block_size), model.max_len // block_size)
+
+
+def init_paged_pools(model: TransformerLM, spec: PagedCacheSpec,
+                     num_blocks: int) -> list:
+    """Zero-filled block pools on the model's device: one
+    ``(k_pool, v_pool)`` pair of [num_blocks, block_size, Hkv, D] per
+    layer. Block 0 is the null block."""
+    if num_blocks < 2:
+        raise ValueError(
+            f"num_blocks must be >= 2 (block 0 is the reserved null "
+            f"block), got {num_blocks}")
+    shape = (num_blocks, spec.block_size, model.num_kv, model.head_dim)
+    return [tuple(torch.zeros(shape, dtype=model.dtype,
+                              device=model.device) for _ in range(2))
+            for _ in range(model.num_layers)]
+
+
+def _paged_view(pools, tables, fills) -> KVCache:
+    """Every lane's [lanes, max_len, Hkv, D] linear cache view gathered
+    through its block table (the "off" mode), with index = the fills.
+    The view is a copy: writes into it do not reach the pools."""
+    idx = tables.long()
+    return KVCache([kp[idx].flatten(1, 2) for kp, _ in pools],
+                   [vp[idx].flatten(1, 2) for _, vp in pools],
+                   fills.clone())
+
+
+def _paged_apply(model: TransformerLM, spec: PagedCacheSpec, pools,
+                 tables, fills, toks, write_block, write_off,
+                 paged_kernel: str, prefix_len: Optional[int]):
+    """THE dispatch site the prefill chunk and the tick share: one
+    any-fill decode call of ``toks`` [lanes, S] over the lanes of
+    ``tables``/``fills``, the new K/V rows ending in the pools at
+    (``write_block``, ``write_off``) [lanes, S]. Returns ``(hidden,
+    head)``; the caller advances the fills."""
+    S = toks.shape[1]
+    if paged_kernel == "off":
+        view = _paged_view(pools, tables, fills)
+        hidden, head = model(toks, view, chunked_prefill=True,
+                             prefix_len=prefix_len, return_hidden=True)
+        # The rows the linear path just wrote (its start clamps to
+        # W - S, as the write did).
+        start = fills.long().clamp(max=spec.view_len - S)
+        rows = start[:, None] + torch.arange(S, device=toks.device)
+        lanes = torch.arange(toks.shape[0], device=toks.device)[:, None]
+        for (kp, vp), kv, vv in zip(pools, view.k, view.v):
+            kp[write_block, write_off] = kv[lanes, rows]
+            vp[write_block, write_off] = vv[lanes, rows]
+        return hidden, head
+    cache = PagedKVCache([kp for kp, _ in pools], [vp for _, vp in pools],
+                         tables, fills, write_block, write_off,
+                         decode_impl=("pallas" if paged_kernel == "pallas"
+                                      else None))
+    return model(toks, cache, chunked_prefill=True, prefix_len=prefix_len,
+                 return_hidden=True)
+
+
+@dataclass
+class PagedKVCache:
+    """Paged decode cache of a whole model, as the model's forward
+    takes it: per-layer pools, the lanes' tables and fills, and the
+    write targets of this call (see `PagedLayerCache`). ``index`` is
+    the fill (learned positions read it)."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    table: torch.Tensor
+    fill: torch.Tensor
+    write_block: torch.Tensor
+    write_off: torch.Tensor
+    decode_impl: Optional[str] = None
+
+    @property
+    def index(self) -> torch.Tensor:
+        return self.fill
+
+    def layer(self, i: int) -> PagedLayerCache:
+        return PagedLayerCache(self.k[i], self.v[i], self.table, self.fill,
+                               self.write_block, self.write_off,
+                               self.decode_impl)
+
+
+@torch.no_grad()
+def paged_prefill_chunk(model: TransformerLM, spec: PagedCacheSpec, pools,
+                        tables, fills, slot: int, chunk: torch.Tensor, *,
+                        paged_kernel: str = "lax",
+                        fill: Optional[int] = None) -> torch.Tensor:
+    """Append one [C]-token prompt chunk into lane ``slot``'s paged cache
+    (pools and ``fills[slot]`` updated in place) and return its
+    last-position logits [V] f32 on the device. The call is the any-fill
+    ``chunked_prefill`` path, correct at any fill, including one that
+    starts past a shared-prefix span the admission matched and skipped.
+    ``fill``: the lane's fill before the chunk as the host knows it; it
+    bounds the walk (and the "off" view's prefix loop) to the filled
+    blocks. The chunk must end within max_len."""
+    C = chunk.shape[0]
+    table = tables[slot:slot + 1]
+    f = fills[slot:slot + 1]
+    pos = f.long()[:, None] + torch.arange(C, device=chunk.device)
+    bids = table.long().gather(1, pos // spec.block_size)
+    hidden, head = _paged_apply(
+        model, spec, pools, table, f, chunk[None, :], bids,
+        pos % spec.block_size, paged_kernel,
+        None if fill is None else fill + C)
+    f += C
+    return (hidden[0, -1] @ head.to(hidden.dtype).T).float()
+
+
+@torch.no_grad()
+def paged_decode_tick(model: TransformerLM, spec: PagedCacheSpec, pools,
+                      tables, fills, toks: torch.Tensor,
+                      temps: torch.Tensor, top_ps: torch.Tensor,
+                      noise: Optional[torch.Tensor], live: torch.Tensor,
+                      done: torch.Tensor, eos: torch.Tensor, *,
+                      paged_kernel: str = "lax",
+                      prefix_len: Optional[int] = None):
+    """One continuous-batching decode tick over EVERY lane of a paged
+    pool, as one batched model call; pools and fills are updated in
+    place. Returns ``(next_toks [lanes], done)``. Same occupancy
+    semantics as `slot_decode_tick` in paged form: a lane that must not
+    advance (``live`` False, or ``done``) keeps its fill and routes its
+    row to the null block. A lane at fill == max_len (the pipelined
+    tick at the P + max_new - 1 == max_len boundary) has no table entry
+    for its row: the write goes to the null block too, never to a
+    clipped id, which would overwrite the lane's last real block.
+    ``prefix_len``: a host-side upper bound on every advancing lane's
+    fill after the tick (bounds the walk; None walks whole tables)."""
+    bs, T = spec.block_size, spec.blocks_per_seq
+    adv = live & ~done
+    blk = fills.long() // bs
+    owner = tables.long().gather(1, blk.clamp(max=T - 1)[:, None])[:, 0]
+    bids = torch.where(adv & (blk < T), owner, torch.zeros_like(owner))
+    offs = fills.long() % bs
+    hidden, head = _paged_apply(model, spec, pools, tables, fills,
+                                toks[:, None], bids[:, None],
+                                offs[:, None], paged_kernel, prefix_len)
+    fills.copy_(torch.where(adv, fills + 1, fills))
+    logits = (hidden[:, -1] @ head.to(hidden.dtype).T).float()
+    nxt = sample_token(logits, temps, top_ps, noise)
+    emit = torch.where(done, eos.to(nxt.dtype), nxt)
+    return emit, done | (emit == eos)
+
+
+@torch.no_grad()
+def paged_copy_block(pools, src: int, dst: int):
+    """Device-side block copy of every pool (in place) — the
+    copy-on-write primitive: before a lane appends into a block it
+    shares, the allocator gives it a private copy and this
+    materializes the bytes."""
+    for kp, vp in pools:
+        kp[dst] = kp[src]
+        vp[dst] = vp[src]
+
+
+def gather_block_rows(pools, block_ids) -> list:
+    """The [len(block_ids), block_size, Hkv, D] rows of every pool for a
+    block-id list, in leaf order (layer 0 K, layer 0 V, layer 1 K, ...)
+    — the KV-block export. Stays on the device; the caller decides
+    whether to bounce through the host."""
+    dev = pools[0][0].device
+    idx = torch.as_tensor(list(block_ids), dtype=torch.long, device=dev)
+    return [t[idx] for pair in pools for t in pair]

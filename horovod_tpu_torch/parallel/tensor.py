@@ -13,6 +13,12 @@ The attention writes this call's K/V rows into the cache IN PLACE (the
 port updates where JAX returned a new cache); advancing the index is
 the caller's job, once per model call, so every layer reads the same
 fill.
+
+A `PagedLayerCache` is the paged form: the shared block pools
+[num_blocks, block_size, Hkv, D], every lane's block table and true
+fill, and where this call's rows land. Attention then reads the pools
+through the tables (`ops.paged_attention`) and writes the new rows
+into their blocks afterwards.
 """
 
 from __future__ import annotations
@@ -129,6 +135,25 @@ class LayerCache:
     index: torch.Tensor
 
 
+@dataclass
+class PagedLayerCache:
+    """One layer's view of a paged KV cache: the block pools
+    ``k_pool``/``v_pool`` [num_blocks, block_size, Hkv, D] shared by
+    every lane, the lanes' block tables ``table`` [L, T] and true fills
+    ``fill`` [L] (int32, on the device), and the block id / in-block
+    offset [L, S] (int64) where each lane's new rows are written after
+    attention (masked lanes name the null block 0). ``decode_impl``
+    overrides the module's ``decode_prefix_impl`` (None keeps it)."""
+
+    k_pool: torch.Tensor
+    v_pool: torch.Tensor
+    table: torch.Tensor
+    fill: torch.Tensor
+    write_block: torch.Tensor
+    write_off: torch.Tensor
+    decode_impl: Optional[str] = None
+
+
 class ParallelSelfAttention(nn.Module):
     """Multi-head self-attention (GQA when ``num_kv_heads`` < heads).
 
@@ -145,8 +170,10 @@ class ParallelSelfAttention(nn.Module):
       prefix loop (`_prefix_attention`), or the cache-wide mask when
       ``decode_prefix_block`` does not divide the cache.
 
-    A sliding ``window`` applies to the non-decode forward; the rolling
-    window cache is a later slice and raises.
+    Called with a `PagedLayerCache`, it runs the paged form
+    (`_paged_decode_attention`). A sliding ``window`` applies to the
+    non-decode forward; the rolling window cache is a later slice and
+    raises.
     """
 
     def __init__(self, num_heads: int, head_dim: int, *, dtype=None,
@@ -301,6 +328,50 @@ class ParallelSelfAttention(nn.Module):
         out = acc / l[..., None]
         return out.transpose(1, 2).to(dtype)
 
+    def _paged_decode_attention(self, q, k, v, cache: PagedLayerCache,
+                                prefix_len: Optional[int] = None):
+        """Decode/prefill attention against a PAGED cache. RoPE rotates
+        at each lane's true fill; the call's K/V rows (at the pool
+        dtype) are merged into the walked blocks, and written into
+        their blocks only after attention. S == 1 under
+        ``decode_prefix_impl="pallas"`` runs the paged-decode kernel
+        (`ops.paged_attention.paged_decode_attention`); everything else
+        walks the table at ``decode_prefix_block`` granularity
+        (`paged_prefix_attention`, its trip count bounded by
+        ``prefix_len``)."""
+        from horovod_tpu_torch.ops.paged_attention import (
+            paged_decode_attention, paged_prefix_attention)
+        S = q.shape[1]
+        pos = cache.fill[:, None].long() + torch.arange(S, device=q.device)
+        q, k = self._maybe_rope(q, k, pos)
+        k_new = k.to(cache.k_pool.dtype)
+        v_new = v.to(cache.v_pool.dtype)
+        bs = cache.k_pool.shape[1]
+        span = cache.table.shape[1] * bs
+        blk = self.decode_prefix_block
+        if not blk:
+            raise ValueError(
+                "paged-kernel decode requires decode_prefix_block "
+                "(the walk granularity); got 0/None")
+        wb = min(int(blk), span)
+        if wb % bs or span % wb:
+            raise ValueError(
+                f"paged-kernel decode needs decode_prefix_block "
+                f"({blk}) to be a multiple of the KV block size "
+                f"({bs}) and to divide max_len ({span})")
+        impl = cache.decode_impl or self.decode_prefix_impl
+        if impl == "pallas" and S == 1:
+            out = paged_decode_attention(
+                q[:, 0], k_new[:, 0], v_new[:, 0], cache.table,
+                cache.fill, cache.k_pool, cache.v_pool)[:, None]
+        else:
+            out = paged_prefix_attention(
+                q, k_new, v_new, cache.k_pool, cache.v_pool, cache.table,
+                cache.fill, walk_block=wb, prefix_len=prefix_len)
+        cache.k_pool[cache.write_block, cache.write_off] = k_new
+        cache.v_pool[cache.write_block, cache.write_off] = v_new
+        return out
+
     def _decode_attention(self, q, k, v, cache: LayerCache,
                           chunked_prefill: bool,
                           prefix_len: Optional[int] = None):
@@ -308,6 +379,9 @@ class ParallelSelfAttention(nn.Module):
             raise NotImplementedError(
                 "sliding-window decode (the rolling window cache) is a "
                 "later slice of the PyTorch port")
+        if isinstance(cache, PagedLayerCache):
+            return self._paged_decode_attention(q, k, v, cache,
+                                                prefix_len)
         S = q.shape[1]
         W = cache.k.shape[1]
         pos = cache.index[:, None].long() + torch.arange(S, device=q.device)

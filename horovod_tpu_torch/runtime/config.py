@@ -8,7 +8,7 @@ unregistered names. `env_table_md` renders the registry as a markdown
 table.
 
 Only knobs that a ported module reads are registered. A knob of the
-JAX package whose consumer is not ported yet (fusion, paged KV,
+JAX package whose consumer is not ported yet (fusion,
 speculative decoding, the router and fleet, the metrics exporter,
 profiling, elastic membership, checkpoints, ...) is registered by the
 slice that ports its consumer; ROADMAP.md lists them until then.
@@ -27,6 +27,12 @@ DEFAULT_STALL_WARNING_TIME = 60.0            # seconds
 # step (interleaved chunked prefill); <= 0 disables interleaving (whole
 # prompt at once).
 DEFAULT_PREFILL_CHUNK_BUDGET = 128
+# Serving: paged KV cache geometry. Block size in tokens (must divide
+# max_len); block count 0 = auto (num_slots x max_len / block_size,
+# byte-parity with the fixed slot pool); prefix cache on by default.
+DEFAULT_KV_BLOCK_SIZE = 16
+# Overload control: the preemption swap shelf's host-RAM byte budget.
+DEFAULT_SWAP_BYTES = 256 << 20
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +130,32 @@ register_knob(
     "Serving: max prompt tokens streamed per dispatch step "
     "(interleaved chunked prefill; <= 0 streams whole prompts)")
 register_knob(
+    "HVD_KV_BLOCK_SIZE", "int", str(DEFAULT_KV_BLOCK_SIZE),
+    "serving/paging.py",
+    "Serving: paged-KV block size in tokens (must divide the model's "
+    "max_len; ServingEngine(paged=True))")
+register_knob(
+    "HVD_KV_BLOCKS", "int", "0", "serving/engine.py",
+    "Serving: paged-KV device block count (0 = auto: num_slots x "
+    "max_len / block_size, byte-parity with the fixed slot pool)")
+register_knob(
+    "HVD_PREFIX_CACHE", "int", "1", "serving/paging.py",
+    "Serving: shared-prefix caching over the paged KV pool (0 "
+    "disables matching/publishing; blocks then free eagerly)")
+register_knob(
+    "HVD_PAGED_KERNEL", "str", "auto", "serving/paging.py",
+    "Serving: paged-attention dispatch — 'auto'/'lax' walk only the "
+    "FILLED blocks of each lane's table, 'pallas' adds the "
+    "hand-written CUDA paged-decode kernel (csrc/paged_decode.cu) "
+    "for S=1 ticks, 'off' gathers each lane's whole table into a "
+    "linear view (the oracle)")
+register_knob(
+    "HVD_SWAP_BYTES", "int", str(DEFAULT_SWAP_BYTES),
+    "serving/engine.py",
+    "Overload control: host-RAM byte budget for the preemption swap "
+    "shelf (preempted streams' KV blocks awaiting resume); 0 "
+    "degrades every preemption to recompute")
+register_knob(
     "HVD_WEIGHT_QUANT", "str", "(unset)", "serving/engine.py",
     "Serving: weight-only quantization at ServingEngine construction; "
     "any setting raises NotImplementedError until the int8 slice of "
@@ -195,7 +227,9 @@ register_knob(
     "HVD_PREEMPT", "flag", "0", "serving/engine.py",
     "Overload control: 1 lets a blocked higher-priority request "
     "preempt strictly lower-priority decode streams token-exactly "
-    "(recompute on the fixed slot pool)")
+    "(swap or recompute on the paged pool, recompute on the fixed "
+    "slot pool), and switches paged admission to optimistic "
+    "watermark reservations")
 register_knob(
     "HVD_TENANT_WEIGHTS", "str", "", "serving/engine.py",
     "Overload control: per-tenant WFQ weights, "
@@ -222,6 +256,13 @@ class Config:
 
     stall_warning_time: float = DEFAULT_STALL_WARNING_TIME
     prefill_chunk_budget: int = DEFAULT_PREFILL_CHUNK_BUDGET
+    # Paged KV cache: block geometry, prefix caching, the paged-
+    # attention dispatch mode, and the swap shelf's byte budget.
+    kv_block_size: int = DEFAULT_KV_BLOCK_SIZE
+    kv_blocks: int = 0
+    prefix_cache: bool = True
+    paged_kernel: str = "auto"
+    swap_bytes: int = DEFAULT_SWAP_BYTES
     # Later slices: read only so that a setting raises.
     weight_quant: str = ""
     serve_mesh: str = ""
@@ -234,6 +275,12 @@ class Config:
     def refresh(self) -> "Config":
         self.prefill_chunk_budget = env_int(
             "HVD_PREFILL_CHUNK_BUDGET", DEFAULT_PREFILL_CHUNK_BUDGET)
+        self.kv_block_size = env_int("HVD_KV_BLOCK_SIZE",
+                                     DEFAULT_KV_BLOCK_SIZE)
+        self.kv_blocks = env_int("HVD_KV_BLOCKS", 0)
+        self.prefix_cache = env_int("HVD_PREFIX_CACHE", 1) != 0
+        self.paged_kernel = env_str("HVD_PAGED_KERNEL", "auto")
+        self.swap_bytes = env_int("HVD_SWAP_BYTES", DEFAULT_SWAP_BYTES)
         self.weight_quant = env_str("HVD_WEIGHT_QUANT")
         self.serve_mesh = env_str("HVD_SERVE_MESH")
         self.preempt = env_int("HVD_PREEMPT", 0) != 0

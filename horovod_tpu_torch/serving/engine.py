@@ -9,8 +9,9 @@ This engine is that architecture pointed at serving: callers get TWO
 calls — ``submit(prompt, ...) -> handle`` and ``shutdown()`` — and a
 single background dispatch thread turns asynchronously arriving
 requests into full decode batches (`ContinuousBatchingScheduler` over
-a `SlotPool`), with admission control in front (`AdmissionQueue`) and
-request-level metrics behind (`EngineMetrics`).
+a `SlotPool`, or the paged `PagedSlotPool` with ``paged=True``), with
+admission control in front (`AdmissionQueue`) and request-level
+metrics behind (`EngineMetrics`).
 
 Threading model (mirrors the reference's one-background-thread rule,
 `operations.cc` there): ALL device work happens on the dispatch thread.
@@ -33,6 +34,7 @@ wait, admission, prefill and decode under one root per request.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import sys
@@ -151,12 +153,38 @@ class ServingEngine:
         HVD_PREFILL_CHUNK_BUDGET (default 128); <= 0 = unbounded.
     pipeline_depth : 1 (default) keeps the one-deep in-flight tick
         ring; 0 syncs every tick immediately.
-    paged, mesh, spec_draft, weight_quant : later slices of the port —
+    paged : use the paged KV cache (`serving.paging.PagedSlotPool`):
+        device KV is a shared block pool instead of a private max_len
+        region per slot, admission gates on BLOCK availability (more
+        concurrent sequences fit the same KV bytes whenever requests
+        run short of max_len), and shared prompt prefixes are served
+        from the resident block cache instead of re-prefilling.
+        Greedy streams stay token-exact vs the fixed pool.
+    kv_block_size : paged block size in tokens (must divide max_len);
+        None reads HVD_KV_BLOCK_SIZE (default 16).
+    kv_blocks : paged device block count — the KV-bytes knob; None
+        reads HVD_KV_BLOCKS, and <= 0 means auto: num_slots x max_len /
+        block_size (+1 null), byte-parity with the fixed pool.
+    prefix_cache : shared-prefix caching over the paged pool; None
+        reads HVD_PREFIX_CACHE (default on). Ignored unless paged.
+    paged_kernel : paged-attention dispatch: "auto"/"lax" walk only
+        the FILLED blocks of each lane's table, "pallas" runs every
+        S=1 tick on the hand-written CUDA paged-decode kernel
+        (``csrc/paged_decode.cu``; its plain version on the CPU),
+        "off" gathers each lane's whole table into a linear view (the
+        oracle). None reads HVD_PAGED_KERNEL. Ignored unless paged.
+    mesh, spec_draft, weight_quant : later slices of the port —
         anything but their defaults (and an HVD_SERVE_MESH or
         HVD_WEIGHT_QUANT setting) raises `NotImplementedError`.
     slo : an `obs.slo.SLOMonitor`; None reads ``HVD_SLO``.
-    preempt, tenant_weights, brownout : the overload control plane
-        (preemption is recompute-only on the fixed pool).
+    preempt, tenant_weights, brownout : the overload control plane.
+        On the paged pool preemption swaps the victim's KV blocks to a
+        host shelf when it can (recompute otherwise) and admission
+        turns optimistic (watermark reservations grown just in time);
+        on the fixed pool it recomputes.
+    swap_bytes : host-RAM byte budget of the preemption swap shelf;
+        None reads HVD_SWAP_BYTES (256 MiB); 0 makes every preemption
+        recompute.
     """
 
     def __init__(self, model: TransformerLM, *,
@@ -171,19 +199,23 @@ class ServingEngine:
                  prefill_chunk_budget: Optional[int] = None,
                  pipeline_depth: int = 1,
                  paged: bool = False,
+                 kv_block_size: Optional[int] = None,
+                 kv_blocks: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 paged_kernel: Optional[str] = None,
                  spec_draft=None,
                  weight_quant: Optional[str] = None,
                  slo=None,
                  preempt: Optional[bool] = None,
                  tenant_weights=None,
-                 brownout: Optional[bool] = None):
+                 brownout: Optional[bool] = None,
+                 swap_bytes: Optional[int] = None):
         if eos_id is not None and not 0 <= eos_id < model.vocab_size:
             raise ValueError(
                 f"eos_id must be in [0, vocab_size={model.vocab_size}"
                 f"), got {eos_id}")
         from horovod_tpu_torch.runtime.config import config as _cfg
         later = {
-            "paged=True (the paged KV cache)": paged,
             "mesh / HVD_SERVE_MESH (sharded serving)":
                 mesh is not None or _cfg.serve_mesh.strip(),
             "spec_draft (speculative decoding)": spec_draft is not None,
@@ -221,7 +253,23 @@ class ServingEngine:
         self.stall = StallMonitor(warning_time_s=stall_warning_s,
                                   check_every_s=max(
                                       1.0, stall_warning_s / 4))
-        self.pool = SlotPool(model, num_slots, eos_id=eos_id)
+        self.paged = bool(paged)
+        if self.paged:
+            from horovod_tpu_torch.serving.paging import PagedSlotPool
+            if kv_blocks is None:
+                kv_blocks = _cfg.kv_blocks
+            self.pool = PagedSlotPool(
+                model, num_slots,
+                num_blocks=(int(kv_blocks) if kv_blocks
+                            and int(kv_blocks) > 0 else None),
+                block_size=kv_block_size, eos_id=eos_id,
+                prefix_cache=prefix_cache, kernel=paged_kernel,
+                # Evictions are operator-visible cache pressure: the
+                # allocator reports each one straight into this
+                # engine's metrics.
+                on_evict=lambda: self.metrics.count("prefix_evictions"))
+        else:
+            self.pool = SlotPool(model, num_slots, eos_id=eos_id)
         # Warmup runs on the constructor thread BEFORE the dispatch
         # thread exists, so the single-device-thread contract holds.
         self.warmup_info = None
@@ -235,10 +283,11 @@ class ServingEngine:
         self.metrics.observe_pipeline(self.pipeline_depth)
         # Overload control plane: priority + weighted-fair admission is
         # always on (an unconfigured queue is plain FIFO); preemption
-        # (HVD_PREEMPT, recompute mode on the fixed pool) and the
-        # brownout ladder (HVD_BROWNOUT) are knobs.
+        # (HVD_PREEMPT) and the brownout ladder (HVD_BROWNOUT) are
+        # knobs.
         from horovod_tpu_torch.serving.overload import (
-            BrownoutController, OverloadControl, parse_tenant_weights)
+            BrownoutController, OverloadControl, SwapStore,
+            parse_tenant_weights)
         if tenant_weights is None:
             weights = parse_tenant_weights(_cfg.tenant_weights)
         elif isinstance(tenant_weights, str):
@@ -249,19 +298,38 @@ class ServingEngine:
         self.queue = AdmissionQueue(max_queue, tenant_weights=weights)
         self.preempt = bool(_cfg.preempt if preempt is None
                             else preempt)
-        self._overload = (OverloadControl(preempt=True, swap=None)
-                          if self.preempt else None)
+        self._overload = None
+        if self.preempt:
+            swap = None
+            if self.paged and self.pool.blocks.prefix_cache:
+                sb = int(_cfg.swap_bytes if swap_bytes is None
+                         else swap_bytes)
+                if sb > 0:
+                    swap = SwapStore(sb)
+            if self.paged:
+                # Optimistic (watermark) admission: reserve one block
+                # of decode headroom instead of the worst case — safe
+                # ONLY because overflow now preempts (the scheduler
+                # grows chains just in time and resolves stranded
+                # lanes) instead of deadlocking.
+                self.pool.blocks.watermark = self.pool.block_size
+            self._overload = OverloadControl(preempt=True, swap=swap)
         self.brownout = None
         if bool(_cfg.brownout if brownout is None else brownout):
             self.brownout = BrownoutController(
                 slo=self.slo, metrics=self.metrics,
                 on_level=self._apply_brownout)
         self._obs_tenant = _obs_catalog.tenant_metrics()
+        # Inbound KV-block transfers (serving/transfer.py), appended by
+        # `offer_transfer` from any thread, drained on the dispatch
+        # thread. Survives watchdog restarts — the replacement
+        # scheduler inherits the deque.
+        self._grafts: "collections.deque" = collections.deque()
         self.scheduler = ContinuousBatchingScheduler(
             self.pool, self.queue, self.metrics, eos_id=eos_id,
             stall=self.stall,
             prefill_chunk_budget=self.prefill_chunk_budget,
-            pipeline_depth=self.pipeline_depth,
+            pipeline_depth=self.pipeline_depth, grafts=self._grafts,
             overload=self._overload)
         self._ids = itertools.count()
         self._lock = lockcheck.register(
@@ -454,6 +522,19 @@ class ServingEngine:
             raise ValueError(
                 f"prompt ({P}) + max_new_tokens ({max_new_tokens}) - 1 "
                 f"exceeds max_len={self.model.max_len}")
+        if self.paged and not self.pool.fits(
+                P + len(forced), max_new_tokens - len(forced)):
+            # A request whose WORST-CASE block need exceeds the whole
+            # pool could never admit — it would park at the queue head
+            # starving everything behind it. Shed at the front door
+            # instead. The need is NET of the forced prefix: a resume
+            # can only generate max_new - len(forced) more tokens.
+            raise ValueError(
+                f"prompt ({P}) + max_new_tokens ({max_new_tokens}) "
+                f"needs more KV blocks than the paged pool holds "
+                f"({self.pool.num_blocks - 1} x "
+                f"{self.pool.block_size} tokens); raise kv_blocks "
+                f"(HVD_KV_BLOCKS) or lower the request size")
         sampling = SamplingParams(temperature=temperature, top_p=top_p,
                                   seed=seed)
         sampling.validate()
@@ -521,6 +602,20 @@ class ServingEngine:
                      prompt_tokens=P, max_new_tokens=max_new_tokens)
         return RequestHandle(req)
 
+    def offer_transfer(self, transfer) -> bool:
+        """Enqueue an inbound KV-block transfer (serving/transfer.py)
+        for ingest on the dispatch thread. Callable from any thread
+        (deque append is atomic); the scheduler drains the inbox before
+        every admission peek, so an offer made BEFORE the submit it
+        accelerates is grafted before that request's prompt is
+        matched. False when this engine cannot ingest (non-paged pool,
+        or closing) — the caller's submit still works, it just
+        re-prefills."""
+        if transfer is None or not self.paged or self._closing:
+            return False
+        self._grafts.append(transfer)
+        return True
+
     # -- dispatch side ------------------------------------------------
 
     def _dispatch_loop(self, epoch: int,
@@ -552,6 +647,12 @@ class ServingEngine:
                 self.metrics.observe_gauges(
                     len(queue), scheduler.pool.busy_slots,
                     scheduler.pool.num_slots)
+                if self.paged:
+                    self.metrics.observe_kv(scheduler.pool.kv_stats())
+                if (self._overload is not None
+                        and self._overload.swap is not None):
+                    self.metrics.observe_swap_store(
+                        self._overload.swap.stats())
                 # Brownout control loop: evaluated here on the
                 # dispatch thread (internally rate-limited) so the
                 # ladder's teeth — the tenant preemption mailbox —
@@ -742,13 +843,17 @@ class ServingEngine:
             generation=epoch,
             requeued_trace_ids=[r.trace_id for r in requeued])
         # Fresh device state: the old pool's cache is mid-unknown-
-        # tick; the kernels are already built, so this is cheap.
+        # tick; the kernels are already built, so this is cheap. The
+        # overload plane survives the restart: the swap shelf's entries
+        # are HOST bytes, so a stream preempted-to-swap before the
+        # crash still restores into the successor pool (clone_fresh
+        # carries the watermark).
         self.pool = self.pool.clone_fresh()
         self.scheduler = ContinuousBatchingScheduler(
             self.pool, self.queue, self.metrics, eos_id=self.eos_id,
             stall=self.stall,
             prefill_chunk_budget=self.prefill_chunk_budget,
-            pipeline_depth=self.pipeline_depth,
+            pipeline_depth=self.pipeline_depth, grafts=self._grafts,
             overload=self._overload)
         with self._lock:
             self._heartbeat = time.time()
@@ -862,6 +967,8 @@ class ServingEngine:
                                    .get("compiles", 0))
         if self.brownout is not None:
             snap["brownout"] = self.brownout.summary()
+        if self._overload is not None and self._overload.swap is not None:
+            snap["swap_store"] = self._overload.swap.stats()
         return snap
 
     @property

@@ -41,10 +41,13 @@ Requests also leave slots for non-completion reasons — cancellation,
 deadline expiry, a non-draining shutdown — all resolved here so the
 engine degrades by shedding, never by hanging.
 
-Counterpart of `horovod_tpu.serving.scheduler` in the PyTorch port:
-the fixed slot pool only, so speculative rounds, KV-block grafts and
-swap preemption (paged-cache features) are absent — preemption always
-recomputes (forced-prefix replay).
+Counterpart of `horovod_tpu.serving.scheduler` in the PyTorch port,
+over the fixed slot pool and the paged pool (`serving.paging`): on the
+paged pool it grows block chains just in time for each tick
+(watermark admission), shelves a preempted stream's KV blocks and
+re-grafts them on resume (swap preemption), and ingests inbound
+KV-block transfers before admission (the graft deque). Speculative
+rounds are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -144,7 +147,8 @@ class ContinuousBatchingScheduler:
                  metrics: EngineMetrics, *,
                  eos_id: Optional[int] = None, stall=None,
                  prefill_chunk_budget: Optional[int] = None,
-                 pipeline_depth: int = 1, overload=None):
+                 pipeline_depth: int = 1, grafts=None,
+                 overload=None):
         self.pool = pool
         self.queue = queue
         self.metrics = metrics
@@ -152,9 +156,18 @@ class ContinuousBatchingScheduler:
         # pre-preemption behavior (admission blocks at the pool,
         # nothing is evicted mid-stream). When set, a blocked
         # higher-priority head may PREEMPT lower-priority decode lanes
-        # token-exactly (forced-prefix recompute), and the brownout
-        # ladder's level-3 rung feeds `tenant_preempts`.
+        # token-exactly — swap (KV blocks shelved host-side, re-grafted
+        # on resume) or recompute (forced-prefix replay) — and the
+        # brownout ladder's level-3 rung feeds `tenant_preempts`.
         self._ov = overload
+        # Inbound `BlockTransfer`s (serving/transfer.py) that the
+        # engine's `offer_transfer` appends from ANY thread (GIL-atomic
+        # append; all device work stays here on the dispatch thread).
+        # Drained at the top of every step AND just before each
+        # admission peek — an offer that lands before the submit it
+        # accelerates is grafted before the request's prompt is
+        # matched.
+        self._grafts = grafts
         self.eos_id = eos_id
         self.stall = stall           # optional utils.stall.StallMonitor
         if prefill_chunk_budget is None:
@@ -256,7 +269,15 @@ class ContinuousBatchingScheduler:
         # it (which, budget-starved, could be many steps away).
         self._sweep_dead_prefills(now)
         self._drain_tenant_preempts(now)
+        self._drain_grafts()
         progressed = self._advance_prefills(now)
+        # Watermark admission's collection point: reservations are
+        # optimistic (BlockPool watermark), so every ticking lane's
+        # chain is grown to cover the next dispatch BEFORE the write;
+        # lanes the pool cannot grow are resolved by preemption, never
+        # by letting a device write land in the null block.
+        if self.active:
+            self._resolve_stranded(now)
         handle = snapshot = None
         if self.active:
             # The StallMonitor brackets the dispatch (where a
@@ -358,10 +379,19 @@ class ContinuousBatchingScheduler:
                 # (after prefix-cache credit) on the paged pool. A
                 # request that does not fit yet stays at the queue
                 # head, FIFO intact, until retirements free blocks.
+                # Graft inbound KV-block transfers BEFORE the peek: an
+                # offer enqueued before its request's submit is then
+                # resident when the admission below hashes the prompt.
+                self._drain_grafts()
                 head = self.queue.peek_ready(now,
                                              on_drop=self._queue_drop)
                 if head is None:
                     break
+                # A swap-preempted head's shelved KV blocks are grafted
+                # back BEFORE can_admit hashes the prompt, so the
+                # resume's admission credits them (only the sub-block
+                # tail re-prefills).
+                self._maybe_restore_swap(head)
                 if not self.pool.can_admit(head.full_prompt,
                                            head.remaining_new):
                     # The overload plane's make-room move: evict
@@ -432,6 +462,30 @@ class ContinuousBatchingScheduler:
                     self.queue.requeue([blocked])
                     break
                 req.prefix_cached = adm.skipped
+                if (self._ov is not None
+                        and self._ov.swap is not None
+                        and self._ov.swap.discard(req.id)):
+                    # A swap-preempted stream just resumed: its shelf
+                    # entry is spent. Credit the tokens the shelved
+                    # blocks served vs the sub-block tail that must
+                    # re-prefill anyway.
+                    self.metrics.count("preempt_tokens_swapped_in",
+                                       adm.skipped)
+                    tail = int(full.shape[0]) - adm.skipped
+                    if tail > 0:
+                        self.metrics.count(
+                            "preempt_tokens_recomputed", tail)
+                if adm.queried_blocks:
+                    self.metrics.count("prefix_hits",
+                                       adm.matched_blocks)
+                    self.metrics.count(
+                        "prefix_misses",
+                        adm.queried_blocks - adm.matched_blocks)
+                if adm.skipped:
+                    # The TTFT the cache just deleted: these prompt
+                    # tokens never touch a prefill chunk.
+                    self.metrics.count("prefill_tokens_skipped",
+                                       adm.skipped)
                 self.metrics.observe_peak(len(self.active)
                                           + len(self.prefilling))
                 req.t_prefill = time.time()
@@ -521,6 +575,69 @@ class ContinuousBatchingScheduler:
             slot, req = lanes[0]
             self._preempt(slot, req, now, reason="brownout")
 
+    def _resolve_stranded(self, now: float):
+        """Grow every ticking lane's block chain to cover the next
+        dispatch (watermark admission reserves optimistically, so
+        growth happens here, just in time). A lane the pool cannot grow
+        is STRANDED — its next device write would land in the null
+        block — so victims are preempted until growth succeeds.
+        Guaranteed progress: the policy ranks over all active lanes and
+        a stranded lane is itself active, so in the worst case the
+        stranded lane is evicted and leaves the ticking set."""
+        ov = self._ov
+        grow = getattr(self.pool, "grow_for_tick", None)
+        if grow is None:
+            return
+        while not self.abandoned:
+            stranded = grow()
+            if not stranded:
+                return
+            if ov is None or not ov.preempt or not self.active:
+                # No preemption plane (the watermark is only ever set by
+                # the engine's preemption wiring, so this is a defensive
+                # arm) — evict the stranded lanes themselves.
+                for slot in stranded:
+                    req = self.active.get(slot)
+                    if req is not None:
+                        self._preempt(slot, req, now,
+                                      reason="stranded")
+                return
+            victims = ov.policy.order_victims(None, self.active,
+                                              self.pool)
+            if not victims:   # pragma: no cover — stranded ⊆ active
+                return
+            slot, req = victims[0]
+            self._preempt(slot, req, now, reason="stranded")
+
+    def _maybe_restore_swap(self, head: Request):
+        """If the queue head is a swap-preempted resume, re-graft its
+        shelved KV blocks so the admission peek's prefix match credits
+        them. A graft that fails verification drops the shelf entry and
+        the resume degrades to recompute — the same stream either way
+        (the fallback ladder)."""
+        ov = self._ov
+        if ov is None or ov.swap is None:
+            return
+        tr = ov.swap.peek(head.id)
+        if tr is None:
+            return
+        graft = getattr(self.pool, "graft", None)
+        blocks = getattr(self.pool, "blocks", None)
+        if graft is None or blocks is None:
+            ov.swap.discard(head.id)
+            return
+        if all(blocks.resident(d) for d in tr.chain_digests):
+            return   # still resident from before the preempt — free
+        from horovod_tpu_torch.serving.transfer import TransferError
+        try:
+            graft(tr)
+        except TransferError as e:
+            ov.swap.discard(head.id)
+            self.metrics.count("preempt_swap_restore_failures")
+            _events.emit("serving.swap_restore_failed",
+                         request_id=head.id, trace_id=head.trace_id,
+                         error=f"{type(e).__name__}: {e}")
+
     def _try_preempt_for(self, head: Request, now: float) -> bool:
         """Make room for a blocked higher-priority head by preempting
         strictly lower-priority active lanes, cheapest-capacity-first
@@ -545,13 +662,54 @@ class ContinuousBatchingScheduler:
     def _preempt(self, slot: int, req: Request, now: float,
                  reason: str):
         """Evict one ACTIVE decode lane token-exactly and requeue its
-        request to resume later, bitwise-identical to the
-        uninterrupted stream: no KV survives; the resume teacher-forces
-        the whole emitted prefix through prefill (the forced-prefix
-        path) and re-samples with `rng_skip`. The lagged pipelined
-        tick's token for this slot is discarded by `_sync_pending`'s
-        identity check once the lane is freed."""
+        request to resume later, identical to the uninterrupted stream.
+
+        Two modes, decided here per victim:
+
+        * **swap** — the filled KV blocks of the finalized stream are
+          exported (`transfer.export_blocks`: digest-chained host copy)
+          into the bounded `SwapStore`; on resume they re-graft and the
+          prefix match skips them, so only the sub-block tail
+          re-prefills. Needs the paged pool's prefix cache and shelf
+          budget; the stream is `publish`ed first so its full blocks
+          are registered (decode-extended blocks aren't, until now).
+        * **recompute** — no blocks survive; the resume teacher-forces
+          the whole emitted prefix through prefill (the forced-prefix
+          path) and re-samples with `rng_skip`, token-exact.
+
+        Export safety: the victim has n >= 1 emitted tokens; the
+        in-flight pipelined tick (if any) writes KV position P+n-1
+        while sampling token n+1, so the export stream stops at
+        ``tokens[:-1]`` (positions <= P+n-2) — every full block it
+        covers is final, even at the ``(P+n-1) % block_size == 0``
+        boundary where the write opens a NEW block. The export's read
+        is stream-ordered after that tick anyway. The lagged tick's
+        token for this slot is discarded by `_sync_pending`'s identity
+        check once the lane is freed."""
+        ov = self._ov
         mode = "recompute"
+        blocks = getattr(self.pool, "blocks", None)
+        if (ov is not None and ov.swap is not None
+                and blocks is not None
+                and getattr(blocks, "prefix_cache", False)):
+            stream = np.concatenate([
+                # hvd: disable=HVD001(prompt is host-side admission-queue ids, never a device array — no sync)
+                np.asarray(req.prompt, dtype=np.int64),
+                # hvd: disable=HVD001(tokens is the host-side emitted-int list — no sync)
+                np.asarray(req.tokens[:-1], dtype=np.int64)])
+            if len(stream) // self.pool.block_size >= 1:
+                from horovod_tpu_torch.serving.transfer import (
+                    TransferError, export_blocks)
+                blocks.publish(slot, stream)
+                try:
+                    tr = export_blocks(self.pool, stream,
+                                       trace_id=req.trace_id)
+                except TransferError:
+                    tr = None
+                if tr is not None and ov.swap.put(req.id, tr):
+                    mode = "swap"
+                    self.metrics.count("preempt_swap_bytes",
+                                       tr.nbytes)
         self.pool.free(slot)
         # hvd: disable=HVD004(active is dispatch-thread-owned; the handoff lock only orders the container handoff, and abandon() snapshots wholesale)
         self.active.pop(slot, None)
@@ -581,10 +739,14 @@ class ContinuousBatchingScheduler:
             tokens=[int(t) for t in req.tokens],
             t_prefill=0.0, t_first=0.0, prefix_cached=0)
         self.queue.requeue([resumed])
-        self.metrics.count("preemptions_recompute")
-        # Every token of prompt+emitted re-prefills on resume.
-        self.metrics.count("preempt_tokens_recomputed",
-                           len(resumed.full_prompt))
+        self.metrics.count("preemptions_swap" if mode == "swap"
+                           else "preemptions_recompute")
+        if mode == "recompute":
+            # Every token of prompt+emitted re-prefills on resume
+            # (minus whatever the prefix cache happens to still hold —
+            # credited at the resume's admission instead for swaps).
+            self.metrics.count("preempt_tokens_recomputed",
+                               len(resumed.full_prompt))
         if req.tenant:
             from horovod_tpu_torch.obs import catalog as _obs_catalog
             _obs_catalog.tenant_metrics()["requests"].inc(
@@ -593,6 +755,41 @@ class ContinuousBatchingScheduler:
                      trace_id=req.trace_id, mode=mode, reason=reason,
                      tenant=req.tenant, priority=req.priority,
                      tokens_emitted=len(req.tokens))
+
+    def _drain_grafts(self):
+        """Ingest every queued KV-block transfer into the pool's prefix
+        cache (serving/transfer.py). A transfer that fails verification
+        is dropped LOUDLY — counter + event — and the request it was
+        meant to accelerate re-prefills its prompt through the normal
+        path, the same stream (the fallback ladder)."""
+        q = self._grafts
+        if not q or getattr(self.pool, "graft", None) is None:
+            return
+        from horovod_tpu_torch.obs import catalog as _obs_catalog
+        from horovod_tpu_torch.serving.transfer import TransferError
+        cat = _obs_catalog.disagg_metrics()
+        while q:
+            try:
+                tr = q.popleft()
+            except IndexError:   # pragma: no cover — single drainer
+                break
+            try:
+                adopted = self.pool.graft(tr)
+            except TransferError as e:
+                reason = type(e).__name__
+                cat["transfers"].inc(outcome="rejected")
+                cat["verify_failures"].inc()
+                cat["fallbacks"].inc(reason="verify_failed")
+                _events.emit("disagg.transfer_rejected",
+                             trace_id=tr.trace_id, error=str(e),
+                             error_kind=reason)
+                continue
+            cat["transfers"].inc(outcome="ingested")
+            cat["blocks"].inc(adopted)
+            cat["bytes"].inc(tr.nbytes)
+            _events.emit("disagg.transfer_ingested",
+                         trace_id=tr.trace_id, blocks=adopted,
+                         bytes=tr.nbytes)
 
     def _finish_prefill(self, slot: int, job: _PrefillJob):
         """Chunk schedule drained: sample the first token (the one
@@ -633,6 +830,8 @@ class ContinuousBatchingScheduler:
     def _queue_drop(self, req: Request, kind: str):
         """A queued request died before reaching a slot (cancelled or
         deadline-expired); its future already carries the exception."""
+        if self._ov is not None and self._ov.swap is not None:
+            self._ov.swap.discard(req.id)
         self.metrics.count("cancelled" if kind == "cancelled"
                            else "timed_out")
         _spans.end_span(req.span_ids.pop("queued", ""),
@@ -702,6 +901,12 @@ class ContinuousBatchingScheduler:
         self._finalize(job.req, reason, time.time())
 
     def _finalize(self, req: Request, reason: str, now: float):
+        if self._ov is not None and self._ov.swap is not None:
+            # A preempted-then-resumed stream that finishes (or dies)
+            # with its shelf entry unclaimed — e.g. the resume's blocks
+            # stayed resident so the entry was never spent — releases
+            # the swap budget here.
+            self._ov.swap.discard(req.id)
         _events.emit("serving.retire", request_id=req.id,
                      trace_id=req.trace_id, reason=reason,
                      tokens=len(req.tokens))

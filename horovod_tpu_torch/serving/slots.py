@@ -69,12 +69,15 @@ def _first_token(logits: torch.Tensor, temp: float, top_p: float,
 
 @dataclass(frozen=True)
 class Admission:
-    """One granted admission: the decode lane and how many prompt
-    tokens the cache already holds (always 0 on the fixed pool; the
-    paged pool's prefix cache is a later slice)."""
+    """One granted admission: the decode lane, how many prompt tokens
+    the KV cache already holds (``skipped`` — prefill starts there; 0
+    outside the paged pool's prefix cache), and the block-level hit
+    accounting behind it (`serving.paging`)."""
 
     slot: int
-    skipped: int = 0
+    skipped: int = 0          # prompt tokens covered by matched blocks
+    matched_blocks: int = 0   # prefix blocks pinned from the cache
+    queried_blocks: int = 0   # block-aligned prefix blocks looked up
 
 
 class TickHandle:

@@ -234,7 +234,7 @@ def test_priority_preemption_recompute_token_exact(lm):
 def test_later_slices_raise(lm):
     _, _, port = lm
     m = port()
-    for kw in (dict(paged=True), dict(mesh=2), dict(weight_quant="int8"),
+    for kw in (dict(mesh=2), dict(weight_quant="int8"),
                dict(spec_draft=(m, None))):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServingEngine(m, **kw)
@@ -245,7 +245,10 @@ def test_later_slices_raise(lm):
 def test_import_leaves_jax_out():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.serving, "
             "horovod_tpu_torch.compat.from_jax, "
-            "horovod_tpu_torch.ops._build; "
+            "horovod_tpu_torch.ops._build, "
+            "horovod_tpu_torch.ops.paged_attention, "
+            "horovod_tpu_torch.serving.paging, "
+            "horovod_tpu_torch.serving.transfer; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'optax')) or m == 'horovod_tpu' "
             "or m.startswith('horovod_tpu.')]; "
