@@ -608,8 +608,9 @@ def slot_decode_tick(dec_model: Callable, cache: KVCache,
 # * "pallas" — as "lax", with every S=1 call on the paged-decode kernel
 #   (CUDA on the card, its plain version on the CPU). S > 1 prefill
 #   chunks never reach the kernel and keep walking at the model's
-#   decode_prefix_block (the JAX package walks them at the block size:
-#   the same values, ~16x fewer steps at 256-token granularity).
+#   decode_prefix_block where it tiles the table, else at the block
+#   size (the JAX package always walks them at the block size: the
+#   same values, ~16x fewer steps at 256-token granularity).
 #
 # Unlike the JAX package, whose programs return new pools, the pools,
 # tables and fills here are updated IN PLACE.
@@ -753,17 +754,14 @@ def paged_prefill_chunk(model: TransformerLM, spec: PagedCacheSpec, pools,
 
 
 @torch.no_grad()
-def paged_decode_tick(model: TransformerLM, spec: PagedCacheSpec, pools,
-                      tables, fills, toks: torch.Tensor,
-                      temps: torch.Tensor, top_ps: torch.Tensor,
-                      noise: Optional[torch.Tensor], live: torch.Tensor,
-                      done: torch.Tensor, eos: torch.Tensor, *,
-                      paged_kernel: str = "lax",
-                      prefix_len: Optional[int] = None):
-    """One continuous-batching decode tick over EVERY lane of a paged
-    pool, as one batched model call; pools and fills are updated in
-    place. Returns ``(next_toks [lanes], done)``. Same occupancy
-    semantics as `slot_decode_tick` in paged form: a lane that must not
+def paged_decode_logits(model: TransformerLM, spec: PagedCacheSpec, pools,
+                        tables, fills, toks: torch.Tensor,
+                        live: torch.Tensor, done: torch.Tensor, *,
+                        paged_kernel: str = "lax",
+                        prefix_len: Optional[int] = None) -> torch.Tensor:
+    """The model half of `paged_decode_tick`: ``toks`` [lanes] through
+    one batched model call over EVERY lane, pools and fills updated in
+    place; returns the logits [lanes, V] f32. A lane that must not
     advance (``live`` False, or ``done``) keeps its fill and routes its
     row to the null block. A lane at fill == max_len (the pipelined
     tick at the P + max_new - 1 == max_len boundary) has no table entry
@@ -781,7 +779,24 @@ def paged_decode_tick(model: TransformerLM, spec: PagedCacheSpec, pools,
                                 toks[:, None], bids[:, None],
                                 offs[:, None], paged_kernel, prefix_len)
     fills.copy_(torch.where(adv, fills + 1, fills))
-    logits = (hidden[:, -1] @ head.to(hidden.dtype).T).float()
+    return (hidden[:, -1] @ head.to(hidden.dtype).T).float()
+
+
+@torch.no_grad()
+def paged_decode_tick(model: TransformerLM, spec: PagedCacheSpec, pools,
+                      tables, fills, toks: torch.Tensor,
+                      temps: torch.Tensor, top_ps: torch.Tensor,
+                      noise: Optional[torch.Tensor], live: torch.Tensor,
+                      done: torch.Tensor, eos: torch.Tensor, *,
+                      paged_kernel: str = "lax",
+                      prefix_len: Optional[int] = None):
+    """One continuous-batching decode tick over EVERY lane of a paged
+    pool (`paged_decode_logits`, then sampling). Returns ``(next_toks
+    [lanes], done)``, with the occupancy semantics of
+    `slot_decode_tick` in paged form."""
+    logits = paged_decode_logits(model, spec, pools, tables, fills, toks,
+                                 live, done, paged_kernel=paged_kernel,
+                                 prefix_len=prefix_len)
     nxt = sample_token(logits, temps, top_ps, noise)
     emit = torch.where(done, eos.to(nxt.dtype), nxt)
     return emit, done | (emit == eos)

@@ -349,12 +349,19 @@ class ParallelSelfAttention(nn.Module):
         bs = cache.k_pool.shape[1]
         span = cache.table.shape[1] * bs
         blk = self.decode_prefix_block
-        if not blk:
+        wb = min(int(blk), span) if blk else 0
+        if cache.decode_impl == "pallas":
+            # The pool's "pallas" mode accepts any model geometry, as
+            # the JAX pool does (it walks at the block size): S > 1
+            # chunks walk at decode_prefix_block where it tiles the
+            # table, else at the block size.
+            if not wb or wb % bs or span % wb:
+                wb = bs
+        elif not blk:
             raise ValueError(
                 "paged-kernel decode requires decode_prefix_block "
                 "(the walk granularity); got 0/None")
-        wb = min(int(blk), span)
-        if wb % bs or span % wb:
+        elif wb % bs or span % wb:
             raise ValueError(
                 f"paged-kernel decode needs decode_prefix_block "
                 f"({blk}) to be a multiple of the KV block size "

@@ -75,9 +75,10 @@ def _resolve_paged_kernel(mode: Optional[str],
     ``decode_prefix_block`` granularity, which must be a multiple of
     the KV block size and divide max_len. "pallas" names the
     hand-written CUDA paged-decode kernel for the S=1 tick (its plain
-    version on CPU tensors); it walks S > 1 chunks at the same
-    granularity, so it needs the same geometry. Explicit modes raise
-    instead of silently degrading."""
+    version on CPU tensors) and takes any geometry: it walks S > 1
+    chunks at ``decode_prefix_block`` where that tiles the table, else
+    at the block size. An explicit "lax" raises instead of silently
+    degrading."""
     if mode is None:
         from horovod_tpu_torch.runtime.config import config as _cfg
         mode = _cfg.paged_kernel or "auto"
@@ -86,7 +87,7 @@ def _resolve_paged_kernel(mode: Optional[str],
         raise ValueError(
             f"paged kernel mode must be auto|off|lax|pallas "
             f"(HVD_PAGED_KERNEL), got {mode!r}")
-    if mode == "off":
+    if mode in ("off", "pallas"):
         return mode
     blk = model.decode_prefix_block
     wb = min(int(blk), model.max_len) if blk else 0

@@ -397,13 +397,16 @@ def jax_streams(pairs):
 
 
 @pytest.mark.parametrize("mode,bs", [("off", 4), ("lax", 4),
-                                     ("pallas", 4), ("pallas", 8)])
+                                     ("pallas", 4), ("pallas", 8),
+                                     ("pallas", 32)])
 def test_paged_engine_token_exact_vs_jax_generate(pairs, jax_streams,
                                                   mode, bs):
     """Mixed-length greedy requests (one at the P + steps - 1 ==
     max_len boundary) through 3 lanes of the paged engine, chunked
     prefill interleaved with ticks == the JAX `generate` of each
-    prompt, token for token."""
+    prompt, token for token. At block size 32 the model's
+    decode_prefix_block (16) cannot walk the table: "pallas" walks the
+    prefill chunks at the block size instead, as the JAX pool does."""
     _, _, tm = pairs["gpt_gqa"]
     with ServingEngine(tm, num_slots=3, max_queue=16, paged=True,
                        kv_block_size=bs, paged_kernel=mode,
@@ -621,10 +624,11 @@ def test_kernel_mode_resolution(pairs):
     assert _resolve_paged_kernel("auto", tm, 4) == "lax"
     assert _resolve_paged_kernel("pallas", tm, 4) == "pallas"
     assert _resolve_paged_kernel("0", tm, 4) == "off"
-    for mode in ("lax", "pallas"):
-        with pytest.raises(ValueError, match="decode_prefix_block"):
-            _resolve_paged_kernel(mode, tm, 32)   # 16 % 32 != 0
+    with pytest.raises(ValueError, match="decode_prefix_block"):
+        _resolve_paged_kernel("lax", tm, 32)   # 16 % 32 != 0
     assert _resolve_paged_kernel("auto", tm, 32) == "off"
+    # "pallas" walks S > 1 chunks at the block size there.
+    assert _resolve_paged_kernel("pallas", tm, 32) == "pallas"
     with pytest.raises(ValueError, match="auto|off|lax|pallas"):
         _resolve_paged_kernel("fused", tm, 4)
     with pytest.raises(ValueError, match="divide"):
