@@ -8,7 +8,7 @@ serves on the card.
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
 1. Card and build: the card's name and power limit (nvidia-smi), then
-   the three CUDA kernels built from ``horovod_tpu_torch/csrc`` with
+   the five CUDA kernels built from ``horovod_tpu_torch/csrc`` with
    nvcc, one process per source started together (the ``-Xptxas -v``
    register / shared-memory lines are printed).
 2. Each kernel against its plain PyTorch version on the card, f32 and
@@ -24,6 +24,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    over 1025 blocks with one free lane on the all-null table. The same
    call with one lane's first table entry swapped with the entry
    holding its fill (a planted fault) must fail the check.
+2c. The two flash-backward kernels (dQ, dK/dV) against the plain
+   backward on the card, f32 and bf16, on the forward kernel's saved
+   (out, lse): the training path's [8, 2048, 8, 128] causal, GQA 8/2 +
+   window + q_offset, ragged Sq = Sk = 1000, non-causal Sq 200 != Sk
+   1000, and a cotangent on lse. The plain dK/dV run one query row
+   short (row 0 dropped, a planted fault) must fail the same check.
 3. Full-width `generate` (the repo's serving bench model: vocab 32768,
    12 layers, 8 heads of 128, max_len 2048, bf16, attn_impl="flash",
    decode_prefix_impl="pallas", random weights from seed 0): 4 prompts
@@ -48,14 +54,28 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    prompt plus a 32..256-token tail, 64 new tokens each; TTFT/TPOT p50,
    tokens/s, ticks, prefix hits, prefill tokens skipped, peak lanes.
    Then the same burst on the fixed 8-slot pool (the same KV bytes).
-5. A ``{"kernels": [...]}`` line (launches on the main path, CUDA-event
+5. Full-width training, the repo's training configuration
+   (`bench.py::run_transformer`: the same model at vocab 32768, 12
+   layers, 8 heads of 128, seq 2048, bf16 compute over f32 params,
+   attn_impl="flash", loss_chunk=512, AdamW(3e-4, weight decay 1e-4 as
+   optax's default), batch 8): ``hvd.init()`` over NCCL at world 1,
+   `DistributedOptimizer`, `init_lm_state` from seed 0, a few steps of
+   `make_lm_train_step` on one fixed random batch. The loss must be
+   finite and fall; step time, tokens/s and peak memory are printed;
+   the forward, dQ and dK/dV kernels must each launch >= 12 x steps.
+   Then one B=2 step through the kernels against the same step with
+   the plain forward and backward patched in (loss and per-parameter
+   gradients), and with the plain backward one query row short (a
+   planted fault) that must fail the comparison.
+6. A ``{"kernels": [...]}`` line (launches on the main path, CUDA-event
    times of kernel / plain version / one PyTorch library call, and the
    roofline bound), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
-engine) and read just after. Launches made to compare or time a kernel do not count.
+engine, training) and read just after. Launches made to compare or time
+a kernel do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
 
@@ -91,9 +111,29 @@ LSE_TOL = 1e-5
 # fault that moves few logits far, which the max error already sees.
 LOGIT_TOL = 0.06
 MIN_ARGMAX_AGREEMENT = 0.99
+# Backward kernels vs the plain backward: f32 sums over up to 2048
+# queries x 4 heads in another order (readings <= 1.4e-5 at |ref| <= 7.3,
+# under GQA; without GQA the kernels match the plain version bit for
+# bit), so 1e-5 + 1e-5 |ref|; bf16 as TOL (one rounding flip of each
+# f32 result; readings <= 3.9e-3 at |ref| 8.9).
+GRAD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-3, 1e-2)}
+# The training step through the kernels vs the same step on the plain
+# versions (bf16 compute, 12 layers, B=2): the largest per-parameter
+# max|g_kernel - g_plain| / max|g_plain| reads 7.4e-3 (bf16 roundings),
+# the loss difference 7.5e-5; the plain dK/dV one query row short reads
+# 0.53, so the gradient tolerance sits between the two.
+STEP_GRAD_TOL = 0.05
+STEP_LOSS_TOL = 1e-3
+# AdamW at 3e-4 with no warmup overshoots once on the fixed batch (step
+# 5 reads 10.89 after 9.81, the same within 3e-3 with the plain
+# attention and with the dot attention) and then falls again: 8 steps
+# end at 9.34 from 10.60.
+TRAIN_STEPS = 8
 
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:321",
+    "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:630",
+    "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:654",
     "flash_decode": "horovod_tpu/ops/flash_attention.py:1105",
     "paged_decode": "horovod_tpu/ops/paged_attention.py:287",
 }
@@ -322,6 +362,89 @@ def check_paged(tpa, dev):
     return errs
 
 
+def planted_short_backward(tfa):
+    """The plain backward with query row 0 dropped from dK/dV (a planted
+    fault): under causal masking that row alone attends key 0 with p =
+    1, so dv_0 loses a whole dO row."""
+    def short(q, k, v, o, lse, g, *, causal=False, window=None,
+              q_offset=0, k_offset=0, dlse=None):
+        kw = dict(causal=causal, window=window, k_offset=k_offset)
+        dq = tfa.flash_backward_plain(q, k, v, o, lse, g, q_offset=q_offset,
+                                      dlse=dlse, **kw)[0]
+        _, dk, dv = tfa.flash_backward_plain(
+            q[:, 1:], k, v, o[:, 1:], lse[:, :, 1:], g[:, 1:],
+            q_offset=q_offset + 1,
+            dlse=None if dlse is None else dlse[:, :, 1:], **kw)
+        return dq, dk, dv
+    return short
+
+
+def check_backward(tfa, dev):
+    """Phase 2c: the dQ and dK/dV kernels against the plain backward on
+    the forward kernel's saved (out, lse)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(2468)
+    errs = {n: {"max_abs_err_f32": 0.0} for n in ("flash_bwd_dq",
+                                                  "flash_bwd_dkv")}
+    cases = [
+        ("path [8,2048,8,128] causal", (8, 2048, 2048, 8, 8),
+         dict(causal=True), False),
+        ("gqa 8/2 window 300 q_offset 256", (2, 384, 640, 8, 2),
+         dict(causal=True, window=300, q_offset=256), False),
+        ("ragged Sq=Sk=1000 causal", (2, 1000, 1000, 8, 8),
+         dict(causal=True), False),
+        ("non-causal Sq 200 Sk 1000", (2, 200, 1000, 8, 8), {}, False),
+        ("dlse cotangent, gqa 8/2 causal", (2, 512, 512, 8, 2),
+         dict(causal=True), True),
+    ]
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        tol = GRAD_TOL[dtype]
+        for name, (B, Sq, Sk, H, Hkv), kw, with_dlse in cases:
+            q = torch.randn(B, Sq, H, 128, device=dev, generator=g).to(dt)
+            k = torch.randn(B, Sk, Hkv, 128, device=dev, generator=g).to(dt)
+            v = torch.randn(B, Sk, Hkv, 128, device=dev, generator=g).to(dt)
+            go = torch.randn(B, Sq, H, 128, device=dev, generator=g).to(dt)
+            out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+            dlse = (torch.randn(B, H, Sq, device=dev, generator=g)
+                    if with_dlse else None)
+            got = tfa.flash_backward(q, k, v, out, lse, go, dlse=dlse, **kw)
+            ref = tfa.flash_backward_plain(q, k, v, out, lse, go, dlse=dlse,
+                                           **kw)
+            torch.cuda.synchronize()
+            res = [max_err(a, b, tol) for a, b in zip(got, ref)]
+            log(f"flash_bwd {dtype:8s} {name:32s} max_abs_err dq "
+                f"{res[0][0]:.3e} dk {res[1][0]:.3e} dv {res[2][0]:.3e} "
+                f"(tol {tol}), |ref| max "
+                f"{max(float(b.float().abs().max()) for b in ref):.3f}")
+            if not all(ok for _, ok in res):
+                raise AssertionError(f"flash_bwd {dtype} {name}: {res}")
+            for kern, err in (("flash_bwd_dq", res[0][0]),
+                              ("flash_bwd_dkv", max(res[1][0], res[2][0]))):
+                e = errs[kern]
+                if dtype == "float32":
+                    e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
+                elif name.startswith("path"):
+                    e["max_abs_err"] = err
+            if name.startswith("path"):
+                # The check must see a dK/dV one query row short.
+                bad = planted_short_backward(tfa)(q, k, v, out, lse, go,
+                                                  **kw)
+                fres = [max_err(a, b, tol) for a, b in zip(got[1:],
+                                                             bad[1:])]
+                ferr = max(e for e, _ in fres)
+                caught = not all(ok for _, ok in fres)
+                log(f"flash_bwd {dtype} planted fault (plain dK/dV one "
+                    f"query row short): max_abs_err {ferr:.3e}, caught "
+                    f"{caught}")
+                if not caught:
+                    raise AssertionError("the backward check does not see "
+                                         "a dK/dV one query row short")
+                errs["flash_bwd_dkv"][f"planted_fault_err_{dtype}"] = ferr
+            del q, k, v, go, out, lse, got, ref
+    return errs
+
+
 def time_kernels(tfa, dev):
     """Kernel, plain-version and library times at the path's shapes,
     and the roofline bound computed from these inputs."""
@@ -413,7 +536,190 @@ def time_kernels(tfa, dev):
     rows["flash_fwd"]["at_1x2048"] = dict(
         ms=ms2, bound_ms=max(flops2 / PEAK_BF16_FLOPS,
                              4 * B2 * S2 * H * D * 2 / PEAK_BYTES) * 1e3)
+
+    # The training step's attention, [8, 2048, 8, 128] bf16 causal.
+    B3, S3 = 8, 2048
+    q3, k3, v3, g3 = (torch.randn(B3, S3, H, D, device=dev,
+                                  generator=g).to(bf) for _ in range(4))
+    o3, lse3 = tfa.flash_fwd_cuda(q3, k3, v3, causal=True)
+    dvec3 = (g3.float() * o3.float()).sum(-1).transpose(1, 2).contiguous()
+    prod = 2.0 * S3 * S3 * D * H * B3 / 2    # one causal [S,D]x[D,S] product
+    tensor = B3 * S3 * H * D * 2             # one [B, S, H, D] bf16 tensor
+    rowv = 2 * B3 * H * S3 * 4               # lse and dvec, f32
+    ms3 = cuda_time_ms(lambda: tfa.flash_fwd_cuda(q3, k3, v3, causal=True),
+                       iters=10)
+    rows["flash_fwd"]["at_8x2048"] = dict(
+        ms=ms3, bound_ms=max(2 * prod / PEAK_BF16_FLOPS,
+                             (4 * tensor + rowv / 2) / PEAK_BYTES) * 1e3)
+    plain_ms = cuda_time_ms(lambda: tfa.flash_backward_plain(
+        q3, k3, v3, o3, lse3, g3, causal=True), iters=3, warmup=1)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q3, k3, v3))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    gs = g3.transpose(1, 2).contiguous()
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        os_, (qs, ks, vs), gs, retain_graph=True), iters=10)
+    kw = dict(causal=True)
+    for name, fn, nprod, nbytes in (
+            ("flash_bwd_dq", lambda: tfa.flash_bwd_dq_cuda(
+                q3, k3, v3, g3, lse3, dvec3, **kw), 3, 5 * tensor + rowv),
+            ("flash_bwd_dkv", lambda: tfa.flash_bwd_dkv_cuda(
+                q3, k3, v3, g3, lse3, dvec3, **kw), 4, 6 * tensor + rowv)):
+        t_flop, t_byte = nprod * prod / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        rows[name] = dict(
+            shape=[B3, S3, H, D], dtype="bfloat16",
+            ms=cuda_time_ms(fn, iters=10), plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=max(t_flop, t_byte) * 1e3,
+            bound_by="operations" if t_flop >= t_byte else "bytes",
+            library="backward of scaled_dot_product_attention(is_causal="
+                    "True) through torch.autograd.grad: dQ, dK and dV in "
+                    "one call, the same number in both backward rows; the "
+                    "plain time is flash_backward_plain, which also "
+                    "computes all three")
     return rows
+
+
+class plain_training_attention:
+    """Context: `FlashAttentionFn` runs the PLAIN forward and backward
+    on the card (the comparison model; the port itself never does), or
+    with ``backward`` in place of the plain backward (a planted
+    fault)."""
+
+    def __init__(self, tfa, backward=None):
+        self.tfa = tfa
+        self.backward = backward or tfa.flash_backward_plain
+
+    def __enter__(self):
+        tfa = self.tfa
+        self.saved = (tfa._flash_forward, tfa.flash_backward)
+
+        def forward(q, k, v, causal, window, q_offset, k_offset):
+            return tfa.flash_attention_plain(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                k_offset=k_offset)
+        tfa._flash_forward = forward
+        tfa.flash_backward = self.backward
+        return self
+
+    def __exit__(self, *exc):
+        self.tfa._flash_forward, self.tfa.flash_backward = self.saved
+
+
+def run_training(tfa, dev):
+    """Phase 5: the repo's training configuration at full width, data
+    parallel over NCCL at world 1, then one B=2 step through the
+    kernels against the plain versions."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (TransformerLM,
+                                                      init_lm_state,
+                                                      make_lm_train_step)
+    from horovod_tpu_torch.ops.fusion import fused_allreduce_leaves
+    hvd.init()
+    try:
+        probe = torch.arange(4.0, device=dev)
+        if not torch.equal(fused_allreduce_leaves([probe])[0], probe):
+            raise AssertionError("world-1 NCCL allreduce changed its input")
+        model = TransformerLM(32768, 12, 8, 128, max_len=2048,
+                              dtype=torch.bfloat16, attn_impl="flash",
+                              device=dev)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=3e-4, weight_decay=1e-4))
+        init_lm_state(model, opt, seed=0)
+        step = make_lm_train_step(model, opt, loss_chunk=512)
+        tokens = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 32768, (8, 2048))).to(dev)
+        wrappers = {"flash_fwd": tfa.flash_fwd_cuda,
+                    "flash_bwd_dq": tfa.flash_bwd_dq_cuda,
+                    "flash_bwd_dkv": tfa.flash_bwd_dkv_cuda}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.time()
+            loss = step(tokens)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            losses.append(float(loss))
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steady = sorted(times[1:])[len(times[1:]) // 2]
+        # bench.py's estimate: 6 N per token for the matmuls plus the
+        # causal attention term 6 L S d.
+        n_params = sum(p.numel() for p in model.parameters())
+        flops_per_token = 6 * n_params + 6 * 12 * 2048 * 1024
+        mfu = flops_per_token * 8 * 2048 / steady / PEAK_BF16_FLOPS
+        info = dict(steps=TRAIN_STEPS, losses=losses, step_s=times,
+                    step_ms_median_after_first=steady * 1e3,
+                    tokens_per_s=8 * 2048 / steady, mfu=mfu,
+                    max_memory_allocated=peak, launches=launches)
+        log(f"training B=8 x 2048, {TRAIN_STEPS} AdamW steps: losses "
+            f"{[round(x, 4) for x in losses]}, step s "
+            f"{[round(t, 4) for t in times]}, median after the first "
+            f"{steady * 1e3:.1f} ms = {8 * 2048 / steady:.0f} tokens/s, "
+            f"MFU {mfu:.4f} of 989 TFLOP/s, peak memory "
+            f"{peak / 1e9:.2f} GB, launches {launches}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"training loss not finite and falling: "
+                                 f"{losses}")
+        for k, n in launches.items():
+            if n < model.num_layers * TRAIN_STEPS:
+                raise AssertionError(f"{k} launched {n} < "
+                                     f"{model.num_layers} x {TRAIN_STEPS}")
+        info.update(check_train_step(model, tfa, tokens[:2]))
+        return info
+    finally:
+        hvd.shutdown()
+
+
+def check_train_step(model, tfa, tokens):
+    """Loss and every parameter's gradient of one step through the
+    kernels against the same step on the plain versions, and against
+    the plain backward one query row short (a planted fault)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import _lm_data_loss
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss = _lm_data_loss(model, tokens, 512)
+        loss.backward()
+        return float(loss.detach()), [p.grad.clone()
+                                      for p in model.parameters()]
+
+    k_loss, k_grads = grads()
+    with plain_training_attention(tfa):
+        p_loss, p_grads = grads()
+    with plain_training_attention(tfa, planted_short_backward(tfa)):
+        f_loss, f_grads = grads()
+    model.zero_grad(set_to_none=True)
+
+    def worst(gs):
+        return max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(gs, p_grads))
+
+    err, ferr = worst(k_grads), worst(f_grads)
+    names = [n for n, _ in model.named_parameters()]
+    per = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for n, a, b in zip(names, k_grads, p_grads)}
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    log(f"train step B=2, kernels vs plain: loss {k_loss:.6f} vs "
+        f"{p_loss:.6f} (|diff| {abs(k_loss - p_loss):.2e}, tol "
+        f"{STEP_LOSS_TOL}), worst per-parameter gradient error "
+        f"{err:.3e} (tol {STEP_GRAD_TOL}; top {top})")
+    log(f"train step B=2, planted fault (plain dK/dV one query row short) "
+        f"vs plain: worst per-parameter gradient error {ferr:.3e}, loss "
+        f"|diff| {abs(f_loss - p_loss):.2e}")
+    if abs(k_loss - p_loss) > STEP_LOSS_TOL or err > STEP_GRAD_TOL:
+        raise AssertionError(f"train step through the kernels differs: "
+                             f"loss {k_loss} vs {p_loss}, grad err {err}")
+    if ferr <= STEP_GRAD_TOL:
+        raise AssertionError(f"the train-step check does not see a dK/dV "
+                             f"one query row short ({ferr})")
+    return dict(check_loss=k_loss, check_plain_loss=p_loss,
+                check_grad_err=err, check_planted_fault_grad_err=ferr)
 
 
 def teacher_forced_logits(model, prompt, forced, n_ticks):
@@ -805,6 +1111,7 @@ def main() -> int:
 
     errs = check_kernels(tfa, dev)
     errs["paged_decode"] = check_paged(tpa, dev)
+    errs.update(check_backward(tfa, dev))
 
     t0 = time.time()
     model = TransformerLM(32768, 12, 8, 128, max_len=2048,
@@ -846,9 +1153,16 @@ def main() -> int:
         f"ms, TPOT p50 {fx['tpot_ms_p50']} ms, {fx['ticks']} ticks, peak "
         f"lanes {fx['peak_active']} {label}")
 
+    del model
+    train = run_training(tfa, dev)
+    log(f"training: {train['step_ms_median_after_first']:.1f} ms per step, "
+        f"{train['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{train['max_memory_allocated'] / 1e9:.2f} GB {label}")
+
     timing = time_kernels(tfa, dev)
-    main_launches = {k: gen["launches"].get(k, 0) + eng["launches"][k]
-                     + peng["launches"][k] for k in REPLACES}
+    main_launches = {k: sum(run["launches"].get(k, 0)
+                            for run in (gen, eng, peng, train))
+                     for k in REPLACES}
     kernels = []
     for name in REPLACES:
         t = timing[name]
@@ -867,15 +1181,15 @@ def main() -> int:
             f"plain, {t['library_ms']:.4f} ms library, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']} "
             f"{label}")
-    log(f"flash_fwd at [1,2048,8,128]: "
-        f"{timing['flash_fwd']['at_1x2048']['ms']:.4f} ms, bound "
-        f"{timing['flash_fwd']['at_1x2048']['bound_ms']:.4f} ms {label}")
+    for at in ("at_1x2048", "at_8x2048"):
+        log(f"flash_fwd {at}: {timing['flash_fwd'][at]['ms']:.4f} ms, "
+            f"bound {timing['flash_fwd'][at]['bound_ms']:.4f} ms {label}")
 
     record = dict(card=smi, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernels=kernels, timing=timing, generate=gen, engine=eng,
                   paged_teacher_forced=paged_tf, paged_engine=peng,
-                  seconds=time.time() - t_start)
+                  training=train, seconds=time.time() - t_start)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

@@ -2,13 +2,35 @@
 
 A package of its own beside the JAX one: it imports `torch`, never
 `jax`, and nothing of `horovod_tpu`. Its layout mirrors the JAX
-package's so each module's counterpart is easy to find. This slice
-serves the flagship LM (`models.transformer.TransformerLM`) through
-`serving.ServingEngine` on one NVIDIA H100, with the flash-forward and
-flash-decode kernels hand-written in CUDA for Hopper (`csrc/`).
+package's so each module's counterpart is easy to find. It serves the
+flagship LM (`models.transformer.TransformerLM`) through
+`serving.ServingEngine` and trains it data-parallel, with the
+flash-forward, flash-backward and decode kernels hand-written in CUDA
+for Hopper (`csrc/`).
+
+Horovod's surface, over `torch.distributed` (NCCL on the card, gloo on
+the CPU)::
+
+    import horovod_tpu_torch as hvd
+    hvd.init()                       # device="cpu" for gloo
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters()))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    total = hvd.allreduce(t, average=False)
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper uses its plain PyTorch version.
 """
+
+from horovod_tpu_torch.ops.eager import (CollectiveMismatchError, allgather,
+                                         allreduce, allreduce_, broadcast,
+                                         broadcast_)
+from horovod_tpu_torch.optim import (DistributedOptimizer, allgather_object,
+                                     allreduce_gradients, broadcast_object,
+                                     broadcast_optimizer_state,
+                                     broadcast_parameters, grouped_allreduce)
+from horovod_tpu_torch.runtime.bootstrap import (init, is_initialized,
+                                                 local_rank, local_size,
+                                                 rank, shutdown, size)
+from horovod_tpu_torch.runtime.state import NotInitializedError
 
 __version__ = "0.1.0"

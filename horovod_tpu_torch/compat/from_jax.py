@@ -18,12 +18,18 @@ one:
 per KV leaf of the decode cache, in flatten order) onto the port's
 per-layer ``(k_pool, v_pool)`` pairs, so both packages can be fed the
 same cache state.
+
+`adam_state_from_jax(opt_state, model)` maps an optax Adam/AdamW state
+(its ``ScaleByAdamState``: ``count``, ``mu``, ``nu``) onto the per-param
+``step``, ``exp_avg`` and ``exp_avg_sq`` of a `torch.optim.AdamW` (or
+Adam) over the port model's parameters, so a JAX run's optimizer state
+carries across with its weights.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,4 +105,41 @@ def paged_pools_from_jax(pools: Sequence) -> List[Tuple[torch.Tensor,
                 t = torch.from_numpy(np.array(arr))
             pair.append(t[:, 0].contiguous())
         out[layer] = tuple(pair)
+    return out
+
+
+def _find_adam_state(node) -> Any:
+    """The first ``count``/``mu``/``nu`` record in an optax state tree
+    (a chain's state is a tuple of per-transformation states)."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state, model: torch.nn.Module
+                        ) -> Dict[torch.nn.Parameter, Dict[str, Any]]:
+    """Per-param AdamW state from an optax Adam/AdamW state of numpy
+    arrays (``jax.tree.map(np.asarray, opt_state)``): ``{param: {"step":
+    count, "exp_avg": mu, "exp_avg_sq": nu}}`` for every parameter of
+    ``model``, on its device and dtype. optax's ``count`` and torch's
+    ``step`` both count the updates applied, so the bias corrections
+    agree. Install with ``optimizer.state.update(...)``."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the "
+                         "optimizer state")
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)))
+    out = {}
+    for name, p in model.named_parameters():
+        if name not in mu:
+            raise KeyError(f"optimizer state has no moments for {name}")
+        out[p] = {"step": step.clone(),
+                  "exp_avg": mu[name].to(p.device, p.dtype),
+                  "exp_avg_sq": nu[name].to(p.device, p.dtype)}
     return out

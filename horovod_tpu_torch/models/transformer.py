@@ -13,10 +13,14 @@ JAX package vmaps a B=1 step over the slot axis, the port runs ONE
 batched call over all lanes with per-lane fill and position tensors.
 
 Attention kernels: ``dot`` (materialized softmax), ``blockwise``
-(online-softmax loop) and ``flash`` (the CUDA flash-forward kernel,
-its plain version on the CPU). The ``paged_*`` functions are the
-device surface of `serving.paging.PagedSlotPool` (block pools read
-through block tables). Sequence-parallel attention, MoE, LoRA and
+(online-softmax loop) and ``flash`` (the CUDA flash-forward and
+flash-backward kernels, their plain versions on the CPU). The
+``paged_*`` functions are the device surface of
+`serving.paging.PagedSlotPool` (block pools read through block
+tables). Training: `lm_loss`, `chunked_lm_loss` (the fused head + CE
+over sequence chunks), `make_lm_train_step`, `make_lm_eval_step` and
+`init_lm_state`, data-parallel over `torch.distributed` through
+`horovod_tpu_torch.optim`. Sequence-parallel attention, MoE, LoRA and
 int8 weights/KV are later slices.
 """
 
@@ -27,8 +31,11 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from horovod_tpu_torch import optim
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  blockwise_attention,
                                                  check_window)
@@ -194,11 +201,14 @@ class KVCache:
 class TransformerLM(nn.Module):
     """Decoder-only LM: [B, S] int tokens -> [B, S, V] logits.
 
-    The constructor mirrors the JAX module's fields that this slice
-    serves (gpt preset by default: learned positions, LayerNorm, gelu
-    MLP, tied head) plus ``device``. Weights are created on ``device``
-    (CUDA unless ``device="cpu"``) and drawn by `init_weights(seed)`.
-    ``weight_quant`` / ``kv_quant`` (int8) are a later slice and raise.
+    The constructor mirrors the JAX module's fields that the port
+    serves and trains (gpt preset by default: learned positions,
+    LayerNorm, gelu MLP, tied head) plus ``device``. Weights are
+    created on ``device`` (CUDA unless ``device="cpu"``) and drawn by
+    `init_weights(seed)`. ``remat=True`` recomputes each block's
+    activations in the backward (`torch.utils.checkpoint`, as the JAX
+    module's `nn.remat`). ``weight_quant`` / ``kv_quant`` (int8) and
+    ``moe_every`` > 0 (mixture of experts) are later slices and raise.
     """
 
     def __init__(self, vocab_size: int, num_layers: int, num_heads: int,
@@ -214,8 +224,13 @@ class TransformerLM(nn.Module):
                  attn_out_bias: Optional[bool] = None, ln_eps: float = 1e-6,
                  norm: str = "layernorm", mlp_impl: str = "gelu",
                  mlp_hidden: Optional[int] = None, tied_head: bool = True,
-                 embed_scale: Optional[float] = None, device=None):
+                 embed_scale: Optional[float] = None, remat: bool = False,
+                 moe_every: int = 0, device=None):
         super().__init__()
+        if moe_every > 0:
+            raise NotImplementedError(
+                "mixture-of-experts blocks (moe_every > 0) are a later "
+                "slice of the PyTorch port (expert parallelism)")
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"pos_emb must be 'learned' or 'rope', got "
                              f"{pos_emb!r}")
@@ -236,6 +251,7 @@ class TransformerLM(nn.Module):
         self.ln_eps, self.norm, self.mlp_impl = ln_eps, norm, mlp_impl
         self.mlp_hidden, self.tied_head = mlp_hidden, tied_head
         self.embed_scale = embed_scale
+        self.remat = remat
         d = num_heads * head_dim
         dev = self.device
         self.embed = nn.Parameter(torch.empty(vocab_size, d, device=dev))
@@ -299,13 +315,134 @@ class TransformerLM(nn.Module):
                 x = x + self.pos[:S]
         x = x.to(self.dtype)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, None if cache is None else cache.layer(i),
-                    chunked_prefill, prefix_len)
+            if cache is None and self.remat:
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x, None if cache is None else cache.layer(i),
+                        chunked_prefill, prefix_len)
         x = self.ln_f(x)
         head = self.head()
         if return_hidden:
             return x, head
         return x @ head.to(self.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Train step: data parallel over torch.distributed (one process per
+# card); the gradient allreduce is `optim.DistributedOptimizer`'s.
+# ---------------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy, [B, S, V] logits vs [B, S] tokens (the
+    logits cast to f32 first, as the JAX package does)."""
+    V = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
+                           tokens[:, 1:].reshape(-1))
+
+
+def _weighted_ce_chunk(hc, w, yc, mc):
+    logits = torch.einsum("bcd,vd->bcv", hc, w).float()
+    ce = F.cross_entropy(logits.flatten(0, 1), yc.reshape(-1),
+                         reduction="none")
+    return (ce * mc.reshape(-1)).sum()
+
+
+def chunked_weighted_ce(hidden: torch.Tensor, head: torch.Tensor,
+                        targets: torch.Tensor, weights: torch.Tensor, *,
+                        chunk: int) -> torch.Tensor:
+    """SUM of ``weights * CE(hidden @ head.T, targets)`` over sequence
+    chunks of ``chunk`` positions, each under `torch.utils.checkpoint`
+    (as `jax.checkpoint` in the JAX package): the [B, S, V] logits never
+    materialize, each chunk's are recomputed in the backward. The
+    einsum runs at the hidden dtype and its logits are cast to f32
+    after it, as in the JAX package. A ragged last chunk is sliced, not
+    padded (the JAX package's padding rows carry weight 0)."""
+    w = head.to(hidden.dtype)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for o in range(0, hidden.shape[1], chunk):
+        total = total + checkpoint(
+            _weighted_ce_chunk, hidden[:, o:o + chunk], w,
+            targets[:, o:o + chunk], weights[:, o:o + chunk],
+            use_reentrant=False)
+    return total
+
+
+def chunked_lm_loss(hidden: torch.Tensor, embed: torch.Tensor,
+                    tokens: torch.Tensor, *, chunk: int = 512
+                    ) -> torch.Tensor:
+    """Next-token cross entropy fused with the LM head over sequence
+    chunks (`chunked_weighted_ce`): the same value and gradients as
+    `lm_loss` on the full logits, with the [B, S, V] logits never held
+    at once — at B8 x S2048 x V32k they are the LM's largest
+    activation."""
+    B, S, _ = hidden.shape
+    P = S - 1
+    total = chunked_weighted_ce(
+        hidden[:, :-1], embed, tokens[:, 1:],
+        torch.ones((B, P), dtype=torch.float32, device=hidden.device),
+        chunk=chunk)
+    return total / (B * P)
+
+
+def _lm_data_loss(model: TransformerLM, tokens: torch.Tensor,
+                  loss_chunk: Optional[int]) -> torch.Tensor:
+    """Chunked-vs-plain loss dispatch shared by the train and eval steps
+    (one site, so eval == train loss cannot drift)."""
+    if loss_chunk:
+        hidden, head = model(tokens, return_hidden=True)
+        return chunked_lm_loss(hidden, head, tokens, chunk=loss_chunk)
+    return lm_loss(model(tokens), tokens)
+
+
+def make_lm_train_step(model: TransformerLM,
+                       optimizer: torch.optim.Optimizer, *,
+                       loss_chunk: Optional[int] = None) -> Callable:
+    """``step(tokens [B, S]) -> loss``: one data-parallel train step of
+    ``model`` on this rank's batch — loss, gradients, then
+    ``optimizer.step()``, which averages the gradients over the ranks
+    when it is an `optim.DistributedOptimizer` (required at world size
+    > 1: a plain optimizer would let the replicas drift apart). Returns
+    the loss averaged over ranks as a 0-d device tensor (the JAX step's
+    ``lax.pmean``): no ``.item()`` and no host sync inside the step.
+    ``loss_chunk`` runs the fused head + CE in chunks of that many
+    positions."""
+    def step(tokens: torch.Tensor) -> torch.Tensor:
+        if optim.world_size() > 1 and not optim.is_distributed(optimizer):
+            raise ValueError(
+                "make_lm_train_step at world size > 1 needs a "
+                "DistributedOptimizer (it averages the gradients)")
+        optimizer.zero_grad(set_to_none=True)
+        loss = _lm_data_loss(model, tokens, loss_chunk)
+        loss.backward()
+        optimizer.step()
+        return optim.mean_over_ranks(loss.detach())
+
+    return step
+
+
+def make_lm_eval_step(model: TransformerLM, *,
+                      loss_chunk: Optional[int] = None) -> Callable:
+    """``eval(tokens) -> mean next-token cross entropy`` (nats), the
+    forward-only twin of `make_lm_train_step` (same loss site),
+    averaged over ranks; perplexity = exp(loss)."""
+    @torch.no_grad()
+    def ev(tokens: torch.Tensor) -> torch.Tensor:
+        return optim.mean_over_ranks(_lm_data_loss(model, tokens,
+                                                   loss_chunk))
+
+    return ev
+
+
+def init_lm_state(model: TransformerLM, optimizer: torch.optim.Optimizer,
+                  seed: int = 0):
+    """Draw the model's weights from ``seed`` and broadcast parameters
+    and optimizer state from rank 0, so every rank starts identically
+    (a no-op broadcast at world size 1 or before `init()`). Returns
+    ``(model, optimizer)``."""
+    model.init_weights(seed)
+    optim.broadcast_parameters(model.state_dict(), root_rank=0)
+    optim.broadcast_optimizer_state(optimizer, root_rank=0)
+    return model, optimizer
 
 
 def serving_params(model: TransformerLM,

@@ -1,11 +1,17 @@
-"""Flash attention for the port: the flash-forward and flash-decode
-kernels (CUDA C++ for Hopper, ``csrc/flash_fwd.cu`` and
-``csrc/flash_decode.cu``), each beside its plain PyTorch version.
+"""Flash attention for the port: the flash-forward, flash-backward
+(dQ and dK/dV) and flash-decode kernels (CUDA C++ for Hopper,
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``,
+``csrc/flash_bwd_dkv.cu`` and ``csrc/flash_decode.cu``), each beside
+its plain PyTorch version.
 
 Counterpart of `horovod_tpu.ops.flash_attention` (its Pallas kernels
-`_flash_kernel` and `_decode_kernel`), forward only: the fused
-backward kernels are a later slice. Layout is the framework-wide
-[batch, seq, heads, head_dim].
+`_flash_kernel`, `_flash_bwd_dq_kernel`, `_flash_bwd_dkv_kernel` and
+`_decode_kernel`). `flash_attention` and `flash_attention_lse` are
+differentiable through `FlashAttentionFn`, the counterpart of the JAX
+package's `jax.custom_vjp`: its forward runs the forward kernel and
+saves (q, k, v, out, lse), its backward rebuilds the probabilities
+from the saved logsumexp in the two backward kernels. Layout is the
+framework-wide [batch, seq, heads, head_dim].
 
 Dispatch rule, per call: a tensor on the CPU goes to the plain version
 (the CPU tests, and the toy widths they use); a CUDA tensor launches
@@ -22,7 +28,9 @@ from typing import Optional
 import torch
 
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
+                                                 blockwise_attention,
                                                  check_window)
+from horovod_tpu_torch.runtime.config import env_raw
 
 NEG_INF = float("-inf")
 KERNEL_HEAD_DIMS = (64, 128)
@@ -89,6 +97,13 @@ def flash_attention_plain(q, k, v, *, causal: bool = False,
     return out.transpose(1, 2).to(q.dtype), lse
 
 
+def _rows_aligned(t) -> bool:
+    """Every head_dim row of ``t`` starts 16-byte aligned."""
+    es = t.element_size()
+    return not (t.data_ptr() % 16
+                or any((s * es) % 16 for s in t.stride()[:-1]))
+
+
 def _check_kernel_operand(name, t, ref):
     if t.device != ref.device:
         raise ValueError(f"{name} is on {t.device}, q on {ref.device}")
@@ -97,8 +112,7 @@ def _check_kernel_operand(name, t, ref):
     if t.stride(-1) != 1:
         raise ValueError(f"{name} needs a contiguous head_dim axis, got "
                          f"strides {t.stride()}")
-    es = t.element_size()
-    if t.data_ptr() % 16 or any((s * es) % 16 for s in t.stride()[:-1]):
+    if not _rows_aligned(t):
         raise ValueError(f"{name} rows must be 16-byte aligned (pointer "
                          f"{t.data_ptr():#x}, strides {t.stride()})")
 
@@ -139,6 +153,11 @@ def _lib_call(name, argtypes, *args):
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _FWD_ARGTYPES = ([_P] * 5 + [_I] * 7 + [_L] * 12 + [_I] * 4 + [_F, _P])
+# q, k, v, dO, lse, dvec, then the outputs (dq | dk, dv); dtype, B, Sq,
+# Sk, H, Hkv, D; (batch, seq, head) strides of q, k, v, dO and of each
+# output; causal, window, q_offset, k_offset; scale; stream.
+_DQ_ARGTYPES = ([_P] * 7 + [_I] * 7 + [_L] * 15 + [_I] * 4 + [_F, _P])
+_DKV_ARGTYPES = ([_P] * 8 + [_I] * 7 + [_L] * 18 + [_I] * 4 + [_F, _P])
 _DECODE_ARGTYPES = [_P] * 5 + [_I] * 6 + [_L, _L, _F, _P]
 
 
@@ -178,6 +197,266 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = False,
 flash_fwd_cuda.launches = 0
 
 
+def _flash_forward(q, k, v, causal, window, q_offset, k_offset):
+    """(out, lse) by the forward kernel, or its plain version on the
+    CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, k_offset=k_offset)
+    return flash_fwd_cuda(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, k_offset=k_offset)
+
+
+# ---------------------------------------------------------------------------
+# Flash backward.
+# ---------------------------------------------------------------------------
+
+def flash_backward_plain(q, k, v, o, lse, g, *, causal: bool = False,
+                         window: Optional[int] = None, q_offset: int = 0,
+                         k_offset: int = 0, dlse=None):
+    """The plain version of the two backward kernels, after the JAX
+    package's `_flash_backward`: the probabilities are rebuilt from the
+    saved row logsumexp, ``p = exp(scale q k^T - lse)`` with the
+    forward's mask (p = 0 on rows whose lse is -inf), then
+    ``dvec = rowsum(dO * O) - dlse``, ``ds = p * (dO V^T - dvec)``,
+    ``dq = scale ds K``, ``dk = ds^T (scale q)``, ``dv = p^T dO``, with
+    dK and dV folded over each kv head's query group. All math in f32
+    on a materialized [Sq, Sk] matrix; returns ``(dq, dk, dv)`` at the
+    input dtypes, dK/dV at kv width."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = _gqa_group(q, k, v)
+    scale = D ** -0.5
+    qs = q.float().transpose(1, 2) * scale               # [B, H, Sq, D]
+    kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    do = g.float().transpose(1, 2)
+    s = torch.matmul(qs, kf.transpose(-1, -2))            # [B, H, Sq, Sk]
+    if causal:
+        qp = q_offset + torch.arange(Sq, device=q.device)
+        kp = k_offset + torch.arange(Sk, device=q.device)
+        s = s.masked_fill(~banded_causal_mask(qp, kp, window), NEG_INF)
+    row = lse.float()[..., None]                          # [B, H, Sq, 1]
+    p = torch.where(torch.isfinite(row), torch.exp(s - row),
+                    torch.zeros_like(s))
+    dvec = (do * o.float().transpose(1, 2)).sum(-1)       # [B, H, Sq]
+    if dlse is not None:
+        dvec = dvec - dlse.float()
+    ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - dvec[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qs)           # [B, H, Sk, D]
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dk = dk.unflatten(1, (Hkv, group)).sum(2)
+    dv = dv.unflatten(1, (Hkv, group)).sum(2)
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def _bwd_operands(q, k, v, g, lse, dvec):
+    """Shared checks of the two backward kernel wrappers."""
+    _check_kernel_inputs(q, (("q", q), ("k", k), ("v", v), ("dO", g)))
+    _gqa_group(q, k, v)
+    B, Sq, H, D = q.shape
+    if g.shape != q.shape:
+        raise ValueError(f"dO shape {tuple(g.shape)} != q shape "
+                         f"{tuple(q.shape)}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("dvec", dvec)):
+        if (t.dtype != torch.float32 or t.device != q.device
+                or t.shape != (B, H, Sq) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 tensor "
+                             f"[B, H, Sq] = {(B, H, Sq)} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    return B, Sq, k.shape[1], H, k.shape[2], D
+
+
+def flash_bwd_dq_cuda(q, k, v, g, lse, dvec, *, causal: bool = False,
+                      window: Optional[int] = None, q_offset: int = 0,
+                      k_offset: int = 0):
+    """Launch the dQ kernel (``csrc/flash_bwd_dq.cu``) on CUDA tensors:
+    q and dO ``g`` [B, Sq, H, D], k/v [B, Sk, Hkv, D] (any strides with
+    a contiguous, 16-byte aligned head_dim row), the forward's ``lse``
+    and ``dvec = rowsum(dO * O) - dlse``, both float32 [B, H, Sq]
+    contiguous. Returns dq [B, Sq, H, D] at q.dtype."""
+    B, Sq, Sk, H, Hkv, D = _bwd_operands(q, k, v, g, lse, dvec)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    if Sk == 0:
+        return dq.zero_()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        _lib_call(
+            "flash_bwd_dq", _DQ_ARGTYPES,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, Sq, Sk, H, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *g.stride()[:3], *dq.stride()[:3], int(bool(causal)),
+            0 if window is None else int(window), int(q_offset),
+            int(k_offset), D ** -0.5, stream)
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, g, lse, dvec, *, causal: bool = False,
+                       window: Optional[int] = None, q_offset: int = 0,
+                       k_offset: int = 0):
+    """Launch the dK/dV kernel (``csrc/flash_bwd_dkv.cu``); operands as
+    `flash_bwd_dq_cuda`. Returns ``(dk, dv)`` [B, Sk, Hkv, D] at
+    k.dtype, each folded over its query-head group."""
+    B, Sq, Sk, H, Hkv, D = _bwd_operands(q, k, v, g, lse, dvec)
+    dk = torch.empty((B, Sk, Hkv, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0:
+        return dk, dv
+    if Sq == 0 or H == 0:
+        return dk.zero_(), dv.zero_()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        _lib_call(
+            "flash_bwd_dkv", _DKV_ARGTYPES,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, Sq, Sk, H, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *g.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            int(bool(causal)), 0 if window is None else int(window),
+            int(q_offset), int(k_offset), D ** -0.5, stream)
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+def _kernel_layout(t):
+    """``t`` itself when the kernels can read it through its strides (a
+    contiguous, 16-byte aligned head_dim row), else a contiguous copy:
+    autograd may hand the backward a cotangent in any layout."""
+    return t if t.stride(-1) == 1 and _rows_aligned(t) else t.contiguous()
+
+
+def flash_backward(q, k, v, o, lse, g, *, causal: bool = False,
+                   window: Optional[int] = None, q_offset: int = 0,
+                   k_offset: int = 0, dlse=None):
+    """``(dq, dk, dv)`` of flash attention from the forward's saved
+    (q, k, v, out, lse) and the cotangents ``g`` of out and ``dlse`` of
+    lse (None: no cotangent). CPU tensors take `flash_backward_plain`;
+    CUDA tensors launch the dQ and dK/dV kernels (or raise)."""
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, o, lse, g, causal=causal,
+                                    window=window, q_offset=q_offset,
+                                    k_offset=k_offset, dlse=dlse)
+    dvec = (g.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        dvec = dvec - dlse.float()
+    dvec = dvec.contiguous()
+    g = _kernel_layout(g)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              k_offset=k_offset)
+    dq = flash_bwd_dq_cuda(q, k, v, g, lse, dvec, **kw)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, dvec, **kw)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``(out, lse)`` of flash attention, differentiable in both: the
+    counterpart of the JAX package's `_make_flash_lse` custom VJP (and
+    of `_make_flash` under ``bwd_impl="pallas"``). The forward runs the
+    forward kernel and saves (q, k, v, out, lse); the backward runs the
+    two backward kernels with ``dvec = rowsum(dO * O) - dlse``. On the
+    CPU the same Function runs the plain forward and the plain
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, k_offset):
+        out, lse = _flash_forward(q, k, v, causal, window, q_offset,
+                                  k_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = dict(causal=causal, window=window, q_offset=q_offset,
+                       k_offset=k_offset)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g is None:
+            g = torch.zeros_like(out)
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, dlse=dlse,
+                                    **ctx.cfg)
+        return dq, dk, dv, None, None, None, None
+
+
+def _recompute_ref(q, k, v, causal, window, q_offset, k_offset):
+    """The JAX package's recompute oracle (`_make_flash.ref`): the
+    blockwise online-softmax attention with K/V repeated to the query
+    heads inside the differentiated function, so dK/dV come back at kv
+    width."""
+    group = q.shape[2] // k.shape[2]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    return blockwise_attention(q, k, v, block_size=128, causal=causal,
+                               window=window, q_offset=q_offset,
+                               k_offset=k_offset)
+
+
+class FlashRecomputeFn(torch.autograd.Function):
+    """``bwd_impl="recompute"``: the forward kernel's output, with the
+    gradient of `_recompute_ref` (autograd through the blockwise
+    attention) as its backward — the JAX package's conservative
+    escape hatch, an explicit choice and never a silent substitute."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, k_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (causal, window, q_offset, k_offset)
+        return _flash_forward(q, k, v, causal, window, q_offset,
+                              k_offset)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = _recompute_ref(q, k, v, *ctx.cfg)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None
+
+
+BWD_IMPLS = ("auto", "pallas", "recompute")
+
+
+def resolve_bwd_impl(bwd_impl: str) -> str:
+    """``auto`` -> ``HOROVOD_FLASH_BWD`` when set (pallas|recompute;
+    anything else raises, so a typo never selects the kernel being
+    escaped), else ``pallas`` (the fused backward kernels)."""
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(
+            f"bwd_impl must be auto|pallas|recompute, got {bwd_impl!r}")
+    if bwd_impl != "auto":
+        return bwd_impl
+    env = env_raw("HOROVOD_FLASH_BWD")
+    if env is not None and env not in ("pallas", "recompute"):
+        raise ValueError(
+            f"HOROVOD_FLASH_BWD must be pallas|recompute, got {env!r}")
+    return env or "pallas"
+
+
+def _check_args(q, k, v, causal, window):
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
+    check_window(window)
+    _gqa_group(q, k, v)
+
+
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = False,
                         window: Optional[int] = None, q_offset: int = 0,
@@ -187,32 +466,35 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     0) on fully-masked rows. Causal masking uses global positions
     ``q_offset + i >= k_offset + j``; ``window`` (requires causal)
     keeps only the last ``window`` positions. GQA-native: K/V may carry
-    fewer heads than Q. Forward only."""
-    if window is not None and not causal:
-        raise ValueError("window requires causal=True")
-    check_window(window)
-    _gqa_group(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, k_offset=k_offset)
-    return flash_fwd_cuda(q, k, v, causal=causal, window=window,
-                          q_offset=q_offset, k_offset=k_offset)
+    fewer heads than Q. Differentiable in both outputs through the
+    fused backward (`FlashAttentionFn`)."""
+    _check_args(q, k, v, causal, window)
+    return FlashAttentionFn.apply(q, k, v, bool(causal),
+                                  None if window is None else int(window),
+                                  int(q_offset), int(k_offset))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask=None, *, causal: bool = False,
                     window: Optional[int] = None, q_offset: int = 0,
-                    k_offset: int = 0) -> torch.Tensor:
+                    k_offset: int = 0, bwd_impl: str = "auto") -> torch.Tensor:
     """Fused flash attention, [B, S, H, D] -> [B, S, H, D] (output at
     q.dtype, f32 math). ``mask`` is accepted positionally as None only
     (causal/window masking only), so the function drops in as
-    `ParallelSelfAttention`'s ``attn_fn``."""
+    `ParallelSelfAttention`'s ``attn_fn``. ``bwd_impl``: "auto" (the
+    fused backward kernels unless ``HOROVOD_FLASH_BWD`` says
+    otherwise), "pallas" (the fused backward kernels) or "recompute"
+    (autograd through the blockwise attention)."""
     if mask is not None:
         raise NotImplementedError(
             "flash_attention supports causal masking only; use "
             "dot_product_attention for arbitrary masks")
-    return flash_attention_lse(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, k_offset=k_offset)[0]
+    _check_args(q, k, v, causal, window)
+    args = (q, k, v, bool(causal), None if window is None else int(window),
+            int(q_offset), int(k_offset))
+    if resolve_bwd_impl(bwd_impl) == "recompute":
+        return FlashRecomputeFn.apply(*args)
+    return FlashAttentionFn.apply(*args)[0]
 
 
 flash_attention.native_gqa = True

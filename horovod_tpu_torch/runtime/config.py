@@ -8,10 +8,10 @@ unregistered names. `env_table_md` renders the registry as a markdown
 table.
 
 Only knobs that a ported module reads are registered. A knob of the
-JAX package whose consumer is not ported yet (fusion,
-speculative decoding, the router and fleet, the metrics exporter,
-profiling, elastic membership, checkpoints, ...) is registered by the
-slice that ports its consumer; ROADMAP.md lists them until then.
+JAX package whose consumer is not ported yet (speculative decoding,
+the router and fleet, the metrics exporter, profiling, elastic
+membership, checkpoints, ...) is registered by the slice that ports
+its consumer; ROADMAP.md lists them until then.
 ``HVD_SERVE_MESH`` and ``HVD_WEIGHT_QUANT`` are read so that a setting
 raises `NotImplementedError` instead of being ignored.
 """
@@ -22,6 +22,7 @@ import dataclasses
 import os
 from typing import Dict, Optional
 
+DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes (Horovod's default)
 DEFAULT_STALL_WARNING_TIME = 60.0            # seconds
 # Serving: max prompt tokens the dispatch loop streams per scheduling
 # step (interleaved chunked prefill); <= 0 disables interleaving (whole
@@ -124,6 +125,24 @@ def env_table_md() -> str:
 # (kept in one block so the table reads as documentation; consumers
 # outside this file fetch values via the env_* accessors above)
 
+register_knob(
+    "HOROVOD_FUSION_THRESHOLD", "int", str(DEFAULT_FUSION_THRESHOLD),
+    "ops/fusion.py",
+    "Tensor-fusion bucket size in bytes for the gradient allreduce (0 "
+    "disables fusion: one collective per tensor)")
+register_knob(
+    "HVD_FUSION_MB", "float", "64", "ops/fusion.py",
+    "Megabyte alias of the fusion threshold (accepts fractions); "
+    "HOROVOD_FUSION_THRESHOLD wins when both are set")
+register_knob(
+    "HOROVOD_ALLREDUCE_DTYPE", "str", "(unset)", "optim.py",
+    "Reduce gradients in this torch dtype (e.g. bfloat16) before "
+    "casting back")
+register_knob(
+    "HOROVOD_FLASH_BWD", "str", "pallas", "ops/flash_attention.py",
+    "Flash-attention backward override of bwd_impl='auto': 'pallas' "
+    "(the fused dQ and dK/dV kernels) or 'recompute' (autograd "
+    "through the blockwise attention); any other value raises")
 register_knob(
     "HVD_PREFILL_CHUNK_BUDGET", "int", str(DEFAULT_PREFILL_CHUNK_BUDGET),
     "serving/engine.py",
@@ -255,6 +274,10 @@ class Config:
     """
 
     stall_warning_time: float = DEFAULT_STALL_WARNING_TIME
+    # Training: gradient-allreduce fusion bucket bytes and the optional
+    # reduce dtype (a torch dtype name, "" = the gradients' own).
+    fusion_threshold: int = DEFAULT_FUSION_THRESHOLD
+    allreduce_dtype: str = ""
     prefill_chunk_budget: int = DEFAULT_PREFILL_CHUNK_BUDGET
     # Paged KV cache: block geometry, prefix caching, the paged-
     # attention dispatch mode, and the swap shelf's byte budget.
@@ -273,6 +296,18 @@ class Config:
     brownout: bool = True
 
     def refresh(self) -> "Config":
+        # HOROVOD_FUSION_THRESHOLD (exact bytes, Horovod's knob) wins;
+        # HVD_FUSION_MB (megabytes, accepts fractions) is the alias.
+        if env_str("HOROVOD_FUSION_THRESHOLD"):
+            self.fusion_threshold = env_int("HOROVOD_FUSION_THRESHOLD",
+                                            DEFAULT_FUSION_THRESHOLD)
+        elif env_str("HVD_FUSION_MB"):
+            self.fusion_threshold = int(
+                env_float("HVD_FUSION_MB",
+                          DEFAULT_FUSION_THRESHOLD / (1 << 20)) * (1 << 20))
+        else:
+            self.fusion_threshold = DEFAULT_FUSION_THRESHOLD
+        self.allreduce_dtype = env_str("HOROVOD_ALLREDUCE_DTYPE")
         self.prefill_chunk_budget = env_int(
             "HVD_PREFILL_CHUNK_BUDGET", DEFAULT_PREFILL_CHUNK_BUDGET)
         self.kv_block_size = env_int("HVD_KV_BLOCK_SIZE",

@@ -1,6 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain
-PyTorch version, and a small model's greedy stream through the kernels
-against the same model on the plain versions.
+PyTorch version, a small model's greedy stream through the kernels
+against the same model on the plain versions, and a small model's
+train-step gradients through the forward and backward kernels against
+autograd through the dot attention.
 
 Every test here carries the ``gpu`` marker and skips without a card
 (the decision is made inside each test, never at import). This file
@@ -10,7 +12,8 @@ that has only PyTorch; there, without the JAX test harness:
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
 Tolerances: f32 kernels differ from their plain versions by summation
-order only (2e-5 at these sizes); bf16 outputs are rounded from f32 on
+order only (2e-5 at these sizes; gradients, which sum over up to 200
+keys or queries x 4 heads, 1e-4); bf16 outputs are rounded from f32 on
 both sides, so one bf16 rounding flip is allowed: 2e-3 absolute plus
 1e-2 relative, as in chip_smoke.py.
 """
@@ -211,3 +214,126 @@ def test_small_paged_engine_through_kernel():
         if mode == "pallas":
             assert launches >= ticks * 2
     assert outs["lax"] == outs["pallas"]
+
+
+# The backward kernels' cases: the forward's, plus a fully masked
+# block of rows (keys all in the future) and Sq != Sk with GQA 4/1.
+BWD_CASES = FWD_CASES + [
+    dict(Sq=80, Sk=16, H=2, Hkv=2, causal=True, q_offset=0, k_offset=40),
+    dict(Sq=130, Sk=70, H=4, Hkv=1, causal=False),
+]
+
+
+def _bwd_inputs(i, dev, dt, D, c):
+    c = dict(c)
+    Sq, Sk, H, Hkv = c.pop("Sq"), c.pop("Sk"), c.pop("H"), c.pop("Hkv")
+    q = _randn(i, 2, Sq, H, D).to(dev, dt)
+    k = _randn(i + 100, 2, Sk, Hkv, D).to(dev, dt)
+    v = _randn(i + 200, 2, Sk, Hkv, D).to(dev, dt)
+    g = _randn(i + 300, 2, Sq, H, D).to(dev, dt)
+    return q, k, v, g, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_backward_matches_plain(dtype, D):
+    """dQ and dK/dV kernels against `flash_backward_plain` on the
+    forward kernel's saved (out, lse), with and without a cotangent on
+    lse."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = (1e-4, 1e-4) if dt == torch.float32 else (2e-3, 1e-2)
+    for i, c in enumerate(BWD_CASES):
+        q, k, v, g, kw = _bwd_inputs(i, dev, dt, D, c)
+        out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+        for dlse in (None, _randn(i + 400, *lse.shape).to(dev)):
+            got = tfa.flash_backward(q, k, v, out, lse, g, dlse=dlse, **kw)
+            ref = tfa.flash_backward_plain(q, k, v, out, lse, g, dlse=dlse,
+                                           **kw)
+            for a, b in zip(got, ref):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                           rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_backward_reads_strided_cotangent():
+    """dO as a column slice of a wider tensor (strided rows, contiguous
+    head_dim) goes to the kernels as it is; dO with a non-contiguous
+    head_dim is refused by the kernel wrappers and copied by the
+    dispatcher."""
+    dev = _card()
+    q, k, v, g, kw = _bwd_inputs(3, dev, torch.float32, 64, FWD_CASES[4])
+    out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+    ref = tfa.flash_backward_plain(q, k, v, out, lse, g, **kw)
+    wide = torch.cat([g, torch.zeros_like(g)], -1)[..., :64]
+    assert not wide.is_contiguous()
+    dvec = (g * out).sum(-1).transpose(1, 2).contiguous()
+    torch.testing.assert_close(
+        tfa.flash_bwd_dq_cuda(q, k, v, wide, lse, dvec, **kw), ref[0],
+        atol=1e-4, rtol=1e-4)
+    gt = g.transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_bwd_dkv_cuda(q, k, v, gt, lse, dvec, **kw)
+    for a, b in zip(tfa.flash_backward(q, k, v, out, lse, gt, **kw), ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_autograd_launches_backward_kernels():
+    """On the card, `flash_attention` and `flash_attention_lse` return
+    outputs of `FlashAttentionFn`, whose backward launches the dQ and
+    dK/dV kernels once each (no fallback)."""
+    dev = _card()
+    q, k, v, g, kw = _bwd_inputs(5, dev, torch.float32, 64, FWD_CASES[7])
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = tfa.flash_attention(q, k, v, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    n = (tfa.flash_bwd_dq_cuda.launches, tfa.flash_bwd_dkv_cuda.launches)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert (tfa.flash_bwd_dq_cuda.launches,
+            tfa.flash_bwd_dkv_cuda.launches) == (n[0] + 1, n[1] + 1)
+    with torch.no_grad():
+        o, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+        ref = tfa.flash_backward_plain(q, k, v, o, lse, g, **kw)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    out, lse = tfa.flash_attention_lse(q, k, v, **kw)
+    wl = _randn(6, *lse.shape).to(dev)
+    loss = (out * g).sum() + (torch.where(torch.isfinite(lse), lse, 0.0)
+                              * wl).sum()
+    got = torch.autograd.grad(loss, (q, k, v))
+    with torch.no_grad():
+        ref = tfa.flash_backward_plain(q, k, v, o, lse, g, dlse=wl, **kw)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_small_model_train_step_through_kernels():
+    """f32 toy LM: the loss and every parameter gradient of a train
+    step through the forward and backward kernels equal autograd
+    through the dot attention on the card (1e-4: f32, summation order
+    over 2 layers); each kernel ran once per layer."""
+    dev = _card()
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    kw = dict(max_len=64, dtype=torch.float32, num_kv_heads=2, device=dev)
+    fast = TransformerLM(128, 2, 4, 64, attn_impl="flash",
+                         **kw).init_weights(3)
+    slow = TransformerLM(128, 2, 4, 64, attn_impl="dot", **kw)
+    slow.load_state_dict(fast.state_dict())
+    toks = torch.from_numpy(
+        np.random.RandomState(4).randint(0, 128, (3, 50))).to(dev)
+    wrappers = (tfa.flash_fwd_cuda, tfa.flash_bwd_dq_cuda,
+                tfa.flash_bwd_dkv_cuda)
+    before = [w.launches for w in wrappers]
+    lf = lm_loss(fast(toks), toks)
+    lf.backward()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2, 2, 2]
+    ls = lm_loss(slow(toks), toks)
+    ls.backward()
+    torch.testing.assert_close(lf, ls, atol=1e-5, rtol=1e-5)
+    for (name, a), b in zip(fast.named_parameters(), slow.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4,
+                                   msg=name)

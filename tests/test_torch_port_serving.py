@@ -248,10 +248,15 @@ def test_import_leaves_jax_out():
             "horovod_tpu_torch.ops._build, "
             "horovod_tpu_torch.ops.paged_attention, "
             "horovod_tpu_torch.serving.paging, "
-            "horovod_tpu_torch.serving.transfer; "
+            "horovod_tpu_torch.serving.transfer, "
+            "horovod_tpu_torch.optim, horovod_tpu_torch.ops.eager, "
+            "horovod_tpu_torch.ops.fusion, "
+            "horovod_tpu_torch.runtime.bootstrap, "
+            "horovod_tpu_torch.models.transformer; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'optax')) or m == 'horovod_tpu' "
-            "or m.startswith('horovod_tpu.')]; "
+            "or m.startswith('horovod_tpu.') or m == 'horovod' "
+            "or m.startswith('horovod.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
@@ -274,4 +279,4 @@ def test_no_jax_or_jax_package_imports_in_port():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax"), (f, mod)
-            assert top != "horovod_tpu", (f, mod)
+            assert top not in ("horovod_tpu", "horovod"), (f, mod)
