@@ -10,7 +10,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 1. Card and build: the card's name and power limit (nvidia-smi), then
    the five CUDA kernels built from ``horovod_tpu_torch/csrc`` with
    nvcc, one process per source started together (the ``-Xptxas -v``
-   register / shared-memory lines are printed).
+   register / shared-memory lines are printed). Each bf16 tensor-core
+   instantiation of the backward kernels (dQ, dK/dV at D 64 and 128)
+   reports its registers and spills (ptxas), its dynamic shared memory
+   and its HGMMA (wgmma) instructions (cuobjdump -sass); a spill, or
+   one with no HGMMA, fails the run.
 2. Each kernel against its plain PyTorch version on the card, f32 and
    bf16: flash forward at the generate path's [4, 512, 8, 128] and at
    [1, 2048, 8, 128] (causal), plus GQA + window + q_offset and a
@@ -28,8 +32,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    backward on the card, f32 and bf16, on the forward kernel's saved
    (out, lse): the training path's [8, 2048, 8, 128] causal, GQA 8/2 +
    window + q_offset, ragged Sq = Sk = 1000, non-causal Sq 200 != Sk
-   1000, and a cotangent on lse. The plain dK/dV run one query row
-   short (row 0 dropped, a planted fault) must fail the same check.
+   1000, a cotangent on lse, D = 64 at [8, 2048, 8, 64], and the path
+   shape with q/k/v as strided views of one fused [8, 2048, 3 x 8 x 128]
+   projection. Two planted faults must fail the same check: the plain
+   dK/dV run one query row short (row 0 dropped), and (bf16, path shape)
+   the plain backward with p and ds rounded to one bf16 before the
+   second-stage products, which the bf16 kernels avoid by feeding them
+   as bf16 hi + lo (that variant must hold).
 3. Full-width `generate` (the repo's serving bench model: vocab 32768,
    12 layers, 8 heads of 128, max_len 2048, bf16, attn_impl="flash",
    decode_prefix_impl="pallas", random weights from seed 0): 4 prompts
@@ -70,7 +79,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 6. A ``{"kernels": [...]}`` line (launches on the main path, CUDA-event
    times of kernel / plain version / one PyTorch library call, and the
    roofline bound), the nvidia-smi line, and the last line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``. Before it: the forward kernel and
+   the SDPA forward at [1, 2048, 8, 128] and [8, 2048, 8, 128], and the
+   whole `flash_backward` (its eager dvec pass and both kernels) against
+   the SDPA backward at [8, 2048, 8, 128].
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
@@ -206,6 +218,81 @@ def max_err(out, ref, tol):
         ok = bool((err <= tol[0] + tol[1] * ref[fin].abs()).all())
         return float(err.max()), ok
     return 0.0, bool(torch.equal(out, ref))
+
+
+def ptxas_entries(report):
+    """{kernel entry: {"registers", "spill_stores", "spill_loads"}} from
+    an ``nvcc -Xptxas -v`` report."""
+    import re
+    entries, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = entries.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return entries
+
+
+def sass_counts(build, lib, opcode):
+    """{kernel entry: count of ``opcode`` in its SASS} of a built library
+    (cuobjdump -sass, from the toolkit whose nvcc built it); raises where
+    that toolkit has no cuobjdump."""
+    import pathlib
+    tool = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        raise build.KernelBuildError(f"{tool} not found: the bf16 kernels' "
+                                     "wgmma cannot be checked")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            counts[cur] = 0
+        elif cur is not None and opcode in line:
+            counts[cur] += 1
+    return counts
+
+
+def report_wgmma_kernels(build):
+    """Phase 1: each bf16 tensor-core instantiation of the backward
+    kernels (registers and spills from the ptxas report, dynamic shared
+    memory from its C entry, wgmma = HGMMA instructions in its SASS);
+    a spill, or an instantiation with no HGMMA, fails the run."""
+    import ctypes
+    rows = {}
+    for stem in ("flash_bwd_dq", "flash_bwd_dkv"):
+        lib = build.library(stem)
+        smem = getattr(lib, f"{stem}_smem_bytes")
+        smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
+        sass = sass_counts(build, build._target(build.CSRC / f"{stem}.cu"),
+                           "HGMMA")
+        for name, info in ptxas_entries(build.ptxas_reports[stem]).items():
+            if "wgmma" not in name:
+                continue
+            D = 128 if "ILi128E" in name else 64
+            info = dict(info, D=D, dynamic_smem_bytes=smem(D),
+                        hgmma=sass.get(name, 0))
+            rows[f"{stem} bf16 D={D}"] = info
+            log(f"{stem} bf16 D={D}: {info['registers']} registers, spill "
+                f"stores/loads {info['spill_stores']}/{info['spill_loads']}"
+                f" bytes, {info['dynamic_smem_bytes']} bytes of dynamic "
+                f"shared memory, {info['hgmma']} HGMMA (wgmma) in SASS")
+            if info["spill_stores"] or info["spill_loads"]:
+                raise AssertionError(f"{stem} D={D} spills: {info}")
+            if info["hgmma"] == 0:
+                raise AssertionError(f"{stem} D={D} issues no wgmma")
+    if len(rows) != 4:
+        raise AssertionError(f"expected 4 wgmma instantiations, found "
+                             f"{sorted(rows)}")
+    return rows
 
 
 def check_kernels(tfa, dev):
@@ -379,6 +466,63 @@ def planted_short_backward(tfa):
     return short
 
 
+def rounded_backward(tfa, split=False):
+    """The plain backward with p and ds rounded before the second-stage
+    products (dv = p^T dO, dq = ds k, dk = ds^T q): to one bf16 each (a
+    planted fault: the obvious tensor-core design, which the check must
+    see), or with ``split`` to bf16 hi + bf16 lo, as the bf16 kernels
+    feed them to wgmma. Otherwise `flash_backward_plain`'s f32 math;
+    returns (dq, dk, dv) at the input dtypes."""
+    import torch
+
+    def rnd(x):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if split else hi
+
+    def backward(q, k, v, o, lse, g, *, causal=False, window=None,
+                 q_offset=0, k_offset=0, dlse=None):
+        B, Sq, H, D = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        group = H // Hkv
+        scale = D ** -0.5
+        qs = q.float().transpose(1, 2) * scale
+        kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
+        vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
+        do = g.float().transpose(1, 2)
+        s = torch.matmul(qs, kf.transpose(-1, -2))
+        if causal:
+            qp = q_offset + torch.arange(Sq, device=q.device)
+            kp = k_offset + torch.arange(Sk, device=q.device)
+            s = s.masked_fill(~tfa.banded_causal_mask(qp, kp, window),
+                              float("-inf"))
+        row = lse.float()[..., None]
+        p = torch.where(torch.isfinite(row), torch.exp(s - row),
+                        torch.zeros_like(s))
+        dvec = (do * o.float().transpose(1, 2)).sum(-1)
+        if dlse is not None:
+            dvec = dvec - dlse.float()
+        ds = rnd(p * (torch.matmul(do, vf.transpose(-1, -2))
+                      - dvec[..., None]))
+        p = rnd(p)
+        dq = torch.matmul(ds, kf) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qs).unflatten(
+            1, (Hkv, group)).sum(2)
+        dv = torch.matmul(p.transpose(-1, -2), do).unflatten(
+            1, (Hkv, group)).sum(2)
+        return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype))
+    return backward
+
+
+def fused_qkv(B, S, H, D, dev, dt, g):
+    """q, k, v as strided [B, S, H, D] views of one fused [B, S, 3 H D]
+    projection output, the layout the model hands to attention
+    (`parallel/tensor.py`): no contiguous copies."""
+    import torch
+    qkv = torch.randn(B, S, 3 * H * D, device=dev, generator=g).to(dt)
+    return [t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1)]
+
+
 def check_backward(tfa, dev):
     """Phase 2c: the dQ and dK/dV kernels against the plain backward on
     the forward kernel's saved (out, lse)."""
@@ -386,25 +530,39 @@ def check_backward(tfa, dev):
     g = torch.Generator(device=dev).manual_seed(2468)
     errs = {n: {"max_abs_err_f32": 0.0} for n in ("flash_bwd_dq",
                                                   "flash_bwd_dkv")}
+    # (name, (B, Sq, Sk, H, Hkv, D), kwargs, cotangent on lse, q/k/v as
+    # views of one fused projection)
     cases = [
-        ("path [8,2048,8,128] causal", (8, 2048, 2048, 8, 8),
-         dict(causal=True), False),
-        ("gqa 8/2 window 300 q_offset 256", (2, 384, 640, 8, 2),
-         dict(causal=True, window=300, q_offset=256), False),
-        ("ragged Sq=Sk=1000 causal", (2, 1000, 1000, 8, 8),
-         dict(causal=True), False),
-        ("non-causal Sq 200 Sk 1000", (2, 200, 1000, 8, 8), {}, False),
-        ("dlse cotangent, gqa 8/2 causal", (2, 512, 512, 8, 2),
-         dict(causal=True), True),
+        ("path [8,2048,8,128] causal", (8, 2048, 2048, 8, 8, 128),
+         dict(causal=True), False, False),
+        ("gqa 8/2 window 300 q_offset 256", (2, 384, 640, 8, 2, 128),
+         dict(causal=True, window=300, q_offset=256), False, False),
+        ("ragged Sq=Sk=1000 causal", (2, 1000, 1000, 8, 8, 128),
+         dict(causal=True), False, False),
+        ("non-causal Sq 200 Sk 1000", (2, 200, 1000, 8, 8, 128), {}, False,
+         False),
+        ("dlse cotangent, gqa 8/2 causal", (2, 512, 512, 8, 2, 128),
+         dict(causal=True), True, False),
+        ("D=64 [8,2048,8,64] causal", (8, 2048, 2048, 8, 8, 64),
+         dict(causal=True), False, False),
+        ("fused qkv views [8,2048,8,128]", (8, 2048, 2048, 8, 8, 128),
+         dict(causal=True), False, True),
     ]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         tol = GRAD_TOL[dtype]
-        for name, (B, Sq, Sk, H, Hkv), kw, with_dlse in cases:
-            q = torch.randn(B, Sq, H, 128, device=dev, generator=g).to(dt)
-            k = torch.randn(B, Sk, Hkv, 128, device=dev, generator=g).to(dt)
-            v = torch.randn(B, Sk, Hkv, 128, device=dev, generator=g).to(dt)
-            go = torch.randn(B, Sq, H, 128, device=dev, generator=g).to(dt)
+        for name, (B, Sq, Sk, H, Hkv, D), kw, with_dlse, fused in cases:
+            if fused:
+                q, k, v = fused_qkv(B, Sq, H, D, dev, dt, g)
+                if q.is_contiguous() or k.stride(1) != 3 * H * D:
+                    raise AssertionError("fused views are not strided")
+            else:
+                q = torch.randn(B, Sq, H, D, device=dev, generator=g).to(dt)
+                k = torch.randn(B, Sk, Hkv, D, device=dev,
+                                generator=g).to(dt)
+                v = torch.randn(B, Sk, Hkv, D, device=dev,
+                                generator=g).to(dt)
+            go = torch.randn(B, Sq, H, D, device=dev, generator=g).to(dt)
             out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
             dlse = (torch.randn(B, H, Sq, device=dev, generator=g)
                     if with_dlse else None)
@@ -426,6 +584,9 @@ def check_backward(tfa, dev):
                     e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
                 elif name.startswith("path"):
                     e["max_abs_err"] = err
+                else:
+                    e["max_abs_err_other_cases"] = max(
+                        e.get("max_abs_err_other_cases", 0.0), err)
             if name.startswith("path"):
                 # The check must see a dK/dV one query row short.
                 bad = planted_short_backward(tfa)(q, k, v, out, lse, go,
@@ -441,8 +602,42 @@ def check_backward(tfa, dev):
                     raise AssertionError("the backward check does not see "
                                          "a dK/dV one query row short")
                 errs["flash_bwd_dkv"][f"planted_fault_err_{dtype}"] = ferr
+            if name.startswith("path") and dtype == "bfloat16":
+                check_rounding_fault(tfa, (q, k, v, out, lse, go), ref, kw,
+                                     tol, errs)
             del q, k, v, go, out, lse, got, ref
     return errs
+
+
+def check_rounding_fault(tfa, args, ref, kw, tol, errs):
+    """The check must see the precision the bf16 kernels' hi/lo split
+    buys: the plain backward with p and ds rounded to one bf16 before the
+    second-stage products (a planted fault) fails the check against the
+    plain backward; the same with the hi + lo split holds."""
+    counts = {}
+    for split in (False, True):
+        got = rounded_backward(tfa, split)(*args, **kw)
+        res = [max_err(a, b, tol) for a, b in zip(got, ref)]
+        out = [int(((a.float() - b.float()).abs()
+                    > tol[0] + tol[1] * b.float().abs()).sum())
+               for a, b in zip(got, ref)]
+        counts[split] = res
+        label = ("hi + lo split" if split
+                 else "planted fault (p, ds rounded to one bf16)")
+        log(f"flash_bwd bfloat16 {label} vs plain: max_abs_err dq "
+            f"{res[0][0]:.3e} dk {res[1][0]:.3e} dv {res[2][0]:.3e}, "
+            f"elements out of tol (dq, dk, dv) {out} of "
+            f"{got[0].numel()}")
+        del got
+    if all(ok for _, ok in counts[False]):
+        raise AssertionError("the backward check does not see p and ds "
+                             "rounded to one bf16")
+    if not all(ok for _, ok in counts[True]):
+        raise AssertionError(f"the hi + lo split misses the plain "
+                             f"backward: {counts[True]}")
+    errs["flash_bwd_dq"]["planted_fault_rounded_err"] = counts[False][0][0]
+    errs["flash_bwd_dkv"]["planted_fault_rounded_err"] = max(
+        counts[False][1][0], counts[False][2][0])
 
 
 def time_kernels(tfa, dev):
@@ -533,9 +728,12 @@ def time_kernels(tfa, dev):
                   for _ in range(3))
     ms2 = cuda_time_ms(lambda: tfa.flash_fwd_cuda(q2, k2, v2, causal=True))
     flops2 = 2.0 * S2 * S2 * D * H * B2
+    qt2, kt2, vt2 = (t.transpose(1, 2).contiguous() for t in (q2, k2, v2))
     rows["flash_fwd"]["at_1x2048"] = dict(
         ms=ms2, bound_ms=max(flops2 / PEAK_BF16_FLOPS,
-                             4 * B2 * S2 * H * D * 2 / PEAK_BYTES) * 1e3)
+                             4 * B2 * S2 * H * D * 2 / PEAK_BYTES) * 1e3,
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt2, kt2, vt2, is_causal=True)))
 
     # The training step's attention, [8, 2048, 8, 128] bf16 causal.
     B3, S3 = 8, 2048
@@ -548,18 +746,32 @@ def time_kernels(tfa, dev):
     rowv = 2 * B3 * H * S3 * 4               # lse and dvec, f32
     ms3 = cuda_time_ms(lambda: tfa.flash_fwd_cuda(q3, k3, v3, causal=True),
                        iters=10)
-    rows["flash_fwd"]["at_8x2048"] = dict(
-        ms=ms3, bound_ms=max(2 * prod / PEAK_BF16_FLOPS,
-                             (4 * tensor + rowv / 2) / PEAK_BYTES) * 1e3)
-    plain_ms = cuda_time_ms(lambda: tfa.flash_backward_plain(
-        q3, k3, v3, o3, lse3, g3, causal=True), iters=3, warmup=1)
     qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q3, k3, v3))
+    rows["flash_fwd"]["at_8x2048"] = dict(
+        ms=ms3, bound_ms=max(2 * prod / PEAK_BF16_FLOPS,
+                             (4 * tensor + rowv / 2) / PEAK_BYTES) * 1e3,
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), iters=10))
+    plain_ms = cuda_time_ms(lambda: tfa.flash_backward_plain(
+        q3, k3, v3, o3, lse3, g3, causal=True), iters=3, warmup=1)
     os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     gs = g3.transpose(1, 2).contiguous()
     lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
         os_, (qs, ks, vs), gs, retain_graph=True), iters=10)
+    # The whole backward as the training step runs it (the eager dvec
+    # pass, then both kernels) against the SDPA backward, which also
+    # computes its own rowsum(dO * O).
+    rows["flash_backward"] = dict(
+        shape=[B3, S3, H, D], dtype="bfloat16",
+        ms=cuda_time_ms(lambda: tfa.flash_backward(
+            q3, k3, v3, o3, lse3, g3, causal=True), iters=10),
+        library_ms=lib_ms)
     kw = dict(causal=True)
+    # The function's own products: dQ = s, dp, ds k; dK/dV = s, dp,
+    # p^T dO, ds^T q. The bf16 kernels run ds k (dQ), and p^T dO and
+    # ds^T q (dK/dV), twice each (bf16 hi + lo): that is a choice of
+    # implementation, not work the function needs, so it is not bound.
     for name, fn, nprod, nbytes in (
             ("flash_bwd_dq", lambda: tfa.flash_bwd_dq_cuda(
                 q3, k3, v3, g3, lse3, dvec3, **kw), 3, 5 * tensor + rowv),
@@ -568,7 +780,7 @@ def time_kernels(tfa, dev):
         t_flop, t_byte = nprod * prod / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         rows[name] = dict(
             shape=[B3, S3, H, D], dtype="bfloat16",
-            ms=cuda_time_ms(fn, iters=10), plain_ms=plain_ms,
+            ms=cuda_time_ms(fn, iters=20), plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=max(t_flop, t_byte) * 1e3,
             bound_by="operations" if t_flop >= t_byte else "bytes",
             library="backward of scaled_dot_product_attention(is_causal="
@@ -1106,8 +1318,9 @@ def main() -> int:
     for stem, report in sorted(_build.ptxas_reports.items()):
         for line in report.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling entry")):
+                                       "Compiling entry", "arning")):
                 log(f"ptxas[{stem}] {line.strip()}")
+    wgmma_report = report_wgmma_kernels(_build)
 
     errs = check_kernels(tfa, dev)
     errs["paged_decode"] = check_paged(tpa, dev)
@@ -1182,14 +1395,23 @@ def main() -> int:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']} "
             f"{label}")
     for at in ("at_1x2048", "at_8x2048"):
-        log(f"flash_fwd {at}: {timing['flash_fwd'][at]['ms']:.4f} ms, "
-            f"bound {timing['flash_fwd'][at]['bound_ms']:.4f} ms {label}")
+        t = timing["flash_fwd"][at]
+        log(f"flash_fwd {at}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+            f"ms, library (SDPA forward) {t['library_ms']:.4f} ms {label}")
+    t = timing["flash_backward"]
+    both = timing["flash_bwd_dq"]["ms"] + timing["flash_bwd_dkv"]["ms"]
+    log(f"flash_backward (dvec pass + dQ + dK/dV) at {t['shape']}: "
+        f"{t['ms']:.4f} ms ({both:.4f} ms in the two kernels), SDPA "
+        f"backward {t['library_ms']:.4f} ms; bounds "
+        f"{timing['flash_bwd_dq']['bound_ms']:.4f} + "
+        f"{timing['flash_bwd_dkv']['bound_ms']:.4f} ms {label}")
 
     record = dict(card=smi, device=torch.cuda.get_device_name(0),
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernels=kernels, timing=timing, generate=gen, engine=eng,
                   paged_teacher_forced=paged_tf, paged_engine=peng,
-                  training=train, seconds=time.time() - t_start)
+                  training=train, wgmma_kernels=wgmma_report,
+                  seconds=time.time() - t_start)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

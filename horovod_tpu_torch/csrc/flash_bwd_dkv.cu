@@ -1,5 +1,4 @@
-// Flash-attention backward, dK and dV, for Hopper (sm_90a): f32 or
-// bf16 in, f32 math.
+// Flash-attention backward, dK and dV, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_flash_bwd_dkv_kernel`
 // (horovod_tpu/ops/flash_attention.py, launched by `_flash_backward`):
@@ -13,32 +12,49 @@
 // the kv head's group, so dK/dV come out at kv width, each written
 // once: no atomics, no full-H gradient and no reduce pass after it.
 //
-// What bounds it on this card: per (batch, head) it does four
-// [Sk, D] x [D, Sq] products (s, dO v^T, p^T dO, ds^T q) against ~6
-// tensors of bytes, far above the H100's ~295 flop/byte ridge at the
-// training shapes ([8, 2048, 8, 128] bf16, causal), so it is bound by
-// operations. This first version computes in f32 on the CUDA cores
-// (plain FMA, no tensor cores); moving the products onto wgmma is
-// later work.
+// What bounds it on this card: per (batch, head) four [Sk, D] x [D, Sq]
+// products (s, dO v^T, p^T dO, ds^T q) against ~6 tensors of bytes, far
+// above the H100's ~295 flop/byte ridge at the training shapes ([8,
+// 2048, 8, 128] bf16, causal), so it is bound by tensor-core operations.
 //
-// Design:
-//  * grid = (ceil(Sk/64) k-tiles, Hkv kv heads, B batch); one
-//    256-thread block owns a 64-key tile, keeps K and V transposed in
-//    shared memory, and loops over the group's query heads x the
-//    q-tiles of the tile's causal/window band (`_band_i0` and the
-//    window's end), the TPU kernel's sequential inner grid axis; the
-//    dK and dV sums stay in registers (two 4 x D/16 blocks a thread);
-//  * per q-tile, q (pre-scaled) and dO sit row-major (padded rows) in
-//    shared memory: scalars for s and dp, float4 rows for the two
-//    accumulations; p and ds go through shared memory once per tile;
-//  * tensors are read and written in their [B, S, H, D] layout through
-//    strides (no transposes, no padding copies); the ragged tails of
-//    Sq and Sk are masked in the kernel.
+// bf16 (the training path): every product on wgmma (bf16 in, f32
+// accumulators), fed by TMA.
+//  * grid = (Hkv, B, k-tiles): k-tile 0, the longest causal band, starts
+//    first. One warpgroup (128 threads) owns 64 keys of one kv head,
+//    keeps K and V in shared memory and loops over the group's query
+//    heads x the q-tiles of the tile's band (the TPU kernel's sequential
+//    inner grid axis); q and dO come through a 2-stage ring of TMA loads
+//    completed on mbarriers, the next tile's load in flight while this
+//    one computes. ~99 KB of shared memory at D = 128: two blocks an SM.
+//  * s^T = k q^T and dp^T = v dO^T are SS wgmmas with the keys as M, so
+//    p^T and ds^T come out in the accumulator layout, which is the
+//    register A operand of dv += p^T dO and dk += ds^T q (dO and q read
+//    N-major with the transpose bit). p and ds never leave registers; dk
+//    and dv (two 64 x D f32 accumulators) stay in registers throughout.
+//  * p and ds go in as bf16 hi + bf16 lo, two wgmmas on the same B
+//    descriptor: one bf16 rounding of each would miss the f32 plain
+//    backward by more than the check's tolerance at the path shape.
+//    scale multiplies the f32 s accumulator and the final dk; q stays
+//    unscaled bf16.
+//  * Only tiles that cross the causal diagonal or the window's edge
+//    mask, per element in registers. Each q row's lse (as log2; +inf
+//    past Sq or where lse is -inf, so p = 0 without a branch) and dvec
+//    are staged in shared memory beside its tile.
+//  * Operands are read in place through their [B, S, H, D] strides by
+//    4-D tensor maps (q/k/v may be views of the fused qkv projection);
+//    TMA zero-fills the ragged tail of S.
+//
+// f32: the CUDA-core kernel below (`flash_bwd_dkv_kernel`), f32 FMA with
+// q pre-scaled: wgmma has no f32 input, and tf32 would not hold the
+// plain backward to 1e-5. It is the anchor that matches the plain
+// version at the path shape.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -50,28 +66,14 @@ constexpr int LK = BK + PAD;
 
 template <typename T> struct VecN;
 template <> struct VecN<float> { static constexpr int N = 4; };
-template <> struct VecN<__nv_bfloat16> { static constexpr int N = 8; };
 
-// One 16-byte load, widened to f32.
+// One 16-byte load.
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -316,6 +318,263 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- bf16: wgmma + TMA ----------------------------------------------------
+
+constexpr int WG = 128;   // one warpgroup per block
+
+template <int D>
+struct DkvLayout {                      // byte offsets from the aligned base
+  static constexpr int TILE = (D / 64) * sm90::BOX_BYTES;   // [64, D] bf16
+  static constexpr int K = 0, V = TILE, Q = 2 * TILE, G = 4 * TILE;
+  static constexpr int VEC = 6 * TILE;  // a stage: lse (log2), dvec [64]
+  static constexpr int BARS = VEC + 2 * 128 * 4;            // 3 mbarriers
+  static constexpr int BYTES = BARS + 64 + 1024;            // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tg,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int Sq, int Sk, int H, int group, long long dksb, long long dkss,
+    long long dksh, long long dvsb, long long dvss, long long dvsh,
+    int causal, int window, int q_offset, int k_offset, float scale) {
+  using L = DkvLayout<D>;
+  constexpr int NA = D / 2;             // floats a thread, each of dk, dv
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = sm90::smem_u32(sm);
+  const uint32_t sK = base + L::K, sV = base + L::V;
+  const uint32_t barKV = base + L::BARS;         // then barQG[2]
+  float* vec = reinterpret_cast<float*>(sm + L::VEC);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * 64;       // k-tile 0, the longest band, first
+  // This thread's accumulator rows (keys; and +8) and first column pair.
+  const int ra = 16 * warp + (lane >> 2);
+  const int c2 = 2 * (lane & 3);
+
+  // Query range of this k-tile's band (local query indices): causal
+  // rows start at the tile's first key, windowed rows end window - 1
+  // past its last.
+  const int k_last = min(k0 + 64, Sk) - 1;
+  int i_lo = 0, i_hi = Sq - 1;
+  if (causal) {
+    i_lo = max(0, k_offset + k0 - q_offset);
+    if (window > 0)
+      i_hi = min(i_hi, k_offset + k_last + window - 1 - q_offset);
+  }
+  const int t_first = (i_lo / 64) * 64;
+  const int nt = i_hi >= t_first ? (i_hi - t_first) / 64 + 1 : 0;
+  const int n = group * nt;             // the group's heads x q-tiles
+
+  float acc_k[NA], acc_v[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  if (n > 0) {
+    const CUtensorMap* mq = &tq;
+    const CUtensorMap* mg = &tg;
+    // Item `it` = (query head, q-tile); its rows' lse (as log2, +inf
+    // where p must be 0) and dvec go to stage `st` of `vec`.
+    auto fill_vec = [&](int it, int st) {
+      const int hq = hk * group + it / nt;
+      const int qi = t_first + 64 * (it % nt) + (tid & 63);
+      const long long at = ((long long)b * H + hq) * Sq + qi;
+      float val = tid < 64 ? INFINITY : 0.f;
+      if (qi < Sq) {
+        if (tid < 64) {
+          const float l = lse[at];
+          if (l != -INFINITY) val = l * sm90::LOG2E;
+        } else {
+          val = dvec[at];
+        }
+      }
+      vec[st * 128 + tid] = val;
+    };
+    auto load_qg = [&](int it, int st) {
+      const int hq = hk * group + it / nt;
+      const int t0 = t_first + 64 * (it % nt);
+      const uint32_t bar = barKV + 8 * (1 + st);
+      sm90::mbar_expect_tx(bar, 2 * L::TILE);
+      sm90::tma_tile<D>(base + L::Q + st * L::TILE, mq, bar, b, t0, hq);
+      sm90::tma_tile<D>(base + L::G + st * L::TILE, mg, bar, b, t0, hq);
+    };
+    if (tid == 0) {
+      for (int i = 0; i < 3; ++i) sm90::mbar_init(barKV + 8 * i, 1);
+      sm90::mbar_fence_init();
+    }
+    fill_vec(0, 0);
+    if (n > 1) fill_vec(1, 1);
+    __syncthreads();
+    if (tid == 0) {
+      sm90::mbar_expect_tx(barKV, 2 * L::TILE);
+      sm90::tma_tile<D>(sK, &tk, barKV, b, k0, hk);
+      sm90::tma_tile<D>(sV, &tv, barKV, b, k0, hk);
+      for (int st = 0; st < min(n, 2); ++st) load_qg(st, st);
+    }
+    const float sl2 = scale * sm90::LOG2E;
+    sm90::mbar_wait(barKV, 0);
+
+    for (int it = 0; it < n; ++it) {
+      const int st = it & 1;
+      const int t0 = t_first + 64 * (it % nt);
+      const uint32_t sQ = base + L::Q + st * L::TILE;
+      const uint32_t sG = base + L::G + st * L::TILE;
+      const float* l2s = vec + st * 128;
+      const float* dvs = l2s + 64;
+      sm90::mbar_wait(barKV + 8 * (1 + st), (it >> 1) & 1);
+
+      // s^T = k q^T and dp^T = v dO^T, [64 keys, 64 q] each.
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      sm90::fence_regs<32>(s);
+      sm90::fence_regs<32>(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss_n64(s, sm90::desc_kmajor(sK, kk),
+                           sm90::desc_kmajor(sQ, kk), 1);
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss_n64(dp, sm90::desc_kmajor(sV, kk),
+                           sm90::desc_kmajor(sG, kk), 1);
+      sm90::wgmma_commit();
+
+      // p^T = exp(scale s^T - lse) while dp^T is in flight; masked where
+      // the tile crosses the diagonal or the window's edge (rows past Sq
+      // have lse +inf, keys past Sk are never written).
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs<32>(s);
+      bool edge = false;
+      if (causal) {
+        edge = q_offset + t0 < k_offset + k0 + 63;
+        if (window > 0) edge |= q_offset + t0 + 63 - (k_offset + k0) >= window;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 l2 = *reinterpret_cast<const float2*>(l2s + 8 * i + c2);
+#pragma unroll
+        for (int e = 4 * i; e < 4 * i + 4; ++e) {
+          const float x = exp2f(fmaf(s[e], sl2, -((e & 1) ? l2.y : l2.x)));
+          if (edge) {
+            const int qp = q_offset + t0 + 8 * i + c2 + (e & 1);
+            const int kp = k_offset + k0 + ra + 8 * ((e >> 1) & 1);
+            bool ok = qp >= kp;
+            if (window > 0) ok = ok && qp - kp < window;
+            s[e] = ok ? x : 0.f;
+          } else {
+            s[e] = x;
+          }
+        }
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs<32>(dp);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dvs + 8 * i + c2);
+#pragma unroll
+        for (int e = 4 * i; e < 4 * i + 4; ++e)
+          dp[e] = s[e] * (dp[e] - ((e & 1) ? d2.y : d2.x));
+      }
+
+      // dv += p^T dO and dk += ds^T q, p and ds as hi + lo; dO and q read
+      // N-major from this stage.
+      uint32_t ph[16], pl[16], dh[16], dl[16];
+      sm90::split_hi_lo(s, ph, pl);
+      sm90::fence_regs<NA>(acc_v);
+      sm90::fence_regs<16>(ph);
+      sm90::fence_regs<16>(pl);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dg = sm90::desc_nmajor(sG, kk);
+        sm90::wgmma_rs<D>(acc_v, ph + 4 * kk, dg);
+        sm90::wgmma_rs<D>(acc_v, pl + 4 * kk, dg);
+      }
+      sm90::wgmma_commit();
+      sm90::split_hi_lo(dp, dh, dl);
+      sm90::fence_regs<NA>(acc_k);
+      sm90::fence_regs<16>(dh);
+      sm90::fence_regs<16>(dl);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dq_ = sm90::desc_nmajor(sQ, kk);
+        sm90::wgmma_rs<D>(acc_k, dh + 4 * kk, dq_);
+        sm90::wgmma_rs<D>(acc_k, dl + 4 * kk, dq_);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs<NA>(acc_v);
+      sm90::fence_regs<NA>(acc_k);
+      sm90::fence_regs<16>(ph);
+      sm90::fence_regs<16>(pl);
+      sm90::fence_regs<16>(dh);
+      sm90::fence_regs<16>(dl);
+
+      __syncthreads();   // every warp is done with this stage
+      if (it + 2 < n) {
+        if (tid == 0) load_qg(it + 2, st);
+        fill_vec(it + 2, st);   // read after the next iteration's barrier
+      }
+    }
+  }
+
+  // Each dK/dV row written once, at kv width (dk = scale * sum ds^T q).
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int kj = k0 + ra + 8 * u;
+    if (kj >= Sk) continue;
+    __nv_bfloat16* krow = dk + b * dksb + (long long)kj * dkss + hk * dksh;
+    __nv_bfloat16* vrow = dv + b * dvsb + (long long)kj * dvss + hk * dvsh;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i + c2) =
+          __floats2bfloat162_rn(acc_k[4 * i + 2 * u] * scale,
+                                acc_k[4 * i + 2 * u + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * i + c2) =
+          __floats2bfloat162_rn(acc_v[4 * i + 2 * u],
+                                acc_v[4 * i + 2 * u + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* dvec,
+                 void* dk, void* dv, int B, int Sq, int Sk, int H, int Hkv,
+                 const long long* st, int causal, int window, int q_offset,
+                 int k_offset, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  int err;
+  if ((err = sm90::bshd_map(&tq, q, B, Sq, H, D, st[0], st[1], st[2])) ||
+      (err = sm90::bshd_map(&tk, k, B, Sk, Hkv, D, st[3], st[4], st[5])) ||
+      (err = sm90::bshd_map(&tv, v, B, Sk, Hkv, D, st[6], st[7], st[8])) ||
+      (err = sm90::bshd_map(&tg, dout, B, Sq, H, D, st[9], st[10], st[11])))
+    return err;
+  const int smem = DkvLayout<D>::BYTES;
+  auto kern = flash_bwd_dkv_wgmma<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(Hkv, B, (Sk + 63) / 64);
+  kern<<<grid, WG, smem, stream>>>(
+      tq, tk, tv, tg, lse, dvec, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, H / Hkv, st[12], st[13],
+      st[14], st[15], st[16], st[17], causal, window, q_offset, k_offset,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -324,7 +583,8 @@ extern "C" {
 // tensor (batch, seq, head) for q, k, v, dO, dk and dv; the head_dim
 // axis must be contiguous. lse and dvec are contiguous [B, H, Sq]
 // float32. window <= 0 disables the band. Returns cudaGetLastError()
-// after the launch (0 = launched).
+// after the launch (0 = launched), or sm90::ENCODE_ERROR + a CUresult
+// when a bf16 operand's tensor map cannot be encoded.
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* dvec,
                   void* dk, void* dv, int dtype, int B, int Sq, int Sk,
@@ -350,18 +610,24 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                               Hkv, st, causal, window, q_offset, k_offset,
                               scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, l, dvp, dk, dv, B, Sq,
-                                      Sk, H, Hkv, st, causal, window,
-                                      q_offset, k_offset, scale, s);
+    return launch_wgmma<64>(q, k, v, dout, l, dvp, dk, dv, B, Sq, Sk, H,
+                            Hkv, st, causal, window, q_offset, k_offset,
+                            scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, l, dvp, dk, dv, B, Sq,
-                                       Sk, H, Hkv, st, causal, window,
-                                       q_offset, k_offset, scale, s);
+    return launch_wgmma<128>(q, k, v, dout, l, dvp, dk, dv, B, Sq, Sk, H,
+                             Hkv, st, causal, window, q_offset, k_offset,
+                             scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
+// Dynamic shared memory of the bf16 (wgmma) kernel at head dim D, in
+// bytes; 0 for a head dim it does not take.
+int flash_bwd_dkv_smem_bytes(int D) {
+  return D == 64 ? DkvLayout<64>::BYTES : D == 128 ? DkvLayout<128>::BYTES : 0;
+}
+
 const char* flash_bwd_dkv_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return sm90::error_string(err);
 }
 
 }  // extern "C"

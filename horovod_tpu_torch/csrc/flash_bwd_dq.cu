@@ -1,5 +1,4 @@
-// Flash-attention backward, dQ, for Hopper (sm_90a): f32 or bf16 in,
-// f32 math.
+// Flash-attention backward, dQ, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_flash_bwd_dq_kernel`
 // (horovod_tpu/ops/flash_attention.py, launched by `_flash_backward`):
@@ -11,34 +10,48 @@
 // grouped-query attention through kv head h / group. dvec = rowsum(dO
 // * O) - dlse comes in precomputed, [B, H, Sq] f32.
 //
-// What bounds it on this card: per (batch, head) it does three
-// [Sq, D] x [D, Sk] products (s, dO v^T, ds k) against ~5 tensors of
-// bytes, far above the H100's ~295 flop/byte ridge at the training
-// shapes ([8, 2048, 8, 128] bf16, causal), so it is bound by
-// operations. This first version computes in f32 on the CUDA cores
-// (plain FMA, no tensor cores), well under the bf16 tensor-core
-// roofline; moving the products onto wgmma is later work.
+// What bounds it on this card: per (batch, head) three [Sq, D] x [D, Sk]
+// products (s, dO v^T, ds k) against ~5 tensors of bytes, far above the
+// H100's ~295 flop/byte ridge at the training shapes ([8, 2048, 8, 128]
+// bf16, causal), so it is bound by operations: tensor-core operations.
 //
-// Design:
-//  * grid = (ceil(Sq/64) q-tiles, H heads, B batch); one 256-thread
-//    block owns a 64-row q-tile and loops over the k-tiles of its
-//    causal/window band (`_band_j0` and the causal end of
-//    `_relevant_block`), so out-of-band K/V is never read; dq
-//    accumulates in registers (the TPU kernel's VMEM carry) and is
-//    written once, scaled, at the input dtype;
-//  * q (pre-scaled) and dO sit transposed in shared memory, so a
-//    thread's 4 rows of s and dp are one float4 load per d; K and V
-//    sit row-major (padded rows), read as scalars for s and dp and as
-//    float4 rows for ds.k; ds goes through shared memory, transposed,
-//    once per tile;
-//  * tensors are read and written in their [B, S, H, D] layout through
-//    strides (no transposes, no padding copies); the ragged tails of
-//    Sq and Sk are masked in the kernel.
+// bf16 (the training path): every product on wgmma (bf16 in, f32
+// accumulators), fed by TMA.
+//  * grid = (H, B, q-tiles), the q-tile index reversed (the last q-tile,
+//    the longest causal band, starts first); one warpgroup (128
+//    threads) owns 64 q rows and loops over the k-tiles of its band.
+//    The q and dO tiles stay in shared memory; K and V come through a
+//    2-stage ring of TMA loads completed on mbarriers, the next tile's
+//    load in flight while this one computes. ~97 KB of shared memory at
+//    D = 128, so two blocks share an SM.
+//  * s = q k^T and dp = dO v^T are two SS wgmmas (K-major descriptors
+//    into the 128-byte swizzle TMA writes); p and ds are formed in the
+//    accumulator registers, whose layout is the register A operand of
+//    dq += ds k (k read N-major with the transpose bit). p and ds never
+//    leave registers.
+//  * ds goes in as bf16 hi + bf16 lo, two wgmmas on the same k
+//    descriptor: one bf16 rounding of ds would miss the f32 plain
+//    backward by more than the check's tolerance at the path shape.
+//    scale multiplies the f32 s accumulator and the final dq; q stays
+//    unscaled bf16.
+//  * Only tiles that cross the causal diagonal, the window's edge or the
+//    ragged end of Sk mask, per element in registers; rows past Sq and
+//    rows whose lse is -inf get lse = +inf, so p = 0 without a branch.
+//  * Operands are read in place through their [B, S, H, D] strides by
+//    4-D tensor maps (q/k/v may be views of the fused qkv projection);
+//    TMA zero-fills the ragged tail of S. No atomics: dq is written once.
+//
+// f32: the CUDA-core kernel below (`flash_bwd_dq_kernel`), f32 FMA with
+// q pre-scaled: wgmma has no f32 input, and tf32 would not hold the
+// plain backward to 1e-5. It is the anchor that matches the plain
+// version bit for bit at the path shape.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -50,28 +63,14 @@ constexpr int LQ = BQ + PAD;
 
 template <typename T> struct VecN;
 template <> struct VecN<float> { static constexpr int N = 4; };
-template <> struct VecN<__nv_bfloat16> { static constexpr int N = 8; };
 
-// One 16-byte load, widened to f32.
+// One 16-byte load.
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -298,6 +297,222 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- bf16: wgmma + TMA ----------------------------------------------------
+
+constexpr int WG = 128;   // one warpgroup per block
+
+template <int D>
+struct DqLayout {                       // byte offsets from the aligned base
+  static constexpr int TILE = (D / 64) * sm90::BOX_BYTES;   // [64, D] bf16
+  static constexpr int Q = 0, G = TILE, K = 2 * TILE, V = 4 * TILE;
+  static constexpr int BARS = 6 * TILE;                     // 3 mbarriers
+  static constexpr int BYTES = BARS + 64 + 1024;            // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG, 2) flash_bwd_dq_wgmma(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tg,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int group,
+    long long osb, long long oss, long long osh, int causal, int window,
+    int q_offset, int k_offset, float scale) {
+  using L = DqLayout<D>;
+  constexpr int NA = D / 2;             // dq accumulator floats a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = sm90::smem_u32(sm);
+  const uint32_t sQ = base + L::Q, sG = base + L::G;
+  const uint32_t barQ = base + L::BARS;          // then barKV[2]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;   // heaviest first
+  const int hk = h / group;
+  // This thread's accumulator rows (and +8) and first column pair.
+  const int ra = 16 * warp + (lane >> 2);
+  const int c2 = 2 * (lane & 3);
+
+  // Key range of this q-tile's band (local key indices).
+  const int q_last = min(q0 + 64, Sq) - 1;
+  int j_hi = Sk - 1, j_lo = 0;
+  if (causal) {
+    j_hi = min(j_hi, q_offset + q_last - k_offset);
+    if (window > 0) j_lo = max(0, q_offset + q0 - (window - 1) - k_offset);
+  }
+  const int k_first = (j_lo / 64) * 64;
+  const int n = j_hi >= k_first ? (j_hi - k_first) / 64 + 1 : 0;
+
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+
+  if (n > 0) {
+    if (tid == 0) {
+      for (int i = 0; i < 3; ++i) sm90::mbar_init(barQ + 8 * i, 1);
+      sm90::mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      sm90::mbar_expect_tx(barQ, 2 * L::TILE);
+      sm90::tma_tile<D>(sQ, &tq, barQ, b, q0, h);
+      sm90::tma_tile<D>(sG, &tg, barQ, b, q0, h);
+      for (int s = 0; s < min(n, 2); ++s) {
+        const uint32_t bar = barQ + 8 * (1 + s);
+        sm90::mbar_expect_tx(bar, 2 * L::TILE);
+        sm90::tma_tile<D>(base + L::K + s * L::TILE, &tk, bar, b,
+                          k_first + 64 * s, hk);
+        sm90::tma_tile<D>(base + L::V + s * L::TILE, &tv, bar, b,
+                          k_first + 64 * s, hk);
+      }
+    }
+    // Rows' lse (as log2, +inf where p must be 0) and dvec.
+    float l2[2], dv[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int qi = q0 + ra + 8 * u;
+      l2[u] = INFINITY;
+      dv[u] = 0.f;
+      if (qi < Sq) {
+        const long long at = ((long long)b * H + h) * Sq + qi;
+        const float l = lse[at];
+        if (l != -INFINITY) l2[u] = l * sm90::LOG2E;
+        dv[u] = dvec[at];
+      }
+    }
+    const float sl2 = scale * sm90::LOG2E;
+    sm90::mbar_wait(barQ, 0);
+
+    for (int it = 0; it < n; ++it) {
+      const int st = it & 1;
+      const int k0 = k_first + 64 * it;
+      const uint32_t sK = base + L::K + st * L::TILE;
+      const uint32_t sV = base + L::V + st * L::TILE;
+      sm90::mbar_wait(barQ + 8 * (1 + st), (it >> 1) & 1);
+
+      // s = q k^T and dp = dO v^T, [64 q, 64 keys] each.
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      sm90::fence_regs<32>(s);
+      sm90::fence_regs<32>(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss_n64(s, sm90::desc_kmajor(sQ, kk),
+                           sm90::desc_kmajor(sK, kk), 1);
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::wgmma_ss_n64(dp, sm90::desc_kmajor(sG, kk),
+                           sm90::desc_kmajor(sV, kk), 1);
+      sm90::wgmma_commit();
+
+      // p = exp(scale s - lse) while dp is in flight; masked where the
+      // tile crosses the diagonal, the window's edge or the end of Sk.
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs<32>(s);
+      bool edge = k0 + 64 > Sk;
+      if (causal) {
+        edge |= q_offset + q0 < k_offset + k0 + 63;
+        if (window > 0) edge |= q_offset + q0 + 63 - (k_offset + k0) >= window;
+      }
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int qp = q_offset + q0 + ra + 8 * ((e >> 1) & 1);
+          const int kj = k0 + 8 * (e >> 2) + c2 + (e & 1);
+          const int kp = k_offset + kj;
+          bool ok = kj < Sk;
+          if (causal) {
+            ok = ok && qp >= kp;
+            if (window > 0) ok = ok && qp - kp < window;
+          }
+          s[e] = ok ? exp2f(fmaf(s[e], sl2, -l2[(e >> 1) & 1])) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          s[e] = exp2f(fmaf(s[e], sl2, -l2[(e >> 1) & 1]));
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs<32>(dp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dp[e] = s[e] * (dp[e] - dv[(e >> 1) & 1]);
+
+      // dq += ds k, ds as hi + lo; k read N-major from the same stage.
+      uint32_t hi[16], lo[16];
+      sm90::split_hi_lo(dp, hi, lo);
+      sm90::fence_regs<NA>(acc);
+      sm90::fence_regs<16>(hi);
+      sm90::fence_regs<16>(lo);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dk = sm90::desc_nmajor(sK, kk);
+        sm90::wgmma_rs<D>(acc, hi + 4 * kk, dk);
+        sm90::wgmma_rs<D>(acc, lo + 4 * kk, dk);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs<NA>(acc);
+      sm90::fence_regs<16>(hi);
+      sm90::fence_regs<16>(lo);
+
+      __syncthreads();   // every warp is done with this stage
+      if (tid == 0 && it + 2 < n) {
+        const uint32_t bar = barQ + 8 * (1 + st);
+        sm90::mbar_expect_tx(bar, 2 * L::TILE);
+        sm90::tma_tile<D>(sK, &tk, bar, b, k0 + 128, hk);
+        sm90::tma_tile<D>(sV, &tv, bar, b, k0 + 128, hk);
+      }
+    }
+  }
+
+  // dq = scale * sum_j ds k, written once (bf16 pairs).
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int qi = q0 + ra + 8 * u;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row = dq + b * osb + (long long)qi * oss + h * osh;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + c2) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * u] * scale,
+                                acc[4 * i + 2 * u + 1] * scale);
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* dvec,
+                 void* dq, int B, int Sq, int Sk, int H, int Hkv,
+                 const long long* st, int causal, int window, int q_offset,
+                 int k_offset, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  int err;
+  if ((err = sm90::bshd_map(&tq, q, B, Sq, H, D, st[0], st[1], st[2])) ||
+      (err = sm90::bshd_map(&tk, k, B, Sk, Hkv, D, st[3], st[4], st[5])) ||
+      (err = sm90::bshd_map(&tv, v, B, Sk, Hkv, D, st[6], st[7], st[8])) ||
+      (err = sm90::bshd_map(&tg, dout, B, Sq, H, D, st[9], st[10], st[11])))
+    return err;
+  const int smem = DqLayout<D>::BYTES;
+  auto kern = flash_bwd_dq_wgmma<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Sq + 63) / 64);
+  kern<<<grid, WG, smem, stream>>>(
+      tq, tk, tv, tg, lse, dvec, static_cast<__nv_bfloat16*>(dq), Sq, Sk, H,
+      H / Hkv, st[12], st[13], st[14], causal, window, q_offset, k_offset,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -306,7 +521,8 @@ extern "C" {
 // tensor (batch, seq, head) for q, k, v, dO and dq; the head_dim axis
 // must be contiguous. lse and dvec are contiguous [B, H, Sq] float32.
 // window <= 0 disables the band. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// launch (0 = launched), or sm90::ENCODE_ERROR + a CUresult when a
+// bf16 operand's tensor map cannot be encoded.
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* dvec,
                  void* dq, int dtype, int B, int Sq, int Sk, int H, int Hkv,
@@ -330,18 +546,23 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                               st, causal, window, q_offset, k_offset,
                               scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, l, dv, dq, B, Sq, Sk,
-                                      H, Hkv, st, causal, window, q_offset,
-                                      k_offset, scale, s);
+    return launch_wgmma<64>(q, k, v, dout, l, dv, dq, B, Sq, Sk, H, Hkv, st,
+                            causal, window, q_offset, k_offset, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, l, dv, dq, B, Sq, Sk,
-                                       H, Hkv, st, causal, window, q_offset,
-                                       k_offset, scale, s);
+    return launch_wgmma<128>(q, k, v, dout, l, dv, dq, B, Sq, Sk, H, Hkv,
+                             st, causal, window, q_offset, k_offset, scale,
+                             s);
   return (int)cudaErrorInvalidValue;
 }
 
+// Dynamic shared memory of the bf16 (wgmma) kernel at head dim D, in
+// bytes; 0 for a head dim it does not take.
+int flash_bwd_dq_smem_bytes(int D) {
+  return D == 64 ? DqLayout<64>::BYTES : D == 128 ? DqLayout<128>::BYTES : 0;
+}
+
 const char* flash_bwd_dq_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return sm90::error_string(err);
 }
 
 }  // extern "C"

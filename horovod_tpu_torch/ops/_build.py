@@ -6,8 +6,10 @@ minutes a `torch.utils.cpp_extension` build costs). The first call of
 `library(name)` compiles EVERY source at once, one `nvcc` process per
 file started together, into ``build/kernels/`` beside the package (the
 directory `.gitignore` lists), and loads the results with `ctypes`.
-Library file names carry a hash of the source and the flags, so an
-edited source never loads a stale build. The compiler's ``-Xptxas -v``
+Library file names carry a hash of the source, of every shared header
+beside it (``csrc/*.cuh``, e.g. the TMA / wgmma helpers in
+``hopper.cuh``) and of the flags, so an edited source or header never
+loads a stale build. The compiler's ``-Xptxas -v``
 report is kept beside each library (``<library>.ptxas.txt``), so a
 cached build still reports its registers and shared memory.
 
@@ -56,7 +58,12 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
+    """The library built from ``src``: named by a hash of the source,
+    the shared headers of its directory and the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -13,6 +13,11 @@ saves (q, k, v, out, lse), its backward rebuilds the probabilities
 from the saved logsumexp in the two backward kernels. Layout is the
 framework-wide [batch, seq, heads, head_dim].
 
+The two backward kernels run their bf16 instantiations (the training
+path) on the tensor cores (``wgmma``, tiles fed by TMA; the shared
+Hopper helpers are ``csrc/hopper.cuh``) and their f32 ones on the CUDA
+cores.
+
 Dispatch rule, per call: a tensor on the CPU goes to the plain version
 (the CPU tests, and the toy widths they use); a CUDA tensor launches
 the kernel or raises — there is no fallback. Each kernel wrapper
@@ -278,9 +283,11 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, dvec, *, causal: bool = False,
                       k_offset: int = 0):
     """Launch the dQ kernel (``csrc/flash_bwd_dq.cu``) on CUDA tensors:
     q and dO ``g`` [B, Sq, H, D], k/v [B, Sk, Hkv, D] (any strides with
-    a contiguous, 16-byte aligned head_dim row), the forward's ``lse``
-    and ``dvec = rowsum(dO * O) - dlse``, both float32 [B, H, Sq]
-    contiguous. Returns dq [B, Sq, H, D] at q.dtype."""
+    a contiguous, 16-byte aligned head_dim row; D 64 or 128), the
+    forward's ``lse`` and ``dvec = rowsum(dO * O) - dlse``, both float32
+    [B, H, Sq] contiguous. bf16 runs the tensor-core kernel (wgmma, TMA
+    tensor maps over the operands' own strides), f32 the CUDA-core one.
+    Returns dq [B, Sq, H, D] at q.dtype."""
     B, Sq, Sk, H, Hkv, D = _bwd_operands(q, k, v, g, lse, dvec)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
@@ -308,9 +315,10 @@ flash_bwd_dq_cuda.launches = 0
 def flash_bwd_dkv_cuda(q, k, v, g, lse, dvec, *, causal: bool = False,
                        window: Optional[int] = None, q_offset: int = 0,
                        k_offset: int = 0):
-    """Launch the dK/dV kernel (``csrc/flash_bwd_dkv.cu``); operands as
-    `flash_bwd_dq_cuda`. Returns ``(dk, dv)`` [B, Sk, Hkv, D] at
-    k.dtype, each folded over its query-head group."""
+    """Launch the dK/dV kernel (``csrc/flash_bwd_dkv.cu``); operands and
+    the bf16 (wgmma) / f32 (CUDA cores) split as `flash_bwd_dq_cuda`.
+    Returns ``(dk, dv)`` [B, Sk, Hkv, D] at k.dtype, each folded over
+    its query-head group."""
     B, Sq, Sk, H, Hkv, D = _bwd_operands(q, k, v, g, lse, dvec)
     dk = torch.empty((B, Sk, Hkv, D), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)

@@ -18,6 +18,9 @@ both sides, so one bf16 rounding flip is allowed: 2e-3 absolute plus
 1e-2 relative, as in chip_smoke.py.
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -217,10 +220,13 @@ def test_small_paged_engine_through_kernel():
 
 
 # The backward kernels' cases: the forward's, plus a fully masked
-# block of rows (keys all in the future) and Sq != Sk with GQA 4/1.
+# block of rows (keys all in the future), Sq != Sk with GQA 4/1, and a
+# causal GQA band of 16 tiles (the bf16 kernels' 2-stage TMA ring wraps
+# many times, with masked diagonal tiles and unmasked interior ones).
 BWD_CASES = FWD_CASES + [
     dict(Sq=80, Sk=16, H=2, Hkv=2, causal=True, q_offset=0, k_offset=40),
     dict(Sq=130, Sk=70, H=4, Hkv=1, causal=False),
+    dict(Sq=1024, Sk=1024, H=4, Hkv=2, causal=True),
 ]
 
 
@@ -278,6 +284,40 @@ def test_cuda_flash_backward_reads_strided_cotangent():
         tfa.flash_bwd_dkv_cuda(q, k, v, gt, lse, dvec, **kw)
     for a, b in zip(tfa.flash_backward(q, k, v, out, lse, gt, **kw), ref):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    # q/k/v as strided views of one fused [B, S, 3 H D] projection (the
+    # model's layout), bf16: the tensor maps read them in place.
+    qkv = _randn(7, 2, 300, 3 * 4 * 128).to(dev, torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (4, 128)) for t in qkv.split(512, dim=-1))
+    g = _randn(8, 2, 300, 4, 128).to(dev, torch.bfloat16)
+    out, lse = tfa.flash_fwd_cuda(q, k, v, causal=True)
+    got = tfa.flash_backward(q, k, v, out, lse, g, causal=True)
+    ref = tfa.flash_backward_plain(q, k, v, out, lse, g, causal=True)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-3,
+                                   rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_backward_holds_where_one_bf16_rounding_fails():
+    """At [1, 2048, 2, 128] bf16 causal the bf16 kernels (p and ds fed to
+    the tensor cores as bf16 hi + lo) hold chip_smoke's GRAD_TOL against
+    the plain backward, where the plain backward with p and ds rounded to
+    one bf16 (chip_smoke's planted fault) does not."""
+    dev = _card()
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", pathlib.Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    tol = cs.GRAD_TOL["bfloat16"]
+    q, k, v, g = (_randn(40 + i, 1, 2048, 2, 128).to(dev, torch.bfloat16)
+                  for i in range(4))
+    out, lse = tfa.flash_fwd_cuda(q, k, v, causal=True)
+    ref = tfa.flash_backward_plain(q, k, v, out, lse, g, causal=True)
+    got = tfa.flash_backward(q, k, v, out, lse, g, causal=True)
+    assert all(cs.max_err(a, b, tol)[1] for a, b in zip(got, ref))
+    bad = cs.rounded_backward(tfa)(q, k, v, out, lse, g, causal=True)
+    assert not all(cs.max_err(a, b, tol)[1] for a, b in zip(bad, ref))
 
 
 @pytest.mark.gpu

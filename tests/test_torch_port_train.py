@@ -18,6 +18,9 @@ relative) and its parameters by 0.01 x lr per step and element (the
 readings stay at or below 1.1e-4 x lr per step).
 """
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -35,6 +38,7 @@ from horovod_tpu_torch.compat.from_jax import (adam_state_from_jax,
 from horovod_tpu_torch.models import transformer as tt
 from horovod_tpu_torch.ops import flash_attention as tfa
 
+REPO = pathlib.Path(__file__).resolve().parent.parent
 TOL = 1e-5
 VOCAB, LAYERS, HEADS, HEAD_DIM, MAX_LEN = 64, 2, 4, 8, 32
 LR_SGD, LR_ADAM, WD = 0.1, 1e-2, 1e-4
@@ -124,6 +128,39 @@ def test_flash_attention_lse_cotangent_matches_jax(case):
         wl)
     for g, r in zip(got, ref):
         _close(g, r)
+
+
+def _load_chip_smoke():
+    """chip_smoke.py as a private module (it imports only the standard
+    library at the top, so it loads without a card)."""
+    spec = importlib.util.spec_from_file_location("_chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bf16_rounded_p_ds_breaks_grad_tol_and_hi_lo_holds():
+    """Why the bf16 backward kernels feed p and ds to the tensor cores as
+    bf16 hi + bf16 lo: at [1, 2048, 2, 128] bf16 causal, the plain
+    backward with p and ds rounded to ONE bf16 before the second-stage
+    products (chip_smoke's planted fault) breaks chip_smoke's unchanged
+    GRAD_TOL["bfloat16"] against the f32 plain backward in at least one
+    of dQ, dK, dV, and the hi + lo split breaks it in none."""
+    cs = _load_chip_smoke()
+    rs = np.random.RandomState(31)
+    q, k, v, g = (torch.from_numpy(rs.randn(1, 2048, 2, 128).astype(
+        np.float32)).bfloat16() for _ in range(4))
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=True)
+    ref = tfa.flash_backward_plain(q, k, v, o, lse, g, causal=True)
+    tol = cs.GRAD_TOL["bfloat16"]
+    held = {}
+    for split in (False, True):
+        got = cs.rounded_backward(tfa, split)(q, k, v, o, lse, g,
+                                              causal=True)
+        held[split] = [cs.max_err(a, b, tol)[1] for a, b in zip(got, ref)]
+    assert not all(held[False]), held
+    assert all(held[True]), held
 
 
 def test_bwd_impl_validation_and_env_override(monkeypatch):
