@@ -11,16 +11,28 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    the five CUDA kernels built from ``horovod_tpu_torch/csrc`` with
    nvcc, one process per source started together (the ``-Xptxas -v``
    register / shared-memory lines are printed). Each bf16 tensor-core
-   instantiation of the backward kernels (dQ, dK/dV at D 64 and 128)
-   reports its registers and spills (ptxas), its dynamic shared memory
-   and its HGMMA (wgmma) instructions (cuobjdump -sass); a spill, or
-   one with no HGMMA, fails the run.
+   instantiation of the forward and backward kernels (forward, dQ,
+   dK/dV at D 64 and 128: six) reports its registers and spills
+   (ptxas), its dynamic shared memory and its HGMMA (wgmma)
+   instructions (cuobjdump -sass); a spill, or one with no HGMMA, fails
+   the run.
 2. Each kernel against its plain PyTorch version on the card, f32 and
-   bf16: flash forward at the generate path's [4, 512, 8, 128] and at
-   [1, 2048, 8, 128] (causal), plus GQA + window + q_offset and a
-   ragged Sk; flash decode at 8 lanes, W=2048, H=8, Hkv 8 and 2, with
-   per-lane lengths spread over 1..2048. The decode kernel run one key
-   short (length - 1, a planted fault) must fail the same check.
+   bf16, out within TOL and lse within LSE_TOL: flash forward at the
+   generate path's [4, 512, 8, 128] and at [1, 2048, 8, 128] (causal),
+   GQA + window + q_offset, ragged Sk and ragged Sq = Sk, D = 64 at
+   [8, 2048, 8, 64], q/k/v as strided views of one fused [8, 2048,
+   3 x 8 x 128] projection, Sq = 1, Sq = 40 < 64, fully masked rows
+   (k_offset past the query; they must be exactly zero) and causal
+   window 4 at [1, 1024, 8, 128]. On that last case (bf16) the plain
+   forward with p rounded to one bf16 before p v (`rounded_forward`, a
+   planted fault) must fail the same check and the bf16 hi + lo split
+   that the wgmma forward uses must hold. Flash decode (split over the
+   cache, then merged) at 8 lanes: W=2048, H=8, lengths spread over
+   1..2048; lengths 0, 1, on and one past the split boundaries, W - 1
+   and W under Hkv 8, 2 and 1 (GQA 1, 4, 8) and at W = 1000 (not a
+   multiple of the split); a length-0 lane must be exactly zero. The
+   decode kernel run one key short (length - 1, a planted fault) must
+   fail the same check.
 2b. The paged-decode kernel against its plain version, f32 and bf16:
    8 lanes, max_len 2048, block_size 16, H=8, D=128, Hkv 8 and 2, fills
    spread over 0..2047 plus 15, 16 and 2048, each lane's table a random
@@ -80,7 +92,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    times of kernel / plain version / one PyTorch library call, and the
    roofline bound), the nvidia-smi line, and the last line
    ``{"ok": true, "device": {...}}``. Before it: the forward kernel and
-   the SDPA forward at [1, 2048, 8, 128] and [8, 2048, 8, 128], and the
+   the SDPA forward at [1, 2048, 8, 128] and [8, 2048, 8, 128] (beside
+   the row's [4, 512, 8, 128]), the decode tick's split count, and the
    whole `flash_backward` (its eager dvec pass and both kernels) against
    the SDPA backward at [8, 2048, 8, 128].
 
@@ -261,14 +274,18 @@ def sass_counts(build, lib, opcode):
     return counts
 
 
+WGMMA_SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def report_wgmma_kernels(build):
-    """Phase 1: each bf16 tensor-core instantiation of the backward
-    kernels (registers and spills from the ptxas report, dynamic shared
-    memory from its C entry, wgmma = HGMMA instructions in its SASS);
-    a spill, or an instantiation with no HGMMA, fails the run."""
+    """Phase 1: each bf16 tensor-core instantiation of the forward and
+    backward kernels (registers and spills from the ptxas report,
+    dynamic shared memory from its C entry, wgmma = HGMMA instructions
+    in its SASS); a spill, or an instantiation with no HGMMA, fails the
+    run."""
     import ctypes
     rows = {}
-    for stem in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for stem in WGMMA_SOURCES:
         lib = build.library(stem)
         smem = getattr(lib, f"{stem}_smem_bytes")
         smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
@@ -289,72 +306,171 @@ def report_wgmma_kernels(build):
                 raise AssertionError(f"{stem} D={D} spills: {info}")
             if info["hgmma"] == 0:
                 raise AssertionError(f"{stem} D={D} issues no wgmma")
-    if len(rows) != 4:
-        raise AssertionError(f"expected 4 wgmma instantiations, found "
-                             f"{sorted(rows)}")
+    if len(rows) != 2 * len(WGMMA_SOURCES):
+        raise AssertionError(f"expected {2 * len(WGMMA_SOURCES)} wgmma "
+                             f"instantiations, found {sorted(rows)}")
     return rows
 
 
+def check_forward_case(tfa, q, k, v, kw, dtype, name, errs):
+    """The forward kernel against the plain forward on one input set;
+    returns the plain (out, lse)."""
+    import torch
+    out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+    ref, rlse = tfa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err, ok = max_err(out, ref, TOL[dtype])
+    lerr, lok = max_err(lse, rlse, (LSE_TOL, 0.0))
+    log(f"flash_fwd {dtype:8s} {name:36s} max_abs_err {err:.3e} "
+        f"(tol {TOL[dtype]}) lse {lerr:.3e}")
+    if not (ok and lok):
+        raise AssertionError(f"flash_fwd {dtype} {name}: out err {err}, "
+                             f"lse err {lerr}")
+    masked = torch.isneginf(rlse).transpose(1, 2)        # [B, Sq, H]
+    if masked.any() and out[masked].any():
+        raise AssertionError(f"flash_fwd {dtype} {name}: a fully masked "
+                             f"row is not zero")
+    e = errs["flash_fwd"]
+    e["lse_max_abs_err"] = max(e["lse_max_abs_err"], lerr)
+    if dtype == "float32":
+        e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
+    elif name.startswith("path"):
+        e["max_abs_err"] = err
+    else:
+        e["max_abs_err_other_cases"] = max(
+            e.get("max_abs_err_other_cases", 0.0), err)
+    return ref, rlse
+
+
+# (name, (B, Sq, Sk, H, Hkv, D), kwargs, q/k/v as views of one fused
+# projection)
+FWD_CASES = [
+    ("path [4,512,8,128] causal", (4, 512, 512, 8, 8, 128),
+     dict(causal=True), False),
+    ("[1,2048,8,128] causal", (1, 2048, 2048, 8, 8, 128), dict(causal=True),
+     False),
+    ("gqa 8/2 window 300 q_offset 256", (2, 384, 640, 8, 2, 128),
+     dict(causal=True, window=300, q_offset=256), False),
+    ("ragged Sk 1000 non-causal", (2, 200, 1000, 8, 8, 128), {}, False),
+    ("ragged Sq=Sk=1000 causal", (2, 1000, 1000, 8, 8, 128),
+     dict(causal=True), False),
+    ("D=64 [8,2048,8,64] causal", (8, 2048, 2048, 8, 8, 64),
+     dict(causal=True), False),
+    ("fused qkv views [8,2048,8,128]", (8, 2048, 2048, 8, 8, 128),
+     dict(causal=True), True),
+    ("Sq=1 q_offset 2047 causal", (4, 1, 2048, 8, 8, 128),
+     dict(causal=True, q_offset=2047), False),
+    ("Sq=40 Sk=300 q_offset 260 causal", (2, 40, 300, 8, 2, 128),
+     dict(causal=True, q_offset=260), False),
+    ("fully masked rows (k_offset 10)", (2, 128, 256, 8, 8, 128),
+     dict(causal=True, k_offset=10), False),
+    ("window 4 causal [1,1024,8,128]", (1, 1024, 1024, 8, 8, 128),
+     dict(causal=True, window=4), False),
+]
+
+
 def check_kernels(tfa, dev):
-    """Phase 2: each kernel against its plain version on the card."""
+    """Phase 2: the forward and decode kernels against their plain
+    versions on the card."""
     import torch
     g = torch.Generator(device=dev).manual_seed(1234)
     # Per kernel: bf16 error at the path's shapes, the largest f32 and
     # lse errors over all cases.
     errs = {"flash_fwd": {"max_abs_err_f32": 0.0, "lse_max_abs_err": 0.0},
             "flash_decode": {"max_abs_err_f32": 0.0}}
-    fwd_cases = [
-        ("path [4,512,8,128] causal", (4, 512, 512, 8, 8),
-         dict(causal=True)),
-        ("[1,2048,8,128] causal", (1, 2048, 2048, 8, 8), dict(causal=True)),
-        ("gqa 8/2 window 300 q_offset 256", (2, 384, 640, 8, 2),
-         dict(causal=True, window=300, q_offset=256)),
-        ("ragged Sk 1000 non-causal", (2, 200, 1000, 8, 8), {}),
-    ]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for name, (B, Sq, Sk, H, Hkv), kw in fwd_cases:
-            q = torch.randn(B, Sq, H, 128, device=dev, generator=g).to(dt)
-            k = torch.randn(B, Sk, Hkv, 128, device=dev, generator=g).to(dt)
-            v = torch.randn(B, Sk, Hkv, 128, device=dev, generator=g).to(dt)
-            out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
-            ref, rlse = tfa.flash_attention_plain(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err, ok = max_err(out, ref, TOL[dtype])
-            lerr, lok = max_err(lse, rlse, (LSE_TOL, 0.0))
-            log(f"flash_fwd {dtype:8s} {name:34s} max_abs_err {err:.3e} "
-                f"(tol {TOL[dtype]}) lse {lerr:.3e}")
-            if not (ok and lok):
-                raise AssertionError(f"flash_fwd {dtype} {name}: out err "
-                                     f"{err}, lse err {lerr}")
-            e = errs["flash_fwd"]
-            e["lse_max_abs_err"] = max(e["lse_max_abs_err"], lerr)
-            if dtype == "float32":
-                e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
-            elif name.startswith("path"):
-                e["max_abs_err"] = err
-    lengths = torch.linspace(1, 2048, 8).round().int().to(dev)
+        for name, (B, Sq, Sk, H, Hkv, D), kw, fused in FWD_CASES:
+            if fused:
+                q, k, v = fused_qkv(B, Sq, H, D, dev, dt, g)
+                if q.is_contiguous() or k.stride(1) != 3 * H * D:
+                    raise AssertionError("fused views are not strided")
+            else:
+                q = torch.randn(B, Sq, H, D, device=dev, generator=g).to(dt)
+                k = torch.randn(B, Sk, Hkv, D, device=dev,
+                                generator=g).to(dt)
+                v = torch.randn(B, Sk, Hkv, D, device=dev,
+                                generator=g).to(dt)
+            ref = check_forward_case(tfa, q, k, v, kw, dtype, name, errs)
+            if dtype == "bfloat16" and name.startswith("window 4"):
+                check_forward_rounding_fault(tfa, (q, k, v), ref, kw, errs)
+            del q, k, v, ref
+    check_decode(tfa, dev, g, errs)
+    return errs
+
+
+def check_forward_rounding_fault(tfa, args, ref, kw, errs):
+    """The check must see the precision the bf16 forward's hi/lo split
+    buys: the plain forward with p rounded to one bf16 before p v (a
+    planted fault) fails the check against the plain forward where rows
+    attend few keys; the same with the hi + lo split holds."""
+    res = {}
+    for split in (False, True):
+        out, _ = rounded_forward(tfa, split)(*args, **kw)
+        err, ok = max_err(out, ref[0], TOL["bfloat16"])
+        n_out = int(((out.float() - ref[0].float()).abs()
+                     > TOL["bfloat16"][0]
+                     + TOL["bfloat16"][1] * ref[0].float().abs()).sum())
+        res[split] = (err, ok)
+        label = ("hi + lo split" if split
+                 else "planted fault (p rounded to one bf16)")
+        log(f"flash_fwd bfloat16 window 4 {label} vs plain: max_abs_err "
+            f"{err:.3e}, elements out of tol {n_out} of {out.numel()}")
+    if res[False][1]:
+        raise AssertionError("the forward check does not see p rounded to "
+                             "one bf16")
+    if not res[True][1]:
+        raise AssertionError(f"the hi + lo split misses the plain forward: "
+                             f"{res[True][0]}")
+    errs["flash_fwd"]["planted_fault_rounded_err"] = res[False][0]
+
+
+def decode_cases(tfa, dev):
+    """(name, L, W, Hkv, lengths) of the decode check: lengths 0, 1, on
+    and one past the split boundaries of the kernel's own split count,
+    and W, at the path geometry, under GQA 4 and 8, and at W = 1000 (not
+    a multiple of the split); plus lengths spread over 1..2048."""
+    import math
+    sms = tfa._sm_count(dev)
+    cases = [("lengths spread", 8, 2048, 8,
+              [round(1 + i * 2047 / 7) for i in range(8)])]
+    for W, hkv in ((2048, 8), (2048, 2), (2048, 1), (1000, 8)):
+        splits = tfa.decode_splits(W, hkv * 8, sms)
+        c = math.ceil(W / splits)
+        lengths = [0, 1, c, c + 1, 2 * c, min(3 * c - 1, W - 1), W - 1, W]
+        cases.append((f"splits {splits} (chunk {c})", 8, W, hkv, lengths))
+    return cases
+
+
+def check_decode(tfa, dev, g, errs):
+    """The decode kernels (split + merge) against the plain decode; the
+    kernel run one key short (a planted fault) must fail the check."""
+    import torch
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for hkv in (8, 2):
-            q = torch.randn(8, 1, 8, 128, device=dev, generator=g).to(dt)
-            kc = torch.randn(8, 2048, hkv, 128, device=dev,
-                             generator=g).to(dt)
-            vc = torch.randn(8, 2048, hkv, 128, device=dev,
-                             generator=g).to(dt)
+        for name, L, W, hkv, lens in decode_cases(tfa, dev):
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = torch.randn(L, 1, 8, 128, device=dev, generator=g).to(dt)
+            kc = torch.randn(L, W, hkv, 128, device=dev, generator=g).to(dt)
+            vc = torch.randn(L, W, hkv, 128, device=dev, generator=g).to(dt)
             out = tfa.flash_decode_cuda(q, kc, vc, lengths)
+            splits = tfa.decode_splits(W, hkv * L, tfa._sm_count(dev))
             ref = tfa.flash_decode_plain(q, kc, vc, lengths)
             torch.cuda.synchronize()
             err, ok = max_err(out, ref, TOL[dtype])
-            log(f"flash_decode {dtype:8s} lanes 8 W 2048 H 8 Hkv {hkv} "
-                f"lengths {lengths.tolist()} max_abs_err {err:.3e}")
+            log(f"flash_decode {dtype:8s} {name:22s} lanes {L} W {W} H 8 "
+                f"Hkv {hkv} splits {splits} lengths {lens} max_abs_err "
+                f"{err:.3e}")
             if not ok:
-                raise AssertionError(f"flash_decode {dtype} Hkv {hkv}: "
-                                     f"err {err}")
+                raise AssertionError(f"flash_decode {dtype} {name} Hkv "
+                                     f"{hkv}: err {err}")
+            if 0 in lens and out[lens.index(0)].any():
+                raise AssertionError("flash_decode: a length-0 lane is not "
+                                     "zero")
             e = errs["flash_decode"]
             if dtype == "float32":
                 e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
-            elif hkv == 8:
+            elif hkv == 8 and W == 2048 and name.startswith("lengths"):
                 e["max_abs_err"] = err
                 # The check must see an off-by-one length: the kernel
                 # run one key short against the plain version.
@@ -367,7 +483,12 @@ def check_kernels(tfa, dev):
                     raise AssertionError("the decode check does not see "
                                          "an off-by-one length")
                 e["planted_fault_err"] = ferr
-    return errs
+            else:
+                e["max_abs_err_other_cases"] = max(
+                    e.get("max_abs_err_other_cases", 0.0), err)
+            if W == 2048 and hkv == 8 and splits < 2:
+                raise AssertionError(f"the path's decode ran {splits} "
+                                     f"split(s)")
 
 
 def paged_case(g, dev, dt, hkv, fills, *, bs=16, T=128, nb=None,
@@ -466,6 +587,69 @@ def planted_short_backward(tfa):
     return short
 
 
+def bf16_rounding(split):
+    """x rounded as a bf16 kernel feeds it to wgmma: to one bf16, or with
+    ``split`` to bf16 hi + bf16 lo (hi = x rounded, lo = the rest
+    rounded)."""
+    def rnd(x):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if split else hi
+    return rnd
+
+
+def masked_scores(tfa, q, k, *, causal, window, q_offset, k_offset):
+    """The plain versions' f32 scores (scale q) k^T [B, H, Sq, Sk] with
+    k repeated over each kv head's query group and the causal / window
+    mask at -inf; returns (scores, group)."""
+    import torch
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    qs = q.float().transpose(1, 2) * D ** -0.5
+    kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
+    s = torch.matmul(qs, kf.transpose(-1, -2))
+    if causal:
+        qp = q_offset + torch.arange(Sq, device=q.device)
+        kp = k_offset + torch.arange(Sk, device=q.device)
+        s = s.masked_fill(~tfa.banded_causal_mask(qp, kp, window),
+                          float("-inf"))
+    return s, group
+
+
+def rounded_forward(tfa, split=False):
+    """The plain forward walked in 64-key tiles with the kernel's online
+    softmax (f32 running max and sum over the unrounded p), with p
+    rounded before o += p v: to one bf16 (a planted fault: the usual
+    tensor-core design, which the check must see), or with ``split`` to
+    bf16 hi + bf16 lo, as the bf16 forward feeds it to wgmma. Returns
+    (out at q.dtype, lse [B, H, Sq] f32)."""
+    import torch
+    rnd = bf16_rounding(split)
+
+    def forward(q, k, v, *, causal=False, window=None, q_offset=0,
+                k_offset=0):
+        s, group = masked_scores(tfa, q, k, causal=causal, window=window,
+                                 q_offset=q_offset, k_offset=k_offset)
+        vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
+        ninf = float("-inf")
+        m = torch.full(s.shape[:-1] + (1,), ninf, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(s.shape[:-1] + (q.shape[-1],), device=q.device)
+        for k0 in range(0, s.shape[-1], 64):
+            st = s[..., k0:k0 + 64]
+            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+            shift = torch.where(m_new == ninf, 0.0, m_new)
+            p = torch.exp(st - shift)
+            corr = torch.where(m == ninf, 0.0, torch.exp(m - shift))
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.matmul(rnd(p), vf[..., k0:k0 + 64, :])
+            m = m_new
+        out = acc / torch.where(l == 0, 1.0, l)
+        lse = torch.where(l == 0, ninf, m + torch.log(l))[..., 0]
+        return out.transpose(1, 2).to(q.dtype), lse
+    return forward
+
+
 def rounded_backward(tfa, split=False):
     """The plain backward with p and ds rounded before the second-stage
     products (dv = p^T dO, dq = ds k, dk = ds^T q): to one bf16 each (a
@@ -474,27 +658,18 @@ def rounded_backward(tfa, split=False):
     feed them to wgmma. Otherwise `flash_backward_plain`'s f32 math;
     returns (dq, dk, dv) at the input dtypes."""
     import torch
-
-    def rnd(x):
-        hi = x.bfloat16().float()
-        return hi + (x - hi).bfloat16().float() if split else hi
+    rnd = bf16_rounding(split)
 
     def backward(q, k, v, o, lse, g, *, causal=False, window=None,
                  q_offset=0, k_offset=0, dlse=None):
-        B, Sq, H, D = q.shape
-        Sk, Hkv = k.shape[1], k.shape[2]
-        group = H // Hkv
-        scale = D ** -0.5
-        qs = q.float().transpose(1, 2) * scale
+        D = q.shape[-1]
+        Hkv = k.shape[2]
+        s, group = masked_scores(tfa, q, k, causal=causal, window=window,
+                                 q_offset=q_offset, k_offset=k_offset)
+        qs = q.float().transpose(1, 2) * D ** -0.5
         kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
         vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
         do = g.float().transpose(1, 2)
-        s = torch.matmul(qs, kf.transpose(-1, -2))
-        if causal:
-            qp = q_offset + torch.arange(Sq, device=q.device)
-            kp = k_offset + torch.arange(Sk, device=q.device)
-            s = s.masked_fill(~tfa.banded_causal_mask(qp, kp, window),
-                              float("-inf"))
         row = lse.float()[..., None]
         p = torch.where(torch.isfinite(row), torch.exp(s - row),
                         torch.zeros_like(s))
@@ -504,7 +679,7 @@ def rounded_backward(tfa, split=False):
         ds = rnd(p * (torch.matmul(do, vf.transpose(-1, -2))
                       - dvec[..., None]))
         p = rnd(p)
-        dq = torch.matmul(ds, kf) * scale
+        dq = torch.matmul(ds, kf) * D ** -0.5
         dk = torch.matmul(ds.transpose(-1, -2), qs).unflatten(
             1, (Hkv, group)).sum(2)
         dv = torch.matmul(p.transpose(-1, -2), do).unflatten(
@@ -681,6 +856,7 @@ def time_kernels(tfa, dev):
         shape=[L, W, H, Hkv, D], dtype="bfloat16", lengths=W,
         ms=cuda_time_ms(lambda: tfa.flash_decode_cuda(q1, kc, vc, length),
                         iters=50),
+        splits=tfa.decode_splits(W, Hkv * L, tfa._sm_count(dev)),
         plain_ms=cuda_time_ms(
             lambda: tfa.flash_decode_plain(q1, kc, vc, length)),
         library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
@@ -1398,6 +1574,10 @@ def main() -> int:
         t = timing["flash_fwd"][at]
         log(f"flash_fwd {at}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
             f"ms, library (SDPA forward) {t['library_ms']:.4f} ms {label}")
+    t = timing["flash_decode"]
+    log(f"flash_decode tick at {t['shape']}: {t['splits']} splits of the "
+        f"cache a (kv head, lane), {t['splits'] * t['shape'][0] * t['shape'][3]}"
+        f" split blocks {label}")
     t = timing["flash_backward"]
     both = timing["flash_bwd_dq"]["ms"] + timing["flash_bwd_dkv"]["ms"]
     log(f"flash_backward (dvec pass + dQ + dK/dV) at {t['shape']}: "

@@ -13,10 +13,14 @@ saves (q, k, v, out, lse), its backward rebuilds the probabilities
 from the saved logsumexp in the two backward kernels. Layout is the
 framework-wide [batch, seq, heads, head_dim].
 
-The two backward kernels run their bf16 instantiations (the training
-path) on the tensor cores (``wgmma``, tiles fed by TMA; the shared
-Hopper helpers are ``csrc/hopper.cuh``) and their f32 ones on the CUDA
-cores.
+The forward and the two backward kernels run their bf16
+instantiations (the training and prefill path) on the tensor cores
+(``wgmma``, tiles fed by TMA; the shared Hopper helpers are
+``csrc/hopper.cuh``) and their f32 ones on the CUDA cores. The decode
+kernel splits each lane's cache over several blocks and merges their
+partial softmax states in a second kernel (`decode_splits` picks the
+split count; `flash_decode_split_plain` is the same arithmetic in
+PyTorch).
 
 Dispatch rule, per call: a tensor on the CPU goes to the plain version
 (the CPU tests, and the toy widths they use); a CUDA tensor launches
@@ -163,7 +167,9 @@ _FWD_ARGTYPES = ([_P] * 5 + [_I] * 7 + [_L] * 12 + [_I] * 4 + [_F, _P])
 # output; causal, window, q_offset, k_offset; scale; stream.
 _DQ_ARGTYPES = ([_P] * 7 + [_I] * 7 + [_L] * 15 + [_I] * 4 + [_F, _P])
 _DKV_ARGTYPES = ([_P] * 8 + [_I] * 7 + [_L] * 18 + [_I] * 4 + [_F, _P])
-_DECODE_ARGTYPES = [_P] * 5 + [_I] * 6 + [_L, _L, _F, _P]
+# q, k_cache, v_cache, length, out, workspace; dtype, L, W, H, Hkv, D,
+# splits; q's (lane, head) strides; scale; stream.
+_DECODE_ARGTYPES = [_P] * 6 + [_I] * 7 + [_L, _L, _F, _P]
 
 
 def flash_fwd_cuda(q, k, v, *, causal: bool = False,
@@ -552,11 +558,68 @@ def flash_decode_plain(q, k_cache, v_cache, length):
     return out.transpose(1, 2).to(q.dtype)
 
 
+# Keys a decode split should hold at least, and the blocks a tick should
+# put on each SM (two blocks an SM keep enough loads in flight to cover
+# the card's memory latency).
+DECODE_MIN_SPLIT_KEYS = 256
+DECODE_BLOCKS_PER_SM = 2
+
+
+def decode_splits(W: int, pairs: int, n_sm: int) -> int:
+    """Key ranges the decode kernel splits each lane's cache into: enough
+    that ``pairs`` (kv heads x lanes) blocks fill the card's ``n_sm``
+    SMs twice over, but none shorter than 256 keys (a shorter split's
+    fixed cost, its prologue and its partial, outweighs its loads).
+    Picked from the cache width, never from the lanes' lengths: reading
+    those on the host would sync the tick."""
+    by_width = W // DECODE_MIN_SPLIT_KEYS
+    by_card = -(-DECODE_BLOCKS_PER_SM * n_sm // pairs)
+    return max(1, min(by_width, by_card))
+
+
+def flash_decode_split_plain(q, k_cache, v_cache, length, splits: int):
+    """The decode kernel's arithmetic in PyTorch: split the cache into
+    ``splits`` key ranges of ceil(W / splits), form each range's
+    partial softmax state (row max m_s, row sum l_s, unnormalized o_s)
+    over the lane's filled prefix, and merge them in f32, skipping
+    empty ranges: ``o = sum e^(m_s - M) o_s / sum e^(m_s - M) l_s``
+    with M = max m_s. A lane with length 0 gets zeros. Returns
+    [B, 1, H, D] at q.dtype."""
+    B, W, H, Hkv, D = _decode_shapes(q, k_cache, v_cache)
+    grp = H // Hkv
+    chunk = -(-W // splits)
+    pad = splits * chunk - W
+    qf = q[:, 0].float() * D ** -0.5                     # [B, H, D]
+    kf = k_cache.float().repeat_interleave(grp, dim=2)
+    vf = v_cache.float().repeat_interleave(grp, dim=2)
+    s = torch.einsum("bhd,bwhd->bhw", qf, kf)            # [B, H, W]
+    valid = torch.arange(W, device=q.device)[None, :] < length[:, None]
+    s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    s = s.unflatten(-1, (splits, chunk))                 # [B, H, NS, c]
+    vf = torch.nn.functional.pad(vf.transpose(1, 2), (0, 0, 0, pad))
+    vf = vf.unflatten(2, (splits, chunk))                # [B, H, NS, c, D]
+    m = s.amax(-1)                                       # [B, H, NS]
+    empty = m == NEG_INF
+    p = torch.exp(s - torch.where(empty, 0.0, m)[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bhsc,bhscd->bhsd", p, vf)
+    top = m.amax(-1, keepdim=True)                       # [B, H, 1]
+    wt = torch.where(empty, 0.0, torch.exp(m - torch.where(
+        top == NEG_INF, 0.0, top)))
+    den = (wt * l).sum(-1, keepdim=True)
+    out = (wt[..., None] * o).sum(2) / torch.where(den == 0, 1.0, den)
+    return out[:, None].to(q.dtype)
+
+
 def flash_decode_cuda(q, k_cache, v_cache, length):
-    """Launch the flash-decode kernel (``csrc/flash_decode.cu``):
+    """Launch the flash-decode kernels (``csrc/flash_decode.cu``: the
+    split kernel, then the merge of its partials):
     q [B, 1, H, D] (strided, contiguous head_dim), caches [B, W, Hkv,
     D] contiguous, ``length`` a device int32 tensor [B] (per-lane
-    filled prefix). H/Hkv must be 1, 2, 4 or 8."""
+    filled prefix). H/Hkv must be 1, 2, 4 or 8. The split count comes
+    from `decode_splits`; the partials go to a workspace allocated here
+    on the current stream."""
     B, W, H, Hkv, D = _decode_shapes(q, k_cache, v_cache)
     _check_kernel_inputs(q, (("q", q), ("k_cache", k_cache),
                              ("v_cache", v_cache)))
@@ -575,18 +638,27 @@ def flash_decode_cuda(q, k_cache, v_cache, length):
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    splits = decode_splits(W, Hkv * B, _sm_count(q.device))
+    ws = torch.empty(splits * B * H * (D + 2), dtype=torch.float32,
+                     device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         _lib_call(
             "flash_decode", _DECODE_ARGTYPES,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            length.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, W,
-            H, Hkv, D, q.stride(0), q.stride(2), D ** -0.5, stream)
+            length.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, W, H, Hkv, D, splits, q.stride(0),
+            q.stride(2), D ** -0.5, stream)
     flash_decode_cuda.launches += 1
     return out
 
 
 flash_decode_cuda.launches = 0
+
+
+def _sm_count(device) -> int:
+    """The card's SM count (PyTorch caches the device properties)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -10,6 +10,10 @@ or materialized softmax), so differences are summation order only —
 1e-5 absolute on the outputs and the logsumexp.
 """
 
+import functools
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -117,6 +121,133 @@ def test_flash_decode_zero_length_is_zero():
     out = tfa.flash_decode_attention(q, kc, vc,
                                      torch.tensor([0, 5], dtype=torch.int32))
     assert not out[0].any() and out[1].abs().sum() > 0
+
+
+def _load_chip_smoke():
+    """chip_smoke.py as a private module (it imports only the standard
+    library at the top, so it loads without a card)."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke",
+        pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bf16_rounded_p_breaks_fwd_tol_and_hi_lo_holds():
+    """Why the bf16 forward feeds p to p v as bf16 hi + lo: at [1, 1024,
+    8, 128] bf16, causal with window 4 (every row attends at most four
+    keys, so one p carries much of a row), the plain forward walked in
+    64-key tiles with p rounded to one bf16 (chip_smoke's planted
+    fault) breaks chip_smoke's unchanged TOL["bfloat16"] against the f32
+    plain forward, and the hi + lo split holds it; lse, formed from the
+    unrounded p, holds LSE_TOL in both."""
+    cs = _load_chip_smoke()
+    rs = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rs.randn(1, 1024, 8, 128).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    kw = dict(causal=True, window=4)
+    ref, rlse = tfa.flash_attention_plain(q, k, v, **kw)
+    one, one_lse = cs.rounded_forward(tfa, split=False)(q, k, v, **kw)
+    two, two_lse = cs.rounded_forward(tfa, split=True)(q, k, v, **kw)
+    tol = cs.TOL["bfloat16"]
+    err = (one.float() - ref.float()).abs()
+    assert int((err > tol[0] + tol[1] * ref.float().abs()).sum()) > 10
+    assert not cs.max_err(one, ref, tol)[1]
+    assert cs.max_err(two, ref, tol)[1]
+    for lse in (one_lse, two_lse):
+        assert cs.max_err(lse, rlse, (cs.LSE_TOL, 0.0))[1]
+
+
+def test_rounded_forward_unrounded_walk_is_the_plain_forward():
+    """The tile walk itself (online softmax over 64-key tiles) adds no
+    error: in f32 with a window that crosses tiles, the hi + lo walk
+    equals the plain forward to f32 summation order."""
+    cs = _load_chip_smoke()
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, 2, 150, 200, 4, 2, 16))
+    kw = dict(causal=True, window=70, q_offset=50)
+    out, lse = cs.rounded_forward(tfa, split=True)(q, k, v, **kw)
+    ref, rlse = tfa.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_array_equal(np.isneginf(lse.numpy()),
+                                  np.isneginf(rlse.numpy()))
+    fin = np.isfinite(rlse.numpy())
+    np.testing.assert_allclose(lse.numpy()[fin], rlse.numpy()[fin],
+                               atol=TOL, rtol=0)
+
+
+DECODE_W = 48
+# 1, a boundary of 8 splits (chunk 6), a boundary of 3 splits (chunk 16),
+# one past the next one (32), and W.
+DECODE_LENGTHS = (1, 12, 16, 33, DECODE_W)
+
+
+def _decode_inputs(hkv):
+    rs = np.random.RandomState(20 + hkv)
+    L, H, D = len(DECODE_LENGTHS), 8, 8
+    q = rs.randn(L, 1, H, D).astype(np.float32)
+    kc = rs.randn(L, DECODE_W, hkv, D).astype(np.float32)
+    vc = rs.randn(L, DECODE_W, hkv, D).astype(np.float32)
+    return q, kc, vc
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decode(hkv):
+    """The JAX Pallas decode (interpret mode) per lane: it takes one
+    scalar length, so each lane is its own B=1 call."""
+    q, kc, vc = _decode_inputs(hkv)
+    return np.concatenate([np.asarray(jfa.flash_decode_attention(
+        jnp.asarray(q[b:b + 1]), jnp.asarray(kc[b:b + 1]),
+        jnp.asarray(vc[b:b + 1]), jnp.int32(n), block_k=8,
+        interpret=True)) for b, n in enumerate(DECODE_LENGTHS)])
+
+
+@pytest.mark.parametrize("hkv", [8, 2])
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_split_decode_plain_matches_plain_and_pallas(splits, hkv):
+    """The decode kernel's split-and-merge arithmetic against the plain
+    decode and the JAX Pallas decode, over lengths 1, split boundaries
+    and W; GQA 1 (Hkv 8) and 4 (Hkv 2)."""
+    q, kc, vc = (torch.from_numpy(a) for a in _decode_inputs(hkv))
+    length = torch.tensor(DECODE_LENGTHS, dtype=torch.int32)
+    out = tfa.flash_decode_split_plain(q, kc, vc, length, splits)
+    np.testing.assert_allclose(
+        out.numpy(), tfa.flash_decode_plain(q, kc, vc, length).numpy(),
+        atol=TOL, rtol=0)
+    np.testing.assert_allclose(out.numpy(), _jax_decode(hkv), atol=TOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_split_decode_plain_zero_length_lane(splits):
+    """A lane of length 0 has every partial empty: the merge gives the
+    zero row, as the plain decode does (the JAX kernel leaves length 0
+    undefined)."""
+    q, kc, vc = (torch.from_numpy(a) for a in _decode_inputs(2))
+    length = torch.tensor([0, 5, 0, 48, 7], dtype=torch.int32)
+    out = tfa.flash_decode_split_plain(q, kc, vc, length, splits)
+    assert not out[0].any() and not out[2].any()
+    np.testing.assert_allclose(
+        out.numpy(), tfa.flash_decode_plain(q, kc, vc, length).numpy(),
+        atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("W,pairs,n_sm,want", [
+    (2048, 64, 132, 5),    # the path: 8 lanes x 8 kv heads, 320 blocks
+    (2048, 16, 132, 8),    # GQA 4: capped by 256 keys a split
+    (1000, 64, 132, 3),    # W not a multiple of the split
+    (255, 64, 132, 1),     # W < 256: one split
+    (100, 1, 132, 1),
+    (2048, 8, 132, 8),     # one lane
+    (4096, 1, 132, 16),    # one lane, one kv head
+    (2048, 264, 132, 1),   # the card already full twice over
+    (2048, 64, 66, 3),
+])
+def test_decode_splits(W, pairs, n_sm, want):
+    n = tfa.decode_splits(W, pairs, n_sm)
+    assert n == want
+    assert n >= 1 and -(-W // n) >= min(W, tfa.DECODE_MIN_SPLIT_KEYS)
 
 
 class TestWrapperDispatch:

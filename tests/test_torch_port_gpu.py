@@ -84,6 +84,91 @@ def test_cuda_flash_forward_reads_strided_views():
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
 
 
+def _bf16_close(out, ref):
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-3,
+                               rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+def test_cuda_bf16_forward_window4_and_fused_views(D):
+    """The bf16 (wgmma) forward: causal with window 4 (rows attend at
+    most four keys, where one bf16 rounding of p would fail), and q/k/v
+    as column slices of one fused [B, S, 3 H D] projection."""
+    dev = _card()
+    bf = torch.bfloat16
+    q, k, v = (_randn(60 + i, 1, 300, 4, D).to(dev, bf) for i in range(3))
+    out, lse = tfa.flash_fwd_cuda(q, k, v, causal=True, window=4)
+    ref, rlse = tfa.flash_attention_plain(q, k, v, causal=True, window=4)
+    _bf16_close(out, ref)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
+    qkv = _randn(64, 2, 200, 3 * 4 * D).to(dev, bf)
+    q, k, v = (t.unflatten(-1, (4, D)) for t in qkv.split(4 * D, dim=-1))
+    out, lse = tfa.flash_fwd_cuda(q, k, v, causal=True)
+    ref, rlse = tfa.flash_attention_plain(q, k, v, causal=True)
+    _bf16_close(out, ref)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_forward_takes_what_the_rules_allow():
+    """The wgmma forward's tensor maps take every layout the wrapper's
+    rules admit (a contiguous, 16-byte aligned head_dim row): padded
+    rows, a seq axis that is not the outer one, one head, Sq = 1 and
+    Sq < 64; a misaligned row is refused by the wrapper, as before."""
+    dev = _card()
+    bf = torch.bfloat16
+    pad = _randn(70, 2, 90, 2, 136).to(dev, bf)[..., :128]   # padded rows
+    hsd = _randn(71, 2, 2, 90, 128).to(dev, bf).transpose(1, 2)
+    one = _randn(72, 1, 90, 1, 128).to(dev, bf)
+    cases = [(pad, hsd, hsd, dict(causal=True)),
+             (one, one, one, dict(causal=True, window=30)),
+             (pad[:, :1], hsd, hsd, dict(causal=True, q_offset=89)),
+             (pad[:, :40], hsd, hsd, dict(causal=True, q_offset=50))]
+    for q, k, v, kw in cases:
+        out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+        ref, rlse = tfa.flash_attention_plain(q, k, v, **kw)
+        _bf16_close(out, ref)
+        torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=0)
+    odd = _randn(73, 1, 8, 2, 129).to(dev, bf)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_fwd_cuda(odd, odd, odd, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_split_decode_matches_plain(dtype):
+    """Decode split over the cache (splits > 1): lengths 0, 1, on and one
+    past the split boundaries, and W, GQA 1, 4 and 8; each call counts
+    one launch (the split kernel and its merge)."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    W, L = 1024, 6
+    for hkv in (8, 2, 1):
+        splits = tfa.decode_splits(W, hkv * L, tfa._sm_count(dev))
+        assert splits > 1
+        c = -(-W // splits)
+        length = torch.tensor([0, 1, c, c + 1, W - 1, W], dtype=torch.int32,
+                              device=dev)
+        q = _randn(80 + hkv, L, 1, 8, 128).to(dev, dt)
+        kc = _randn(90 + hkv, L, W, hkv, 128).to(dev, dt)
+        vc = _randn(100 + hkv, L, W, hkv, 128).to(dev, dt)
+        before = tfa.flash_decode_cuda.launches
+        out = tfa.flash_decode_cuda(q, kc, vc, length)
+        assert tfa.flash_decode_cuda.launches == before + 1
+        ref = tfa.flash_decode_plain(q, kc, vc, length)
+        if dt == torch.float32:
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+        else:
+            _bf16_close(out, ref)
+        assert not out[0].any()
+        split_ref = tfa.flash_decode_split_plain(q, kc, vc, length, splits)
+        torch.testing.assert_close(split_ref.float(), ref.float(),
+                                   atol=2e-5 if dt == torch.float32
+                                   else 2e-3, rtol=0 if dt == torch.float32
+                                   else 1e-2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_decode_matches_plain(dtype):
