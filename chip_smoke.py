@@ -33,13 +33,18 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    multiple of the split); a length-0 lane must be exactly zero. The
    decode kernel run one key short (length - 1, a planted fault) must
    fail the same check.
-2b. The paged-decode kernel against its plain version, f32 and bf16:
+2b. The paged-decode kernels (each lane's table split across the card,
+   then the partials merged) against their plain version, f32 and bf16:
    8 lanes, max_len 2048, block_size 16, H=8, D=128, Hkv 8 and 2, fills
    spread over 0..2047 plus 15, 16 and 2048, each lane's table a random
-   draw of pool blocks; and the paged engine's tick geometry, 16 lanes
-   over 1025 blocks with one free lane on the all-null table. The same
-   call with one lane's first table entry swapped with the entry
-   holding its fill (a planted fault) must fail the check.
+   draw of pool blocks; the same 8 lanes with fills on and one before
+   each boundary of the kernel's own split count; and the paged engine's
+   tick geometry, 16 lanes over 1025 blocks with one free lane on the
+   all-null table, with spread fills and with split-boundary fills. Each
+   case logs its split count; the timed shape (8 lanes, Hkv 8) must run
+   at least 2. The same call with one lane's first table entry swapped
+   with the entry holding its fill (in another split, so the merge sees
+   it; a planted fault) must fail the check.
 2c. The two flash-backward kernels (dQ, dK/dV) against the plain
    backward on the card, f32 and bf16, on the forward kernel's saved
    (out, lse): the training path's [8, 2048, 8, 128] causal, GQA 8/2 +
@@ -95,7 +100,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    the SDPA forward at [1, 2048, 8, 128] and [8, 2048, 8, 128] (beside
    the row's [4, 512, 8, 128]), the decode tick's split count, and the
    whole `flash_backward` (its eager dvec pass and both kernels) against
-   the SDPA backward at [8, 2048, 8, 128].
+   the SDPA backward at [8, 2048, 8, 128]. The decode rows also carry
+   their split count, their share of the bound and the registers and
+   spills of their split and merge kernels (ptxas); the paged-decode row
+   a second reading at the paged engine's tick geometry.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
@@ -521,37 +529,67 @@ ENGINE_FILLS = [0, 15, 16, 31, 255, 256, 511, 512, 700, 1023, 1024, 1500,
                 2000, 2047, 2048, 0]
 
 
+def boundary_fills(tpa, dev, lanes, hkv, others, *, T=128, bs=16):
+    """``lanes`` fills: on (k * c, the new row opens split k) and then one
+    before (k * c - 1, split k - 1 ends at the fill and split k is empty)
+    each boundary of the kernel's own split count at this geometry,
+    c = ceil(T / NS) * bs positions; then fills of ``others``."""
+    ns = tpa.paged_decode_splits(T, bs, hkv * lanes, tpa._sm_count(dev))
+    c = -(-T // ns) * bs
+    fills = ([k * c for k in range(1, ns)]
+             + [k * c - 1 for k in range(1, ns)])
+    return (fills + [f for f in others if f not in fills])[:lanes]
+
+
 def check_paged(tpa, dev):
-    """Phase 2b: the paged-decode kernel against its plain version, at
+    """Phase 2b: the paged-decode kernels against their plain version, at
     8 lanes (Hkv 8 and 2) and at the paged engine's 16 lanes over 1025
-    blocks with a free lane."""
+    blocks with a free lane, each with spread fills and with fills on
+    the kernel's split boundaries."""
     import torch
     g = torch.Generator(device=dev).manual_seed(4321)
-    errs = {"max_abs_err_f32": 0.0, "max_abs_err": 0.0}
+    errs = {"max_abs_err_f32": 0.0, "max_abs_err": 0.0,
+            "splits_by_case": {}}
+    engine = dict(nb=1025, free=(15,))
+    engine_edges = boundary_fills(tpa, dev, 16, 8, ENGINE_FILLS)[:15] + [0]
     cases = [("lanes 8", PAGED_FILLS, 8, {}),
              ("lanes 8", PAGED_FILLS, 2, {}),
+             ("lanes 8, split boundaries",
+              boundary_fills(tpa, dev, 8, 8, PAGED_FILLS), 8, {}),
+             ("lanes 8, split boundaries",
+              boundary_fills(tpa, dev, 8, 2, PAGED_FILLS), 2, {}),
              ("lanes 16 over 1025 blocks, lane 15 free", ENGINE_FILLS, 8,
-              dict(nb=1025, free=(15,)))]
+              engine),
+             ("lanes 16 over 1025 blocks, lane 15 free, split boundaries",
+              engine_edges, 8, engine)]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for name, fills, hkv, kw in cases:
             args = paged_case(g, dev, dt, hkv, fills, **kw)
             out = tpa.paged_decode_cuda(*args)
+            ns = tpa.paged_decode_cuda.splits_last
             ref = tpa.paged_decode_plain(*args)
             torch.cuda.synchronize()
             err, ok = max_err(out, ref, TOL[dtype])
+            ce = -(-128 // ns)
             log(f"paged_decode {dtype:8s} {name} max_len 2048 bs 16 H 8 "
-                f"Hkv {hkv} fills {fills} max_abs_err {err:.3e}")
+                f"Hkv {hkv} splits {ns} ({ce} entries, {ce * 16} "
+                f"positions each) fills {fills} max_abs_err {err:.3e}")
+            errs["splits_by_case"][f"{name}, Hkv {hkv}"] = ns
             if not ok or not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"paged_decode {dtype} {name} Hkv "
                                      f"{hkv}: err {err}")
+            if name == "lanes 8" and hkv == 8 and ns < 2:
+                raise AssertionError(f"the timed paged tick ran {ns} "
+                                     f"split(s)")
             if dtype == "float32":
                 errs["max_abs_err_f32"] = max(errs["max_abs_err_f32"], err)
             elif hkv == 8:
                 errs["max_abs_err"] = max(errs["max_abs_err"], err)
-            if dtype == "bfloat16" and hkv == 8 and not kw:
+            if dtype == "bfloat16" and hkv == 8 and fills is PAGED_FILLS:
                 # The check must see a table fault: lane 4's first entry
-                # swapped with the entry holding its fill (swapping two
+                # swapped with the entry holding its fill, which lies in
+                # another split, so the merge carries it (swapping two
                 # wholly attended blocks would be invisible — attention
                 # is a function of the SET of rotated key/value rows).
                 q, kn, vn, tables, fill, kp, vp = args
@@ -561,8 +599,8 @@ def check_paged(tpa, dev):
                 fout = tpa.paged_decode_cuda(q, kn, vn, bad, fill, kp, vp)
                 ferr, fok = max_err(fout, ref, TOL[dtype])
                 log(f"paged_decode planted fault (lane 4 entries 0 and "
-                    f"{j} swapped): max_abs_err {ferr:.3e}, caught "
-                    f"{not fok}")
+                    f"{j} swapped, splits 0 and {j // ce}): max_abs_err "
+                    f"{ferr:.3e}, caught {not fok}")
                 if fok:
                     raise AssertionError("the paged-decode check does not "
                                          "see a swapped table entry")
@@ -815,6 +853,135 @@ def check_rounding_fault(tfa, args, ref, kw, tol, errs):
         counts[False][1][0], counts[False][2][0])
 
 
+def paged_bound(fill, L, H, Hkv, D, T, bs):
+    """(ms, "bytes" | "operations"): the least time of a bf16 paged tick
+    over these fills. Each lane needs its positions [0, npos), npos =
+    min(fill + 1, T * bs): npos - 1 pool rows and k_new / v_new where
+    fill < T * bs (else T * bs pool rows), K and V; its q and out; and
+    the ceil(npos / bs) table entries that cover them, and its fill."""
+    fills = [int(f) for f in fill.tolist()]
+    span = T * bs
+    npos = [min(f + 1, span) for f in fills]
+    row = Hkv * D * 2 * 2                            # one K + V row, bf16
+    nbytes = (sum(npos) * row + 2 * L * H * D * 2
+              + sum(-(-n // bs) for n in npos) * 4 + L * 4)
+    flops = 4.0 * sum(npos) * H * D
+    t_flop, t_byte = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_flop, t_byte) * 1e3,
+            "operations" if t_flop >= t_byte else "bytes")
+
+
+def kernel_resources(stem):
+    """{"<kernel> <dtype> D=<d>[ GRP=<g>]": {"registers", "spill_stores",
+    "spill_loads"}} of every split and merge kernel instantiation in the
+    ptxas report of ``csrc/<stem>.cu``."""
+    import re
+    from horovod_tpu_torch.ops import _build
+    rows = {}
+    for name, info in ptxas_entries(_build.ptxas_reports[stem]).items():
+        m = re.search(r"(paged_decode_split|flash_decode_split|decode_merge)"
+                      r"I(13__nv_bfloat16|f)"
+                      r"((?:Li\d+E)+)", name)
+        if not m:
+            continue
+        dims = re.findall(r"Li(\d+)E", m.group(3))
+        key = (f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'} "
+               f"D={dims[0]}" + (f" GRP={dims[1]}" if len(dims) > 1 else ""))
+        rows[key] = info
+    return rows
+
+
+def path_resources(row):
+    """The decode rows' extra keys for the kernels line: the timed tick's
+    split count and share of its bound, and the registers and spills of
+    the instantiations the path runs (bf16, D = 128, one query head a kv
+    head, and the merge)."""
+    if "resources" not in row:
+        return {}
+    return dict(splits=row["splits"], bound_share=row["bound_share"],
+                resources={k: v for k, v in row["resources"].items()
+                           if "bf16 D=128" in k
+                           and ("GRP=1" in k or "merge" in k)})
+
+
+def time_decode_kernels(tfa, dev, g):
+    """The two decode ticks, bf16: flash decode at 8 lanes x 2048 and the
+    paged decode at 8 lanes x 2048 positions and at the paged engine's
+    tick geometry; kernel, plain-version and library times, the bound
+    and its share, split counts, and the split and merge kernels'
+    registers and spills."""
+    import torch
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import paged_attention as tpa
+    bf = torch.bfloat16
+    H, D = 8, 128
+    L, W, Hkv = 8, 2048, 8           # the engine's 8 slots, full caches
+    q1 = torch.randn(L, 1, H, D, device=dev, generator=g).to(bf)
+    kc = torch.randn(L, W, Hkv, D, device=dev, generator=g).to(bf)
+    vc = torch.randn(L, W, Hkv, D, device=dev, generator=g).to(bf)
+    length = torch.full((L,), W, dtype=torch.int32, device=dev)
+    qd, kd, vd = (t.transpose(1, 2).contiguous() for t in (q1, kc, vc))
+    need = int(length.sum().item())                  # positions read
+    nbytes = need * Hkv * D * 2 * 2 + 2 * L * H * D * 2
+    flops = 4.0 * need * H * D
+    t_flop, t_byte = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    rows = {}
+    rows["flash_decode"] = dict(
+        shape=[L, W, H, Hkv, D], dtype="bfloat16", lengths=W,
+        ms=cuda_time_ms(lambda: tfa.flash_decode_cuda(q1, kc, vc, length),
+                        iters=50),
+        splits=tfa.decode_splits(W, Hkv * L, tfa._sm_count(dev)),
+        plain_ms=cuda_time_ms(
+            lambda: tfa.flash_decode_plain(q1, kc, vc, length)),
+        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd), iters=50),
+        bound_ms=max(t_flop, t_byte) * 1e3,
+        bound_by="operations" if t_flop >= t_byte else "bytes",
+        library="torch.nn.functional.scaled_dot_product_attention "
+                "(equal lengths)",
+        resources=kernel_resources("flash_decode"))
+    rows["flash_decode"]["bound_share"] = (rows["flash_decode"]["bound_ms"]
+                                           / rows["flash_decode"]["ms"])
+
+    # The paged tick at 8 lanes, each attending 2048 positions (fill
+    # 2047: 2047 pool rows through shuffled tables + the merged row).
+    bs, T = 16, W // 16
+    args8 = paged_case(g, dev, bf, Hkv, [W - 1] * L, bs=bs, T=T)
+    q8, kn, vn, tables, fill, kp, vp = args8
+    qg = q8[:, :, None]                              # [L, H, 1, D]
+
+    def gather_sdpa():
+        kg = kp[tables.long()].flatten(1, 2).transpose(1, 2)
+        vg = vp[tables.long()].flatten(1, 2).transpose(1, 2)
+        return F.scaled_dot_product_attention(qg, kg, vg)
+
+    ms = cuda_time_ms(lambda: tpa.paged_decode_cuda(*args8), iters=50)
+    bound_ms, bound_by = paged_bound(fill, L, H, Hkv, D, T, bs)
+    rows["paged_decode"] = dict(
+        shape=[L, W, H, Hkv, D], dtype="bfloat16", block_size=bs,
+        fill=W - 1, ms=ms, splits=tpa.paged_decode_cuda.splits_last,
+        plain_ms=cuda_time_ms(lambda: tpa.paged_decode_plain(*args8),
+                              iters=5, warmup=1),
+        library_ms=cuda_time_ms(gather_sdpa, iters=50),
+        bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+        library="k_pool[table] gather + scaled_dot_product_attention "
+                "(two calls: no single PyTorch call reads through a "
+                "block table)",
+        resources=kernel_resources("paged_decode"))
+    # The paged engine's tick geometry: 16 lanes over 1025 blocks, lane
+    # 15 free (no single library call serves ragged fills).
+    argse = paged_case(g, dev, bf, Hkv, ENGINE_FILLS, bs=bs, T=T, nb=1025,
+                       free=(15,))
+    ms = cuda_time_ms(lambda: tpa.paged_decode_cuda(*argse), iters=50)
+    bound_ms, bound_by = paged_bound(argse[4], 16, H, Hkv, D, T, bs)
+    rows["paged_decode"]["at_engine"] = dict(
+        lanes=16, fills=ENGINE_FILLS, blocks=1025,
+        positions=sum(min(f + 1, T * bs) for f in ENGINE_FILLS), ms=ms,
+        splits=tpa.paged_decode_cuda.splits_last, bound_ms=bound_ms,
+        bound_by=bound_by, bound_share=bound_ms / ms)
+    return rows
+
+
 def time_kernels(tfa, dev):
     """Kernel, plain-version and library times at the path's shapes,
     and the roofline bound computed from these inputs."""
@@ -842,61 +1009,7 @@ def time_kernels(tfa, dev):
         bound_by="operations" if t_flop >= t_byte else "bytes",
         library="torch.nn.functional.scaled_dot_product_attention")
 
-    L, W, Hkv = 8, 2048, 8           # the engine's 8 slots, full caches
-    q1 = torch.randn(L, 1, H, D, device=dev, generator=g).to(bf)
-    kc = torch.randn(L, W, Hkv, D, device=dev, generator=g).to(bf)
-    vc = torch.randn(L, W, Hkv, D, device=dev, generator=g).to(bf)
-    length = torch.full((L,), W, dtype=torch.int32, device=dev)
-    qd, kd, vd = (t.transpose(1, 2).contiguous() for t in (q1, kc, vc))
-    need = int(length.sum().item())                  # positions read
-    nbytes = need * Hkv * D * 2 * 2 + 2 * L * H * D * 2
-    flops = 4.0 * need * H * D
-    t_flop, t_byte = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    rows["flash_decode"] = dict(
-        shape=[L, W, H, Hkv, D], dtype="bfloat16", lengths=W,
-        ms=cuda_time_ms(lambda: tfa.flash_decode_cuda(q1, kc, vc, length),
-                        iters=50),
-        splits=tfa.decode_splits(W, Hkv * L, tfa._sm_count(dev)),
-        plain_ms=cuda_time_ms(
-            lambda: tfa.flash_decode_plain(q1, kc, vc, length)),
-        library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd), iters=50),
-        bound_ms=max(t_flop, t_byte) * 1e3,
-        bound_by="operations" if t_flop >= t_byte else "bytes",
-        library="torch.nn.functional.scaled_dot_product_attention "
-                "(equal lengths)")
-
-    # The paged tick at 8 lanes, each attending 2048 positions (fill
-    # 2047: 2047 pool rows through shuffled tables + the merged row).
-    from horovod_tpu_torch.ops import paged_attention as tpa
-    bs, T = 16, W // 16
-    q8, kn, vn, tables, fill, kp, vp = paged_case(
-        g, dev, bf, Hkv, [W - 1] * L, bs=bs, T=T)
-    npos = int(fill.sum().item())                    # pool rows read
-    nbytes = (npos * Hkv * D * 2 * 2 + 2 * L * Hkv * D * 2
-              + 2 * L * H * D * 2 + L * T * 4 + L * 4)
-    flops = 4.0 * (npos + L) * H * D
-    t_flop, t_byte = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    qg = q8[:, :, None]                              # [L, H, 1, D]
-
-    def gather_sdpa():
-        kg = kp[tables.long()].flatten(1, 2).transpose(1, 2)
-        vg = vp[tables.long()].flatten(1, 2).transpose(1, 2)
-        return F.scaled_dot_product_attention(qg, kg, vg)
-
-    rows["paged_decode"] = dict(
-        shape=[L, W, H, Hkv, D], dtype="bfloat16", block_size=bs,
-        fill=W - 1,
-        ms=cuda_time_ms(lambda: tpa.paged_decode_cuda(
-            q8, kn, vn, tables, fill, kp, vp), iters=50),
-        plain_ms=cuda_time_ms(lambda: tpa.paged_decode_plain(
-            q8, kn, vn, tables, fill, kp, vp), iters=5, warmup=1),
-        library_ms=cuda_time_ms(gather_sdpa, iters=50),
-        bound_ms=max(t_flop, t_byte) * 1e3,
-        bound_by="operations" if t_flop >= t_byte else "bytes",
-        library="k_pool[table] gather + scaled_dot_product_attention "
-                "(two calls: no single PyTorch call reads through a "
-                "block table)")
+    rows.update(time_decode_kernels(tfa, dev, g))
 
     # One 2048-token sequence: the compute-bound reference shape.
     B2, S2 = 1, 2048
@@ -1235,12 +1348,16 @@ def serve_burst(model, prompts, new, kernels, **engine_kw):
         torch.cuda.synchronize()
         for fn in kernels.values():
             fn.launches = 0
+            if hasattr(fn, "splits_last"):
+                fn.splits_last = None
         t0 = time.time()
         handles = [eng.submit(p, new) for p in prompts]
         results = [h.result(timeout=600) for h in handles]
         torch.cuda.synchronize()
         dt = time.time() - t0
         launches = {k: fn.launches for k, fn in kernels.items()}
+        splits = {k: fn.splits_last for k, fn in kernels.items()
+                  if getattr(fn, "splits_last", None) is not None}
         snap = eng.metrics_snapshot()
     for r in results:
         if len(r.tokens) != new or r.finish_reason != "length":
@@ -1251,7 +1368,7 @@ def serve_burst(model, prompts, new, kernels, **engine_kw):
             raise AssertionError(f"request {r.request_id}: bad token ids")
     tokens = sum(len(r.tokens) for r in results)
     return dict(seconds=dt, ticks=snap["ticks"], launches=launches,
-                completed=snap["completed"], tokens=tokens,
+                splits=splits, completed=snap["completed"], tokens=tokens,
                 tokens_per_s=tokens / dt,
                 ttft_ms_p50=snap["ttft_ms"]["p50"],
                 tpot_ms_p50=snap["tpot_ms"]["p50"],
@@ -1534,7 +1651,8 @@ def main() -> int:
         f"{peng['tpot_ms_p50']} ms, {peng['ticks']} ticks, prefix hits "
         f"{peng['prefix_hits']}, prefill tokens skipped "
         f"{peng['prefill_tokens_skipped']}, peak lanes "
-        f"{peng['peak_active']}, launches {peng['launches']} {label}")
+        f"{peng['peak_active']}, launches {peng['launches']}, splits of "
+        f"the last paged tick {peng['splits']} {label}")
     fx = peng["fixed_same_burst"]
     log(f"the same burst on the fixed pool, 8 slots "
         f"({fx['kv_bytes'] / 1e9:.3f} GB KV): {fx['seconds']:.2f} s, "
@@ -1565,7 +1683,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: v for k, v in errs[name].items()
-               if k != "max_abs_err"}})
+               if k != "max_abs_err"},
+            **path_resources(t)})
         log(f"{name}: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms "
             f"plain, {t['library_ms']:.4f} ms library, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']} "
@@ -1574,10 +1693,23 @@ def main() -> int:
         t = timing["flash_fwd"][at]
         log(f"flash_fwd {at}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
             f"ms, library (SDPA forward) {t['library_ms']:.4f} ms {label}")
-    t = timing["flash_decode"]
-    log(f"flash_decode tick at {t['shape']}: {t['splits']} splits of the "
-        f"cache a (kv head, lane), {t['splits'] * t['shape'][0] * t['shape'][3]}"
-        f" split blocks {label}")
+    for name in ("flash_decode", "paged_decode"):
+        t = timing[name]
+        log(f"{name} tick at {t['shape']}: {t['splits']} splits a (kv "
+            f"head, lane), {t['splits'] * t['shape'][0] * t['shape'][3]} "
+            f"split blocks, {t['ms']:.4f} ms = {100 * t['bound_share']:.1f}"
+            f" % of its {t['bound_ms']:.4f} ms bound {label}")
+        for kern, info in sorted(t["resources"].items()):
+            if "bf16 D=128" in kern:
+                log(f"{name} {kern}: {info.get('registers')} registers, "
+                    f"spill stores/loads {info.get('spill_stores')}/"
+                    f"{info.get('spill_loads')} bytes")
+    t = timing["paged_decode"]["at_engine"]
+    log(f"paged_decode at the engine's tick geometry (16 lanes over 1025 "
+        f"blocks, lane 15 free, {t['positions']} positions): "
+        f"{t['splits']} splits, {t['ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+        f"{100 * t['bound_share']:.1f} % {label}")
     t = timing["flash_backward"]
     both = timing["flash_bwd_dq"]["ms"] + timing["flash_bwd_dkv"]["ms"]
     log(f"flash_backward (dvec pass + dQ + dK/dV) at {t['shape']}: "

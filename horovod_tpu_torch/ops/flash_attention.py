@@ -558,23 +558,31 @@ def flash_decode_plain(q, k_cache, v_cache, length):
     return out.transpose(1, 2).to(q.dtype)
 
 
-# Keys a decode split should hold at least, and the blocks a tick should
-# put on each SM (two blocks an SM keep enough loads in flight to cover
-# the card's memory latency).
+# Keys a decode split holds at least and, unless more splits are needed
+# to fill the card, at most; and the split blocks resident on one SM
+# (``csrc/decode_split.cuh``: 256 threads of ~120 registers, two a SM).
 DECODE_MIN_SPLIT_KEYS = 256
+DECODE_MAX_SPLIT_KEYS = 512
 DECODE_BLOCKS_PER_SM = 2
 
 
 def decode_splits(W: int, pairs: int, n_sm: int) -> int:
-    """Key ranges the decode kernel splits each lane's cache into: enough
-    that ``pairs`` (kv heads x lanes) blocks fill the card's ``n_sm``
-    SMs twice over, but none shorter than 256 keys (a shorter split's
-    fixed cost, its prologue and its partial, outweighs its loads).
-    Picked from the cache width, never from the lanes' lengths: reading
-    those on the host would sync the tick."""
-    by_width = W // DECODE_MIN_SPLIT_KEYS
-    by_card = -(-DECODE_BLOCKS_PER_SM * n_sm // pairs)
-    return max(1, min(by_width, by_card))
+    """Key ranges the decode kernels (linear and paged) split each lane's
+    cache of ``W`` keys into, for ``pairs`` (kv heads x lanes) blocks on
+    ``n_sm`` SMs: splits of at most 512 keys, and more, down to 256 keys,
+    where the split blocks of full lanes would not yet fill the card's
+    resident slots (``DECODE_BLOCKS_PER_SM`` a SM) once. Never so many
+    that full lanes spill a second, partial wave: at 8 lanes x 8 kv heads
+    x 2048 that gives 4 splits, 256 blocks on 132 SMs; 5 would run 320
+    blocks as 264 and then 56. Lanes shorter than W leave their later
+    splits empty, and an empty split block only writes an empty partial,
+    so the 512-key cap keeps ragged lanes short per block. Picked from
+    the cache width, never from the lanes' lengths: reading those on the
+    host would sync the tick."""
+    by_width = W // DECODE_MAX_SPLIT_KEYS
+    by_card = min(W // DECODE_MIN_SPLIT_KEYS,
+                  DECODE_BLOCKS_PER_SM * n_sm // pairs)
+    return max(1, by_width, by_card)
 
 
 def flash_decode_split_plain(q, k_cache, v_cache, length, splits: int):
@@ -612,14 +620,16 @@ def flash_decode_split_plain(q, k_cache, v_cache, length, splits: int):
     return out[:, None].to(q.dtype)
 
 
-def flash_decode_cuda(q, k_cache, v_cache, length):
+def flash_decode_cuda(q, k_cache, v_cache, length, *,
+                      splits: Optional[int] = None):
     """Launch the flash-decode kernels (``csrc/flash_decode.cu``: the
     split kernel, then the merge of its partials):
-    q [B, 1, H, D] (strided, contiguous head_dim), caches [B, W, Hkv,
-    D] contiguous, ``length`` a device int32 tensor [B] (per-lane
-    filled prefix). H/Hkv must be 1, 2, 4 or 8. The split count comes
-    from `decode_splits`; the partials go to a workspace allocated here
-    on the current stream."""
+    q [B, 1, H, D] (strided, 16-byte aligned rows with a contiguous
+    head_dim), caches [B, W, Hkv, D] contiguous, ``length`` a device
+    int32 tensor [B] (per-lane filled prefix). H/Hkv must be 1, 2, 4 or
+    8. ``splits`` (default: `decode_splits` of the geometry) is how many
+    key ranges each lane's cache is cut into; the partials go to a
+    workspace allocated here on the current stream."""
     B, W, H, Hkv, D = _decode_shapes(q, k_cache, v_cache)
     _check_kernel_inputs(q, (("q", q), ("k_cache", k_cache),
                              ("v_cache", v_cache)))
@@ -638,7 +648,10 @@ def flash_decode_cuda(q, k_cache, v_cache, length):
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
-    splits = decode_splits(W, Hkv * B, _sm_count(q.device))
+    if splits is None:
+        splits = decode_splits(W, Hkv * B, _sm_count(q.device))
+    elif splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
     ws = torch.empty(splits * B * H * (D + 2), dtype=torch.float32,
                      device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

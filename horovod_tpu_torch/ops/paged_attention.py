@@ -14,8 +14,13 @@ the lane axis first):
   ticks) and is the oracle of the kernel.
 * `paged_decode_plain` — the plain version of the paged-decode kernel:
   the walk at ``walk_block == block_size`` with S = 1.
-* `paged_decode_cuda` — the wrapper of the hand-written CUDA kernel
-  (``csrc/paged_decode.cu``); counts its launches in ``.launches``.
+* `paged_decode_split_plain` — the kernel's split-and-merge arithmetic
+  in PyTorch (each lane's table cut into `paged_decode_splits` ranges,
+  partials merged in f32), for the tests.
+* `paged_decode_cuda` — the wrapper of the hand-written CUDA kernels
+  (``csrc/paged_decode.cu``: the split kernel, then the merge of its
+  partials); counts its calls in ``.launches`` and keeps the split
+  count of the last call in ``.splits_last``.
 * `paged_decode_attention` — the dispatcher: a CPU tensor takes the
   plain version, a CUDA tensor launches the kernel or raises.
 
@@ -35,8 +40,8 @@ from typing import Optional
 import torch
 
 from horovod_tpu_torch.ops.flash_attention import (
-    KERNEL_HEAD_DIMS, _DTYPE_CODE, _F, _I, _L, _P, _check_kernel_operand,
-    _lib_call,
+    KERNEL_HEAD_DIMS, NEG_INF, _DTYPE_CODE, _F, _I, _L, _P,
+    _check_kernel_operand, _lib_call, _sm_count, decode_splits,
 )
 
 
@@ -156,7 +161,76 @@ def paged_decode_plain(q, k_new, v_new, table, fill, k_pool, v_pool):
         table, fill, walk_block=k_pool.shape[1])[:, 0]
 
 
-_PAGED_ARGTYPES = [_P] * 8 + [_I] * 7 + [_L] * 6 + [_F, _P]
+# Table entries one split of the kernel stages in shared memory
+# (``csrc/paged_decode.cu``: MAX_CE). `paged_decode_splits` stays below
+# it: its splits hold at most 512 positions, or the whole table when
+# the span is under 1024 positions.
+PAGED_MAX_SPLIT_ENTRIES = 1024
+
+
+def paged_decode_splits(T: int, bs: int, pairs: int, n_sm: int) -> int:
+    """Ranges the paged-decode kernel cuts each lane's table of ``T``
+    entries into: `decode_splits` over the table's span of ``T * bs``
+    positions for ``pairs`` (kv heads x lanes) blocks on ``n_sm`` SMs,
+    then whole entries: a split holds ce = ceil(T / NS) entries (ce * bs
+    positions, whole pool blocks) and NS = ceil(T / ce), so none starts
+    past the table. Picked from the geometry, never from the fills:
+    reading those would sync the tick."""
+    ce = -(-T // decode_splits(T * bs, pairs, n_sm))
+    return -(-T // ce)
+
+
+def paged_decode_split_plain(q, k_new, v_new, table, fill, k_pool, v_pool,
+                             splits: int):
+    """The paged-decode kernel's arithmetic in PyTorch: cut each lane's
+    table into ``splits`` ranges of ce = ceil(T / splits) entries, form
+    each range's partial over the lane's positions ``<= fill`` (within
+    the table's span, ``k_new``/``v_new`` in place of the row at
+    ``fill``): row max m_s, row sum l_s of the unrounded p, and o_s, the
+    sum of p rounded to q.dtype times V; then merge in f32, skipping
+    empty ranges: ``o = sum e^(m_s - M) o_s / sum e^(m_s - M) l_s`` with
+    M = max m_s. q is scaled and rounded to q.dtype as in
+    `paged_decode_plain`. Returns [L, H, D] at q.dtype."""
+    L, H, D, Hkv, bs, T = _decode_shapes(q, k_new, v_new, table, fill,
+                                         k_pool, v_pool)
+    grp = H // Hkv
+    dtype = q.dtype
+    dev = q.device
+    ce = -(-T // splits)
+    P = splits * ce * bs                      # positions, the last padded
+    fill = fill.long()
+    qs = (q * torch.tensor(D ** -0.5, dtype=dtype)).float()
+    entries = torch.nn.functional.pad(table.long(), (0, splits * ce - T))
+    pos = torch.arange(P, device=dev)
+    cur = (pos[None, :] == fill[:, None])[..., None, None]     # [L, P, 1, 1]
+
+    def rows(pool, new):
+        r = pool[entries].reshape(L, P, Hkv, D)
+        r = torch.where(cur, new[:, None].to(r.dtype), r).float()
+        return r.repeat_interleave(grp, dim=2) if grp > 1 else r
+
+    s = torch.einsum("lhd,lphd->lhp", qs, rows(k_pool, k_new))
+    npos = (fill + 1).clamp(max=T * bs)
+    s = s.masked_fill(~(pos[None, :] < npos[:, None])[:, None], NEG_INF)
+    s = s.unflatten(-1, (splits, ce * bs))                     # [L,H,NS,C]
+    m = s.amax(-1)
+    empty = m == NEG_INF
+    p = torch.exp(s - torch.where(empty, 0.0, m)[..., None])
+    l = p.sum(-1)
+    v = rows(v_pool, v_new).transpose(1, 2).unflatten(2, (splits, ce * bs))
+    o = torch.einsum("lhsc,lhscd->lhsd", p.to(dtype).float(), v)
+    top = m.amax(-1, keepdim=True)
+    wt = torch.where(empty, 0.0, torch.exp(m - torch.where(
+        top == NEG_INF, 0.0, top)))
+    den = (wt * l).sum(-1, keepdim=True)
+    out = (wt[..., None] * o).sum(2) / torch.where(den == 0, 1.0, den)
+    return out.to(dtype)
+
+
+# q, k_new, v_new, table, fill, k_pool, v_pool, out, workspace; dtype, L,
+# H, Hkv, D, block_size, T, splits; the (lane, head) strides of q,
+# k_new, v_new; scale; stream.
+_PAGED_ARGTYPES = [_P] * 9 + [_I] * 8 + [_L] * 6 + [_F, _P]
 
 
 def _check_index(name, t, shape, dev):
@@ -169,13 +243,18 @@ def _check_index(name, t, shape, dev):
             f"{tuple(getattr(t, 'shape', ()))}")
 
 
-def paged_decode_cuda(q, k_new, v_new, table, fill, k_pool, v_pool):
-    """Launch the paged-decode kernel (``csrc/paged_decode.cu``): q
-    [L, H, D] and k_new/v_new [L, Hkv, D] (strided, contiguous head
-    dim), ``table`` [L, T] and ``fill`` [L] contiguous device int32,
-    pools [num_blocks, block_size, Hkv, D] contiguous. H/Hkv must be 1,
-    2, 4 or 8. Every table entry a lane reaches must name a block of
-    the pool (the kernel does not bound-check block ids)."""
+def paged_decode_cuda(q, k_new, v_new, table, fill, k_pool, v_pool, *,
+                      splits: Optional[int] = None):
+    """Launch the paged-decode kernels (``csrc/paged_decode.cu``: the
+    split kernel, then the merge of its partials): q [L, H, D] and
+    k_new/v_new [L, Hkv, D] (strided, 16-byte aligned rows with a
+    contiguous head dim), ``table`` [L, T] and ``fill`` [L] contiguous
+    device int32, pools [num_blocks, block_size, Hkv, D] contiguous.
+    H/Hkv must be 1, 2, 4 or 8. Every table entry a lane reaches must
+    name a block of the pool (the kernel does not bound-check block
+    ids). ``splits`` (default: `paged_decode_splits` of the geometry)
+    is how many ranges each lane's table is cut into; the partials go to
+    a workspace allocated here on the current stream."""
     L, H, D, Hkv, bs, T = _decode_shapes(q, k_new, v_new, table, fill,
                                          k_pool, v_pool)
     if q.device.type != "cuda":
@@ -197,9 +276,17 @@ def paged_decode_cuda(q, k_new, v_new, table, fill, k_pool, v_pool):
         raise ValueError("paged-decode pools must be contiguous")
     _check_index("table", table, (L, T), q.device)
     _check_index("fill", fill, (L,), q.device)
+    if splits is None:
+        splits = paged_decode_splits(T, bs, Hkv * L, _sm_count(q.device))
+    elif not (1 <= splits and -(-T // splits) <= PAGED_MAX_SPLIT_ENTRIES):
+        raise ValueError(
+            f"splits must cut the {T}-entry table into ranges of at most "
+            f"{PAGED_MAX_SPLIT_ENTRIES} entries, got {splits}")
     out = torch.empty((L, H, D), dtype=q.dtype, device=q.device)
     if L == 0:
         return out
+    ws = torch.empty(splits * L * H * (D + 2), dtype=torch.float32,
+                     device=q.device)
     # q is scaled at the compute dtype, as the plain version does.
     scale = float(torch.tensor(D ** -0.5, dtype=q.dtype))
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -208,15 +295,17 @@ def paged_decode_cuda(q, k_new, v_new, table, fill, k_pool, v_pool):
             "paged_decode", _PAGED_ARGTYPES,
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             table.data_ptr(), fill.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], L,
-            H, Hkv, D, bs, T, q.stride(0), q.stride(1), k_new.stride(0),
-            k_new.stride(1), v_new.stride(0), v_new.stride(1), scale,
-            stream)
+            v_pool.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            _DTYPE_CODE[q.dtype], L, H, Hkv, D, bs, T, splits, q.stride(0),
+            q.stride(1), k_new.stride(0), k_new.stride(1), v_new.stride(0),
+            v_new.stride(1), scale, stream)
     paged_decode_cuda.launches += 1
+    paged_decode_cuda.splits_last = splits
     return out
 
 
 paged_decode_cuda.launches = 0
+paged_decode_cuda.splits_last = None
 
 
 def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,

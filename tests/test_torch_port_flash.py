@@ -234,20 +234,24 @@ def test_split_decode_plain_zero_length_lane(splits):
 
 
 @pytest.mark.parametrize("W,pairs,n_sm,want", [
-    (2048, 64, 132, 5),    # the path: 8 lanes x 8 kv heads, 320 blocks
+    (2048, 64, 132, 4),    # the path: 8 lanes x 8 kv heads, 256 blocks
     (2048, 16, 132, 8),    # GQA 4: capped by 256 keys a split
     (1000, 64, 132, 3),    # W not a multiple of the split
     (255, 64, 132, 1),     # W < 256: one split
     (100, 1, 132, 1),
     (2048, 8, 132, 8),     # one lane
     (4096, 1, 132, 16),    # one lane, one kv head
-    (2048, 264, 132, 1),   # the card already full twice over
-    (2048, 64, 66, 3),
+    (2048, 264, 132, 4),   # the card full: splits of 512 keys
+    (2048, 64, 66, 4),
 ])
 def test_decode_splits(W, pairs, n_sm, want):
     n = tfa.decode_splits(W, pairs, n_sm)
     assert n == want
     assert n >= 1 and -(-W // n) >= min(W, tfa.DECODE_MIN_SPLIT_KEYS)
+    # Full lanes never run a second, partial wave of split blocks unless
+    # the 512-key cap asks for it.
+    slots = tfa.DECODE_BLOCKS_PER_SM * n_sm
+    assert n * pairs <= slots or n == max(1, W // tfa.DECODE_MAX_SPLIT_KEYS)
 
 
 class TestWrapperDispatch:

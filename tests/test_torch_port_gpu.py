@@ -139,8 +139,9 @@ def test_cuda_bf16_forward_takes_what_the_rules_allow():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_split_decode_matches_plain(dtype):
     """Decode split over the cache (splits > 1): lengths 0, 1, on and one
-    past the split boundaries, and W, GQA 1, 4 and 8; each call counts
-    one launch (the split kernel and its merge)."""
+    past the split boundaries, and W, GQA 1, 4 and 8, at the rule's split
+    count and at forced ones; each call counts one launch (the split
+    kernel and its merge)."""
     dev = _card()
     dt = getattr(torch, dtype)
     W, L = 1024, 6
@@ -167,6 +168,13 @@ def test_cuda_split_decode_matches_plain(dtype):
                                    atol=2e-5 if dt == torch.float32
                                    else 2e-3, rtol=0 if dt == torch.float32
                                    else 1e-2)
+        # A forced split count (one range; more ranges than the rule's).
+        for ns in (1, 2 * splits):
+            forced = tfa.flash_decode_cuda(q, kc, vc, length, splits=ns)
+            if dt == torch.float32:
+                torch.testing.assert_close(forced, ref, atol=2e-5, rtol=0)
+            else:
+                _bf16_close(forced, ref)
 
 
 @pytest.mark.gpu
@@ -275,6 +283,48 @@ def test_cuda_paged_decode_reads_strided_views_and_counts():
     assert tpa.paged_decode_cuda.launches == before + 1
     ref = tpa.paged_decode_plain(q, kn, vn, tables, fill, kp, vp)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_decode_split_boundaries(dtype):
+    """The split paged-decode kernels at 8 lanes over T = 128 entries of
+    16 (the timed tick's geometry), Hkv 8, 2 and 1 (GQA 1, 4, 8): fills
+    0, on and one before each boundary of the path's split count, the
+    last row, fill == T * bs and a free lane on the all-null table;
+    against `paged_decode_plain` and `paged_decode_split_plain`, at the
+    path's NS and with NS forced to 1. Each call counts one launch and
+    reports its split count; a split count the kernel cannot stage is
+    refused."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    L, bs, T = 8, 16, 128
+    for hkv in (8, 2, 1):
+        ns_path = tpa.paged_decode_splits(T, bs, hkv * L, tfa._sm_count(dev))
+        assert ns_path >= 2
+        c = -(-T // ns_path) * bs
+        edges = [f for k in range(1, ns_path) for f in (k * c - 1, k * c)]
+        fills = ([0] + edges[:4] + [T * bs - 1, T * bs, 0])[:L]
+        args = _paged_case(200 + hkv, dev, dt, L=L, bs=bs, T=T, hkv=hkv,
+                           fills=fills)
+        args[3][-1] = 0                          # free lane: null table
+        ref = tpa.paged_decode_plain(*args)
+        for ns in (ns_path, 1):
+            before = tpa.paged_decode_cuda.launches
+            out = tpa.paged_decode_cuda(*args, splits=ns)
+            assert tpa.paged_decode_cuda.launches == before + 1
+            assert tpa.paged_decode_cuda.splits_last == ns
+            split_ref = tpa.paged_decode_split_plain(*args, ns)
+            assert torch.isfinite(out.float()).all()
+            for want in (ref, split_ref):
+                if dt == torch.float32:
+                    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+                else:
+                    _bf16_close(out, want)
+        tpa.paged_decode_cuda(*args)
+        assert tpa.paged_decode_cuda.splits_last == ns_path
+    with pytest.raises(ValueError, match="splits"):
+        tpa.paged_decode_cuda(*args, splits=0)
 
 
 @pytest.mark.gpu

@@ -10,6 +10,7 @@ both sides, so values agree to rtol = atol = 1e-5 (summation order
 only); greedy streams must be token-exact.
 """
 
+import functools
 import importlib.util
 import pathlib
 import time
@@ -146,16 +147,16 @@ def _dense_reference(q, kn, vn, tables, fills, kp, vp):
     cache, put the new row at ``fill`` (when inside it), dense softmax
     over positions <= fill."""
     L, H, D = q.shape
-    T, bs = tables.shape[1], kp.shape[1]
+    T, bs, hkv = tables.shape[1], kp.shape[1], kp.shape[2]
     out = np.zeros_like(q)
     for i in range(L):
-        k = kp[tables[i]].reshape(T * bs, KV_HEADS, D).copy()
-        v = vp[tables[i]].reshape(T * bs, KV_HEADS, D).copy()
+        k = kp[tables[i]].reshape(T * bs, hkv, D).copy()
+        v = vp[tables[i]].reshape(T * bs, hkv, D).copy()
         n = min(int(fills[i]) + 1, T * bs)
         if fills[i] < T * bs:
             k[fills[i]], v[fills[i]] = kn[i], vn[i]
-        k = np.repeat(k[:n], H // KV_HEADS, axis=1)
-        v = np.repeat(v[:n], H // KV_HEADS, axis=1)
+        k = np.repeat(k[:n], H // hkv, axis=1)
+        v = np.repeat(v[:n], H // hkv, axis=1)
         s = np.einsum("hd,khd->hk", q[i].astype(np.float64),
                       k.astype(np.float64)) * D ** -0.5
         p = np.exp(s - s.max(-1, keepdims=True))
@@ -229,6 +230,116 @@ def test_paged_decode_plain_detects_swapped_table_entries():
     full[0, [1, 5]] = full[0, [5, 1]]
     same = tpa.paged_decode_plain(*_t(q, kn, vn, full, fills, kp, vp))
     np.testing.assert_allclose(same.numpy(), out.numpy(), **TOL)
+
+
+# -- the kernel's split arithmetic ------------------------------------------
+
+_SPLITS = (1, 2, 3, "T")
+
+
+def _split_fills(bs):
+    """Fill 0, a fill on and one before each boundary of every split
+    count of `_SPLITS` (the new row opens a split / the split ends at
+    the fill), the last row, ``T * bs`` (the whole table, no merged
+    row), and 0 for the free lane last."""
+    T = MAX_LEN // bs
+    edges = set()
+    for ns in _SPLITS:
+        ns = T if ns == "T" else ns
+        c = -(-T // ns) * bs
+        edges |= {f for k in range(1, ns) for f in (k * c - 1, k * c)}
+    return np.array([0, *sorted(edges), MAX_LEN - 1, MAX_LEN, 0], np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(bs, hkv):
+    """Inputs over the fills of `_split_fills` (the last lane free, on the
+    all-null table) and the JAX Pallas paged-decode kernel's output on
+    them (interpret mode, vmapped over the lanes as the serving tick
+    runs it)."""
+    rs = np.random.RandomState(100 * bs + hkv)
+    fills = _split_fills(bs)
+    L, T = len(fills), MAX_LEN // bs
+    nb = L * T + 1
+    kp = rs.randn(nb, bs, hkv, HEAD_DIM).astype(np.float32)
+    vp = rs.randn(nb, bs, hkv, HEAD_DIM).astype(np.float32)
+    tables = np.stack([rs.permutation(np.arange(1, nb))[:T]
+                       for _ in range(L)]).astype(np.int32)
+    tables[-1] = 0
+    q = rs.randn(L, HEADS, HEAD_DIM).astype(np.float32)
+    kn = rs.randn(L, hkv, HEAD_DIM).astype(np.float32)
+    vn = rs.randn(L, hkv, HEAD_DIM).astype(np.float32)
+    jkp, jvp = jnp.asarray(kp)[:, None], jnp.asarray(vp)[:, None]
+    lane = jax.vmap(lambda q1, k1, v1, t1, f1: jpa.paged_decode_attention(
+        q1[None, None], k1[None, None], v1[None, None], jkp, jvp, t1, f1,
+        interpret=True)[0, 0])
+    ref = np.asarray(lane(*map(jnp.asarray, (q, kn, vn, tables, fills))))
+    return (q, kn, vn, tables, fills, kp, vp), ref
+
+
+@pytest.mark.parametrize("splits", _SPLITS)
+@pytest.mark.parametrize("hkv", [HEADS, KV_HEADS])       # GQA 1 and 2
+@pytest.mark.parametrize("bs", [4, 8])
+def test_paged_decode_split_plain_matches_jax_kernel(bs, hkv, splits):
+    """The kernel's split-and-merge arithmetic (f32) == the JAX Pallas
+    paged-decode kernel (interpret mode), `paged_decode_plain` and the
+    dense numpy reference, at fill 0, on and one before every split
+    boundary, the last row, fill == max_len and a free lane on the
+    all-null table."""
+    arrays, ref = _split_case(bs, hkv)
+    ns = MAX_LEN // bs if splits == "T" else splits
+    args = _t(*arrays)
+    out = tpa.paged_decode_split_plain(*args, ns)
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    np.testing.assert_allclose(out.numpy(),
+                               tpa.paged_decode_plain(*args).numpy(), **TOL)
+    np.testing.assert_allclose(out.numpy(), _dense_reference(*arrays), **TOL)
+
+
+@pytest.mark.parametrize("splits", _SPLITS)
+@pytest.mark.parametrize("bs", [4, 8])
+def test_paged_decode_split_plain_bf16_within_card_tolerance(bs, splits):
+    """In bf16 (q scaled and rounded, p rounded against each split's own
+    max before P.V, as the kernel does) the split arithmetic stays within
+    the card's bf16 tolerance, 2e-3 + 1e-2 |ref|, of the f32 walk on the
+    same bf16 values."""
+    arrays, _ = _split_case(bs, KV_HEADS)
+    ns = MAX_LEN // bs if splits == "T" else splits
+    q, kn, vn, tables, fill, kp, vp = _t(*arrays)
+    bf = [t.to(torch.bfloat16) for t in (q, kn, vn, kp, vp)]
+    out = tpa.paged_decode_split_plain(bf[0], bf[1], bf[2], tables, fill,
+                                       bf[3], bf[4], ns)
+    assert out.dtype == torch.bfloat16
+    f = [t.float() for t in bf]
+    ref = tpa.paged_decode_plain(f[0], f[1], f[2], tables, fill, f[3], f[4])
+    err = (out.float() - ref).abs()
+    assert bool((err <= 2e-3 + 1e-2 * ref.abs()).all()), float(err.max())
+
+
+def test_paged_decode_splits():
+    """The split count is a pure function of the geometry (never of the
+    fills): 4 at the timed tick (8 lanes x 8 kv heads, T 128, bs 16, 132
+    SMs: 256 blocks, one wave of the card's 264 resident slots) and at
+    the paged engine's 16 lanes (splits of 512 positions), 8 at 8 lanes
+    x 2 kv heads, 1 for a span under 512 positions; each split holds
+    ce = ceil(T / NS) whole table entries (ce * bs positions,
+    block-aligned), NS * ce >= T, none starts past the table, and a
+    split stages at most PAGED_MAX_SPLIT_ENTRIES."""
+    assert tpa.paged_decode_splits(128, 16, 64, 132) == 4
+    assert tpa.paged_decode_splits(128, 16, 128, 132) == 4
+    assert tpa.paged_decode_splits(128, 16, 16, 132) == 8
+    for T, bs in ((31, 16), (8, 4), (127, 4), (1, 16)):
+        assert tpa.paged_decode_splits(T, bs, 1, 132) == 1
+    cap = tpa.PAGED_MAX_SPLIT_ENTRIES
+    for T in (1, 7, 31, 128, 129, 512, 1000, 4096, 20000):
+        for bs in (1, 4, 16, 64):
+            for pairs in (1, 8, 64, 128, 1000):
+                ns = tpa.paged_decode_splits(T, bs, pairs, 132)
+                ce = -(-T // ns)
+                assert ns >= 1 and ce <= cap
+                assert ns * ce >= T and (ns - 1) * ce < T
+                assert all((k * ce * bs) % bs == 0 for k in range(ns + 1))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
