@@ -3,7 +3,7 @@
 NVIDIA H100: the quickest proof that the port builds, is right and
 serves on the card.
 
-    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~1 minute
+    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~2 minutes
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
@@ -105,9 +105,36 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    spills of their split and merge kernels (ptxas); the paged-decode row
    a second reading at the paged engine's tick geometry.
 
+7. Horovod's data-parallel surface on the card, after phase 5, at world
+   1 over NCCL (``hvd.init()``, nothing caught and passed over):
+   (a) word2vec at the JAX model's width (vocab 50000, dim 128, f32):
+   8 `make_train_step` steps under `DistributedOptimizer(Adagrad)` on a
+   fixed batch of 4096 Zipf skip-grams with 16 negatives, the embedding
+   gradient a sparse CUDA tensor; the loss must be finite and fall; the
+   sparse allreduce (`IndexedSlices`) of one step's slices, taken to
+   dense, must equal the dense gradient, and the same with one slice
+   dropped (a planted fault) must not; the sparse rows are printed
+   beside the table's. (b) Phase 5's configuration under
+   `DistributedOptimizer(..., compression="powersgd",
+   compression_rank=4)`: 4 steps, the loss finite and falling, the
+   forward, dQ and dK/dV kernels each >= 12 x steps (added to their
+   ``kernels`` rows); then one checked step: error feedback (approx +
+   new err == grad + old err) on every compressed leaf, the card's
+   approximations against the same compressor on the CPU from the same
+   gradients and state, and the host syncs of one compressor update
+   counted under CUDA's sync debug mode; the compressed leaves, the wire
+   ratio and the step time beside phase 5's are printed. (c) (a) and (b)
+   run under `start_timeline`: the trace must parse, name its
+   processes, pair every B with an E and hold the ``train_step``
+   brackets and the sparse allreduce's allgathers. (d) ``python -m
+   horovod_tpu_torch.runner -np 1`` runs a worker that must land on
+   ``cuda:0`` over NCCL through the launcher's store, run every eager op
+   and one word2vec step, and print its line; ``-np <cards + 1>
+   --platform gpu`` must be refused before spawning (a planted misuse).
+
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
-engine, training) and read just after. Launches made to compare or time
+engine, training, training under PowerSGD) and read just after. Launches made to compare or time
 a kernel do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
@@ -162,6 +189,28 @@ STEP_LOSS_TOL = 1e-3
 # attention and with the dot attention) and then falls again: 8 steps
 # end at 9.34 from 10.60.
 TRAIN_STEPS = 8
+
+# Phase 7, the data-parallel surface. Word2vec at the JAX model's
+# default width; Zipf skip-grams (exponent 1.1, the shape of word
+# frequencies) of one fixed batch, so 8 Adagrad steps must lower the loss.
+W2V_VOCAB, W2V_DIM, W2V_BATCH, W2V_NEG, W2V_STEPS = 50000, 128, 4096, 16, 8
+# The sparse allreduce's dense result against the dense gradient of the
+# same loss, relative to the gradient's largest entry: both sum the same
+# f32 rows (scatter-add vs autograd's embedding backward), in other
+# orders (reading 4.4e-7; one slice dropped reads 1.7e-2).
+SPARSE_TOL = 1e-5
+# The flagship LM under PowerSGD: rank 4, 4 AdamW steps on one batch.
+PSGD_RANK, PSGD_STEPS = 4, 4
+# Error feedback: approx + new err == grad + old err in float32 up to
+# one rounding of each term, relative to the leaf's largest |grad + err|
+# (reading 1.1e-7).
+EF_TOL = 1e-5
+# The compressor on the card against the same compressor on the CPU from
+# the same gradients and state: the approximations agree up to f32
+# summation order (cuBLAS vs the CPU BLAS over up to 32768 rows) and
+# the two QR implementations, relative to each leaf's largest entry;
+# the reading is 3.4e-6 on an H100 80GB HBM3 at 700 W.
+PSGD_CPU_TOL = 1e-4
 
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:321",
@@ -1577,6 +1626,333 @@ def run_paged_engine(model, kernels):
     return paged
 
 
+def zipf_ids(rs, n, vocab, a=1.1):
+    """``n`` ids in [0, vocab) with P(k) proportional to 1 / (k + 1)^a."""
+    import numpy as np
+    p = 1.0 / np.arange(1, vocab + 1) ** a
+    return rs.choice(vocab, size=n, p=p / p.sum())
+
+
+def run_word2vec(hvd, dev):
+    """Phase 7a: the sparse path at word2vec's full width: 8 steps of
+    `make_train_step` under `DistributedOptimizer(Adagrad)`, the
+    embedding gradient a sparse CUDA tensor; then the sparse allreduce
+    of one step's slices against the dense gradient (and the same with
+    one slice dropped, a planted fault that must fail)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models.word2vec import Word2Vec
+    rs = np.random.RandomState(0)
+    batch = [torch.from_numpy(x).to(dev) for x in (
+        zipf_ids(rs, W2V_BATCH, W2V_VOCAB), zipf_ids(rs, W2V_BATCH, W2V_VOCAB),
+        zipf_ids(rs, W2V_BATCH * W2V_NEG, W2V_VOCAB).reshape(W2V_BATCH,
+                                                             W2V_NEG))]
+    model = Word2Vec(W2V_VOCAB, W2V_DIM, device=dev).init_weights(0)
+    opt = hvd.DistributedOptimizer(torch.optim.Adagrad(model.parameters(),
+                                                       lr=0.1))
+    step = hvd.make_train_step(model, opt)
+    losses, times = [], []
+    for _ in range(W2V_STEPS):
+        t0 = time.time()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        losses.append(float(loss))
+    grad = model.embeddings.grad
+    if not (grad.is_sparse and grad.device.type == dev.type):
+        raise AssertionError(f"embedding gradient is not sparse on "
+                             f"{dev}: {grad.layout} on {grad.device}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"word2vec loss not finite and falling: "
+                             f"{losses}")
+    slices = hvd.IndexedSlices.from_sparse(grad)
+    nnz = int(slices.indices.numel())
+    # The same loss, its embedding gradient dense, on the same params.
+    model.zero_grad(set_to_none=True)
+    model.sparse = False
+    model(*batch).backward()
+    dense = model.embeddings.grad
+    model.zero_grad(set_to_none=True)
+    model.sparse = True
+    model(*batch).backward()
+    fresh = hvd.IndexedSlices.from_sparse(model.embeddings.grad)
+    scale = float(dense.abs().max())
+    got = hvd.allreduce(fresh).to_dense()
+    err = float((got - dense).abs().max()) / scale
+    short = hvd.IndexedSlices(fresh.values[:-1], fresh.indices[:-1],
+                              fresh.dense_shape)
+    ferr = float((hvd.allreduce(short).to_dense() - dense).abs().max()
+                 ) / scale
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"word2vec {W2V_VOCAB} x {W2V_DIM}, batch {W2V_BATCH} x "
+        f"{W2V_NEG} negatives, {W2V_STEPS} Adagrad steps: losses "
+        f"{[round(x, 4) for x in losses]}, median step after the first "
+        f"{steady * 1e3:.2f} ms; sparse gradient {nnz} of {W2V_VOCAB} rows "
+        f"({nnz * (W2V_DIM + 1) * 4 / 1e6:.3f} MB as rows + indices vs "
+        f"{W2V_VOCAB * W2V_DIM * 4 / 1e6:.3f} MB dense, "
+        f"{W2V_VOCAB * W2V_DIM / (nnz * (W2V_DIM + 1)):.1f}x fewer bytes)")
+    log(f"word2vec allreduce(IndexedSlices) to dense vs the dense "
+        f"gradient: max |err| / max |grad| {err:.3e} (tol {SPARSE_TOL}); "
+        f"planted fault (last slice dropped) {ferr:.3e}")
+    if err > SPARSE_TOL:
+        raise AssertionError(f"sparse allreduce differs from the dense "
+                             f"gradient by {err}")
+    if ferr <= SPARSE_TOL:
+        raise AssertionError("the sparse check does not see a dropped "
+                             "slice")
+    return dict(losses=losses, step_s=times,
+                step_ms_median_after_first=steady * 1e3, nnz_rows=nnz,
+                table_rows=W2V_VOCAB, sparse_err=err,
+                planted_fault_err=ferr)
+
+
+def powersgd_check(opt, model, tokens):
+    """One PowerSGD step of phase 7b, checked: the gradients and the
+    compressor's state are captured, the optimizer steps, and then (1)
+    error feedback holds for every compressed leaf, (2) the compressor
+    run on the CPU from the captured gradients and state gives the same
+    approximations, and (3) the compressor run alone on the card under
+    CUDA's sync debug mode counts its host synchronizations."""
+    import warnings
+    import torch
+    from horovod_tpu_torch.models.transformer import _lm_data_loss
+    from horovod_tpu_torch.ops.compression import PowerSGDState
+    params = list(model.parameters())
+    opt.zero_grad(set_to_none=True)
+    _lm_data_loss(model, tokens, 512).backward()
+    grads = [p.grad.detach().clone() for p in params]
+    old = [opt.state[p].get("powersgd_err") for p in params]
+    state = PowerSGDState(
+        tuple(None if opt.state[p].get("powersgd_q") is None
+              else opt.state[p]["powersgd_q"].clone() for p in params),
+        tuple(None if e is None else e.clone() for e in old),
+        opt._hvd_powersgd.seed)
+    opt.step()
+    ef_err = cpu_err = 0.0
+    cpu_out, _ = opt._hvd_powersgd.update(
+        [g.cpu() for g in grads],
+        PowerSGDState(*(tuple(None if t is None else t.cpu() for t in ts)
+                        for ts in state[:2]), state.seed))
+    for p, g, e0, c in zip(params, grads, state.errs, cpu_out):
+        if e0 is None:
+            continue
+        m = g.reshape(-1, g.shape[-1]).float() + e0
+        approx = p.grad.reshape(m.shape).float()
+        e1 = opt.state[p]["powersgd_err"]
+        scale = float(m.abs().max())
+        ef_err = max(ef_err, float((approx + e1 - m).abs().max()) / scale)
+        ref = c.reshape(m.shape).float()
+        cpu_err = max(cpu_err, float((approx.cpu() - ref).abs().max())
+                      / float(ref.abs().max()))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            opt._hvd_powersgd.update(grads, state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # One warning per synchronizing call; the mode's own notice that it
+    # is a prototype is not one.
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    return ef_err, cpu_err, syncs
+
+
+def run_powersgd(hvd, tfa, dev, base_step_ms):
+    """Phase 7b: phase 5's training configuration under
+    `DistributedOptimizer(..., compression="powersgd",
+    compression_rank=4)`: 4 steps whose loss must fall and whose forward
+    and backward kernels must each launch >= 12 x steps, then one
+    checked step (`powersgd_check`)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models.transformer import (TransformerLM,
+                                                      init_lm_state,
+                                                      make_lm_train_step)
+    model = TransformerLM(32768, 12, 8, 128, max_len=2048,
+                          dtype=torch.bfloat16, attn_impl="flash",
+                          device=dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        compression="powersgd", compression_rank=PSGD_RANK)
+    init_lm_state(model, opt, seed=0)
+    comp = [p for p in model.parameters() if "powersgd_q" in opt.state[p]]
+    full = sum(p.numel() for p in comp)
+    wire = sum(PSGD_RANK * (p.numel() // p.shape[-1] + p.shape[-1])
+               for p in comp)
+    step = make_lm_train_step(model, opt, loss_chunk=512)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 32768, (8, 2048))).to(dev)
+    wrappers = {"flash_fwd": tfa.flash_fwd_cuda,
+                "flash_bwd_dq": tfa.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": tfa.flash_bwd_dkv_cuda}
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(PSGD_STEPS):
+        t0 = time.time()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        losses.append(float(loss))
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"training under PowerSGD rank {PSGD_RANK}: {len(comp)} of "
+        f"{len(list(model.parameters()))} leaves compressed, wire ratio "
+        f"sum r(n+m) / sum nm = {wire} / {full} = {wire / full:.5f}; "
+        f"losses {[round(x, 4) for x in losses]}, step s "
+        f"{[round(t, 4) for t in times]}, median after the first "
+        f"{steady * 1e3:.1f} ms (uncompressed, phase 5: "
+        f"{base_step_ms:.1f} ms), launches {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"PowerSGD training loss not finite and "
+                             f"falling: {losses}")
+    for k, n in launches.items():
+        if n < model.num_layers * PSGD_STEPS:
+            raise AssertionError(f"{k} launched {n} < {model.num_layers} "
+                                 f"x {PSGD_STEPS} under PowerSGD")
+    ef_err, cpu_err, syncs = powersgd_check(opt, model, tokens)
+    log(f"PowerSGD checked step: error feedback |approx + err' - (g + "
+        f"err)| / max {ef_err:.3e} (tol {EF_TOL}); card vs CPU compressor "
+        f"on the same gradients and state {cpu_err:.3e} (tol "
+        f"{PSGD_CPU_TOL}); host syncs inside one compressor update "
+        f"{len(syncs)} {sorted(set(syncs))[:3]}")
+    if ef_err > EF_TOL:
+        raise AssertionError(f"PowerSGD error feedback broken: {ef_err}")
+    if cpu_err > PSGD_CPU_TOL:
+        raise AssertionError(f"PowerSGD on the card differs from the CPU "
+                             f"by {cpu_err}")
+    return dict(steps=PSGD_STEPS, losses=losses, step_s=times,
+                step_ms_median_after_first=steady * 1e3,
+                uncompressed_step_ms=base_step_ms, launches=launches,
+                compressed_leaves=len(comp), wire_floats=wire,
+                dense_floats=full, wire_ratio=wire / full,
+                error_feedback_err=ef_err, card_vs_cpu_err=cpu_err,
+                host_syncs=len(syncs), host_sync_kinds=sorted(set(syncs)))
+
+
+def check_timeline(path):
+    """Phase 7c: the trace parses, names its processes, pairs every B
+    with an E, and holds the train-step brackets and the eager ops."""
+    with open(path) as f:
+        events = json.load(f)
+    names = {e["args"]["name"] for e in events if e.get("ph") == "M"}
+    stacks = {}
+    for e in events:
+        if e.get("ph") == "B":
+            stacks.setdefault(e["pid"], []).append(e["name"])
+        elif e.get("ph") == "E":
+            if not stacks.get(e["pid"]):
+                raise AssertionError(f"timeline E without B: {e}")
+            stacks[e["pid"]].pop()
+    if any(stacks.values()):
+        raise AssertionError(f"timeline B without E: {stacks}")
+    want = {"train_step", f"HorovodAllgather_vx{W2V_DIM}_float32",
+            "HorovodAllgather_v_int64"}
+    if not want <= names:
+        raise AssertionError(f"timeline misses {want - names}: {names}")
+    n_b = sum(e.get("ph") == "B" for e in events)
+    log(f"timeline: {len(events)} events, {n_b} B/E pairs, processes "
+        f"{sorted(names)}")
+    return dict(events=len(events), spans=n_b, processes=sorted(names))
+
+
+# The launcher's worker: no device argument; it must land on card 0 over
+# NCCL through the launcher's store, run every eager op at world 1 and
+# one word2vec step.
+LAUNCH_WORKER = r"""
+import os, numpy as np, torch, torch.distributed as dist
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models.word2vec import Word2Vec
+from horovod_tpu_torch.runtime import state
+hvd.init()
+st = state.global_state()
+assert st.devices == [torch.device("cuda", 0)], st.devices
+assert dist.get_backend() == "nccl", dist.get_backend()
+assert st.store.port == int(os.environ["HOROVOD_KV"].rsplit(":", 1)[1])
+x = torch.arange(12.0, device="cuda").reshape(4, 3)
+for out in (hvd.allreduce(x), hvd.allgather(x), hvd.broadcast(x, 0),
+            hvd.alltoall(x), hvd.reducescatter(x, average=True)):
+    assert torch.equal(out, x), out
+s = hvd.allreduce(hvd.IndexedSlices(x, torch.tensor([0, 2, 2, 5],
+                                                    device="cuda"), (6, 3)))
+assert torch.equal(s.to_dense()[2], x[1] + x[2])
+g = hvd.grouped_allreduce([x, x[0].long()], average=False)
+assert torch.equal(g[0], x) and torch.equal(g[1], x[0].long())
+m = Word2Vec(50000, 128).init_weights(0)
+opt = hvd.DistributedOptimizer(torch.optim.Adagrad(m.parameters(), lr=0.1))
+rs = np.random.RandomState(1)
+b = [torch.from_numpy(v).cuda() for v in (rs.randint(0, 50000, 512),
+     rs.randint(0, 50000, 512), rs.randint(0, 50000, (512, 16)))]
+loss = float(hvd.make_train_step(m, opt)(*b))
+assert m.embeddings.grad.is_sparse and np.isfinite(loss)
+print(f"LAUNCH_OK rank={hvd.rank()} size={hvd.size()} device={st.devices[0]} "
+      f"backend={dist.get_backend()} word2vec_loss={loss:.4f}", flush=True)
+hvd.shutdown()
+"""
+
+
+def run_launcher():
+    """Phase 7d: ``python -m horovod_tpu_torch.runner -np 1`` on the
+    card (its worker's line must arrive), then ``-np N+1 --platform
+    gpu`` with N cards, which must exit nonzero with the launcher's
+    message before spawning (a planted misuse)."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    base = [sys.executable, "-m", "horovod_tpu_torch.runner"]
+    t0 = time.time()
+    ok = subprocess.run(base + ["-np", "1", sys.executable, "-c",
+                                LAUNCH_WORKER], cwd=here, env=env,
+                        capture_output=True, text=True, timeout=300)
+    seconds = time.time() - t0
+    line = next((ln for ln in ok.stdout.splitlines() if "LAUNCH_OK" in ln),
+                None)
+    if ok.returncode != 0 or line is None:
+        raise AssertionError(f"launcher -np 1 failed ({ok.returncode}):\n"
+                             f"{ok.stdout[-3000:]}\n{ok.stderr[-3000:]}")
+    n = torch.cuda.device_count() + 1
+    bad = subprocess.run(base + ["-np", str(n), "--platform", "gpu",
+                                 sys.executable, "-c", "print('SPAWNED')"],
+                         cwd=here, env=env, capture_output=True, text=True,
+                         timeout=120)
+    if (bad.returncode == 0 or "one rank per card" not in bad.stderr
+            or "SPAWNED" in bad.stdout):
+        raise AssertionError(f"launcher -np {n} --platform gpu was not "
+                             f"refused: {bad.returncode}\n{bad.stdout}\n"
+                             f"{bad.stderr}")
+    log(f"launcher -np 1 on the card: {line.strip()} ({seconds:.1f} s); "
+        f"-np {n} --platform gpu refused with exit {bad.returncode}: "
+        f"{bad.stderr.strip().splitlines()[-1]}")
+    return dict(worker_line=line.strip(), seconds=seconds,
+                refused_exit=bad.returncode)
+
+
+def run_dp_surface(tfa, dev, base_step_ms):
+    """Phase 7: the data-parallel surface on the card at world 1 over
+    NCCL: word2vec (7a) and the LM under PowerSGD (7b) under the
+    timeline (7c), then the launcher (7d)."""
+    import tempfile
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "timeline.json")
+        try:
+            hvd.start_timeline(path)
+            w2v = run_word2vec(hvd, dev)
+            psgd = run_powersgd(hvd, tfa, dev, base_step_ms)
+            hvd.stop_timeline()
+            timeline = check_timeline(path)
+        finally:
+            hvd.shutdown()
+    launcher = run_launcher()
+    return dict(word2vec=w2v, powersgd=psgd, timeline=timeline,
+                launcher=launcher)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", metavar="PATH",
@@ -1666,9 +2042,19 @@ def main() -> int:
         f"{train['tokens_per_s']:.0f} tokens/s, peak memory "
         f"{train['max_memory_allocated'] / 1e9:.2f} GB {label}")
 
+    t0 = time.time()
+    surface = run_dp_surface(tfa, dev, train["step_ms_median_after_first"])
+    psgd = surface["powersgd"]
+    log(f"data-parallel surface (phase 7) in {time.time() - t0:.1f} s: "
+        f"word2vec {surface['word2vec']['step_ms_median_after_first']:.2f} "
+        f"ms a step; LM under PowerSGD "
+        f"{psgd['step_ms_median_after_first']:.1f} ms a step vs "
+        f"{psgd['uncompressed_step_ms']:.1f} ms uncompressed, wire ratio "
+        f"{psgd['wire_ratio']:.5f} {label}")
+
     timing = time_kernels(tfa, dev)
     main_launches = {k: sum(run["launches"].get(k, 0)
-                            for run in (gen, eng, peng, train))
+                            for run in (gen, eng, peng, train, psgd))
                      for k in REPLACES}
     kernels = []
     for name in REPLACES:
@@ -1722,7 +2108,8 @@ def main() -> int:
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernels=kernels, timing=timing, generate=gen, engine=eng,
                   paged_teacher_forced=paged_tf, paged_engine=peng,
-                  training=train, wgmma_kernels=wgmma_report,
+                  training=train, data_parallel_surface=surface,
+                  wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),

@@ -24,6 +24,17 @@ same cache state.
 ``step``, ``exp_avg`` and ``exp_avg_sq`` of a `torch.optim.AdamW` (or
 Adam) over the port model's parameters, so a JAX run's optimizer state
 carries across with its weights.
+
+`word2vec_params_from_jax(tree)` maps a `horovod_tpu.models.word2vec.
+Word2Vec` param tree (``embeddings``, ``nce_weights``) onto the port's
+`models.word2vec.Word2Vec`.
+
+`powersgd_state_from_jax(state, params)` maps the JAX package's
+`PowerSGDState` (``qs`` / ``errs``, one entry per param leaf in flatten
+order, None where a leaf is not compressed) onto the per-parameter
+``powersgd_q`` / ``powersgd_err`` entries of
+`optim.DistributedOptimizer(compression="powersgd")`, so both packages
+start from the same factors (the JAX Qs are threefry draws).
 """
 
 from __future__ import annotations
@@ -142,4 +153,52 @@ def adam_state_from_jax(opt_state, model: torch.nn.Module
         out[p] = {"step": step.clone(),
                   "exp_avg": mu[name].to(p.device, p.dtype),
                   "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    return out
+
+
+def word2vec_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A state_dict of the port's `Word2Vec` from the JAX model's param
+    tree of numpy arrays; raises on any other leaf."""
+    flat = _flatten(tree)
+    want = {("embeddings",), ("nce_weights",)}
+    if set(flat) != want:
+        raise KeyError(f"expected Word2Vec params {sorted(want)}, got "
+                       f"{sorted(flat)}")
+    return {path[0]: torch.from_numpy(np.array(arr))
+            for path, arr in flat.items()}
+
+
+def _jax_path(name: str) -> tuple:
+    """The JAX param path of a port parameter name (``blocks.3.attn.qkv.
+    kernel`` -> ``block_3/attn/qkv/kernel``; other names map 1:1)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        parts = [f"block_{parts[1]}"] + parts[2:]
+    return tuple(parts)
+
+
+def powersgd_state_from_jax(state, params
+                            ) -> Dict[torch.nn.Parameter, Dict[str, Any]]:
+    """Per-param PowerSGD entries from a JAX `PowerSGDState` of numpy
+    arrays (``jax.tree.map(np.asarray, state)``): ``{param:
+    {"powersgd_q": q, "powersgd_err": err}}`` for every compressed leaf,
+    in float32 on the parameter's device. ``params`` is the port model
+    (or its ``named_parameters()``); the JAX leaves are matched by
+    flatten order (param paths sorted, ``block_10`` before ``block_2``).
+    Install with ``optimizer.state[p].update(...)``."""
+    named = list(params.named_parameters() if hasattr(
+        params, "named_parameters") else params)
+    if len(named) != len(state.qs) or len(state.qs) != len(state.errs):
+        raise ValueError(
+            f"PowerSGD state holds {len(state.qs)} leaves but the model "
+            f"has {len(named)} parameters")
+    order = sorted(named, key=lambda kv: _jax_path(kv[0]))
+    out = {}
+    for (name, p), q, err in zip(order, state.qs, state.errs):
+        if q is None:
+            continue
+        out[p] = {"powersgd_q": torch.from_numpy(np.array(q)).to(
+                      p.device, torch.float32),
+                  "powersgd_err": torch.from_numpy(np.array(err)).to(
+                      p.device, torch.float32)}
     return out

@@ -405,7 +405,8 @@ def make_lm_train_step(model: TransformerLM,
     the loss averaged over ranks as a 0-d device tensor (the JAX step's
     ``lax.pmean``): no ``.item()`` and no host sync inside the step.
     ``loss_chunk`` runs the fused head + CE in chunks of that many
-    positions."""
+    positions. Each call is a ``train_step`` span on the timeline
+    (`utils.timeline.step_bracket`), as in the JAX package."""
     def step(tokens: torch.Tensor) -> torch.Tensor:
         if optim.world_size() > 1 and not optim.is_distributed(optimizer):
             raise ValueError(
@@ -417,7 +418,8 @@ def make_lm_train_step(model: TransformerLM,
         optimizer.step()
         return optim.mean_over_ranks(loss.detach())
 
-    return step
+    from horovod_tpu_torch.utils.timeline import step_bracket
+    return step_bracket(step)
 
 
 def make_lm_eval_step(model: TransformerLM, *,

@@ -11,7 +11,9 @@ Only knobs that a ported module reads are registered. A knob of the
 JAX package whose consumer is not ported yet (speculative decoding,
 the router and fleet, the metrics exporter, profiling, elastic
 membership, checkpoints, ...) is registered by the slice that ports
-its consumer; ROADMAP.md lists them until then.
+its consumer; ROADMAP.md lists them until then. ``HOROVOD_COORDINATOR``
+(the ``jax.distributed`` address) has no reader over
+`torch.distributed` and stays unregistered.
 ``HVD_SERVE_MESH`` and ``HVD_WEIGHT_QUANT`` are read so that a setting
 raises `NotImplementedError` instead of being ignored.
 """
@@ -187,8 +189,35 @@ register_knob(
 register_knob(
     "HOROVOD_STALL_CHECK_TIME", "float", str(DEFAULT_STALL_WARNING_TIME),
     "serving/engine.py",
-    "Seconds before a pending serving tick warns as stalled "
-    "(utils/stall.py)")
+    "Seconds before a pending serving tick or eager collective warns "
+    "as stalled (utils/stall.py)")
+register_knob(
+    "HOROVOD_TIMELINE", "str", "(unset)", "runtime/bootstrap.py",
+    "Write the Horovod Timeline (Chrome trace of eager collectives, "
+    "train-step brackets and serving requests) to this path from "
+    "init() on")
+register_knob(
+    "HOROVOD_RANK", "int", "(unset)", "runtime/bootstrap.py",
+    "This worker's global rank, set by the hvdrun launcher (wins over "
+    "torchrun's RANK; explicit init(rank=) wins over both)")
+register_knob(
+    "HOROVOD_SIZE", "int", "(unset)", "runtime/bootstrap.py",
+    "World size, set by the hvdrun launcher")
+register_knob(
+    "HOROVOD_LOCAL_RANK", "int", "(unset)", "runtime/bootstrap.py",
+    "This worker's rank on its host, set by the hvdrun launcher; a "
+    "CUDA rank drives card local_rank")
+register_knob(
+    "HOROVOD_LOCAL_SIZE", "int", "(unset)", "runtime/bootstrap.py",
+    "Workers on this host, set by the hvdrun launcher")
+register_knob(
+    "HOROVOD_KV", "str", "(unset)", "runtime/bootstrap.py",
+    "host:port of the launcher's rendezvous store (a "
+    "torch.distributed.TCPStore); init() joins it as a client")
+register_knob(
+    "HOROVOD_PLATFORM", "str", "(unset)", "runtime/bootstrap.py",
+    "Default device of init(): 'gpu' (NCCL, card local_rank) or 'cpu' "
+    "(gloo); set by hvdrun --platform; an explicit device= wins")
 register_knob(
     "HVD_CHAOS", "str", "(unset)", "resilience/chaos.py",
     "Arm chaos-injection sites: 'site:count[:p=..][:delay=..],...'")
@@ -274,6 +303,9 @@ class Config:
     """
 
     stall_warning_time: float = DEFAULT_STALL_WARNING_TIME
+    # Horovod Timeline path ("" = off) and init()'s default platform.
+    timeline_path: str = ""
+    platform: str = ""
     # Training: gradient-allreduce fusion bucket bytes and the optional
     # reduce dtype (a torch dtype name, "" = the gradients' own).
     fusion_threshold: int = DEFAULT_FUSION_THRESHOLD
@@ -323,6 +355,8 @@ class Config:
         self.brownout = env_int("HVD_BROWNOUT", 1) != 0
         self.stall_warning_time = env_float(
             "HOROVOD_STALL_CHECK_TIME", DEFAULT_STALL_WARNING_TIME)
+        self.timeline_path = env_str("HOROVOD_TIMELINE")
+        self.platform = env_str("HOROVOD_PLATFORM")
         return self
 
 

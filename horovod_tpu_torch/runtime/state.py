@@ -65,6 +65,9 @@ class GlobalState:
         self.native: Optional[Any] = None        # ctypes library wrapper
         self.timeline: Optional[Any] = None
         self.stall_monitor: Optional[Any] = None
+        # The launcher's rendezvous store (a TCPStore client) the
+        # process group was formed over, or None.
+        self.store: Optional[Any] = None
         # Eager-path compile cache: name -> jitted collective.
         self.op_cache: dict = {}
         # (proc, local) mesh for payload-deduplicated mc collectives
@@ -83,6 +86,7 @@ class GlobalState:
         self.mc_mesh2 = None
         self.timeline = None
         self.stall_monitor = None
+        self.store = None
 
 
 _global_state = GlobalState()

@@ -61,7 +61,7 @@ from horovod_tpu_torch.serving.admission import (
 )
 from horovod_tpu_torch.serving.metrics import EngineMetrics
 from horovod_tpu_torch.serving.scheduler import (
-    CompletedRequest, ContinuousBatchingScheduler,
+    CompletedRequest, ContinuousBatchingScheduler, _span,
 )
 from horovod_tpu_torch.serving.slots import SlotPool
 from horovod_tpu_torch.utils.stall import StallMonitor
@@ -570,6 +570,7 @@ class ServingEngine:
                 self.brownout.touch(req.tenant)
             self._obs_tenant["requests"].inc(tenant=req.tenant,
                                              outcome="submitted")
+        _span("begin_span", req.id, "QUEUE", trace_id=req.trace_id)
         req.span_ids["queued"] = _spans.begin_span(
             "serving.queued", trace_id=req.trace_id,
             parent_id=req.parent_span or req.span_ids.get("root", ""),
@@ -582,6 +583,7 @@ class ServingEngine:
             if req.tenant:
                 self._obs_tenant["requests"].inc(tenant=req.tenant,
                                                  outcome="shed")
+            _span("end_span", req.id, "QUEUE")
             _spans.end_span(req.span_ids.pop("queued", ""),
                             status="shed")
             _spans.end_span(req.span_ids.pop("root", ""),
@@ -591,6 +593,7 @@ class ServingEngine:
                          queue_depth=len(self.queue))
             raise
         except EngineClosedError:
+            _span("end_span", req.id, "QUEUE")
             _spans.end_span(req.span_ids.pop("queued", ""),
                             status="closed")
             _spans.end_span(req.span_ids.pop("root", ""),

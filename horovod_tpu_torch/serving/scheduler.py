@@ -124,6 +124,37 @@ class _PendingTick:
     snapshot: Dict[int, Request] = field(default_factory=dict)
 
 
+def _timeline():
+    """The process's Horovod timeline, or None (spans are then no-ops):
+    the handle `utils.timeline.step_bracket` reads."""
+    from horovod_tpu_torch.runtime import state as _state
+    return _state.global_state().timeline
+
+
+def _span(method: str, request_id: int, name: str,
+          trace_id: str = ""):
+    """One request-span timeline verb (counterpart of
+    `horovod_tpu/serving/scheduler.py:119-140`): every request is its
+    own trace process ``request:<id>`` with QUEUE -> PREFILL -> DECODE
+    spans; ``begin_span`` stamps the request's ``trace_id`` into the
+    span's ``args``."""
+    tl = _timeline()
+    if tl is None:
+        return
+    if method == "begin_span" and trace_id:
+        tl.begin_span(f"request:{request_id}", name,
+                      args={"trace_id": trace_id})
+    else:
+        getattr(tl, method)(f"request:{request_id}", name)
+
+
+def _mark(request_id: int, name: str):
+    """An instant event on the request's trace process (its outcome)."""
+    tl = _timeline()
+    if tl is not None:
+        tl.mark(f"request:{request_id}", name)
+
+
 # Distinguishes stall-bracket names across scheduler generations: a
 # superseded thread's finally-end() must never cancel the successor's
 # identically-numbered pending tick (both count from shared metrics).
@@ -496,6 +527,9 @@ class ContinuousBatchingScheduler:
                     or req.span_ids.get("root", ""),
                     prompt_tokens=int(full.shape[0]),
                     prefix_cached=adm.skipped)
+                _span("end_span", req.id, "QUEUE")
+                _span("begin_span", req.id, "PREFILL",
+                      trace_id=req.trace_id)
                 # Registered BEFORE any device work so a fault inside
                 # it (compile failure, OOM) leaves the request findable
                 # by the engine's crash containment — never a future
@@ -713,6 +747,10 @@ class ContinuousBatchingScheduler:
         self.pool.free(slot)
         # hvd: disable=HVD004(active is dispatch-thread-owned; the handoff lock only orders the container handoff, and abandon() snapshots wholesale)
         self.active.pop(slot, None)
+        _span("end_span", req.id, "DECODE")
+        # Back in the queue: the readmission closes this QUEUE span, so
+        # the request's timeline process stays balanced.
+        _span("begin_span", req.id, "QUEUE", trace_id=req.trace_id)
         _spans.end_span(req.span_ids.pop("decode", ""),
                         status="preempted", mode=mode)
         # The pause span stays OPEN across the requeue — the resume's
@@ -820,6 +858,8 @@ class ContinuousBatchingScheduler:
         # Sampled by the prefill forward, not a decode tick — the
         # tokens_per_tick metric excludes it.
         self.metrics.count("prefill_first_tokens")
+        _span("end_span", req.id, "PREFILL")
+        _span("begin_span", req.id, "DECODE", trace_id=req.trace_id)
         _spans.end_span(req.span_ids.pop("prefill", ""))
         req.span_ids["decode"] = _spans.begin_span(
             "serving.decode", trace_id=req.trace_id,
@@ -834,11 +874,13 @@ class ContinuousBatchingScheduler:
             self._ov.swap.discard(req.id)
         self.metrics.count("cancelled" if kind == "cancelled"
                            else "timed_out")
+        _span("end_span", req.id, "QUEUE")
         _spans.end_span(req.span_ids.pop("queued", ""),
                         status=kind)
         _spans.end_span(req.span_ids.pop("paused", ""),
                         status=kind)
         _spans.end_span(req.span_ids.pop("root", ""), status=kind)
+        _mark(req.id, kind.upper())
         _events.emit("serving.queue_drop", request_id=req.id,
                      trace_id=req.trace_id, reason=kind)
 
@@ -877,6 +919,7 @@ class ContinuousBatchingScheduler:
         self.pool.free(slot)
         # hvd: disable=HVD004(dispatch-thread-owned retire; abandon() clearing concurrently makes this a benign no-op, tolerated by _resolve)
         self.active.pop(slot, None)
+        _span("end_span", req.id, "DECODE")
         _spans.end_span(req.span_ids.pop("decode", ""),
                         status=reason)
         self._finalize(req, reason, now)
@@ -896,6 +939,7 @@ class ContinuousBatchingScheduler:
             self.prefilling.pop(slot, None)
             self._prefill_order.remove(slot)
         self.pool.free(slot)
+        _span("end_span", job.req.id, "PREFILL")
         _spans.end_span(job.req.span_ids.pop("prefill", ""),
                         status=reason)
         self._finalize(job.req, reason, time.time())
@@ -907,6 +951,7 @@ class ContinuousBatchingScheduler:
             # stayed resident so the entry was never spent — releases
             # the swap budget here.
             self._ov.swap.discard(req.id)
+        _mark(req.id, reason.upper())
         _events.emit("serving.retire", request_id=req.id,
                      trace_id=req.trace_id, reason=reason,
                      tokens=len(req.tokens))

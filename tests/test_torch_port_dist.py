@@ -355,9 +355,13 @@ def test_fusion_knobs(monkeypatch):
 def test_distributed_optimizer_options(hvd_world1):
     hvd = hvd_world1
     lin = torch.nn.Linear(3, 1)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    psgd = hvd.DistributedOptimizer(
+        torch.optim.SGD(torch.nn.Linear(32, 48).parameters(), lr=0.1),
+        compression="powersgd")
+    assert sum("powersgd_q" in st for st in psgd.state.values()) == 1
+    with pytest.raises(ValueError, match="average=False"):
         hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=0.1),
-                                 compression="powersgd")
+                                 compression="powersgd", average=False)
     with pytest.raises(ValueError, match="compression"):
         hvd.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=0.1),
                                  compression="zip")

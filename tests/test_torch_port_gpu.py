@@ -512,3 +512,58 @@ def test_small_model_train_step_through_kernels():
     for (name, a), b in zip(fast.named_parameters(), slow.parameters()):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4,
                                    msg=name)
+
+
+@pytest.mark.gpu
+def test_cuda_powersgd_matches_cpu():
+    """The PowerSGD compressor on CUDA tensors (cuBLAS products, the
+    cuSOLVER QR) against the same compressor on the CPU, three steps
+    from the same gradients and state: the approximations and the error
+    buffers (both independent of the QR's column signs) within 1e-4 of
+    each tensor's largest entry (f32, other summation orders and QR)."""
+    dev = _card()
+    from horovod_tpu_torch.ops.compression import powersgd_allreduce
+    shapes = [(48, 32), (32,), (2, 8, 12), (3, 2), (512, 256)]
+    tx = powersgd_allreduce(rank=4)
+    cpu = tx.init([torch.zeros(s) for s in shapes])
+    gpu = tx.init([torch.zeros(s, device=dev) for s in shapes])
+    assert all(q is None or q.is_cuda for q in gpu.qs)
+    for step in range(3):
+        grads = [_randn(70 + 10 * step + i, *s) for i, s in enumerate(shapes)]
+        c_out, cpu = tx.update(grads, cpu)
+        g_out, gpu = tx.update([g.to(dev) for g in grads], gpu)
+        pairs = list(zip(g_out, c_out)) + [
+            (a, b) for a, b in zip(gpu.errs, cpu.errs) if a is not None]
+        for a, b in pairs:
+            assert a.is_cuda
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_cuda_sparse_word2vec_step_matches_cpu():
+    """Two Adagrad steps of the word2vec toy through
+    `DistributedOptimizer` and `make_train_step` on the card, with the
+    embedding gradient a sparse CUDA tensor, against the same steps on
+    the CPU (1e-5: f32, scatter order)."""
+    dev = _card()
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.word2vec import Word2Vec
+    rs = np.random.RandomState(8)
+    batch = [torch.from_numpy(x) for x in (
+        rs.randint(0, 300, 64), rs.randint(0, 300, 64),
+        rs.randint(0, 300, (64, 5)))]
+    states = []
+    for d in (dev, torch.device("cpu")):
+        m = Word2Vec(300, 32, device=d).init_weights(1)
+        opt = hvd.DistributedOptimizer(torch.optim.Adagrad(m.parameters(),
+                                                           lr=0.1))
+        step = hvd.make_train_step(m, opt)
+        for _ in range(2):
+            step(*(t.to(d) for t in batch))
+        assert m.embeddings.grad.is_sparse
+        assert m.embeddings.grad.device.type == d.type
+        states.append({k: v.cpu() for k, v in m.state_dict().items()})
+    for k in states[0]:
+        torch.testing.assert_close(states[0][k], states[1][k], atol=1e-5,
+                                   rtol=0, msg=k)

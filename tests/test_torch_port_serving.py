@@ -252,7 +252,12 @@ def test_import_leaves_jax_out():
             "horovod_tpu_torch.optim, horovod_tpu_torch.ops.eager, "
             "horovod_tpu_torch.ops.fusion, "
             "horovod_tpu_torch.runtime.bootstrap, "
-            "horovod_tpu_torch.models.transformer; "
+            "horovod_tpu_torch.models.transformer, "
+            "horovod_tpu_torch.models.word2vec, "
+            "horovod_tpu_torch.ops.compression, "
+            "horovod_tpu_torch.ops.sparse, horovod_tpu_torch.callbacks, "
+            "horovod_tpu_torch.utils.timeline, "
+            "horovod_tpu_torch.runner; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'optax')) or m == 'horovod_tpu' "
             "or m.startswith('horovod_tpu.') or m == 'horovod' "
