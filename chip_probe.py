@@ -3,8 +3,8 @@
 short call that builds, checks and times them without the model phases
 of `chip_smoke.py`.
 
-    python3 chip_probe.py [fwd] [decode] [paged] [sweep]   # default: all;
-                                                           # one card, ~1 min
+    python3 chip_probe.py [fwd] [decode] [paged] [sweep] [spec]
+                          # default: all but spec; one card, ~1 min each
 
 Builds every kernel (printing the ptxas lines of the forward and decode
 sources) and then, per part asked for:
@@ -18,7 +18,12 @@ sources) and then, per part asked for:
 * sweep: both decode kernels timed over forced split counts (bf16, 8
   lanes x 2048, Hkv 8 and 2; flash decode at full and spread lengths,
   the paged decode at fill 2047 and at the paged engine's 16-lane
-  geometry), each beside the split count its wrapper picks by itself.
+  geometry), each beside the split count its wrapper picks by itself;
+* spec: `chip_smoke.py`'s serving model, the perturbed draft's
+  acceptance in `generate_speculative` (512 -> 64 tokens, k =
+  `chip_smoke.SPEC_K`) over a ladder of noise shares (how
+  `chip_smoke.SPEC_NOISE` was chosen), then phases 4, 4b and 8 of
+  `chip_smoke.py`.
 
 A failing case is printed and the probe goes on to the next. With
 decode or paged it then times both decode ticks as `chip_smoke.py`
@@ -117,6 +122,52 @@ def sweep_splits(cs, tfa, tpa, dev, g):
     return rows
 
 
+def probe_spec(cs, tfa, tpa, dev):
+    """The perturbed draft's acceptance over noise shares, then
+    chip_smoke phases 4, 4b and 8 on the serving model."""
+    import torch
+    from horovod_tpu_torch.models.speculative import generate_speculative
+    from horovod_tpu_torch.models.transformer import (TransformerLM,
+                                                      serving_params)
+    model = TransformerLM(32768, 12, 8, 128, max_len=2048,
+                          dtype=torch.bfloat16, attn_impl="flash",
+                          decode_prefix_block=256,
+                          decode_prefix_impl="pallas", device=dev)
+    model.init_weights(0)
+    serving_params(model)
+    model.eval()
+    prompt = torch.randint(0, 32768, (1, 512), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(9))
+    for share in (0.0, 0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5):
+        draft = cs.perturbed_draft(model, share) if share else model
+        t0 = time.time()
+        _, st = generate_speculative(draft, model, prompt, 64, k=cs.SPEC_K,
+                                     return_stats=True)
+        print(f"spec share {share}: {st['rounds']} rounds, accepted / k x "
+              f"rounds {st['draft_accepted'] / (cs.SPEC_K * st['rounds']):.3f}"
+              f", {time.time() - t0:.3f} s", flush=True)
+        del draft
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda,
+               "paged_decode": tpa.paged_decode_cuda}
+    eng = cs.run_engine(model, kernels)
+    peng = cs.serve_burst(model, cs.paged_prompts(32768), 64, kernels,
+                          num_slots=16, paged=True, paged_kernel="pallas",
+                          kv_block_size=16, kv_blocks=1025)
+    for name, r in (("4", eng), ("4b", peng)):
+        print(f"phase {name}: {r['seconds']:.2f} s, TTFT p50 "
+              f"{r['ttft_ms_p50']} ms, TPOT p50 {r['tpot_ms_p50']} ms, "
+              f"{r['tokens_per_s']:.1f} tokens/s", flush=True)
+    t0 = time.time()
+    try:
+        out = cs.run_speculative(model, tfa, eng, peng)
+        print(json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    except Exception:
+        traceback.print_exc()
+    print(f"phase 8: {time.time() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -124,7 +175,7 @@ def main() -> int:
         return 2
     every = {"fwd", "decode", "paged", "sweep"}
     parts = set(sys.argv[1:]) or every
-    if not parts <= every:
+    if not parts <= every | {"spec"}:
         print(f"chip_probe: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -171,6 +222,8 @@ def main() -> int:
               f"({100 * e['bound_share']:.1f} %)", flush=True)
     if "sweep" in parts:
         sweep_splits(cs, tfa, tpa, dev, g)
+    if "spec" in parts:
+        probe_spec(cs, tfa, tpa, dev)
     print(f"nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     return 0
 

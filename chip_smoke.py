@@ -132,14 +132,38 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    and one word2vec step, and print its line; ``-np <cards + 1>
    --platform gpu`` must be refused before spawning (a planted misuse).
 
+8. Speculative decoding at full width (phase 3's model, k = 4), after
+   phase 4b, with the self-draft (the target itself) and a perturbed
+   draft (the target's weights plus seeded Gaussian noise at SPEC_NOISE
+   of each leaf's own standard deviation): (a) `generate_speculative`
+   of one 512-token prompt -> 128 tokens against a plain batch-1
+   `generate` of it (the flash forward must launch: the one-pass
+   prefill of both models); (b) the fixed engine, 8 slots, on phase
+   4's 16 requests x 64 tokens, each draft; (c) the paged engine, 16
+   slots over 1025 blocks of 16, on phase 4b's burst, perturbed draft.
+   Every stream must equal the plain greedy stream (phases 4 and 4b,
+   or the plain run of (a)) but for a first difference at a near tie
+   (`stream_verdict`: the plain stream's teacher-forced logits have
+   their top two within LOGIT_TOL there, the spec token among them).
+   Rounds, acceptance, tokens per tick, TTFT/TPOT p50, tokens/s and
+   wall time are printed beside the plain numbers (no speed claimed).
+   The perturbed draft's acceptance must lie in SPEC_ACCEPT_RANGE; the
+   flash-decode kernel must launch >= 12 x (k+1) x rounds times in each
+   engine run (the draft ticks); one steady round on the fixed and the
+   paged pool must make ONE host sync (CUDA's sync debug mode); and (b)
+   with the rewind one row past pre + n_emit (a planted fault) must
+   fail the stream check.
+
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
-engine, training, training under PowerSGD) and read just after. Launches made to compare or time
+engine, training, training under PowerSGD, each speculative run) and
+read just after. Launches made to compare or time
 a kernel do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -171,6 +195,16 @@ LSE_TOL = 1e-5
 # fault that moves few logits far, which the max error already sees.
 LOGIT_TOL = 0.06
 MIN_ARGMAX_AGREEMENT = 0.99
+# Phase 8, speculative decoding: k proposals a round; the perturbed
+# draft's noise, as a share of each weight leaf's own standard deviation
+# (seeded), is chosen so that its acceptance lies inside
+# SPEC_ACCEPT_RANGE: `chip_probe.py spec` read accepted / (k x rounds)
+# 0.875, 0.750, 0.406, 0.200 and 0.013 at shares 0, 0.02, 0.05, 0.1
+# and 0.2 (512 -> 64 tokens, an H100 80GB HBM3 at 700 W).
+SPEC_K = 4
+SPEC_NOISE = 0.05
+SPEC_NOISE_SEED = 8
+SPEC_ACCEPT_RANGE = (0.2, 0.9)
 # Backward kernels vs the plain backward: f32 sums over up to 2048
 # queries x 4 heads in another order (readings <= 1.4e-5 at |ref| <= 7.3,
 # under GQA; without GQA the kernels match the plain version bit for
@@ -1417,6 +1451,10 @@ def serve_burst(model, prompts, new, kernels, **engine_kw):
             raise AssertionError(f"request {r.request_id}: bad token ids")
     tokens = sum(len(r.tokens) for r in results)
     return dict(seconds=dt, ticks=snap["ticks"], launches=launches,
+                streams=[r.tokens.tolist() for r in results],
+                spec_rounds=snap["spec_rounds"],
+                spec_acceptance_rate=snap["spec_acceptance_rate"],
+                tokens_per_tick=snap["tokens_per_tick"],
                 splits=splits, completed=snap["completed"], tokens=tokens,
                 tokens_per_s=tokens / dt,
                 ttft_ms_p50=snap["ttft_ms"]["p50"],
@@ -1427,12 +1465,26 @@ def serve_burst(model, prompts, new, kernels, **engine_kw):
                 prompt_tokens=int(sum(len(p) for p in prompts)))
 
 
-def run_engine(model, kernels):
-    """Phase 4: full-width ServingEngine, 8 slots, 16 requests."""
+def engine_prompts(vocab):
+    """Phase 4's burst: 16 prompts of 32..512 tokens."""
     import numpy as np
     rs = np.random.RandomState(3)
-    prompts = [rs.randint(0, model.vocab_size, (int(n),))
-               for n in rs.randint(32, 513, 16)]
+    return [rs.randint(0, vocab, (int(n),)) for n in rs.randint(32, 513, 16)]
+
+
+def paged_prompts(vocab):
+    """Phase 4b's burst: 24 prompts, a shared 256-token system prompt
+    plus a 32..256-token tail each."""
+    import numpy as np
+    rs = np.random.RandomState(5)
+    system = rs.randint(0, vocab, (256,))
+    return [np.concatenate([system, rs.randint(0, vocab, (int(n),))])
+            for n in rs.randint(32, 257, 24)]
+
+
+def run_engine(model, kernels):
+    """Phase 4: full-width ServingEngine, 8 slots, 16 requests."""
+    prompts = engine_prompts(model.vocab_size)
     info = serve_burst(model, prompts, 64, kernels, num_slots=8)
     launches, ticks = info["launches"], info["ticks"]
     if launches["flash_decode"] < ticks * model.num_layers:
@@ -1604,12 +1656,7 @@ def run_paged_engine(model, kernels):
     kernel, 16 slots over the 8-slot fixed pool's KV bytes; then the
     same burst on that fixed 8-slot pool (same KV bytes), the paged
     pool's yardstick."""
-    import numpy as np
-    rs = np.random.RandomState(5)
-    system = rs.randint(0, model.vocab_size, (256,))
-    prompts = [np.concatenate([system, rs.randint(0, model.vocab_size,
-                                                  (int(n),))])
-               for n in rs.randint(32, 257, 24)]
+    prompts = paged_prompts(model.vocab_size)
     paged = serve_burst(model, prompts, 64, kernels, num_slots=16,
                         paged=True, paged_kernel="pallas",
                         kv_block_size=16, kv_blocks=1025)
@@ -1624,6 +1671,245 @@ def run_paged_engine(model, kernels):
     paged["fixed_same_burst"] = serve_burst(model, prompts, 64, kernels,
                                             num_slots=8)
     return paged
+
+
+def perturbed_draft(model, share, seed=SPEC_NOISE_SEED):
+    """Phase 8's perturbed draft: a copy of ``model`` whose every weight
+    leaf gets seeded Gaussian noise at ``share`` x the leaf's own
+    standard deviation (added in f32, rounded to the leaf's dtype;
+    constant leaves such as fresh norm scales and zero biases stay as
+    they are). The JAX spec tests' `noisy_draft` at full width."""
+    import copy
+    import torch
+    draft = copy.deepcopy(model)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in draft.parameters():
+            x = p.float()
+            noise = torch.randn(x.shape, device=x.device, generator=g)
+            p.copy_((x + share * x.std() * noise).to(p.dtype))
+    return draft
+
+
+def stream_verdict(model, prompt, plain, spec):
+    """The tie-aware stream rule: None when ``spec`` equals ``plain``;
+    else, at their first difference d, the plain stream's teacher-forced
+    logits for token d (one forward of the prompt and the plain stream's
+    first d tokens) and whether the difference is a near tie: the logit of ``spec[d]`` there
+    within LOGIT_TOL of the row's top, so that the two picks are the top
+    two within LOGIT_TOL (bf16 logits tie exactly often, and three-way
+    ties occur). The verify's S=k+1 logits on the plain prefix loop and
+    the tick's S=1 logits on the decode kernel differ by summation order
+    in bf16, which may flip such a pick. Any other difference is a
+    fault."""
+    import torch
+    if list(spec) == list(plain):
+        return None
+    d = next(i for i, (a, b) in enumerate(zip(plain, spec)) if a != b)
+    seq = torch.as_tensor(list(prompt) + list(plain[:d]),
+                          device=model.device)[None].long()
+    with torch.no_grad():
+        hidden, head = model(seq, return_hidden=True)
+        row = (hidden[0, -1] @ head.to(hidden.dtype).T).float()
+    gap = float(row.max() - row[int(spec[d])])
+    return dict(position=d, gap=gap, near_tie=gap < LOGIT_TOL)
+
+
+def check_streams(model, prompts, plain, spec, what, *, fault=False):
+    """Every spec stream against its plain stream under `stream_verdict`.
+    Returns (streams equal, near-tie divergences, faults). Raises on a
+    fault unless ``fault`` (a planted-fault run, whose caller asserts
+    that faults were seen)."""
+    equal, ties, faults = 0, [], []
+    for i, (p, a, b) in enumerate(zip(prompts, plain, spec)):
+        v = stream_verdict(model, p, a, b)
+        if v is None:
+            equal += 1
+        elif v["near_tie"]:
+            ties.append(dict(stream=i, **v))
+        else:
+            faults.append(dict(stream=i, **v))
+    if faults and not fault:
+        raise AssertionError(f"{what}: spec streams differ from the plain "
+                             f"greedy streams off a near tie: {faults}")
+    return equal, ties, faults
+
+
+def spec_round_syncs(model, draft, prompts, paged):
+    """Host syncs of one steady spec round (a warm round first), counted
+    under CUDA's sync debug mode as in phase 7b: 8 lanes of phase 4's
+    prompts on the fixed pool, or on a paged pool of 16-token blocks
+    through the paged kernel's mode."""
+    import warnings
+    import torch
+    from horovod_tpu_torch.serving import PagedSlotPool, SlotPool
+    if paged:
+        pool = PagedSlotPool(model, 8, block_size=16, kernel="pallas",
+                             spec_draft=draft, spec_k=SPEC_K)
+    else:
+        pool = SlotPool(model, 8, spec_draft=draft, spec_k=SPEC_K)
+    for p in prompts[:8]:
+        pool.prefill(pool.admit(p, 64).slot, p, 0.0, None, 0, max_chunk=128)
+    pool.spec_round()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pool.spec_round()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message).splitlines()[0] for w in caught
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
+@contextlib.contextmanager
+def planted_rewind(tt):
+    """Context: the spec round's rewind lands one row past pre + n_emit
+    on every advancing lane (a planted fault, patched into
+    `models.transformer`, where the round looks it up at call time)."""
+    saved = tt._rewind_indices
+
+    def one_past(cache, pre, delta):
+        saved(cache, pre, delta + (delta > 0).to(delta.dtype))
+    tt._rewind_indices = one_past
+    try:
+        yield
+    finally:
+        tt._rewind_indices = saved
+
+
+def run_speculative(model, tfa, eng, peng):
+    """Phase 8: speculative decoding at full width, k = SPEC_K, with the
+    self-draft (the target itself) and the perturbed draft. (a)
+    `generate_speculative` of one 512-token prompt -> 128 tokens against
+    a plain batch-1 `generate` of it; (b) the fixed engine, 8 slots, on
+    phase 4's burst against phase 4's streams; (c) the paged engine, 16
+    slots over 1025 blocks of 16, on phase 4b's burst (perturbed draft)
+    against phase 4b's streams. Every stream under the tie-aware rule
+    (`check_streams`); the perturbed draft's acceptance in
+    SPEC_ACCEPT_RANGE; the flash-decode kernel >= layers x (k+1) x
+    rounds launches in each engine run and the flash forward in (a); one
+    host sync a steady round; and the rewind one row past (a planted
+    fault) must break (b)'s perturbed streams."""
+    import torch
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.models.speculative import generate_speculative
+    L = model.num_layers
+    drafts = {"self": model,
+              "perturbed": perturbed_draft(model, SPEC_NOISE)}
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda}
+    out = dict(k=SPEC_K, noise_share=SPEC_NOISE, runs={})
+    runs = out["runs"]
+
+    # (a) generate_speculative against a plain batch-1 generate.
+    g = torch.Generator(device=model.device).manual_seed(9)
+    prompt = torch.randint(0, model.vocab_size, (1, 512),
+                           device=model.device, generator=g)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain = tt.generate(model, prompt, 128)[0, 512:].tolist()
+    plain_s = time.time() - t0
+    for name, draft in drafts.items():
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.time()
+        toks, stats = generate_speculative(draft, model, prompt, 128,
+                                           k=SPEC_K, return_stats=True)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        equal, ties, _ = check_streams(
+            model, [prompt[0].tolist()], [plain], [toks[0, 512:].tolist()],
+            f"generate_speculative ({name} draft)")
+        r = runs[f"8a_{name}"] = dict(
+            seconds=dt, plain_seconds=plain_s, launches=launches,
+            rounds=stats["rounds"], accepted=stats["draft_accepted"],
+            acceptance=stats["draft_accepted"] / (SPEC_K * stats["rounds"]),
+            tokens_per_tick=(stats["tokens"] - 1) / stats["rounds"],
+            tokens_per_s=stats["tokens"] / dt, equal=equal, ties=ties)
+        if launches["flash_fwd"] < 2 * L or launches["flash_decode"] <= 0:
+            raise AssertionError(f"generate_speculative ({name}) launches "
+                                 f"{launches}")
+        log(f"8a generate_speculative 512 -> 128, {name} draft: "
+            f"{r['rounds']} rounds, acceptance (accepted / k x rounds) "
+            f"{r['acceptance']:.3f}, tokens/tick {r['tokens_per_tick']:.2f},"
+            f" {dt:.3f} s wall, {r['tokens_per_s']:.1f} tokens/s (plain "
+            f"batch-1 generate {plain_s:.3f} s); stream equal {equal}/1, "
+            f"near ties {ties}; launches {launches}")
+
+    def engine_run(tag, prompts, plain_streams, plain_info, draft,
+                   **engine_kw):
+        info = serve_burst(model, prompts, 64, kernels, spec_draft=draft,
+                           spec_k=SPEC_K, **engine_kw)
+        info["equal"], info["ties"], _ = check_streams(
+            model, prompts, plain_streams, info["streams"], tag)
+        rounds = info["spec_rounds"]
+        if info["launches"]["flash_decode"] < L * (SPEC_K + 1) * rounds:
+            raise AssertionError(
+                f"{tag}: flash_decode launches "
+                f"{info['launches']['flash_decode']} < {L} x "
+                f"{SPEC_K + 1} x {rounds} rounds")
+        runs[tag] = info
+        log(f"{tag}: {rounds} rounds, acceptance "
+            f"{info['spec_acceptance_rate']}, tokens/tick "
+            f"{info['tokens_per_tick']}, TTFT p50 {info['ttft_ms_p50']} ms,"
+            f" TPOT p50 {info['tpot_ms_p50']} ms, "
+            f"{info['tokens_per_s']:.1f} tokens/s, {info['seconds']:.2f} s "
+            f"wall (plain: TTFT p50 {plain_info['ttft_ms_p50']} ms, TPOT "
+            f"p50 {plain_info['tpot_ms_p50']} ms, "
+            f"{plain_info['tokens_per_s']:.1f} tokens/s, "
+            f"{plain_info['seconds']:.2f} s, {plain_info['ticks']} ticks); "
+            f"streams equal {info['equal']}/{len(prompts)}, near ties "
+            f"{info['ties']}; launches {info['launches']}")
+        return info
+
+    # (b) the fixed engine on phase 4's burst.
+    e_prompts = engine_prompts(model.vocab_size)
+    for name, draft in drafts.items():
+        engine_run(f"8b_fixed_{name}", e_prompts, eng["streams"], eng,
+                   draft, num_slots=8)
+    acc = runs["8b_fixed_perturbed"]["spec_acceptance_rate"]
+    lo, hi = SPEC_ACCEPT_RANGE
+    if not lo < acc < hi:
+        raise AssertionError(f"perturbed draft (share {SPEC_NOISE}) "
+                             f"acceptance {acc} outside ({lo}, {hi})")
+    # (c) the paged engine on phase 4b's burst, perturbed draft.
+    c = engine_run("8c_paged_perturbed", paged_prompts(model.vocab_size),
+                   peng["streams"], peng, drafts["perturbed"],
+                   num_slots=16, paged=True, paged_kernel="pallas",
+                   kv_block_size=16, kv_blocks=1025)
+    if c["prefill_tokens_skipped"] != 0:
+        raise AssertionError("spec mode must turn the prefix cache off")
+
+    # One host sync a steady round.
+    out["round_syncs"] = {}
+    for pool_kind in ("fixed", "paged"):
+        syncs = spec_round_syncs(model, drafts["perturbed"], e_prompts,
+                                 pool_kind == "paged")
+        out["round_syncs"][pool_kind] = len(syncs)
+        log(f"host syncs in one steady spec round, {pool_kind} pool, 8 "
+            f"lanes: {len(syncs)} {sorted(set(syncs))[:3]}")
+        if len(syncs) != 1:
+            raise AssertionError(f"{pool_kind} spec round made "
+                                 f"{len(syncs)} host syncs, not 1")
+
+    # The planted fault: the rewind one row past pre + n_emit.
+    with planted_rewind(tt):
+        bad = serve_burst(model, e_prompts, 64, kernels, num_slots=8,
+                          spec_draft=drafts["perturbed"], spec_k=SPEC_K)
+    _, f_ties, faults = check_streams(model, e_prompts, eng["streams"],
+                                      bad["streams"], "planted", fault=True)
+    out["planted_rewind_faults"] = len(faults)
+    log(f"8b planted fault (rewind one row past pre + n_emit): "
+        f"{len(faults)} of {len(e_prompts)} streams fail the tie-aware "
+        f"check, near ties {len(f_ties)}")
+    if not faults:
+        raise AssertionError("the stream check does not see a spec rewind "
+                             "one row past pre + n_emit")
+    return out
 
 
 def zipf_ids(rs, n, vocab, a=1.1):
@@ -2036,6 +2322,11 @@ def main() -> int:
         f"ms, TPOT p50 {fx['tpot_ms_p50']} ms, {fx['ticks']} ticks, peak "
         f"lanes {fx['peak_active']} {label}")
 
+    t0 = time.time()
+    spec = run_speculative(model, tfa, eng, peng)
+    log(f"speculative decoding (phase 8) in {time.time() - t0:.1f} s "
+        f"{label}")
+
     del model
     train = run_training(tfa, dev)
     log(f"training: {train['step_ms_median_after_first']:.1f} ms per step, "
@@ -2053,8 +2344,8 @@ def main() -> int:
         f"{psgd['wire_ratio']:.5f} {label}")
 
     timing = time_kernels(tfa, dev)
-    main_launches = {k: sum(run["launches"].get(k, 0)
-                            for run in (gen, eng, peng, train, psgd))
+    main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values())
+    main_launches = {k: sum(run["launches"].get(k, 0) for run in main_runs)
                      for k in REPLACES}
     kernels = []
     for name in REPLACES:
@@ -2108,6 +2399,7 @@ def main() -> int:
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernels=kernels, timing=timing, generate=gen, engine=eng,
                   paged_teacher_forced=paged_tf, paged_engine=peng,
+                  speculative=spec,
                   training=train, data_parallel_surface=surface,
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)

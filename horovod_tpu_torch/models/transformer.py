@@ -960,3 +960,177 @@ def gather_block_rows(pools, block_ids) -> list:
     dev = pools[0][0].device
     idx = torch.as_tensor(list(block_ids), dtype=torch.long, device=dev)
     return [t[idx] for pair in pools for t in pair]
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding over the slot pools: one draft-verify ROUND per
+# scheduler step replaces the S=1 tick for greedy requests. The draft
+# proposes k tokens per lane (k+1 batched S=1 ticks chained on the
+# device, the extra one writing p_k's K/V for a full acceptance), the
+# target verifies each lane's whole [pending, p_1..p_k] block in ONE
+# any-fill S=k+1 append, acceptance and eos truncation are computed on
+# the device, and both caches rewind by setting their fill indices —
+# rejected rows are invisible to every mask and overwritten by later
+# appends. Between 1 and k+1 tokens retire per lane and round; greedy
+# acceptance makes the stream exactly the target's greedy decode.
+#
+# The JAX package's round returns new caches; here the draft chain and
+# the verify write their k+1 rows in place and the rewind then sets
+# each index to its pre-round value plus the tokens the round consumed
+# (0 for a lane that must not advance).
+# ---------------------------------------------------------------------------
+
+def _rewind_indices(cache: KVCache, pre: torch.Tensor, delta: torch.Tensor):
+    """Set the cache's per-lane fill index to ``pre + delta`` in place
+    (the speculative rewind: pre-round fill plus the tokens the round
+    consumed; delta 0 freezes a lane). K/V rows past the index are
+    stale but invisible — every decode mask attends positions < index
+    only, and the next append overwrites them."""
+    cache.index.copy_(pre + delta)
+
+
+def _greedy(hidden: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Argmax over the vocabulary of ``hidden`` [..., d] through the LM
+    head, at the hidden dtype (as the JAX round's einsum)."""
+    return torch.argmax(hidden @ head.to(hidden.dtype).T, dim=-1)
+
+
+def _spec_draft_chain(drf_dec: Callable, drf_cache: KVCache,
+                      toks: torch.Tensor, adv: torch.Tensor, k: int,
+                      prefix_len: Optional[int] = None) -> torch.Tensor:
+    """k+1 batched S=1 draft ticks chained on the device (no host
+    sync): tick j feeds the previous greedy pick, so the chain proposes
+    p_1..p_k; the (k+1)-th pick is discarded — that tick exists to
+    write p_k's K/V, which a FULL acceptance needs in the draft cache
+    (a partial acceptance rewinds it away). Lanes not in ``adv`` keep
+    frozen indices (`_freeze_cache_indices`). ``prefix_len``: a host
+    upper bound on every advancing lane's fill before the chain.
+    Returns the proposals [L, k+1]."""
+    props = []
+    cur = toks
+    for j in range(k + 1):
+        hidden, head = drf_dec(
+            cur[:, None], drf_cache,
+            prefix_len=None if prefix_len is None else prefix_len + j + 1)
+        old = drf_cache.index
+        drf_cache.index.copy_(_freeze_cache_indices(old + 1, old, adv))
+        cur = _greedy(hidden[:, -1], head)
+        props.append(cur)
+    return torch.stack(props, dim=1)
+
+
+def _spec_accept(props: torch.Tensor, greedy: torch.Tensor,
+                 pending: torch.Tensor, adv: torch.Tensor,
+                 done: torch.Tensor, eos: torch.Tensor, k: int):
+    """The acceptance rule, batched and pure integer tensor code: per
+    lane, the longest prefix of ``props`` [L, k] matching the target's
+    greedy picks ``greedy`` [L, k+1], plus the target's own next token,
+    truncated at the first emitted eos (the on-device stop, with the
+    tick's done semantics: a done lane re-emits eos once and never
+    advances; a non-live lane emits nothing). Returns (emitted [L, k+1]
+    — the first n_emit columns are the round's tokens, later columns
+    padding —, n_emit [L], done, next pending token [L], proposed
+    [L])."""
+    match = (props == greedy[:, :k]).long()
+    a = torch.cumprod(match, dim=1).sum(dim=1)
+    jj = torch.arange(k + 1, device=props.device)[None, :]
+    g_at_a = greedy.gather(1, a[:, None])
+    props_pad = torch.cat([props, props[:, :1]], dim=1)
+    emitted = torch.where(jj < a[:, None], props_pad,
+                          torch.where(jj == a[:, None], g_at_a,
+                                      torch.zeros_like(g_at_a)))
+    n = a + 1
+    hit = (emitted == eos) & (jj <= a[:, None])
+    eos_idx = torch.where(hit, jj, k + 1).amin(dim=1)
+    n = torch.minimum(n, eos_idx + 1)
+    new_done = done | (adv & (eos_idx <= a))
+    n = torch.where(adv, n, done.long())
+    emitted = torch.where((~adv & done)[:, None] & (jj == 0),
+                          eos.to(emitted.dtype), emitted)
+    last = emitted.gather(1, (n - 1).clamp(0, k)[:, None])[:, 0]
+    toks_out = torch.where(adv, last, torch.where(
+        done, eos.to(pending.dtype), pending)).to(pending.dtype)
+    proposed = torch.where(adv, k, 0)
+    return emitted, n, new_done, toks_out, proposed
+
+
+@torch.no_grad()
+def slot_spec_round(dec_model: Callable, drf_dec: Callable, cache: KVCache,
+                    drf_cache: KVCache, toks: torch.Tensor,
+                    live: torch.Tensor, done: torch.Tensor,
+                    eos: torch.Tensor, k: int, *,
+                    prefix_len: Optional[int] = None):
+    """One speculative draft-verify round over every LINEAR slot lane
+    (greedy only). The verify is ONE batched S=k+1 any-fill append over
+    every lane (the plain prefix loop, read up to ``prefix_len + k +
+    1`` when the host bound ``prefix_len`` on every advancing lane's
+    pre-round fill is given), then both caches rewind. Returns
+    ``(emitted [L, k+1], n_emit [L], done, toks, proposed)``; each live
+    lane retires 1..k+1 tokens, exactly the target's greedy stream."""
+    adv = live & ~done
+    pre_t = cache.index.clone()
+    pre_d = drf_cache.index.clone()
+    props = _spec_draft_chain(drf_dec, drf_cache, toks, adv, k, prefix_len)
+    block = torch.cat([toks[:, None], props[:, :k]], dim=1)
+    hidden, head = dec_model(
+        block, cache,
+        prefix_len=None if prefix_len is None else prefix_len + k + 1)
+    greedy = _greedy(hidden, head)
+    emitted, n_emit, done, toks, proposed = _spec_accept(
+        props[:, :k], greedy, toks, adv, done, eos, k)
+    delta = torch.where(adv, n_emit, 0)
+    _rewind_indices(cache, pre_t, delta)
+    _rewind_indices(drf_cache, pre_d, delta)
+    return emitted, n_emit, done, toks, proposed
+
+
+@torch.no_grad()
+def paged_spec_round(model: TransformerLM, drf_dec: Callable,
+                     spec: PagedCacheSpec, pools, drf_cache: KVCache,
+                     tables, fills, toks: torch.Tensor, live: torch.Tensor,
+                     done: torch.Tensor, eos: torch.Tensor, k: int, *,
+                     paged_kernel: str = "lax",
+                     prefix_len: Optional[int] = None):
+    """The paged twin of `slot_spec_round`: the draft rides its own
+    linear slot cache, the verify is a batched S=k+1 paged append
+    (`_paged_apply`: the table walk, or the gathered view under
+    "off"), the k+1 new rows per lane go to their blocks and only the
+    fills (and the draft index) rewind — stale rows past a fill sit in
+    the lane's reserved blocks, invisible to every mask. A row past the
+    table, or of a lane that must not advance, goes to the null block
+    0, never to a clipped id (`paged_decode_logits`'s boundary
+    contract). Pools, fills and the draft cache update in place."""
+    adv = live & ~done
+    pre_d = drf_cache.index.clone()
+    props = _spec_draft_chain(drf_dec, drf_cache, toks, adv, k, prefix_len)
+    block = torch.cat([toks[:, None], props[:, :k]], dim=1)
+    bs, T = spec.block_size, spec.blocks_per_seq
+    pos = fills.long()[:, None] + torch.arange(k + 1, device=fills.device)
+    blk = pos // bs
+    owner = tables.long().gather(1, blk.clamp(max=T - 1))
+    bids = torch.where(adv[:, None] & (blk < T), owner,
+                       torch.zeros_like(owner))
+    hidden, head = _paged_apply(
+        model, spec, pools, tables, fills, block, bids, pos % bs,
+        paged_kernel,
+        None if prefix_len is None else prefix_len + k + 1)
+    greedy = _greedy(hidden, head)
+    emitted, n_emit, done, toks, proposed = _spec_accept(
+        props[:, :k], greedy, toks, adv, done, eos, k)
+    delta = torch.where(adv, n_emit, 0)
+    _rewind_indices(drf_cache, pre_d, delta)
+    fills.copy_(fills + delta)
+    return emitted, n_emit, done, toks, proposed
+
+
+@torch.no_grad()
+def slot_prefill_advance(dec_model: Callable, cache: KVCache, slot: int,
+                         chunk: torch.Tensor,
+                         fill: Optional[int] = None):
+    """The draft cache's prompt advance: `slot_prefill_chunk` without
+    the LM-head product — speculative decoding needs only the draft's
+    K/V warm; the first token is always the target's."""
+    sub = cache.lanes(slot)
+    dec_model(chunk[None, :], sub,
+              prefix_len=None if fill is None else fill + chunk.shape[0])
+    sub.index += chunk.shape[0]

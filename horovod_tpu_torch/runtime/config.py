@@ -8,9 +8,9 @@ unregistered names. `env_table_md` renders the registry as a markdown
 table.
 
 Only knobs that a ported module reads are registered. A knob of the
-JAX package whose consumer is not ported yet (speculative decoding,
-the router and fleet, the metrics exporter, profiling, elastic
-membership, checkpoints, ...) is registered by the slice that ports
+JAX package whose consumer is not ported yet (the router and fleet,
+the metrics exporter, profiling, elastic membership, checkpoints,
+...) is registered by the slice that ports
 its consumer; ROADMAP.md lists them until then. ``HOROVOD_COORDINATOR``
 (the ``jax.distributed`` address) has no reader over
 `torch.distributed` and stays unregistered.
@@ -34,6 +34,8 @@ DEFAULT_PREFILL_CHUNK_BUDGET = 128
 # max_len); block count 0 = auto (num_slots x max_len / block_size,
 # byte-parity with the fixed slot pool); prefix cache on by default.
 DEFAULT_KV_BLOCK_SIZE = 16
+# Serving: speculative-decode proposals per draft-verify round.
+DEFAULT_SPEC_K = 4
 # Overload control: the preemption swap shelf's host-RAM byte budget.
 DEFAULT_SWAP_BYTES = 256 << 20
 
@@ -170,6 +172,11 @@ register_knob(
     "hand-written CUDA paged-decode kernel (csrc/paged_decode.cu) "
     "for S=1 ticks, 'off' gathers each lane's whole table into a "
     "linear view (the oracle)")
+register_knob(
+    "HVD_SPEC_K", "int", str(DEFAULT_SPEC_K), "serving/engine.py",
+    "Serving: speculative-decode proposals per round when "
+    "ServingEngine(spec_draft=...) does not pass spec_k (1..k+1 "
+    "tokens retired per lane and round)")
 register_knob(
     "HVD_SWAP_BYTES", "int", str(DEFAULT_SWAP_BYTES),
     "serving/engine.py",
@@ -318,6 +325,8 @@ class Config:
     prefix_cache: bool = True
     paged_kernel: str = "auto"
     swap_bytes: int = DEFAULT_SWAP_BYTES
+    # Speculative decoding: draft proposals per round.
+    spec_k: int = DEFAULT_SPEC_K
     # Later slices: read only so that a setting raises.
     weight_quant: str = ""
     serve_mesh: str = ""
@@ -348,6 +357,7 @@ class Config:
         self.prefix_cache = env_int("HVD_PREFIX_CACHE", 1) != 0
         self.paged_kernel = env_str("HVD_PAGED_KERNEL", "auto")
         self.swap_bytes = env_int("HVD_SWAP_BYTES", DEFAULT_SWAP_BYTES)
+        self.spec_k = env_int("HVD_SPEC_K", DEFAULT_SPEC_K)
         self.weight_quant = env_str("HVD_WEIGHT_QUANT")
         self.serve_mesh = env_str("HVD_SERVE_MESH")
         self.preempt = env_int("HVD_PREEMPT", 0) != 0

@@ -5,7 +5,9 @@
 * `scheduler.ContinuousBatchingScheduler` — iteration-level batching
   with interleaved chunked prefill and the pipelined tick ring.
 * `slots.SlotPool` — the slot-pool KV cache and the batched decode
-  tick (flash-decode kernel on the card).
+  tick (flash-decode kernel on the card); with a ``spec_draft``, the
+  speculative draft-verify round instead of the tick
+  (`ServingEngine(spec_draft=..., spec_k=...)`).
 * `paging.BlockPool` / `paging.PagedSlotPool` — the paged KV cache:
   refcounted fixed-size blocks (block tables, copy-on-write,
   LRU-cached shared prompt prefixes) and the batched paged tick
@@ -15,8 +17,7 @@
 * `admission`, `metrics`, `overload` — admission control, request
   metrics, preemption/brownout.
 
-Routing, disaggregation and speculative decoding are later slices of
-the port.
+Routing and disaggregation are later slices of the port.
 """
 
 from horovod_tpu_torch.serving.admission import (

@@ -173,9 +173,20 @@ class ServingEngine:
         (``csrc/paged_decode.cu``; its plain version on the CPU),
         "off" gathers each lane's whole table into a linear view (the
         oracle). None reads HVD_PAGED_KERNEL. Ignored unless paged.
-    mesh, spec_draft, weight_quant : later slices of the port —
-        anything but their defaults (and an HVD_SERVE_MESH or
-        HVD_WEIGHT_QUANT setting) raises `NotImplementedError`.
+    spec_draft : the draft arming SPECULATIVE decoding — a
+        `TransformerLM` (it holds its weights) or the JAX package's
+        ``(draft_model, draft_params)`` pair (`slots.resolve_spec_draft`):
+        the tick becomes a batched draft-verify round retiring
+        1..spec_k+1 tokens per lane, greedy-only (submit refuses
+        temperature > 0), the streams exactly the plain engine's for any
+        draft. Disables the tick ring (pipeline_depth 0 — multi-token
+        retirement is the amortization) and, on the paged pool, the
+        prefix cache (one chunk schedule drives both caches).
+    spec_k : draft proposals per round; None reads HVD_SPEC_K (default
+        4). Only meaningful with spec_draft.
+    mesh, weight_quant : later slices of the port — anything but their
+        defaults (and an HVD_SERVE_MESH or HVD_WEIGHT_QUANT setting)
+        raises `NotImplementedError`.
     slo : an `obs.slo.SLOMonitor`; None reads ``HVD_SLO``.
     preempt, tenant_weights, brownout : the overload control plane.
         On the paged pool preemption swaps the victim's KV blocks to a
@@ -203,7 +214,7 @@ class ServingEngine:
                  kv_blocks: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  paged_kernel: Optional[str] = None,
-                 spec_draft=None,
+                 spec_draft=None, spec_k: Optional[int] = None,
                  weight_quant: Optional[str] = None,
                  slo=None,
                  preempt: Optional[bool] = None,
@@ -218,7 +229,6 @@ class ServingEngine:
         later = {
             "mesh / HVD_SERVE_MESH (sharded serving)":
                 mesh is not None or _cfg.serve_mesh.strip(),
-            "spec_draft (speculative decoding)": spec_draft is not None,
             "weight_quant / HVD_WEIGHT_QUANT (int8 weights)":
                 weight_quant is not None or _cfg.weight_quant,
             "a sliding-window model (the rolling decode cache)":
@@ -228,6 +238,14 @@ class ServingEngine:
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: a later slice of the PyTorch port")
+        # Speculative decoding: rounds are synchronous, so the tick ring
+        # is off (the multi-token retire is the amortization).
+        self.spec_k = 0
+        spec_kw = {}
+        if spec_draft is not None:
+            self.spec_k = int(_cfg.spec_k if spec_k is None else spec_k)
+            spec_kw = dict(spec_draft=spec_draft, spec_k=self.spec_k)
+            pipeline_depth = 0
         self.model = model
         self.eos_id = eos_id
         self.default_timeout_s = default_timeout_s
@@ -267,9 +285,10 @@ class ServingEngine:
                 # Evictions are operator-visible cache pressure: the
                 # allocator reports each one straight into this
                 # engine's metrics.
-                on_evict=lambda: self.metrics.count("prefix_evictions"))
+                on_evict=lambda: self.metrics.count("prefix_evictions"),
+                **spec_kw)
         else:
-            self.pool = SlotPool(model, num_slots, eos_id=eos_id)
+            self.pool = SlotPool(model, num_slots, eos_id=eos_id, **spec_kw)
         # Warmup runs on the constructor thread BEFORE the dispatch
         # thread exists, so the single-device-thread contract holds.
         self.warmup_info = None
@@ -435,10 +454,15 @@ class ServingEngine:
     def _apply_brownout(self, tenant: str, old: int, new: int):
         """The brownout ladder's teeth (`BrownoutController.on_level`,
         dispatch thread). Level 1 is enforced at the router via
-        `hedge_allowed`; level 2 caps speculative k in the JAX package
-        (no speculative decoding in the port yet); level 3 queues the
-        tenant for a lowest-priority preemption at the next scheduler
-        step."""
+        `hedge_allowed`; level 2 caps speculative k engine-wide at
+        max(1, spec_k // 2) (greedy speculative decoding is token-exact
+        for any k, so the cap sheds draft compute without changing a
+        token); level 3 queues the tenant for a lowest-priority
+        preemption at the next scheduler step."""
+        if self.spec_k:
+            self.pool.spec_cap = (max(1, self.spec_k // 2)
+                                  if self.brownout.max_level() >= 2
+                                  else None)
         if new >= 3 and self._overload is not None:
             self._overload.tenant_preempts.append(tenant)
 
@@ -522,6 +546,23 @@ class ServingEngine:
             raise ValueError(
                 f"prompt ({P}) + max_new_tokens ({max_new_tokens}) - 1 "
                 f"exceeds max_len={self.model.max_len}")
+        if self.spec_k:
+            if temperature > 0:
+                raise ValueError(
+                    "speculative serving is greedy-only (the greedy "
+                    "acceptance rule is the token-exactness proof); "
+                    "submit with temperature=0 or build the engine "
+                    "without spec_draft")
+            if P + max_new_tokens + self.spec_k - 1 > self.model.max_len:
+                # The verify writes up to spec_k rows past the last
+                # budgeted token before the rewind; they must stay in
+                # the cache (a clamped linear-cache write would corrupt
+                # the tail rows).
+                raise ValueError(
+                    f"prompt ({P}) + max_new_tokens ({max_new_tokens}) + "
+                    f"spec_k ({self.spec_k}) - 1 exceeds max_len="
+                    f"{self.model.max_len} (speculative verify needs k "
+                    f"tokens of cache headroom)")
         if self.paged and not self.pool.fits(
                 P + len(forced), max_new_tokens - len(forced)):
             # A request whose WORST-CASE block need exceeds the whole

@@ -36,8 +36,12 @@ Restart semantics: `clone_fresh` rebuilds an EMPTY pool — the old
 device state is mid-unknown-tick and untrusted — so a watchdog
 restart's replay re-prefills from the prompt.
 
-Speculative decoding on the paged pool is a later slice of the port:
-``spec_draft`` raises `NotImplementedError`.
+Speculative decoding (``spec_draft``): the draft rides a LINEAR slot
+cache beside the paged target (the paging win is the target's), the
+verify is a batched S=k+1 paged append through the table walk, and
+prefix caching is forced off so one chunk schedule drives both caches
+(a matched prefix would skip the target's prefill, but the draft still
+needs those tokens).
 """
 
 from __future__ import annotations
@@ -52,17 +56,15 @@ import torch
 
 from horovod_tpu_torch.annotations import hot_path
 from horovod_tpu_torch.models.transformer import (
-    TransformerLM, _gumbel, init_paged_pools, paged_cache_spec,
-    paged_copy_block, paged_decode_tick, paged_prefill_chunk,
-    prefill_chunks,
+    TransformerLM, _gumbel, init_paged_pools, init_slot_cache,
+    paged_cache_spec, paged_copy_block, paged_decode_tick,
+    paged_prefill_chunk, paged_spec_round, prefill_chunks,
+    slot_decode_model, slot_prefill_advance, slot_reset,
 )
 from horovod_tpu_torch.serving.slots import (
-    Admission, TickHandle, _first_token,
+    Admission, TickHandle, _first_token, read_round, resolve_spec_draft,
+    spec_k_eff, validate_spec_draft,
 )
-
-_SPEC_LATER = ("speculative decoding on the paged pool (spec_draft) is "
-               "a later slice of the PyTorch port (the speculative "
-               "slice)")
 
 
 def _resolve_paged_kernel(mode: Optional[str],
@@ -532,8 +534,10 @@ class PagedSlotPool:
     rows per layer and per K/V; block 0 is the null block). The default
     — ``num_slots x max_len / block_size + 1`` — matches the fixed slot
     pool's bytes. ``kernel`` is the paged-attention mode
-    (`_resolve_paged_kernel`; None reads HVD_PAGED_KERNEL). All device
-    work on the caller's thread (the engine's dispatch thread).
+    (`_resolve_paged_kernel`; None reads HVD_PAGED_KERNEL).
+    ``spec_draft`` / ``spec_k`` arm speculative decoding as on
+    `SlotPool` (prefix caching then off). All device work on the
+    caller's thread (the engine's dispatch thread).
     """
 
     def __init__(self, model: TransformerLM, num_slots: int, *,
@@ -542,11 +546,10 @@ class PagedSlotPool:
                  eos_id: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  on_evict: Optional[Callable[[], None]] = None,
-                 kernel: Optional[str] = None, spec_draft=None):
+                 kernel: Optional[str] = None, spec_draft=None,
+                 spec_k: int = 0):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
-        if spec_draft is not None:
-            raise NotImplementedError(_SPEC_LATER)
         from horovod_tpu_torch.runtime.config import config as _cfg
         if block_size is None:
             block_size = _cfg.kv_block_size
@@ -562,6 +565,18 @@ class PagedSlotPool:
         self.block_size = self.spec.block_size
         self.kernel_mode = _resolve_paged_kernel(kernel, model,
                                                  self.block_size)
+        # Speculative decoding: the draft rides a LINEAR slot cache;
+        # prefix caching is off so one chunk schedule drives both.
+        self.spec_draft = resolve_spec_draft(spec_draft)
+        self.spec_k = int(spec_k) if spec_draft is not None else 0
+        self.drf_model = self._drf_cache = None
+        if self.spec_draft is not None:
+            validate_spec_draft(model, self.spec_draft, self.spec_k)
+            self.drf_model = slot_decode_model(self.spec_draft)
+            self._drf_cache = init_slot_cache(self.spec_draft, num_slots)
+            prefix_cache = False
+        # Brownout level >= 2 caps the speculative k mid-stream.
+        self.spec_cap: Optional[int] = None
         if num_blocks is None:
             num_blocks = num_slots * self.spec.blocks_per_seq + 1
         self.num_blocks = int(num_blocks)
@@ -603,6 +618,10 @@ class PagedSlotPool:
 
     # -- shared plumbing (mirrors SlotPool) ---------------------------
 
+    @property
+    def spec_on(self) -> bool:
+        return self.spec_draft is not None
+
     def _note_shape(self, key):
         if key not in self._seen_shapes:
             self.compiles += 1
@@ -631,14 +650,20 @@ class PagedSlotPool:
             self.model, self.num_slots, num_blocks=self.num_blocks,
             block_size=self.block_size, eos_id=self.eos_id,
             prefix_cache=self.blocks.prefix_cache,
-            on_evict=self._on_evict, kernel=self.kernel_mode)
+            on_evict=self._on_evict, kernel=self.kernel_mode,
+            spec_draft=self.spec_draft, spec_k=self.spec_k)
         fresh._seen_shapes = set(self._seen_shapes)
         fresh.compiles = self.compiles
-        # The engine armed the watermark once at construction; a fresh
-        # pool back on worst-case reservation would shrink admission
-        # depth mid-flight.
+        # The engine armed the watermark and the spec cap once at
+        # construction; a fresh pool back on worst-case reservation
+        # would shrink admission depth mid-flight.
         fresh.blocks.watermark = self.blocks.watermark
+        fresh.spec_cap = self.spec_cap
         return fresh
+
+    def fill_indices(self) -> np.ndarray:
+        """Per-lane device fill (introspection; reads the device)."""
+        return self._fills.cpu().numpy()
 
     # -- occupancy ----------------------------------------------------
 
@@ -706,6 +731,8 @@ class PagedSlotPool:
             self._tables[slot].copy_(self._to_device(row),
                                      non_blocking=True)
             self._fills[slot] = int(skipped)
+            if self.spec_on:
+                slot_reset(self._drf_cache, slot)
             self._live[slot] = False
             self._done[slot] = False
             self._note_shape(("paged_begin",))
@@ -749,6 +776,10 @@ class PagedSlotPool:
                 self.model, self.spec, self._pools, self._tables,
                 self._fills, slot, toks, paged_kernel=self.kernel_mode,
                 fill=fill)
+            if self.spec_on:
+                # Mirror the chunk into the draft cache (advance only).
+                slot_prefill_advance(self.drf_model, self._drf_cache, slot,
+                                     toks, fill=fill)
             self._note_shape(("paged_prefill", c))
             self._est_fill[slot] = fill + c
             return logits
@@ -845,10 +876,14 @@ class PagedSlotPool:
 
     # -- watermark growth ---------------------------------------------
 
+    def _spec_k_eff(self) -> int:
+        return spec_k_eff(self.spec_k, self.spec_cap)
+
     def grow_for_tick(self) -> List[int]:
         """Under watermark admission, grow every ticking lane's chain
-        to cover the position its NEXT tick writes and mirror any new
-        block into the device table. Returns the lanes that could NOT
+        to cover the positions its NEXT dispatch writes (one for a plain
+        tick, up to k+1 for a spec round) and mirror any new block into
+        the device table. Returns the lanes that could NOT
         be grown (pool dry) — STRANDED: the scheduler must preempt
         before dispatching, because a write past the chain lands in the
         null block and corrupts the stream. No-op when the watermark is
@@ -856,10 +891,11 @@ class PagedSlotPool:
         if self.blocks.watermark is None or not self._ticking:
             return []
         cap = self.spec.view_len
+        span = self._spec_k_eff() + 1 if self.spec_on else 1
         stranded: List[int] = []
         for slot in sorted(self._ticking):
             est = int(self._est_fill[slot])
-            top = min(est + 1, cap)
+            top = min(est + span, cap)
             if top <= est:
                 continue
             before = len(self.blocks.blocks_of(slot))
@@ -935,6 +971,44 @@ class PagedSlotPool:
     def tick(self) -> np.ndarray:
         return self.tick_sync(self.tick_dispatch())
 
+    # -- speculative rounds -------------------------------------------
+
+    @hot_path
+    def spec_round(self):
+        """One batched draft-verify round over every paged lane (the
+        contract of `SlotPool.spec_round`, paged target): the
+        copy-on-write gate first runs over each ticking lane's whole
+        write span [est, est + k + 1); afterwards the host fill
+        estimates advance by n_emit. Returns ``(emitted [L, k+1], n_emit
+        [L], proposed [L])`` numpy through ONE device-to-host read."""
+        assert self.spec_on, "spec_round on a pool without spec_draft"
+        k = self._spec_k_eff()
+        bound = 0
+        for slot in list(self._ticking):
+            est = int(self._est_fill[slot])
+            top = min(est + k + 1, self.spec.view_len)
+            if est < top:
+                self._cow_span(slot, est, top)
+            bound = max(bound, est)
+        self.maybe_compiling = (
+            ("paged_spec_round", k) not in self._seen_shapes)
+        try:
+            (emitted, n_emit, self._done, self._toks,
+             proposed) = paged_spec_round(
+                self.model, self.drf_model, self.spec, self._pools,
+                self._drf_cache, self._tables, self._fills, self._toks,
+                self._live, self._done, self._eos, k,
+                paged_kernel=self.kernel_mode, prefix_len=bound)
+            self._note_shape(("paged_spec_round", k))
+        finally:
+            self.maybe_compiling = False
+        emitted, n_emit, proposed = read_round(emitted, n_emit, proposed)
+        for slot in self._ticking:
+            # Conservative host fill advance (a done lane's eos re-emit
+            # does not advance; over-estimating only copies early).
+            self._est_fill[slot] += int(n_emit[slot])
+        return emitted, n_emit, proposed
+
     # -- warmup -------------------------------------------------------
 
     def warmup(self, max_chunk: Optional[int] = None) -> dict:
@@ -956,8 +1030,13 @@ class PagedSlotPool:
             self.begin_prefill(0)
             logits = self.prefill_chunk(0, np.zeros((c,), np.int64))
         self.finish_prefill(0, logits, 0.0, None, 0)
-        self.tick()
-        # Lane 0 back to pristine FREE state.
+        if self.spec_on:
+            # Spec mode never dispatches the plain tick: warm the round.
+            self.spec_round()
+        else:
+            self.tick()
+        # Lane 0 back to pristine FREE state (the draft lane is reset
+        # by begin_prefill).
         self.begin_prefill(0)
         self._est_fill[0] = 0
         self._toks[0] = 0
@@ -977,6 +1056,8 @@ class PagedSlotPool:
         self._admit_info.pop(slot, None)
         self._ticking.discard(slot)
         self._est_fill[slot] = 0
+        if self.spec_on:
+            slot_reset(self._drf_cache, slot)
         self._tables[slot] = 0
         self._fills[slot] = 0
         self._live[slot] = False

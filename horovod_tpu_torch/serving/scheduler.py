@@ -46,8 +46,10 @@ over the fixed slot pool and the paged pool (`serving.paging`): on the
 paged pool it grows block chains just in time for each tick
 (watermark admission), shelves a preempted stream's KV blocks and
 re-grafts them on resume (swap preemption), and ingests inbound
-KV-block transfers before admission (the graft deque). Speculative
-rounds are a later slice of the port.
+KV-block transfers before admission (the graft deque). In speculative
+mode (a pool with ``spec_on``) the synchronous draft-verify round
+replaces the pipelined tick ring: each round's one host sync retires
+1..k+1 tokens per lane.
 """
 
 from __future__ import annotations
@@ -309,6 +311,15 @@ class ContinuousBatchingScheduler:
         # by letting a device write land in the null block.
         if self.active:
             self._resolve_stranded(now)
+        if getattr(self.pool, "spec_on", False):
+            # Speculative mode replaces the pipelined S=1 tick ring with
+            # synchronous draft-verify ROUNDS: each round's one host
+            # sync retires 1..k+1 tokens per lane (the amortization the
+            # ring gave), so there is no pending tick to overlap.
+            if self.active:
+                self._spec_round()
+                progressed = True
+            return progressed
         handle = snapshot = None
         if self.active:
             # The StallMonitor brackets the dispatch (where a
@@ -350,6 +361,66 @@ class ContinuousBatchingScheduler:
             if self.pipeline_depth < 1:
                 self._sync_pending(overlapped=False)
         return progressed
+
+    @hot_path
+    def _spec_round(self):
+        """One speculative draft-verify round over the active lanes: the
+        pool retires 1..k+1 tokens per lane; tokens are appended in
+        order with per-token retirement checks (an eos or a budget
+        boundary mid-round discards the lane's remaining emissions — the
+        device already truncated at eos, the budget truncation is the
+        host's). Accounting: one tick, one round, one host sync —
+        amortized over every token the round retired."""
+        tick_name = f"serving_spec_{self._gen}.{self.metrics.ticks}"
+        t_round0 = time.time()
+        if self.stall is not None:
+            self.stall.begin(tick_name)
+        try:
+            if chaos.fires("serving_tick_stall"):
+                # The tick path's cooperative hung-tick injection
+                # (watchdog food; ends early once abandoned).
+                self.metrics.count("faults_injected")
+                t_end = time.time() + chaos.delay_of(
+                    "serving_tick_stall", 1.0)
+                while time.time() < t_end and not self.abandoned:
+                    time.sleep(0.005)
+            emitted, counts, proposed = self.pool.spec_round()
+        finally:
+            if self.stall is not None:
+                self.stall.end(tick_name)
+        round_dur = time.time() - t_round0
+        self.metrics.count("ticks")
+        self.metrics.count("spec_rounds")
+        self.metrics.count("host_syncs")
+        if self.abandoned:
+            return   # the successor replays from prompts; drop the round
+        accepted = prop = 0
+        multi = False
+        for slot, req in list(self.active.items()):
+            n = int(counts[slot])
+            if proposed[slot] > 0:
+                prop += int(proposed[slot])
+                accepted += max(0, n - 1)
+                _spans.record_span(
+                    "serving.spec_round", trace_id=req.trace_id,
+                    parent_id=req.span_ids.get("decode", ""),
+                    t0=t_round0, duration=round_dur,
+                    proposed=int(proposed[slot]), accepted=max(0, n - 1))
+            multi = multi or n >= 2
+            t_tick = time.time()
+            for j in range(n):
+                if self.active.get(slot) is not req:
+                    break   # retired mid-round; discard the tail
+                tok = int(emitted[slot, j])
+                req.tokens.append(tok)
+                self.metrics.count("tokens_out")
+                self._maybe_retire(slot, req, tok, t_tick)
+        if prop:
+            self.metrics.count("spec_proposed", prop)
+        if accepted:
+            self.metrics.count("spec_accepted", accepted)
+        if multi:
+            self.metrics.count("spec_multi_token_ticks")
 
     def _sync_pending(self, overlapped: bool):
         """Read one dispatched tick's tokens; append to the requests

@@ -21,6 +21,12 @@ on that event. The scheduler dispatches tick N+1 before syncing tick
 N, so the transfer and the host bookkeeping hide behind the device's
 compute — one designed host sync per tick, made late.
 
+Speculative decoding (``spec_draft``): the draft model rides its own
+slot cache, prefilled chunk for chunk beside the target's, and
+`spec_round` replaces the tick — one batched draft-verify round that
+retires 1..k+1 tokens per lane, greedy only, with ONE device-to-host
+read per round.
+
 Sampling: each request owns a `torch.Generator` seeded from its seed;
 every token it samples draws one Gumbel-noise vector from it, so the
 stream is keyed by token ordinal and independent of the slot and the
@@ -40,8 +46,68 @@ import torch
 from horovod_tpu_torch.annotations import hot_path
 from horovod_tpu_torch.models.transformer import (
     TransformerLM, _gumbel, init_slot_cache, prefill_chunks, sample_token,
-    slot_decode_model, slot_decode_tick, slot_prefill_chunk, slot_reset,
+    slot_decode_model, slot_decode_tick, slot_prefill_advance,
+    slot_prefill_chunk, slot_reset, slot_spec_round,
 )
+
+
+def resolve_spec_draft(spec_draft) -> Optional[TransformerLM]:
+    """The draft model of a ``spec_draft`` argument: a `TransformerLM`
+    (it holds its weights), or the JAX package's ``(draft_model,
+    draft_params)`` pair, whose params are None (the model's own
+    weights) or a state dict loaded into the model (e.g.
+    `compat.from_jax.params_from_jax` of the JAX draft's params)."""
+    if spec_draft is None or isinstance(spec_draft, TransformerLM):
+        return spec_draft
+    draft_model, draft_params = spec_draft
+    if draft_params is not None:
+        draft_model.load_state_dict(draft_params)
+    return draft_model
+
+
+def validate_spec_draft(model: TransformerLM, draft: TransformerLM,
+                        spec_k: int):
+    """Shared spec-decode construction checks (both pools, so the
+    engine too): k leaves room for at least one proposal, the draft shares
+    the target's vocab and device, neither model rolls a sliding-window
+    cache (the rewind would overwrite live rows), and the draft cache
+    covers every position the target can reach."""
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    if draft.vocab_size != model.vocab_size:
+        raise ValueError(
+            f"spec draft vocab ({draft.vocab_size}) != target vocab "
+            f"({model.vocab_size})")
+    if draft.device != model.device:
+        raise ValueError(
+            f"spec draft on {draft.device}, target on {model.device}")
+    if model.window is not None or draft.window is not None:
+        raise ValueError(
+            "speculative decoding cannot rewind a sliding-window "
+            "(rolling) cache; use window=None models")
+    if draft.max_len < model.max_len:
+        raise ValueError(
+            f"spec draft max_len ({draft.max_len}) must cover the "
+            f"target's ({model.max_len})")
+
+
+def spec_k_eff(spec_k: int, spec_cap: Optional[int]) -> int:
+    """The speculative k a round dispatches: ``spec_k`` unless a
+    brownout cap shrinks it (floor 1 — a zero-k round is a plain
+    tick)."""
+    if spec_cap is None:
+        return spec_k
+    return max(1, min(spec_k, int(spec_cap)))
+
+
+def read_round(emitted, n_emit, proposed):
+    """A spec round's results on the host through ONE device-to-host
+    copy (three reads would be three syncs): ``(emitted [L, k+1],
+    n_emit [L], proposed [L])`` numpy."""
+    # hvd: disable=HVD001(the spec round's ONE designed sync — acceptance is data-dependent and every retired token rides this read)
+    host = torch.cat([emitted, n_emit[:, None], proposed[:, None]],
+                     dim=1).cpu().numpy()
+    return host[:, :-2], host[:, -2], host[:, -1]
 
 
 @torch.no_grad()
@@ -98,10 +164,13 @@ class SlotPool:
 
     All device work happens on the caller's thread (the engine's
     dispatch thread). ``eos_id`` arms on-device stop detection (None =
-    disabled)."""
+    disabled). ``spec_draft`` (see `resolve_spec_draft`) with ``spec_k``
+    >= 1 proposals a round arms speculative decoding: `spec_round` then
+    replaces the tick."""
 
     def __init__(self, model: TransformerLM, num_slots: int, *,
-                 eos_id: Optional[int] = None):
+                 eos_id: Optional[int] = None, spec_draft=None,
+                 spec_k: int = 0):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.model = model
@@ -113,6 +182,18 @@ class SlotPool:
         self._eos = torch.tensor(-1 if eos_id is None else eos_id,
                                  device=dev)
         self._cache = init_slot_cache(model, num_slots)
+        # Speculative decoding: the draft rides its own linear slot
+        # cache, prefilled chunk for chunk beside the target's.
+        self.spec_draft = resolve_spec_draft(spec_draft)
+        self.spec_k = int(spec_k) if spec_draft is not None else 0
+        self.drf_model = self._drf_cache = None
+        if self.spec_draft is not None:
+            validate_spec_draft(model, self.spec_draft, self.spec_k)
+            self.drf_model = slot_decode_model(self.spec_draft)
+            self._drf_cache = init_slot_cache(self.spec_draft, num_slots)
+        # Brownout level >= 2 caps the speculative k mid-stream (greedy
+        # spec decode is token-exact for any k).
+        self.spec_cap: Optional[int] = None
         self._toks = torch.zeros(num_slots, dtype=torch.long, device=dev)
         self._temps = torch.zeros(num_slots, device=dev)
         self._top_ps = torch.ones(num_slots, device=dev)
@@ -123,10 +204,11 @@ class SlotPool:
         self._gens: List[Optional[torch.Generator]] = [None] * num_slots
         self._sampled: set = set()
         self._free: List[int] = list(range(num_slots))
-        # Host mirror of each slot's fill while it prefills (prompt
-        # tokens streamed in so far): bounds the prefix loop of the
-        # next chunk to the filled cache slices without reading the
-        # device index.
+        # Host mirror of each slot's fill (prompt tokens streamed in so
+        # far, plus the tokens spec rounds emitted — an upper bound, as
+        # a done lane's eos re-emit does not advance): bounds the prefix
+        # loop of the next chunk or round to the filled cache slices
+        # without reading the device index.
         self._fill: List[int] = [0] * num_slots
         # Two pinned host buffers alternate under the one-deep ring:
         # tick N+2 reuses tick N's buffer only after N was synced.
@@ -141,6 +223,10 @@ class SlotPool:
         self._seen_shapes: set = set()
         self.compiles = 0
 
+    @property
+    def spec_on(self) -> bool:
+        return self.spec_draft is not None
+
     def _note_shape(self, key):
         if key not in self._seen_shapes:
             self.compiles += 1
@@ -154,9 +240,11 @@ class SlotPool:
         """A brand-new pool over the same model — the engine watchdog's
         restart primitive (the old pool may be mid-tick in a hung
         thread, so its cache and free list are untrusted)."""
-        fresh = SlotPool(self.model, self.num_slots, eos_id=self.eos_id)
+        fresh = SlotPool(self.model, self.num_slots, eos_id=self.eos_id,
+                         spec_draft=self.spec_draft, spec_k=self.spec_k)
         fresh._seen_shapes = set(self._seen_shapes)
         fresh.compiles = self.compiles
+        fresh.spec_cap = self.spec_cap
         return fresh
 
     def fill_indices(self) -> np.ndarray:
@@ -202,6 +290,8 @@ class SlotPool:
         self.maybe_compiling = ("reset",) not in self._seen_shapes
         try:
             slot_reset(self._cache, slot)
+            if self.spec_on:
+                slot_reset(self._drf_cache, slot)
             self._fill[slot] = 0
             self._live[slot] = False
             self._done[slot] = False
@@ -227,6 +317,11 @@ class SlotPool:
                 toks = toks.pin_memory().to(self.device, non_blocking=True)
             logits = slot_prefill_chunk(self.dec_model, self._cache, slot,
                                         toks, fill=self._fill[slot])
+            if self.spec_on:
+                # The draft's cache holds the same prompt before any
+                # round: same chunk, advance only (no logits).
+                slot_prefill_advance(self.drf_model, self._drf_cache, slot,
+                                     toks, fill=self._fill[slot])
             self._fill[slot] += c
             self._note_shape(("prefill", c))
             return logits
@@ -327,6 +422,33 @@ class SlotPool:
         """Synchronous tick (dispatch + immediate sync)."""
         return self.tick_sync(self.tick_dispatch())
 
+    # -- speculative rounds -------------------------------------------
+
+    @hot_path
+    def spec_round(self):
+        """One batched draft-verify round over every lane: the draft
+        proposes k tokens per live lane, the target verifies each lane's
+        block in one S=k+1 append, and 1..k+1 tokens retire per lane —
+        exactly the target's greedy stream. Returns ``(emitted [L, k+1],
+        n_emit [L], proposed [L])`` numpy through ONE device-to-host
+        read (`read_round`), the round's one host sync."""
+        assert self.spec_on, "spec_round on a pool without spec_draft"
+        k = spec_k_eff(self.spec_k, self.spec_cap)
+        self.maybe_compiling = ("spec_round", k) not in self._seen_shapes
+        try:
+            (emitted, n_emit, self._done, self._toks,
+             proposed) = slot_spec_round(
+                self.dec_model, self.drf_model, self._cache,
+                self._drf_cache, self._toks, self._live, self._done,
+                self._eos, k, prefix_len=max(self._fill))
+            self._note_shape(("spec_round", k))
+        finally:
+            self.maybe_compiling = False
+        emitted, n_emit, proposed = read_round(emitted, n_emit, proposed)
+        for slot in range(self.num_slots):
+            self._fill[slot] += int(n_emit[slot])
+        return emitted, n_emit, proposed
+
     # -- warmup -------------------------------------------------------
 
     def warmup(self, max_chunk: Optional[int] = None) -> dict:
@@ -346,7 +468,11 @@ class SlotPool:
             self.begin_prefill(0)
             logits = self.prefill_chunk(0, np.zeros((c,), np.int64))
         self.finish_prefill(0, logits, 0.0, None, 0)
-        self.tick()
+        if self.spec_on:
+            # Spec mode never dispatches the plain tick: warm the round.
+            self.spec_round()
+        else:
+            self.tick()
         self.begin_prefill(0)
         self._toks[0] = 0
         return {"compiles": self.compiles - before,
@@ -358,6 +484,8 @@ class SlotPool:
         if slot in self._free:
             raise ValueError(f"slot {slot} is already free")
         slot_reset(self._cache, slot)
+        if self.spec_on:
+            slot_reset(self._drf_cache, slot)
         self._fill[slot] = 0
         self._live[slot] = False
         self._done[slot] = False

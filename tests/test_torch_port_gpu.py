@@ -567,3 +567,93 @@ def test_cuda_sparse_word2vec_step_matches_cpu():
     for k in states[0]:
         torch.testing.assert_close(states[0][k], states[1][k], atol=1e-5,
                                    rtol=0, msg=k)
+
+
+def _spec_models(dev):
+    """f32 toy target through both decode kernels' paths, and a draft of
+    the same geometry: the target's weights plus 0.05 x seeded noise."""
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    kw = dict(max_len=64, dtype=torch.float32, num_kv_heads=2,
+              attn_impl="flash", decode_prefix_impl="pallas",
+              decode_prefix_block=16, device=dev)
+    target = TransformerLM(128, 2, 4, 64, **kw).init_weights(3)
+    draft = TransformerLM(128, 2, 4, 64, **kw)
+    g = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        for p, q in zip(draft.parameters(), target.parameters()):
+            p.copy_(q + 0.05 * torch.randn(q.shape, device=dev,
+                                           generator=g))
+    return target, draft
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+def test_small_spec_engine_matches_plain(paged):
+    """f32 toy model on the card: the speculative engine's greedy streams
+    (self-draft and noisy draft) == the plain engine's, token for token;
+    the self-draft accepts every proposal."""
+    dev = _card()
+    from horovod_tpu_torch.serving import ServingEngine
+    target, draft = _spec_models(dev)
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, 128, (int(n),)) for n in (9, 20, 3, 33)]
+    kw = dict(paged=True, kv_block_size=16, paged_kernel="pallas") \
+        if paged else {}
+
+    def streams(**spec):
+        with ServingEngine(target, num_slots=2, **kw, **spec) as eng:
+            out = [eng.submit(p, 12).result(timeout=120).tokens.tolist()
+                   for p in prompts]
+            return out, eng.metrics_snapshot()
+
+    plain, _ = streams()
+    selfd, snap_s = streams(spec_draft=target, spec_k=4)
+    noisy, snap_n = streams(spec_draft=draft, spec_k=4)
+    assert selfd == plain and noisy == plain
+    assert snap_s["spec_acceptance_rate"] == 1.0
+    assert snap_n["spec_rounds"] > snap_s["spec_rounds"]
+
+
+def _spec_pool(dev, paged):
+    from horovod_tpu_torch.serving import PagedSlotPool, SlotPool
+    target, draft = _spec_models(dev)
+    if paged:
+        pool = PagedSlotPool(target, 3, block_size=16, kernel="pallas",
+                             spec_draft=draft, spec_k=4)
+    else:
+        pool = SlotPool(target, 3, spec_draft=draft, spec_k=4)
+    rs = np.random.RandomState(5)
+    for n in (9, 20):
+        p = rs.randint(0, 128, (n,))
+        pool.prefill(pool.admit(p, 30).slot, p, 0.0, None, 0)
+    pool.spec_round()            # warm: kernels built and loaded
+    torch.cuda.synchronize()
+    return pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+def test_spec_round_launches_decode_kernel_and_syncs_once(paged):
+    """One steady spec round: the draft chain launches the flash-decode
+    kernel (k+1) x layers times (the verify is S=k+1 and launches
+    neither decode kernel), and the round makes ONE host sync, counted
+    under CUDA's sync debug mode."""
+    import warnings
+    dev = _card()
+    pool = _spec_pool(dev, paged)
+    before = (tfa.flash_decode_cuda.launches,
+              tpa.paged_decode_cuda.launches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            emitted, n_emit, proposed = pool.spec_round()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    assert tfa.flash_decode_cuda.launches - before[0] == 5 * 2
+    assert tpa.paged_decode_cuda.launches == before[1]
+    assert sorted(proposed.tolist()) == [0, 4, 4]
+    assert all(1 <= n <= 5 for n, p in zip(n_emit, proposed) if p)

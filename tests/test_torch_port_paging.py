@@ -744,8 +744,11 @@ def test_kernel_mode_resolution(pairs):
         _resolve_paged_kernel("fused", tm, 4)
     with pytest.raises(ValueError, match="divide"):
         PagedSlotPool(tm, 1, block_size=7)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        PagedSlotPool(tm, 1, block_size=4, spec_draft=(tm, None))
+    # Speculative decoding forces the prefix cache off (one chunk
+    # schedule drives the target's blocks and the draft's linear cache).
+    pool = PagedSlotPool(tm, 1, block_size=4, prefix_cache=True,
+                         spec_draft=(tm, None), spec_k=2)
+    assert pool.spec_on and not pool.blocks.prefix_cache
 
 
 # -- BlockPool: the JAX package's cases against the port's copy -----------

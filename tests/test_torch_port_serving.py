@@ -234,8 +234,7 @@ def test_priority_preemption_recompute_token_exact(lm):
 def test_later_slices_raise(lm):
     _, _, port = lm
     m = port()
-    for kw in (dict(mesh=2), dict(weight_quant="int8"),
-               dict(spec_draft=(m, None))):
+    for kw in (dict(mesh=2), dict(weight_quant="int8")):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServingEngine(m, **kw)
 
@@ -253,6 +252,7 @@ def test_import_leaves_jax_out():
             "horovod_tpu_torch.ops.fusion, "
             "horovod_tpu_torch.runtime.bootstrap, "
             "horovod_tpu_torch.models.transformer, "
+            "horovod_tpu_torch.models.speculative, "
             "horovod_tpu_torch.models.word2vec, "
             "horovod_tpu_torch.ops.compression, "
             "horovod_tpu_torch.ops.sparse, horovod_tpu_torch.callbacks, "
