@@ -3,7 +3,7 @@
 NVIDIA H100: the quickest proof that the port builds, is right and
 serves on the card.
 
-    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~2 minutes
+    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~5 minutes
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
@@ -154,10 +154,37 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    with the rewind one row past pre + n_emit (a planted fault) must
    fail the stream check.
 
+9. Int8 weights, int8 KV and the rolling window at full width, after
+   phase 8 (phase 3's model unless said): (a) `quantize_lm` of the
+   model, one forward at [4, 512], must equal bitwise the float model
+   loaded with the dequantized state dict at bf16, and lie within
+   QUANT_LOGIT_TOL of the float logits; the weight bytes are printed.
+   (b) ``weight_quant="int8"``: `generate` 4 x 512 -> 128, the fixed
+   engine (8 slots, phase 4's burst) and the paged engine (16 slots
+   over 1025 blocks of 16, phase 4b's burst), both quantizing at the
+   door; the engines' streams against `generate_bucketed` of the int8
+   model under the tie-aware rule; B1, B3 and B4 must launch; TTFT /
+   TPOT p50 and tokens/s beside phases 3-4b. (c) ``kv_quant="int8"``:
+   teacher-forced logits of a 4 x 512 prompt and 64 ticks, linear cache
+   and paged pool, within KV_INT8_TOL of the bf16-KV run of each; the
+   fixed engine on phase 4's burst completes every request; B3 and B4
+   make no launch (the reference keeps int8 KV off its kernels); a
+   codec whose stored scale is one a position (the largest over the
+   heads) while its codes keep their per-head scales (a planted fault)
+   must fail the check. (d) RoPE with a 512 window (`bench.py
+   --pos-emb rope --window 512`, seed 0): `generate` of 4 x 1024 ->
+   1100 tokens, past max_len, B1 in the banded prefill; every
+   generated token within WINDOW_TIE_TOL of the top of one one-pass
+   forward of the whole sequence; the same model in f32, teacher-forced
+   over 64 ticks past max_len, within WINDOW_F32_TOL of its forward,
+   where the rolling branch without the call's own rows (a planted
+   fault) must fail; the fixed engine on phase 4's burst against
+   `generate_bucketed` under the tie-aware rule.
+
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
-engine, training, training under PowerSGD, each speculative run) and
-read just after. Launches made to compare or time
+engine, training, training under PowerSGD, each speculative run, each
+phase-9 generate and engine run) and read just after. Launches made to compare or time
 a kernel do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
@@ -245,6 +272,21 @@ EF_TOL = 1e-5
 # the two QR implementations, relative to each leaf's largest entry;
 # the reading is 3.4e-6 on an H100 80GB HBM3 at 700 W.
 PSGD_CPU_TOL = 1e-4
+# Phase 9. int8 weights against the float model's logits, relative to
+# the largest float logit: the reference's sanity bound
+# (tests/test_quantization.py). int8 KV against bf16 KV, teacher-forced
+# logits relative to the largest logit: the reference's bound there.
+QUANT_LOGIT_TOL = 0.05
+KV_INT8_TOL = 0.08
+# The rolling-window model (`bench.py --pos-emb rope --window 512`): each
+# generated token's logit in one one-pass forward of the whole sequence
+# lies within WINDOW_TIE_TOL of that row's top (the tie-aware rule of
+# phase 8, at its tolerance).
+WINDOW = 512
+WINDOW_TIE_TOL = LOGIT_TOL
+# The same model in f32: its rolling decode's teacher-forced logits
+# against its one-pass forward (absolute, logit units).
+WINDOW_F32_TOL = 1e-3
 
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:321",
@@ -1424,9 +1466,8 @@ def serve_burst(model, prompts, new, kernels, **engine_kw):
     with ServingEngine(model, max_queue=len(prompts), warmup=True,
                        **engine_kw) as eng:
         pool = eng.pool
-        leaves = ([t for pair in pool._pools for t in pair]
-                  if engine_kw.get("paged") else
-                  pool._cache.k + pool._cache.v)
+        leaves = ([t for layer in pool._pools for t in layer]
+                  if engine_kw.get("paged") else pool._cache.tensors())
         kv_bytes = sum(t.numel() * t.element_size() for t in leaves)
         torch.cuda.synchronize()
         for fn in kernels.values():
@@ -1912,6 +1953,433 @@ def run_speculative(model, tfa, eng, peng):
     return out
 
 
+# -- phase 9: int8 weights, int8 KV and the rolling window -------------------
+
+def variant(model, **changes):
+    """The serving model's configuration with ``changes``, sharing its
+    weights (phase 9c's int8-KV model)."""
+    v = model.clone(**changes)
+    v.load_state_dict(model.state_dict(), assign=True)
+    return v.eval()
+
+
+def quant_sites(model):
+    """The float model's block-matmul kernels `quantize_lm` replaces."""
+    from horovod_tpu_torch.ops.quantization import QUANT_KERNEL_MODULES
+    return [m.kernel for name, m in model.named_modules()
+            if name.rsplit(".", 1)[-1] in QUANT_KERNEL_MODULES]
+
+
+def run_int8_bitwise(model, dev):
+    """Phase 9a: `quantize_lm` of the serving model, one forward at [4,
+    512], against the float model loaded with the dequantized state dict
+    at bf16 (bitwise) and against the float model (within
+    QUANT_LOGIT_TOL of its largest logit); the weight bytes."""
+    import torch
+    from horovod_tpu_torch.ops.quantization import (dequantize_lm_params,
+                                                    quantize_lm)
+    qmodel = quantize_lm(model)
+    deq = model.clone()
+    deq.load_state_dict(dequantize_lm_params(qmodel.state_dict(),
+                                             torch.bfloat16), assign=True)
+    deq.eval()
+    g = torch.Generator(device=dev).manual_seed(21)
+    toks = torch.randint(0, model.vocab_size, (4, 512), device=dev,
+                         generator=g)
+    with torch.no_grad():
+        q_logits = qmodel(toks)
+        d_logits = deq(toks)
+        f_logits = model(toks)
+    torch.cuda.synchronize()
+    diff = float((q_logits.float() - d_logits.float()).abs().max())
+    rel = float((q_logits.float() - f_logits.float()).abs().max()
+                / f_logits.float().abs().max())
+    fl = sum(k.numel() * k.element_size() for k in quant_sites(model))
+    qb = sum(b.numel() * b.element_size()
+             for name, b in qmodel.named_buffers()
+             if name.endswith(("kernel_q", "kernel_scale")))
+    log(f"9a int8 weights (quantize_lm), forward [4, 512]: max |int8 model "
+        f"- float model on the dequantized (bf16) state dict| {diff} "
+        f"(must be 0; bitwise equal {torch.equal(q_logits, d_logits)}); "
+        f"max |int8 - float| / max |float| {rel:.4f} (tol "
+        f"{QUANT_LOGIT_TOL}); block kernels {qb / 1e6:.1f} MB int8 + scales "
+        f"vs {fl / 1e6:.1f} MB bf16")
+    if not torch.equal(q_logits, d_logits):
+        raise AssertionError(f"int8 forward is not bitwise the dequantized "
+                             f"model's (max |diff| {diff})")
+    if not rel < QUANT_LOGIT_TOL:
+        raise AssertionError(f"int8 logits off the float logits by {rel}")
+    del deq
+    return qmodel, dict(max_abs_diff_vs_dequantized=diff,
+                        rel_err_vs_float=rel, int8_weight_bytes=qb,
+                        bf16_weight_bytes=fl)
+
+
+def check_bucketed(model, prompts, engine_streams, what):
+    """``generate_bucketed`` of ``prompts`` (64 new tokens each) as the
+    reference of an engine run's streams, under the tie-aware rule
+    (`check_streams`). Returns (equal, near ties, seconds)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import generate_bucketed
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = generate_bucketed(model, [torch.as_tensor(p) for p in prompts],
+                            64)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    ref = [r[len(p):].tolist() for r, p in zip(ref, prompts)]
+    equal, ties, _ = check_streams(model, prompts, ref, engine_streams, what)
+    return equal, ties, dt
+
+
+def run_int8_main_path(model, qmodel, tfa, kernels, gen, eng, peng):
+    """Phase 9b: the int8-weight model on the main path: `generate` 4 x
+    512 -> 128, the fixed engine (8 slots, phase 4's burst) and the
+    paged engine (16 slots over 1025 blocks of 16, phase 4b's burst),
+    both quantizing at the door (``weight_quant="int8"``); each engine's
+    streams against `generate_bucketed` of the int8 model under the
+    tie-aware rule; B1, B3 and B4 must launch."""
+    import torch
+    from horovod_tpu_torch.models.transformer import generate
+    g = torch.Generator(device=model.device).manual_seed(7)
+    prompt = torch.randint(0, model.vocab_size, (4, 512),
+                           device=model.device, generator=g)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    out = generate(qmodel, prompt, 128)
+    torch.cuda.synchronize()
+    g_s = time.time() - t0
+    g_launch = {k: fn.launches for k, fn in kernels.items()}
+    want = {"flash_fwd": model.num_layers,
+            "flash_decode": 127 * model.num_layers, "paged_decode": 0}
+    if out.shape != (4, 640) or g_launch != want:
+        raise AssertionError(f"int8 generate {tuple(out.shape)}, launches "
+                             f"{g_launch} != {want}")
+    fixed = serve_burst(model, engine_prompts(model.vocab_size), 64,
+                        kernels, num_slots=8, weight_quant="int8")
+    paged = serve_burst(model, paged_prompts(model.vocab_size), 64,
+                        kernels, num_slots=16, paged=True,
+                        paged_kernel="pallas", kv_block_size=16,
+                        kv_blocks=1025, weight_quant="int8")
+    res = dict(generate=dict(seconds=g_s, launches=g_launch,
+                             plain_seconds=gen["seconds"]),
+               fixed=fixed, paged=paged)
+    for tag, info, prompts in (
+            ("fixed", fixed, engine_prompts(model.vocab_size)),
+            ("paged", paged, paged_prompts(model.vocab_size))):
+        info["equal"], info["ties"], info["bucketed_seconds"] = (
+            check_bucketed(qmodel, prompts, info["streams"],
+                           f"9b int8 {tag} engine"))
+    L = model.num_layers
+    if fixed["launches"]["flash_decode"] < fixed["ticks"] * L:
+        raise AssertionError(f"9b fixed: B3 launches {fixed['launches']}")
+    if paged["launches"]["paged_decode"] < paged["ticks"] * L:
+        raise AssertionError(f"9b paged: B4 launches {paged['launches']}")
+    log(f"9b int8 generate 4x512 -> 128: {g_s:.3f} s wall (bf16 weights, "
+        f"phase 3: {gen['seconds']:.3f} s), launches {g_launch}")
+    for tag, info, plain in (("fixed engine, 8 slots", fixed, eng),
+                             ("paged engine, 16 slots", paged, peng)):
+        log(f"9b int8 {tag}: TTFT p50 {info['ttft_ms_p50']} ms, TPOT p50 "
+            f"{info['tpot_ms_p50']} ms, {info['tokens_per_s']:.1f} "
+            f"tokens/s, {info['ticks']} ticks (bf16 weights, phase 4/4b: "
+            f"TTFT p50 {plain['ttft_ms_p50']} ms, TPOT p50 "
+            f"{plain['tpot_ms_p50']} ms, {plain['tokens_per_s']:.1f} "
+            f"tokens/s); streams equal to generate_bucketed "
+            f"{info['equal']}/{len(info['streams'])}, near ties "
+            f"{info['ties']}; launches {info['launches']}")
+    return res
+
+
+@contextlib.contextmanager
+def planted_kv_codec(tensor, kind):
+    """Context: the KV codec (`parallel.tensor._kv_quantize`, looked up
+    at call time) replaced. ``"coarse"``: one scale per position over
+    all heads for codes and scales alike (a coarser codec, still
+    consistent); ``"per_position_scale"`` (the planted fault): the codes
+    keep their per-(position, head) scales while the stored scale is
+    one per position, the largest over the heads."""
+    import torch
+    from horovod_tpu_torch.ops.quantization import quantize_int8
+    saved = tensor._kv_quantize
+
+    def coarse(t):
+        q, s = quantize_int8(t.flatten(-2), axis=-1)
+        return q.view(t.shape), s[..., None].expand(t.shape[:-1]).contiguous()
+
+    def per_position_scale(t):
+        q, s = quantize_int8(t, axis=-1)
+        return q, torch.amax(s, -1, keepdim=True).expand(s.shape).contiguous()
+    tensor._kv_quantize = {"coarse": coarse,
+                           "per_position_scale": per_position_scale}[kind]
+    try:
+        yield
+    finally:
+        tensor._kv_quantize = saved
+
+
+def paged_forced_logits(model, prompt, forced, bs=16, chunk=128):
+    """Teacher-forced last-position logits on the paged primitives: each
+    lane's prompt prefilled in ``chunk``-token chunks into its own chain
+    of blocks, then one batched S=1 tick per forced token (the paged
+    kernel's mode: B4, or the walk for int8 pools)."""
+    import torch
+    from horovod_tpu_torch.models import transformer as tt
+    L, P = prompt.shape
+    n = forced.shape[1]
+    dev = prompt.device
+    spec = tt.paged_cache_spec(model, bs)
+    T = spec.blocks_per_seq
+    pools = tt.init_paged_pools(model, spec, L * T + 1)
+    tables = (torch.arange(L * T, dtype=torch.int32, device=dev)
+              .view(L, T) + 1)
+    fills = torch.zeros(L, dtype=torch.int32, device=dev)
+    outs = []
+    for b in range(L):
+        for o in range(0, P, chunk):
+            last = tt.paged_prefill_chunk(model, spec, pools, tables, fills,
+                                          b, prompt[b, o:o + chunk],
+                                          paged_kernel="pallas", fill=o)
+        outs.append(last)
+    rows = [torch.stack(outs)]
+    live = torch.ones(L, dtype=torch.bool, device=dev)
+    done = torch.zeros(L, dtype=torch.bool, device=dev)
+    for t in range(n):
+        rows.append(tt.paged_decode_logits(
+            model, spec, pools, tables, fills, forced[:, t], live, done,
+            paged_kernel="pallas", prefix_len=P + t + 1))
+    return torch.stack(rows, 1)
+
+
+def run_int8_kv(model, tfa, tpa, kernels):
+    """Phase 9c: the serving model with ``kv_quant="int8"`` (its
+    weights): teacher-forced logits of a 4 x 512 prompt and 64 S=1 ticks
+    on the linear cache and on the paged pool against the bf16-KV run
+    of each, within KV_INT8_TOL of the largest logit; the fixed engine
+    on phase 4's burst; B3 and B4 make no launch under int8 KV (the
+    reference routes int8 KV off its kernels). The codec with one
+    stored scale per position (`planted_kv_codec`, a planted fault)
+    must fail the linear check."""
+    import torch
+    from horovod_tpu_torch.parallel import tensor
+    kvq = variant(model, kv_quant="int8")
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(31)
+    prompt = torch.randint(0, model.vocab_size, (4, 512), device=dev,
+                           generator=g)
+    forced = torch.randint(0, model.vocab_size, (4, 64), device=dev,
+                           generator=g)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    with torch.no_grad():
+        ref_lin = teacher_forced_logits(model, prompt, forced, 64)
+        ref_pag = paged_forced_logits(model, prompt, forced)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        lin = teacher_forced_logits(kvq, prompt, forced, 64)
+        pag = paged_forced_logits(kvq, prompt, forced)
+        torch.cuda.synchronize()
+        tf_launches = {k: fn.launches for k, fn in kernels.items()}
+        engine = serve_burst(kvq, engine_prompts(model.vocab_size), 64,
+                             kernels, num_slots=8)
+        tf_launches = {k: n + engine["launches"][k]
+                       for k, n in tf_launches.items()}
+        readings = {}
+        for kind in ("coarse", "per_position_scale"):
+            with planted_kv_codec(tensor, kind):
+                readings[kind] = rel(teacher_forced_logits(
+                    kvq, prompt, forced, 64), ref_lin)
+    e_lin, e_pag = rel(lin, ref_lin), rel(pag, ref_pag)
+    W, Hkv, D = model.max_len, model.num_kv, model.head_dim
+    L = model.num_layers
+    kv_int8 = 2 * L * W * Hkv * D
+    kv_scales = 2 * L * W * Hkv * 4
+    kv_bf16 = 2 * L * W * Hkv * D * 2
+    log(f"9c int8 KV teacher-forced logits (4 x 512 prompt + 64 ticks) vs "
+        f"bf16 KV, max |diff| / max |logit|: linear {e_lin:.4f}, paged "
+        f"{e_pag:.4f} (tol {KV_INT8_TOL}); coarser codec (one scale a "
+        f"position for codes and scales) {readings['coarse']:.4f}; planted "
+        f"fault (codes per (position, head), one stored scale a position) "
+        f"{readings['per_position_scale']:.4f}")
+    log(f"9c KV bytes a slot: {kv_int8 / 1e6:.1f} MB int8 + "
+        f"{kv_scales / 1e6:.1f} MB scales vs {kv_bf16 / 1e6:.1f} MB bf16; "
+        f"fixed engine on phase 4's burst: {engine['completed']} of "
+        f"{len(engine['streams'])} completed, TTFT p50 "
+        f"{engine['ttft_ms_p50']} ms, TPOT p50 {engine['tpot_ms_p50']} ms, "
+        f"{engine['tokens_per_s']:.1f} tokens/s; launches under int8 KV "
+        f"(teacher forcing + engine) {tf_launches}: B3 and B4 stay off, "
+        f"the reference's route")
+    if not (e_lin < KV_INT8_TOL and e_pag < KV_INT8_TOL):
+        raise AssertionError(f"int8 KV logits off: {e_lin}, {e_pag}")
+    if not readings["per_position_scale"] >= KV_INT8_TOL:
+        raise AssertionError("the int8-KV check does not see one stored "
+                             "scale a position")
+    if tf_launches["flash_decode"] or tf_launches["paged_decode"]:
+        raise AssertionError(f"B3/B4 launched under int8 KV: {tf_launches}")
+    if engine["completed"] != len(engine["streams"]):
+        raise AssertionError("9c engine did not complete every request")
+    return dict(linear_rel_err=e_lin, paged_rel_err=e_pag,
+                coarse_codec_rel_err=readings["coarse"],
+                planted_fault_rel_err=readings["per_position_scale"],
+                kv_bytes_int8=kv_int8, kv_bytes_scales=kv_scales,
+                kv_bytes_bf16=kv_bf16, launches=tf_launches, engine=engine)
+
+
+@contextlib.contextmanager
+def planted_no_block(tensor):
+    """Context: the rolling branch attends its cache without the call's
+    own rows (a planted fault, patched into `parallel.tensor`, where
+    the branch looks `rolling_keep` up at call time)."""
+    saved = tensor.rolling_keep
+
+    def cache_only(index, qpos, W, window):
+        keep = saved(index, qpos, W, window).clone()
+        keep[..., W:] = False
+        return keep
+    tensor.rolling_keep = cache_only
+    try:
+        yield
+    finally:
+        tensor.rolling_keep = saved
+
+
+def forward_logits(model, seq, start):
+    """One one-pass forward of ``seq`` [B, T]: the f32 logits of rows
+    start - 1 .. T - 2, each predicting the token after it."""
+    import torch
+    with torch.no_grad():
+        hidden, head = model(seq, return_hidden=True)
+        return (hidden[:, start - 1:-1] @ head.to(hidden.dtype).T).float()
+
+
+def run_window(dev, tfa, kernels):
+    """Phase 9d: the serving model with RoPE and a 512 window (`bench.py
+    --pos-emb rope --window 512`, weights from seed 0): `generate` of 4
+    x 1024 -> 1100 tokens (to position 2123 > max_len) through B1's
+    banded prefill and the rolling cache, checked against one one-pass
+    forward of the whole sequence (B1 with the window): every generated
+    token's logit within WINDOW_TIE_TOL of its row's top. The same model
+    in f32 then checks the rolling cache's bookkeeping at f32 precision:
+    its teacher-forced logits (a one-pass prefill of the first 2048
+    generated tokens, then 64 ticks past max_len) against its one-pass
+    forward within WINDOW_F32_TOL; the same ticks with the rolling
+    branch attending its cache without the call's own rows
+    (`planted_no_block`, a planted fault) must fail that check. Then
+    the fixed engine on phase 4's burst against `generate_bucketed`
+    under the tie-aware rule."""
+    import torch
+    from horovod_tpu_torch.models.transformer import (TransformerLM,
+                                                      generate,
+                                                      serving_params)
+    from horovod_tpu_torch.parallel import tensor
+    wmodel = TransformerLM(32768, 12, 8, 128, max_len=2048, pos_emb="rope",
+                           window=WINDOW, dtype=torch.bfloat16,
+                           attn_impl="flash", decode_prefix_block=256,
+                           decode_prefix_impl="pallas", device=dev)
+    wmodel.init_weights(0)
+    serving_params(wmodel)
+    wmodel.eval()
+    g = torch.Generator(device=dev).manual_seed(41)
+    P, steps, at, n_tf = 1024, 1100, 2048, 64
+    prompt = torch.randint(0, wmodel.vocab_size, (4, P), device=dev,
+                           generator=g)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    out = generate(wmodel, prompt, steps)
+    torch.cuda.synchronize()
+    g_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    fwd = forward_logits(wmodel, out, P)
+    gaps = fwd.amax(-1) - fwd.gather(-1, out[:, P:, None])[..., 0]
+    max_gap = float(gaps.max())
+    n_off = int((gaps > 0).sum())
+    del fwd
+    w32 = wmodel.clone(dtype=torch.float32)
+    w32.load_state_dict({k: v.float() for k, v in
+                         wmodel.state_dict().items()}, assign=True)
+    w32.eval()
+    seq = out[:, :at + n_tf]
+    rows = forward_logits(w32, seq, at)
+
+    def forced():
+        with torch.no_grad():
+            return teacher_forced_logits(w32, out[:, :at],
+                                         out[:, at:at + n_tf], n_tf)
+    tf_err = float((forced()[:, :n_tf] - rows).abs().max())
+    with planted_no_block(tensor):
+        bad_err = float((forced()[:, :n_tf] - rows).abs().max())
+    torch.cuda.synchronize()
+    del w32, rows
+    L = wmodel.num_layers
+    cache_lane = 2 * L * WINDOW * wmodel.num_kv * wmodel.head_dim * 2
+    log(f"9d rope + window {WINDOW}: generate 4 x {P} -> {steps} (last "
+        f"position {P + steps - 1} > max_len {wmodel.max_len}): "
+        f"{g_s:.3f} s wall, launches {launches}; one-pass forward (B1, "
+        f"window) vs the generated tokens: {n_off} of {gaps.numel()} "
+        f"tokens not its argmax, max gap {max_gap:.4f} (tol "
+        f"{WINDOW_TIE_TOL}); cache {cache_lane / 1e6:.1f} MB a lane "
+        f"({WINDOW} slots) vs {cache_lane * 4 / 1e6:.1f} MB at 2048")
+    log(f"9d f32 teacher-forced rolling decode (prefill {at}, {n_tf} ticks) "
+        f"vs the f32 one-pass forward: max_abs_err {tf_err:.3e} (tol "
+        f"{WINDOW_F32_TOL}); planted fault (the rolling branch without the "
+        f"call's own rows): {bad_err:.3e}")
+    if out.shape != (4, P + steps) or launches["flash_fwd"] < L:
+        raise AssertionError(f"window generate {tuple(out.shape)}, "
+                             f"launches {launches}")
+    if not max_gap < WINDOW_TIE_TOL:
+        raise AssertionError(f"window generate off the one-pass forward: "
+                             f"max gap {max_gap}")
+    if not tf_err <= WINDOW_F32_TOL:
+        raise AssertionError(f"rolling decode logits off the forward: "
+                             f"{tf_err}")
+    if not bad_err > WINDOW_F32_TOL:
+        raise AssertionError("the window logits check does not see the "
+                             "rolling branch without its own rows")
+    prompts = engine_prompts(wmodel.vocab_size)
+    eng = serve_burst(wmodel, prompts, 64, kernels, num_slots=8)
+    eng["equal"], eng["ties"], eng["bucketed_seconds"] = check_bucketed(
+        wmodel, prompts, eng["streams"], "9d window fixed engine")
+    log(f"9d window fixed engine, 8 slots, phase 4's burst: TTFT p50 "
+        f"{eng['ttft_ms_p50']} ms, TPOT p50 {eng['tpot_ms_p50']} ms, "
+        f"{eng['tokens_per_s']:.1f} tokens/s, {eng['ticks']} ticks; "
+        f"streams equal to generate_bucketed {eng['equal']}/16 "
+        f"({eng['bucketed_seconds']:.1f} s), near ties {eng['ties']}; "
+        f"launches {eng['launches']}")
+    return dict(generate=dict(seconds=g_s, launches=launches,
+                              max_gap=max_gap, tokens_off_argmax=n_off,
+                              tokens=int(gaps.numel())),
+                forced_logits_err=tf_err, planted_fault_logits_err=bad_err,
+                cache_bytes_lane=cache_lane, engine=eng)
+
+
+def run_variants(model, tfa, tpa, dev, gen, eng, peng):
+    """Phase 9: int8 weights (9a, 9b), int8 KV (9c) and the rolling
+    window (9d) at full width."""
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda,
+               "paged_decode": tpa.paged_decode_cuda}
+    t0 = time.time()
+    qmodel, bitwise = run_int8_bitwise(model, dev)
+    main = run_int8_main_path(model, qmodel, tfa, kernels, gen, eng, peng)
+    del qmodel
+    kv = run_int8_kv(model, tfa, tpa, kernels)
+    window = run_window(dev, tfa, kernels)
+    out = dict(int8_bitwise=bitwise, int8_main_path=main, int8_kv=kv,
+               window=window, seconds=time.time() - t0)
+    out["runs"] = dict(int8_generate=main["generate"],
+                       int8_fixed=main["fixed"], int8_paged=main["paged"],
+                       int8_kv_engine=kv["engine"],
+                       window_generate=window["generate"],
+                       window_engine=window["engine"])
+    return out
+
+
 def zipf_ids(rs, n, vocab, a=1.1):
     """``n`` ids in [0, vocab) with P(k) proportional to 1 / (k + 1)^a."""
     import numpy as np
@@ -2326,6 +2794,9 @@ def main() -> int:
     spec = run_speculative(model, tfa, eng, peng)
     log(f"speculative decoding (phase 8) in {time.time() - t0:.1f} s "
         f"{label}")
+    variants = run_variants(model, tfa, tpa, dev, gen, eng, peng)
+    log(f"int8 weights, int8 KV and the rolling window (phase 9) in "
+        f"{variants['seconds']:.1f} s {label}")
 
     del model
     train = run_training(tfa, dev)
@@ -2344,7 +2815,8 @@ def main() -> int:
         f"{psgd['wire_ratio']:.5f} {label}")
 
     timing = time_kernels(tfa, dev)
-    main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values())
+    main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values(),
+                 *variants["runs"].values())
     main_launches = {k: sum(run["launches"].get(k, 0) for run in main_runs)
                      for k in REPLACES}
     kernels = []
@@ -2399,7 +2871,7 @@ def main() -> int:
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernels=kernels, timing=timing, generate=gen, engine=eng,
                   paged_teacher_forced=paged_tf, paged_engine=peng,
-                  speculative=spec,
+                  speculative=spec, variants=variants,
                   training=train, data_parallel_surface=surface,
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)

@@ -13,11 +13,16 @@ one:
     block_i/mlp/{wi,wo,gate,up,down}/...   -> blocks.i.mlp.*
     ln_f/{scale,bias}                      -> ln_f.*
 
+A quantized tree (`horovod_tpu.ops.quantization.quantize_lm_params`)
+maps the same way: its ``kernel_q`` (int8) and ``kernel_scale`` (f32)
+leaves land on the int8 model's buffers of those names.
+
 `paged_pools_from_jax(pools)` maps the JAX package's paged KV pools
 (`init_paged_pools`: one [num_blocks, 1, block_size, Hkv, D] array
 per KV leaf of the decode cache, in flatten order) onto the port's
-per-layer ``(k_pool, v_pool)`` pairs, so both packages can be fed the
-same cache state.
+per-layer ``(k_pool, v_pool)`` pairs, or under int8 KV the
+``(k_pool, v_pool, k_scale_pool, v_scale_pool)`` tuples, so both
+packages can be fed the same cache state.
 
 `adam_state_from_jax(opt_state, model)` maps an optax Adam/AdamW state
 (its ``ScaleByAdamState``: ``count``, ``mu``, ``nu``) onto the per-param
@@ -71,10 +76,9 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             parts = ["blocks", m.group(1)] + parts[1:]
         elif parts[0] not in ("embed", "pos", "lm_head", "ln_f"):
             raise KeyError(f"unexpected param {'/'.join(path)}")
-        if any(p in ("kernel_q", "kernel_scale", "lora_a", "lora_b", "moe")
-               for p in parts):
+        if any(p in ("lora_a", "lora_b", "moe") for p in parts):
             raise NotImplementedError(
-                f"param {'/'.join(path)}: int8, LoRA and MoE weights are "
+                f"param {'/'.join(path)}: LoRA and MoE weights are "
                 f"later slices of the PyTorch port")
         if arr.dtype.name == "bfloat16":   # ml_dtypes bf16 (serving casts)
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
@@ -85,37 +89,43 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def paged_pools_from_jax(pools: Sequence) -> List[Tuple[torch.Tensor,
-                                                       torch.Tensor]]:
-    """The port's per-layer ``(k_pool, v_pool)`` [num_blocks,
-    block_size, Hkv, D] tensors from the JAX package's pool list (numpy
-    arrays [num_blocks, 1, block_size, Hkv, D], one per KV leaf in the
-    decode cache's flatten order). Flatten order sorts the layer names
-    as strings (``block_10`` before ``block_2``) and puts
-    ``cached_key`` before ``cached_value`` within a layer; int8-KV
-    scale pools are a later slice and raise."""
-    if len(pools) % 2:
+                                                       ...]]:
+    """The port's per-layer pool tuples from the JAX package's pool list
+    (numpy arrays [num_blocks, 1, block_size, ...], one per KV leaf in
+    the decode cache's flatten order). Flatten order sorts the layer
+    names as strings (``block_10`` before ``block_2``) and a layer's
+    leaf names as strings: ``cached_key``, ``cached_value``, or under
+    int8 KV ``cached_key``, ``cached_key_scale``, ``cached_value``,
+    ``cached_value_scale`` (the scale pools are the 4-D leaves
+    [num_blocks, 1, block_size, Hkv]). Returns ``(k_pool, v_pool)`` or
+    ``(k_pool, v_pool, k_scale_pool, v_scale_pool)`` per layer, the
+    singleton axis 1 dropped."""
+    arrs = [np.asarray(a) for a in pools]
+    quant = any(a.ndim == 4 for a in arrs)
+    per = 4 if quant else 2
+    if len(arrs) % per:
         raise ValueError(
-            f"expected a (key, value) pool pair per layer, got "
-            f"{len(pools)} pools (int8-KV scale pools are a later "
-            f"slice of the port)")
-    n = len(pools) // 2
+            f"expected {per} pools per layer, got {len(arrs)} pools")
+    n = len(arrs) // per
     order = sorted(range(n), key=lambda i: f"block_{i}")
     out: List = [None] * n
     for j, layer in enumerate(order):
-        pair = []
-        for arr in pools[2 * j:2 * j + 2]:
-            arr = np.asarray(arr)
-            if arr.ndim != 5 or arr.shape[1] != 1:
+        leaves = arrs[per * j:per * (j + 1)]
+        if quant:   # (key, key_scale, value, value_scale) -> k, v, ks, vs
+            leaves = [leaves[0], leaves[2], leaves[1], leaves[3]]
+        tup = []
+        for arr, nd in zip(leaves, (5, 5, 4, 4)):
+            if arr.ndim != nd or arr.shape[1] != 1:
                 raise ValueError(
-                    f"pool leaf must be [num_blocks, 1, block_size, Hkv, "
-                    f"D], got {arr.shape}")
+                    f"pool leaf must be [num_blocks, 1, block_size, Hkv"
+                    f"{', D' if nd == 5 else ''}], got {arr.shape}")
             if arr.dtype.name == "bfloat16":
                 t = torch.from_numpy(arr.astype(np.float32)).to(
                     torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(arr))
-            pair.append(t[:, 0].contiguous())
-        out[layer] = tuple(pair)
+            tup.append(t[:, 0].contiguous())
+        out[layer] = tuple(tup)
     return out
 
 

@@ -7,10 +7,13 @@ package's with `compat.from_jax.params_from_jax`), `generate` is the
 offline decoder and serving oracle, and the ``slot_*`` functions are the
 device surface of `serving.slots.SlotPool`.
 
-Decode state is an explicit `KVCache` (per-layer K/V rows and a
-per-lane int32 fill index on the device) updated in place; where the
-JAX package vmaps a B=1 step over the slot axis, the port runs ONE
-batched call over all lanes with per-lane fill and position tensors.
+Decode state is an explicit `KVCache` (per-layer K/V rows, their
+int8-KV scales under ``kv_quant``, and a per-lane int32 fill index on
+the device) updated in place; where the JAX package vmaps a B=1 step
+over the slot axis, the port runs ONE batched call over all lanes with
+per-lane fill and position tensors. A ``window`` model's cache is the
+rolling buffer of ``window`` slots, and with RoPE it generates past
+max_len.
 
 Attention kernels: ``dot`` (materialized softmax), ``blockwise``
 (online-softmax loop) and ``flash`` (the CUDA flash-forward and
@@ -20,13 +23,14 @@ flash-backward kernels, their plain versions on the CPU). The
 tables). Training: `lm_loss`, `chunked_lm_loss` (the fused head + CE
 over sequence chunks), `make_lm_train_step`, `make_lm_eval_step` and
 `init_lm_state`, data-parallel over `torch.distributed` through
-`horovod_tpu_torch.optim`. Sequence-parallel attention, MoE, LoRA and
-int8 weights/KV are later slices.
+`horovod_tpu_torch.optim`. Sequence-parallel attention, MoE and LoRA
+are later slices; int8 weights come from `ops.quantization.quantize_lm`.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -36,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch import optim
+from horovod_tpu_torch.ops.quantization import check_quant
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  blockwise_attention,
                                                  check_window)
@@ -150,16 +155,17 @@ class TransformerBlock(nn.Module):
             decode_prefix_block=cfg.decode_prefix_block,
             decode_prefix_impl=cfg.decode_prefix_impl,
             use_bias=cfg.attn_bias, out_bias=cfg.attn_out_bias,
-            device=device)
+            weight_quant=cfg.weight_quant, device=device)
         self.ln_mlp = _make_norm(cfg.norm, d, cfg.dtype, cfg.ln_eps, device)
         hidden = cfg.mlp_hidden or cfg.mlp_ratio * d
         if cfg.mlp_impl in ("swiglu", "geglu"):
             self.mlp = ParallelSwiGLU(
                 d, hidden, d, dtype=cfg.dtype, device=device,
                 activation="gelu_tanh" if cfg.mlp_impl == "geglu"
-                else "silu")
+                else "silu", weight_quant=cfg.weight_quant)
         elif cfg.mlp_impl == "gelu":
             self.mlp = ParallelMLP(d, hidden, d, dtype=cfg.dtype,
+                                   weight_quant=cfg.weight_quant,
                                    device=device)
         else:
             raise ValueError(f"mlp_impl must be gelu|swiglu|geglu, got "
@@ -179,23 +185,41 @@ class TransformerBlock(nn.Module):
 
 @dataclass
 class KVCache:
-    """Linear decode cache of a whole model: per-layer K/V rows
-    [lanes, max_len, Hkv, D] and ONE per-lane fill index [lanes] int32
-    shared by every layer (all layers advance together)."""
+    """Decode cache of a whole model: per-layer K/V rows [lanes, W, Hkv,
+    D] (W = max_len, or the window of a rolling cache) and ONE per-lane
+    fill index [lanes] int32 shared by every layer (all layers advance
+    together). Under int8 KV the rows are int8 and ``k_scale`` /
+    ``v_scale`` hold per-layer [lanes, W, Hkv] f32 scales."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
     index: torch.Tensor
+    k_scale: Optional[List[torch.Tensor]] = None
+    v_scale: Optional[List[torch.Tensor]] = None
+
+    def layer_tensors(self, i: int) -> tuple:
+        """Layer ``i``'s tensors in pool order: (K, V), then (K scale,
+        V scale) under int8 KV."""
+        if self.k_scale is None:
+            return self.k[i], self.v[i]
+        return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i]
+
+    def tensors(self) -> list:
+        """Every row tensor of every layer (not the index)."""
+        return [t for i in range(len(self.k)) for t in self.layer_tensors(i)]
 
     def layer(self, i: int) -> LayerCache:
-        return LayerCache(self.k[i], self.v[i], self.index)
+        k, v, *scales = self.layer_tensors(i)
+        return LayerCache(k, v, self.index, *scales)
 
     def lanes(self, start: int, stop: Optional[int] = None) -> "KVCache":
         """Views of lanes [start, stop) — writes land in this cache."""
         stop = start + 1 if stop is None else stop
-        return KVCache([t[start:stop] for t in self.k],
-                       [t[start:stop] for t in self.v],
-                       self.index[start:stop])
+
+        def cut(ts):
+            return None if ts is None else [t[start:stop] for t in ts]
+        return KVCache(cut(self.k), cut(self.v), self.index[start:stop],
+                       cut(self.k_scale), cut(self.v_scale))
 
 
 class TransformerLM(nn.Module):
@@ -207,8 +231,13 @@ class TransformerLM(nn.Module):
     created on ``device`` (CUDA unless ``device="cpu"``) and drawn by
     `init_weights(seed)`. ``remat=True`` recomputes each block's
     activations in the backward (`torch.utils.checkpoint`, as the JAX
-    module's `nn.remat`). ``weight_quant`` / ``kv_quant`` (int8) and
-    ``moe_every`` > 0 (mixture of experts) are later slices and raise.
+    module's `nn.remat`). ``weight_quant="int8"`` stores the block
+    matmul kernels as int8 codes plus per-channel scales (load them
+    with `ops.quantization.quantize_lm`); ``kv_quant="int8"`` stores
+    the decode cache as int8 plus per-(position, head) scales.
+    ``moe_every`` > 0 (mixture of experts) is a later slice and raises.
+    `clone(**changes)` builds the same configuration with some fields
+    changed (weights not copied).
     """
 
     def __init__(self, vocab_size: int, num_layers: int, num_heads: int,
@@ -226,7 +255,10 @@ class TransformerLM(nn.Module):
                  mlp_hidden: Optional[int] = None, tied_head: bool = True,
                  embed_scale: Optional[float] = None, remat: bool = False,
                  moe_every: int = 0, device=None):
+        config = dict(locals())
         super().__init__()
+        self._config = {k: v for k, v in config.items()
+                        if k not in ("self", "device", "__class__")}
         if moe_every > 0:
             raise NotImplementedError(
                 "mixture-of-experts blocks (moe_every > 0) are a later "
@@ -234,10 +266,6 @@ class TransformerLM(nn.Module):
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"pos_emb must be 'learned' or 'rope', got "
                              f"{pos_emb!r}")
-        if weight_quant is not None or kv_quant is not None:
-            raise NotImplementedError(
-                "int8 weights / int8 KV cache are a later slice of the "
-                "PyTorch port")
         self.device = resolve_device(device)
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.num_heads, self.head_dim = num_heads, head_dim
@@ -247,6 +275,8 @@ class TransformerLM(nn.Module):
         self.attn_impl = attn_impl
         self.decode_prefix_block = decode_prefix_block
         self.decode_prefix_impl = decode_prefix_impl
+        self.weight_quant = check_quant("weight_quant", weight_quant)
+        self.kv_quant = check_quant("kv_quant", kv_quant)
         self.attn_bias, self.attn_out_bias = attn_bias, attn_out_bias
         self.ln_eps, self.norm, self.mlp_impl = ln_eps, norm, mlp_impl
         self.mlp_hidden, self.tied_head = mlp_hidden, tied_head
@@ -266,6 +296,18 @@ class TransformerLM(nn.Module):
     @property
     def num_kv(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    @property
+    def unbounded(self) -> bool:
+        """RoPE with a window: the rolling cache generates any length
+        (every other model is bounded by max_len)."""
+        return self.pos_emb == "rope" and self.window is not None
+
+    def clone(self, **changes) -> "TransformerLM":
+        """A new model of this configuration with ``changes`` applied, on
+        the same device; its weights are uninitialized."""
+        return TransformerLM(**{**self._config, **changes},
+                             device=self.device)
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "TransformerLM":
@@ -459,20 +501,26 @@ def serving_params(model: TransformerLM,
 
 
 def init_cache(model: TransformerLM, lanes: int) -> KVCache:
-    """Zero-filled decode cache for ``lanes`` sequences of up to
-    ``max_len`` tokens, on the model's device."""
-    if model.window is not None:
-        raise NotImplementedError(
-            "sliding-window decode (the rolling window cache) is a later "
-            "slice of the PyTorch port")
-    shape = (lanes, model.max_len, model.num_kv, model.head_dim)
+    """Zero-filled decode cache for ``lanes`` sequences, on the model's
+    device: ``max_len`` rows a lane, or exactly ``window`` slots for a
+    sliding-window model (not min(max_len, window): a cache shorter than
+    the window would evict in-band keys once positions pass max_len);
+    int8 rows plus f32 scales under ``kv_quant``."""
+    W = model.max_len if model.window is None else model.window
+    shape = (lanes, W, model.num_kv, model.head_dim)
     dev = model.device
-    return KVCache(
-        [torch.zeros(shape, dtype=model.dtype, device=dev)
-         for _ in range(model.num_layers)],
-        [torch.zeros(shape, dtype=model.dtype, device=dev)
-         for _ in range(model.num_layers)],
-        torch.zeros(lanes, dtype=torch.int32, device=dev))
+    L = model.num_layers
+
+    def zeros(shape, dtype):
+        return [torch.zeros(shape, dtype=dtype, device=dev)
+                for _ in range(L)]
+    if model.kv_quant is None:
+        return KVCache(zeros(shape, model.dtype), zeros(shape, model.dtype),
+                       torch.zeros(lanes, dtype=torch.int32, device=dev))
+    return KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                   torch.zeros(lanes, dtype=torch.int32, device=dev),
+                   zeros(shape[:-1], torch.float32),
+                   zeros(shape[:-1], torch.float32))
 
 
 def _gumbel(shape, generator, device) -> torch.Tensor:
@@ -550,7 +598,8 @@ def generate(model: TransformerLM, prompt, steps: int, *,
     and/or the ``top_p`` nucleus. ``eos_id``: finished rows emit
     ``pad_id`` afterwards; ``early_stop`` (requires eos_id) ends the
     loop once every row is done — that check reads the device once
-    per token."""
+    per token. ``P + steps - 1`` must fit max_len, except for a RoPE
+    model with a ``window`` (its rolling cache generates any length)."""
     prompt = torch.as_tensor(prompt, device=model.device).long()
     B, P = prompt.shape
     if steps <= 0:
@@ -573,9 +622,10 @@ def generate(model: TransformerLM, prompt, steps: int, *,
     if early_stop and eos_id is None:
         raise ValueError("early_stop requires eos_id (without a stop "
                          "token there is nothing to stop early on)")
-    if P + steps - 1 > model.max_len:
+    if not model.unbounded and P + steps - 1 > model.max_len:
         raise ValueError(f"prompt ({P}) + steps ({steps}) - 1 exceeds "
-                         f"max_len={model.max_len}")
+                         f"max_len={model.max_len} (use pos_emb='rope' "
+                         f"with window= for unbounded generation)")
     cache = init_cache(model, B)
     gen = _generate_scan(model, cache, prompt, generator, steps,
                          float(temperature), top_k, top_p, eos_id, pad_id,
@@ -622,6 +672,48 @@ def _generate_scan(model, cache, prompt, generator, steps, temperature,
     return torch.stack(out, dim=1)
 
 
+def _bucket_generator(generator: torch.Generator, n: int) -> torch.Generator:
+    """A generator for the bucket of length-``n`` prompts, derived from
+    the caller's generator state and ``n`` without advancing it (the
+    counterpart of ``jax.random.fold_in(rng, n)``): buckets draw
+    independent noise, and the same caller state gives the same
+    streams."""
+    h = hashlib.blake2b(generator.get_state().numpy().tobytes()
+                        + int(n).to_bytes(8, "little"), digest_size=8)
+    return torch.Generator(device=generator.device).manual_seed(
+        int.from_bytes(h.digest(), "little") >> 1)
+
+
+def generate_bucketed(model: TransformerLM, prompts, steps: int, **kw):
+    """Mixed-length batched generation by length bucketing: ``prompts``
+    is a list of 1-D token sequences; same-length prompts share one
+    `generate` call, and the results come back in input order as a
+    list of 1-D [P_i + steps] tensors. Every `generate` keyword passes
+    through (eos_id / pad_id keep their per-row contract, and
+    ``early_stop`` stops each bucket at its own last finisher); under
+    sampling each bucket draws from its own generator
+    (`_bucket_generator`)."""
+    arrs = [torch.as_tensor(p) for p in prompts]
+    by_len: dict = {}
+    for idx, p in enumerate(arrs):
+        if p.ndim != 1:
+            raise ValueError(
+                f"generate_bucketed wants 1-D prompts, got shape "
+                f"{tuple(p.shape)}; for an already-rectangular batch call "
+                f"generate directly")
+        by_len.setdefault(p.shape[0], []).append(idx)
+    out: list = [None] * len(arrs)
+    for n, idxs in by_len.items():
+        bkw = kw
+        if kw.get("generator") is not None:
+            bkw = dict(kw, generator=_bucket_generator(kw["generator"], n))
+        res = generate(model, torch.stack([arrs[i] for i in idxs]), steps,
+                       **bkw)
+        for row, i in enumerate(idxs):
+            out[i] = res[row]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Slot-aware decode (the device surface of `serving.slots.SlotPool`).
 #
@@ -643,7 +735,7 @@ def slot_decode_model(model: TransformerLM) -> Callable:
 
 def init_slot_cache(model: TransformerLM, num_slots: int) -> KVCache:
     """Zero-filled slot-pool cache: one lane per slot (K/V [num_slots,
-    max_len, Hkv, D] per layer, fill indices [num_slots])."""
+    W, Hkv, D] per layer as `init_cache`, fill indices [num_slots])."""
     return init_cache(model, num_slots)
 
 
@@ -652,7 +744,7 @@ def slot_reset(cache: KVCache, slot: int):
     """Zero one slot's rows and fill index (alloc/retire hygiene: stale
     K/V past the fill is never attended, but zeroed rows keep the
     slot's state trivially inspectable)."""
-    for t in cache.k + cache.v:
+    for t in cache.tensors():
         t[slot].zero_()
     cache.index[slot] = 0
 
@@ -788,27 +880,47 @@ def paged_cache_spec(model: TransformerLM,
 
 def init_paged_pools(model: TransformerLM, spec: PagedCacheSpec,
                      num_blocks: int) -> list:
-    """Zero-filled block pools on the model's device: one
-    ``(k_pool, v_pool)`` pair of [num_blocks, block_size, Hkv, D] per
-    layer. Block 0 is the null block."""
+    """Zero-filled block pools on the model's device, one tuple per
+    layer: ``(k_pool, v_pool)`` [num_blocks, block_size, Hkv, D], and
+    under int8 KV ``(k_pool, v_pool, k_scale_pool, v_scale_pool)``, the
+    pools int8 and the scale pools [num_blocks, block_size, Hkv] f32.
+    Block 0 is the null block."""
     if num_blocks < 2:
         raise ValueError(
             f"num_blocks must be >= 2 (block 0 is the reserved null "
             f"block), got {num_blocks}")
     shape = (num_blocks, spec.block_size, model.num_kv, model.head_dim)
-    return [tuple(torch.zeros(shape, dtype=model.dtype,
-                              device=model.device) for _ in range(2))
+    dev = model.device
+    if model.kv_quant is None:
+        return [tuple(torch.zeros(shape, dtype=model.dtype, device=dev)
+                      for _ in range(2))
+                for _ in range(model.num_layers)]
+    return [tuple(torch.zeros(shape, dtype=torch.int8, device=dev)
+                  for _ in range(2))
+            + tuple(torch.zeros(shape[:-1], device=dev) for _ in range(2))
             for _ in range(model.num_layers)]
 
 
+def _pools_cache(pools) -> tuple:
+    """Per-layer pool lists (K, V, K scales or None, V scales or None)."""
+    k, v = [layer[0] for layer in pools], [layer[1] for layer in pools]
+    if len(pools[0]) == 2:
+        return k, v, None, None
+    return k, v, [layer[2] for layer in pools], [layer[3] for layer in pools]
+
+
 def _paged_view(pools, tables, fills) -> KVCache:
-    """Every lane's [lanes, max_len, Hkv, D] linear cache view gathered
-    through its block table (the "off" mode), with index = the fills.
-    The view is a copy: writes into it do not reach the pools."""
+    """Every lane's [lanes, max_len, Hkv, D] linear cache view (its
+    scales too, under int8 KV) gathered through its block table (the
+    "off" mode), with index = the fills. The view is a copy: writes
+    into it do not reach the pools."""
     idx = tables.long()
-    return KVCache([kp[idx].flatten(1, 2) for kp, _ in pools],
-                   [vp[idx].flatten(1, 2) for _, vp in pools],
-                   fills.clone())
+
+    def gather(ts):
+        return None if ts is None else [t[idx].flatten(1, 2) for t in ts]
+    k, v, ks, vs = _pools_cache(pools)
+    return KVCache(gather(k), gather(v), fills.clone(), gather(ks),
+                   gather(vs))
 
 
 def _paged_apply(model: TransformerLM, spec: PagedCacheSpec, pools,
@@ -829,14 +941,14 @@ def _paged_apply(model: TransformerLM, spec: PagedCacheSpec, pools,
         start = fills.long().clamp(max=spec.view_len - S)
         rows = start[:, None] + torch.arange(S, device=toks.device)
         lanes = torch.arange(toks.shape[0], device=toks.device)[:, None]
-        for (kp, vp), kv, vv in zip(pools, view.k, view.v):
-            kp[write_block, write_off] = kv[lanes, rows]
-            vp[write_block, write_off] = vv[lanes, rows]
+        for i, layer in enumerate(pools):
+            for pool, rows_of in zip(layer, view.layer_tensors(i)):
+                pool[write_block, write_off] = rows_of[lanes, rows]
         return hidden, head
-    cache = PagedKVCache([kp for kp, _ in pools], [vp for _, vp in pools],
-                         tables, fills, write_block, write_off,
+    k, v, ks, vs = _pools_cache(pools)
+    cache = PagedKVCache(k, v, tables, fills, write_block, write_off,
                          decode_impl=("pallas" if paged_kernel == "pallas"
-                                      else None))
+                                      else None), k_scale=ks, v_scale=vs)
     return model(toks, cache, chunked_prefill=True, prefix_len=prefix_len,
                  return_hidden=True)
 
@@ -846,7 +958,8 @@ class PagedKVCache:
     """Paged decode cache of a whole model, as the model's forward
     takes it: per-layer pools, the lanes' tables and fills, and the
     write targets of this call (see `PagedLayerCache`). ``index`` is
-    the fill (learned positions read it)."""
+    the fill (learned positions read it). ``k_scale``/``v_scale``: the
+    per-layer scale pools under int8 KV."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
@@ -855,15 +968,19 @@ class PagedKVCache:
     write_block: torch.Tensor
     write_off: torch.Tensor
     decode_impl: Optional[str] = None
+    k_scale: Optional[List[torch.Tensor]] = None
+    v_scale: Optional[List[torch.Tensor]] = None
 
     @property
     def index(self) -> torch.Tensor:
         return self.fill
 
     def layer(self, i: int) -> PagedLayerCache:
-        return PagedLayerCache(self.k[i], self.v[i], self.table, self.fill,
-                               self.write_block, self.write_off,
-                               self.decode_impl)
+        return PagedLayerCache(
+            self.k[i], self.v[i], self.table, self.fill, self.write_block,
+            self.write_off, self.decode_impl,
+            None if self.k_scale is None else self.k_scale[i],
+            None if self.v_scale is None else self.v_scale[i])
 
 
 @torch.no_grad()
@@ -943,23 +1060,25 @@ def paged_decode_tick(model: TransformerLM, spec: PagedCacheSpec, pools,
 
 @torch.no_grad()
 def paged_copy_block(pools, src: int, dst: int):
-    """Device-side block copy of every pool (in place) — the
-    copy-on-write primitive: before a lane appends into a block it
-    shares, the allocator gives it a private copy and this
+    """Device-side block copy of every pool, scale pools included (in
+    place) — the copy-on-write primitive: before a lane appends into a
+    block it shares, the allocator gives it a private copy and this
     materializes the bytes."""
-    for kp, vp in pools:
-        kp[dst] = kp[src]
-        vp[dst] = vp[src]
+    for layer in pools:
+        for t in layer:
+            t[dst] = t[src]
 
 
 def gather_block_rows(pools, block_ids) -> list:
-    """The [len(block_ids), block_size, Hkv, D] rows of every pool for a
-    block-id list, in leaf order (layer 0 K, layer 0 V, layer 1 K, ...)
-    — the KV-block export. Stays on the device; the caller decides
-    whether to bounce through the host."""
+    """The rows of every pool for a block-id list, in leaf order (layer
+    0 K, layer 0 V, then under int8 KV layer 0's K and V scales, then
+    layer 1 ...): [len(block_ids), block_size, Hkv, D] each, the scales
+    [len(block_ids), block_size, Hkv] — the KV-block export. Stays on
+    the device; the caller decides whether to bounce through the
+    host."""
     dev = pools[0][0].device
     idx = torch.as_tensor(list(block_ids), dtype=torch.long, device=dev)
-    return [t[idx] for pair in pools for t in pair]
+    return [t[idx] for layer in pools for t in layer]
 
 
 # ---------------------------------------------------------------------------

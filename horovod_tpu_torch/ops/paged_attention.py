@@ -11,7 +11,8 @@ the lane axis first):
   `ParallelSelfAttention._prefix_attention`. The trip count follows a
   host-known upper bound on the fills (``prefix_len``), so no host
   sync reads the device fills. It serves S >= 1 (prefill chunks and
-  ticks) and is the oracle of the kernel.
+  ticks) and is the oracle of the kernel; under int8 KV (scale pools)
+  it dequantizes each span, and the kernel is never called.
 * `paged_decode_plain` — the plain version of the paged-decode kernel:
   the walk at ``walk_block == block_size`` with S = 1.
 * `paged_decode_split_plain` — the kernel's split-and-merge arithmetic
@@ -43,6 +44,7 @@ from horovod_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS, NEG_INF, _DTYPE_CODE, _F, _I, _L, _P,
     _check_kernel_operand, _lib_call, _sm_count, decode_splits,
 )
+from horovod_tpu_torch.ops.quantization import dequantize_int8
 
 
 def _pool_geometry(k_pool, v_pool, table):
@@ -58,7 +60,9 @@ def _pool_geometry(k_pool, v_pool, table):
 
 def paged_prefix_attention(q, k_new, v_new, k_pool, v_pool, table, fill,
                            *, walk_block: int,
-                           prefix_len: Optional[int] = None):
+                           prefix_len: Optional[int] = None,
+                           k_scale_pool=None, v_scale_pool=None,
+                           compute_dtype=None):
     """Attention of ``q`` (positions ``fill .. fill+S-1`` of each lane)
     against a paged cache, walking only the filled blocks of ``table``.
 
@@ -75,6 +79,13 @@ def paged_prefix_attention(q, k_new, v_new, k_pool, v_pool, table, fill,
     pipelined tick past the budget) attends its whole table and no new
     row. q scaled in the compute dtype and p rounded to the cache dtype
     before P.V, as the JAX walk does. Returns [L, S, H, D] at q.dtype.
+
+    int8 KV: the pools are int8 and ``k_scale_pool``/``v_scale_pool``
+    [num_blocks, block_size, Hkv] f32 hold the per-(position, head)
+    scales; each span is dequantized at ``compute_dtype`` (default
+    q.dtype) before the call's rows are merged in. Those rows are
+    already through the codec (quantized and read back at the compute
+    dtype): exactly the bytes a gathered view would hold.
     """
     L, S, H, D = q.shape
     bs, T = _pool_geometry(k_pool, v_pool, table)
@@ -90,6 +101,7 @@ def paged_prefix_attention(q, k_new, v_new, k_pool, v_pool, table, fill,
     groups = H // Hkv
     r = walk_block // bs
     dtype = q.dtype
+    cdtype = compute_dtype or dtype
     dev = q.device
     qs = (q * torch.tensor(D ** -0.5, dtype=dtype)).float()
     fill = fill.long()
@@ -107,14 +119,18 @@ def paged_prefix_attention(q, k_new, v_new, k_pool, v_pool, table, fill,
         ins = ((rel >= 0) & (rel < S))[..., None, None]
         idx = rel.clamp(0, S - 1)
 
-        def read(pool, new):
+        def read(pool, spool, new):
             blk = pool[bids].reshape(L, walk_block, Hkv, D)
+            if spool is not None:
+                blk = dequantize_int8(
+                    blk, spool[bids].reshape(L, walk_block, Hkv), cdtype,
+                    axis=-1)
             blk = torch.where(ins, new[lanes, idx].to(blk.dtype), blk)
             return (blk.repeat_interleave(groups, dim=2) if groups > 1
                     else blk)
 
-        kb = read(k_pool, k_new)
-        vb = read(v_pool, v_new)
+        kb = read(k_pool, k_scale_pool, k_new)
+        vb = read(v_pool, v_scale_pool, v_new)
         logits = torch.einsum("lqhd,lkhd->lhqk", qs, kb.float())
         keep = (start + offs)[None, None, :] <= qpos[:, :, None]
         logits = torch.where(keep[:, None], logits, neg)

@@ -12,7 +12,15 @@ Decode state is explicit: a `LayerCache` carries one layer's K/V rows
 The attention writes this call's K/V rows into the cache IN PLACE (the
 port updates where JAX returned a new cache); advancing the index is
 the caller's job, once per model call, so every layer reads the same
-fill.
+fill. Under ``kv_quant="int8"`` the rows are int8 codes with one f32
+scale per (lane, position, head) beside them (`_kv_quantize`), and
+every read dequantizes at the module dtype. Under a ``window`` the
+cache is a ROLLING buffer of W = window slots (position p lives in
+slot p mod W), so with RoPE a lane's position grows past max_len.
+
+Weights: ``weight_quant="int8"`` stores each dense kernel as int8
+codes plus one f32 scale per output channel (`ops.quantization`),
+dequantized at the module dtype before the product.
 
 A `PagedLayerCache` is the paged form: the shared block pools
 [num_blocks, block_size, Hkv, D], every lane's block table and true
@@ -31,6 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.ops.quantization import (check_quant,
+                                                dequantize_int8,
+                                                quantize_int8)
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  check_window)
 
@@ -54,25 +65,46 @@ def lecun_normal_(t: torch.Tensor, generator=None) -> torch.Tensor:
 class _Dense(nn.Module):
     """``x @ kernel (+ bias)`` at the module dtype; kernel [in, out] is
     stored f32 (or pre-cast by `serving_params`) and cast at use, the
-    bias stays f32 and is cast at use."""
+    bias stays f32 and is cast at use. Under ``weight_quant="int8"``
+    the kernel is the buffers ``kernel_q`` (int8 [in, out]) and
+    ``kernel_scale`` (f32 [out]), dequantized at the module dtype
+    before the product, as the JAX package's ``_dense_kernel`` does
+    (scaling after the product would not be bitwise the same)."""
 
     def __init__(self, in_features: int, features: int, *,
-                 use_bias: bool = True, dtype=None, device=None):
+                 use_bias: bool = True, dtype=None,
+                 weight_quant: Optional[str] = None, device=None):
         super().__init__()
         self.dtype = dtype
-        self.kernel = nn.Parameter(
-            torch.empty(in_features, features, device=device))
+        if check_quant("weight_quant", weight_quant):
+            self.kernel = None
+            self.register_buffer("kernel_q", torch.zeros(
+                in_features, features, dtype=torch.int8, device=device))
+            self.register_buffer("kernel_scale",
+                                 torch.ones(features, device=device))
+        else:
+            self.kernel = nn.Parameter(
+                torch.empty(in_features, features, device=device))
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if use_bias else None)
 
     def reset_parameters(self, generator=None):
-        lecun_normal_(self.kernel.data, generator)
+        """lecun-normal kernel and zero bias; an int8 kernel is set to
+        zero codes and unit scales (real values come from
+        `ops.quantization.quantize_lm`)."""
+        if self.kernel is None:
+            self.kernel_q.zero_()
+            self.kernel_scale.fill_(1.0)
+        else:
+            lecun_normal_(self.kernel.data, generator)
         if self.bias is not None:
             self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
-        y = x.to(dt) @ self.kernel.to(dt)
+        w = (self.kernel.to(dt) if self.kernel is not None else
+             dequantize_int8(self.kernel_q, self.kernel_scale, dt))
+        y = x.to(dt) @ w
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
@@ -93,10 +125,11 @@ class ParallelMLP(nn.Module):
     both with biases (flax's `nn.gelu` default is the tanh form)."""
 
     def __init__(self, d: int, hidden: int, out: int, *, dtype=None,
-                 device=None):
+                 weight_quant: Optional[str] = None, device=None):
         super().__init__()
-        self.wi = ColumnParallelDense(d, hidden, dtype=dtype, device=device)
-        self.wo = RowParallelDense(hidden, out, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, weight_quant=weight_quant, device=device)
+        self.wi = ColumnParallelDense(d, hidden, **kw)
+        self.wo = RowParallelDense(hidden, out, **kw)
 
     def forward(self, x):
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
@@ -107,13 +140,15 @@ class ParallelSwiGLU(nn.Module):
     act is silu (SwiGLU) or tanh-gelu (Gemma GeGLU)."""
 
     def __init__(self, d: int, hidden: int, out: int, *, dtype=None,
-                 activation: str = "silu", device=None):
+                 activation: str = "silu",
+                 weight_quant: Optional[str] = None, device=None):
         super().__init__()
         if activation not in ("silu", "gelu_tanh"):
             raise ValueError(f"activation must be silu|gelu_tanh, got "
                              f"{activation!r}")
         self.activation = activation
-        kw = dict(use_bias=False, dtype=dtype, device=device)
+        kw = dict(use_bias=False, dtype=dtype, weight_quant=weight_quant,
+                  device=device)
         self.gate = ColumnParallelDense(d, hidden, **kw)
         self.up = ColumnParallelDense(d, hidden, **kw)
         self.down = RowParallelDense(hidden, out, **kw)
@@ -127,12 +162,17 @@ class ParallelSwiGLU(nn.Module):
 
 @dataclass
 class LayerCache:
-    """One layer's linear decode cache: K/V rows [B, W, Hkv, D] and the
-    per-lane fill index [B] int32 (positions < index are filled)."""
+    """One layer's decode cache: K/V rows [B, W, Hkv, D] and the
+    per-lane fill index [B] int32 (positions < index are filled); under
+    int8 KV the rows are int8 and ``k_scale``/``v_scale`` [B, W, Hkv]
+    f32 hold their scales. W is max_len, or the window of a rolling
+    cache."""
 
     k: torch.Tensor
     v: torch.Tensor
     index: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -143,7 +183,10 @@ class PagedLayerCache:
     ``fill`` [L] (int32, on the device), and the block id / in-block
     offset [L, S] (int64) where each lane's new rows are written after
     attention (masked lanes name the null block 0). ``decode_impl``
-    overrides the module's ``decode_prefix_impl`` (None keeps it)."""
+    overrides the module's ``decode_prefix_impl`` (None keeps it).
+    Under int8 KV the pools are int8 and ``k_scale_pool`` /
+    ``v_scale_pool`` [num_blocks, block_size, Hkv] f32 hold the
+    scales."""
 
     k_pool: torch.Tensor
     v_pool: torch.Tensor
@@ -152,6 +195,8 @@ class PagedLayerCache:
     write_block: torch.Tensor
     write_off: torch.Tensor
     decode_impl: Optional[str] = None
+    k_scale_pool: Optional[torch.Tensor] = None
+    v_scale_pool: Optional[torch.Tensor] = None
 
 
 class ParallelSelfAttention(nn.Module):
@@ -171,9 +216,13 @@ class ParallelSelfAttention(nn.Module):
       ``decode_prefix_block`` does not divide the cache.
 
     Called with a `PagedLayerCache`, it runs the paged form
-    (`_paged_decode_attention`). A sliding ``window`` applies to the
-    non-decode forward; the rolling window cache is a later slice and
-    raises.
+    (`_paged_decode_attention`). Under a sliding ``window`` the cache is
+    the rolling buffer: the one-pass prefill writes the block's last
+    min(S, W) rows and attends the block banded through ``attn_fn``;
+    every other call attends the cache plus its own rows before
+    writing (`_rolling_attention`). A cache with scales (int8 KV,
+    `LayerCache.k_scale`) keeps the kernels off: the plain loop and
+    the walk dequantize per block, as in the JAX package.
     """
 
     def __init__(self, num_heads: int, head_dim: int, *, dtype=None,
@@ -182,7 +231,8 @@ class ParallelSelfAttention(nn.Module):
                  rope_theta: float = 10000.0, window: Optional[int] = None,
                  decode_prefix_block: Optional[int] = 256,
                  decode_prefix_impl: str = "lax", use_bias: bool = False,
-                 out_bias: Optional[bool] = None, device=None):
+                 out_bias: Optional[bool] = None,
+                 weight_quant: Optional[str] = None, device=None):
         super().__init__()
         H = num_heads
         Hkv = num_kv_heads or H
@@ -205,10 +255,11 @@ class ParallelSelfAttention(nn.Module):
         features = H * head_dim
         self.qkv = ColumnParallelDense(
             features, features + 2 * Hkv * head_dim, use_bias=use_bias,
-            dtype=dtype, device=device)
+            dtype=dtype, weight_quant=weight_quant, device=device)
         ob = use_bias if out_bias is None else out_bias
         self.out = RowParallelDense(features, features, use_bias=ob,
-                                    dtype=dtype, device=device)
+                                    dtype=dtype, weight_quant=weight_quant,
+                                    device=device)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 cache: Optional[LayerCache] = None,
@@ -260,18 +311,41 @@ class ParallelSelfAttention(nn.Module):
         m = banded_causal_mask(pos, pos, self.window)[None, None]
         return self._dispatch_attn(q, k, v, m)
 
-    @staticmethod
-    def _cache_write(cache: LayerCache, k, v, S: int):
-        """Write S new K/V rows at each lane's fill (in place). The start
-        clamps to W - S like `lax.dynamic_update_slice`, so a lane ticked
-        past its budget (a pipelined tick behind retirement) overwrites
-        its own last row instead of faulting."""
+    def _cache_read(self, rows, scale):
+        """Cache rows at the compute dtype: as stored, or dequantized at
+        the module dtype under int8 KV (never straight to f32: the
+        reference dequantizes at the module dtype)."""
+        if scale is None:
+            return rows
+        return dequantize_int8(rows, scale, self.dtype or torch.float32,
+                               axis=-1)
+
+    def _cache_write(self, cache: LayerCache, k, v, S: int):
+        """Write S new K/V rows at each lane's fill (in place), through
+        the int8 codec under ``kv_quant`` (the scales land in the same
+        rows). Linear cache: the start clamps to W - S like
+        `lax.dynamic_update_slice`, so a lane ticked past its budget (a
+        pipelined tick behind retirement) overwrites its own last row
+        instead of faulting. Rolling cache: the last min(S, W) rows land
+        in their slots, position mod W (earlier ones would be
+        overwritten within the block anyway)."""
         B, W = cache.k.shape[:2]
-        start = cache.index.clamp(max=W - S).long()
-        rows = start[:, None] + torch.arange(S, device=start.device)
-        lanes = torch.arange(B, device=start.device)[:, None]
-        cache.k[lanes, rows] = k.to(cache.k.dtype)
-        cache.v[lanes, rows] = v.to(cache.v.dtype)
+        dev = cache.index.device
+        lanes = torch.arange(B, device=dev)[:, None]
+        if self.window is None:
+            start = cache.index.clamp(max=W - S).long()
+            rows = start[:, None] + torch.arange(S, device=dev)
+        else:
+            t = min(S, W)
+            rows = (cache.index[:, None].long()
+                    + torch.arange(S - t, S, device=dev)) % W
+            k, v = k[:, S - t:], v[:, S - t:]
+        for store, scale, new in ((cache.k, cache.k_scale, k),
+                                  (cache.v, cache.v_scale, v)):
+            if scale is None:
+                store[lanes, rows] = new.to(store.dtype)
+            else:
+                store[lanes, rows], scale[lanes, rows] = _kv_quantize(new)
 
     def _prefix_attention(self, q, cache: LayerCache, S: int,
                           prefix_len: Optional[int] = None):
@@ -292,10 +366,13 @@ class ParallelSelfAttention(nn.Module):
         Without it the loop runs over every slice of the cache. Either
         way the result is the same: a slice wholly past a lane's fill is
         masked to the f32 minimum, which leaves that lane's m, l and acc
-        bit-for-bit unchanged (alpha = 1, p = 0)."""
+        bit-for-bit unchanged (alpha = 1, p = 0). Under int8 KV the
+        kernel stays off, as in the JAX package: the loop dequantizes
+        each slice at the module dtype."""
         i = cache.index
         W = cache.k.shape[1]
-        if self.decode_prefix_impl == "pallas" and S == 1:
+        if (self.decode_prefix_impl == "pallas" and S == 1
+                and cache.k_scale is None):
             from horovod_tpu_torch.ops.flash_attention import (
                 flash_decode_attention)
             length = (i + S).clamp(max=W).to(torch.int32)
@@ -311,9 +388,15 @@ class ParallelSelfAttention(nn.Module):
         l = torch.zeros(B, H, S, device=dev)
         acc = torch.zeros(B, H, S, D, device=dev)
         stop = W if prefix_len is None else min(W, max(1, prefix_len))
+
+        def read(rows, scale, start):
+            return self._repeat_kv(self._cache_read(
+                rows[:, start:start + blk],
+                None if scale is None else scale[:, start:start + blk]))
+
         for start in range(0, stop, blk):
-            kb = self._repeat_kv(cache.k[:, start:start + blk])
-            vb = self._repeat_kv(cache.v[:, start:start + blk])
+            kb = read(cache.k, cache.k_scale, start)
+            vb = read(cache.v, cache.v_scale, start)
             logits = torch.einsum("bqhd,bkhd->bhqk", qs, kb.float())
             kvpos = start + torch.arange(blk, device=dev)
             keep = kvpos[None, None, :] <= qpos[:, :, None]   # [B, S, blk]
@@ -331,21 +414,29 @@ class ParallelSelfAttention(nn.Module):
     def _paged_decode_attention(self, q, k, v, cache: PagedLayerCache,
                                 prefix_len: Optional[int] = None):
         """Decode/prefill attention against a PAGED cache. RoPE rotates
-        at each lane's true fill; the call's K/V rows (at the pool
-        dtype) are merged into the walked blocks, and written into
+        at each lane's true fill; the call's K/V rows, through the
+        pool's codec (cast to the pool dtype, or int8-quantized and read
+        back dequantized at the module dtype: the bytes a gathered view
+        would hold), are merged into the walked blocks, and written into
         their blocks only after attention. S == 1 under
         ``decode_prefix_impl="pallas"`` runs the paged-decode kernel
-        (`ops.paged_attention.paged_decode_attention`); everything else
-        walks the table at ``decode_prefix_block`` granularity
-        (`paged_prefix_attention`, its trip count bounded by
-        ``prefix_len``)."""
+        (`ops.paged_attention.paged_decode_attention`) unless the pools
+        are int8; everything else walks the table at
+        ``decode_prefix_block`` granularity (`paged_prefix_attention`,
+        its trip count bounded by ``prefix_len``)."""
         from horovod_tpu_torch.ops.paged_attention import (
             paged_decode_attention, paged_prefix_attention)
         S = q.shape[1]
         pos = cache.fill[:, None].long() + torch.arange(S, device=q.device)
         q, k = self._maybe_rope(q, k, pos)
-        k_new = k.to(cache.k_pool.dtype)
-        v_new = v.to(cache.v_pool.dtype)
+        quant = cache.k_scale_pool is not None
+        if quant:
+            (k_st, k_sc), (v_st, v_sc) = _kv_quantize(k), _kv_quantize(v)
+            k_new, v_new = (self._cache_read(k_st, k_sc),
+                            self._cache_read(v_st, v_sc))
+        else:
+            k_st = k_new = k.to(cache.k_pool.dtype)
+            v_st = v_new = v.to(cache.v_pool.dtype)
         bs = cache.k_pool.shape[1]
         span = cache.table.shape[1] * bs
         blk = self.decode_prefix_block
@@ -367,25 +458,44 @@ class ParallelSelfAttention(nn.Module):
                 f"({blk}) to be a multiple of the KV block size "
                 f"({bs}) and to divide max_len ({span})")
         impl = cache.decode_impl or self.decode_prefix_impl
-        if impl == "pallas" and S == 1:
+        if impl == "pallas" and S == 1 and not quant:
             out = paged_decode_attention(
                 q[:, 0], k_new[:, 0], v_new[:, 0], cache.table,
                 cache.fill, cache.k_pool, cache.v_pool)[:, None]
         else:
             out = paged_prefix_attention(
                 q, k_new, v_new, cache.k_pool, cache.v_pool, cache.table,
-                cache.fill, walk_block=wb, prefix_len=prefix_len)
-        cache.k_pool[cache.write_block, cache.write_off] = k_new
-        cache.v_pool[cache.write_block, cache.write_off] = v_new
+                cache.fill, walk_block=wb, prefix_len=prefix_len,
+                k_scale_pool=cache.k_scale_pool,
+                v_scale_pool=cache.v_scale_pool,
+                compute_dtype=self.dtype or torch.float32)
+        at = (cache.write_block, cache.write_off)
+        cache.k_pool[at] = k_st
+        cache.v_pool[at] = v_st
+        if quant:
+            cache.k_scale_pool[at] = k_sc
+            cache.v_scale_pool[at] = v_sc
+        return out
+
+    def _rolling_attention(self, q, k, v, cache: LayerCache, qpos):
+        """The rolling window cache's any-fill path (S = 1 ticks and the
+        engine's chunked prefill). It attends BEFORE writing (a
+        same-call write could evict the oldest key still inside an
+        earlier query row's band), over the W cache slots (dequantized
+        under int8 KV) followed by the call's RAW rows, under
+        `rolling_keep`; then the rows are written."""
+        W = cache.k.shape[1]
+        keep = rolling_keep(cache.index, qpos, W, self.window)
+        key = torch.cat([self._cache_read(cache.k, cache.k_scale), k], 1)
+        val = torch.cat([self._cache_read(cache.v, cache.v_scale), v], 1)
+        out = dot_product_attention(q, self._repeat_kv(key),
+                                    self._repeat_kv(val), keep[:, None])
+        self._cache_write(cache, k, v, q.shape[1])
         return out
 
     def _decode_attention(self, q, k, v, cache: LayerCache,
                           chunked_prefill: bool,
                           prefix_len: Optional[int] = None):
-        if self.window is not None:
-            raise NotImplementedError(
-                "sliding-window decode (the rolling window cache) is a "
-                "later slice of the PyTorch port")
         if isinstance(cache, PagedLayerCache):
             return self._paged_decode_attention(q, k, v, cache,
                                                 prefix_len)
@@ -395,21 +505,52 @@ class ParallelSelfAttention(nn.Module):
         # Keys enter the cache already rotated at their absolute
         # position, so the prefix never needs re-rotation.
         q, k = self._maybe_rope(q, k, pos)
-        self._cache_write(cache, k, v, S)
         if S > 1 and not chunked_prefill:
             # One-pass prefill; contract: the cache was EMPTY (index 0),
-            # so attending the cached prefix equals causal attention
-            # over this block alone — the model's kernel (flash) runs it.
-            # Like the JAX package under jit, the contract is not
-            # re-checked here (that would read the device index).
+            # so attending the cached prefix equals causal (+window)
+            # attention over this block alone, on its raw rows — the
+            # model's kernel (flash) runs it. Like the JAX package under
+            # jit, the contract is not re-checked here (that would read
+            # the device index).
+            self._cache_write(cache, k, v, S)
             return self._causal_block_attn(q, k, v)
+        if self.window is not None:
+            return self._rolling_attention(q, k, v, cache, pos)
+        # Write first, then attend the (dequantized) cache: the
+        # current rows read back through the codec later ticks see.
+        self._cache_write(cache, k, v, S)
         blk = self.decode_prefix_block
         if blk and W % min(blk, W) == 0:
             return self._prefix_attention(q, cache, S, prefix_len)
         keep = banded_causal_mask(pos, torch.arange(W, device=q.device))
-        return dot_product_attention(q, self._repeat_kv(cache.k),
-                                     self._repeat_kv(cache.v),
-                                     keep[:, None])
+        return dot_product_attention(
+            q, self._repeat_kv(self._cache_read(cache.k, cache.k_scale)),
+            self._repeat_kv(self._cache_read(cache.v, cache.v_scale)),
+            keep[:, None])
+
+
+def rolling_keep(index: torch.Tensor, qpos: torch.Tensor, W: int,
+                 window: int) -> torch.Tensor:
+    """[B, S, W + S] bool: which of a rolling cache's W slots and the
+    call's S rows each query attends, per lane. ``index`` [B] is the
+    lane's fill before the call, ``qpos`` [B, S] its query positions.
+    Slot s holds the newest position <= index - 1 congruent to s mod W
+    (negative, or an empty lane: never written); every position obeys
+    the band rule (`banded_causal_mask`)."""
+    last = index[:, None].long() - 1
+    slot_pos = last - ((last - torch.arange(W, device=index.device)) % W)
+    valid = (last >= 0) & (slot_pos >= 0)
+    keep = banded_causal_mask(qpos, torch.cat([slot_pos, qpos], 1),
+                              window)
+    return keep & torch.cat([valid, torch.ones_like(qpos, dtype=torch.bool)],
+                            1)[:, None, :]
+
+
+def _kv_quantize(t: torch.Tensor):
+    """The KV-cache codec (``kv_quant="int8"``): symmetric int8 over the
+    head dim, one f32 scale per (..., position, head), through
+    `ops.quantization.quantize_int8`."""
+    return quantize_int8(t, axis=-1)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

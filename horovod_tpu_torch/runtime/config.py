@@ -185,9 +185,10 @@ register_knob(
     "degrades every preemption to recompute")
 register_knob(
     "HVD_WEIGHT_QUANT", "str", "(unset)", "serving/engine.py",
-    "Serving: weight-only quantization at ServingEngine construction; "
-    "any setting raises NotImplementedError until the int8 slice of "
-    "the port lands")
+    "Serving: weight-only quantization at ServingEngine construction "
+    "when weight_quant= isn't passed ('int8' stores the block matmul "
+    "kernels as int8 codes plus one f32 scale per output channel; "
+    "anything else raises ValueError)")
 register_knob(
     "HVD_SERVE_MESH", "str", "(unset)", "serving/engine.py",
     "Serving: the engine's model-parallel mesh; any setting raises "

@@ -131,6 +131,9 @@ class ServingEngine:
     ----------
     model : the port's `TransformerLM`, holding its weights (pre-cast
         with `serving_params` as usual); the engine runs on its device.
+        A sliding-window model is served on the fixed pool (each lane a
+        rolling cache of ``window`` slots; with RoPE a request may run
+        past max_len); the paged pool refuses it.
     num_slots : decode-batch width S.
     max_queue : admission bound; submits beyond it shed immediately.
     eos_id : stop token (None = budget-only stops), as in `generate`;
@@ -184,9 +187,13 @@ class ServingEngine:
         prefix cache (one chunk schedule drives both caches).
     spec_k : draft proposals per round; None reads HVD_SPEC_K (default
         4). Only meaningful with spec_draft.
-    mesh, weight_quant : later slices of the port — anything but their
-        defaults (and an HVD_SERVE_MESH or HVD_WEIGHT_QUANT setting)
-        raises `NotImplementedError`.
+    weight_quant : "int8" quantizes the block matmul kernels at the
+        door (`ops.quantization.quantize_lm`: int8 codes plus one f32
+        scale per output channel); None reads HVD_WEIGHT_QUANT. A model
+        already int8 passes through as it is; anything but "int8" or
+        None raises `ValueError`.
+    mesh : a later slice of the port — anything but None (and an
+        HVD_SERVE_MESH setting) raises `NotImplementedError`.
     slo : an `obs.slo.SLOMonitor`; None reads ``HVD_SLO``.
     preempt, tenant_weights, brownout : the overload control plane.
         On the paged pool preemption swaps the victim's KV blocks to a
@@ -226,18 +233,22 @@ class ServingEngine:
                 f"eos_id must be in [0, vocab_size={model.vocab_size}"
                 f"), got {eos_id}")
         from horovod_tpu_torch.runtime.config import config as _cfg
-        later = {
-            "mesh / HVD_SERVE_MESH (sharded serving)":
-                mesh is not None or _cfg.serve_mesh.strip(),
-            "weight_quant / HVD_WEIGHT_QUANT (int8 weights)":
-                weight_quant is not None or _cfg.weight_quant,
-            "a sliding-window model (the rolling decode cache)":
-                model.window is not None,
-        }
-        asked = [k for k, v in later.items() if v]
-        if asked:
+        if mesh is not None or _cfg.serve_mesh.strip():
             raise NotImplementedError(
-                f"{', '.join(asked)}: a later slice of the PyTorch port")
+                "mesh / HVD_SERVE_MESH (sharded serving): a later slice "
+                "of the PyTorch port")
+        # Weight-only int8 at the engine door: the block kernels become
+        # int8 codes plus per-channel scales.
+        if weight_quant is None:
+            weight_quant = _cfg.weight_quant or None
+        if weight_quant:
+            if weight_quant != "int8":
+                raise ValueError(
+                    f"weight_quant must be 'int8' (or None), got "
+                    f"{weight_quant!r}")
+            from horovod_tpu_torch.ops.quantization import quantize_lm
+            model = quantize_lm(model)
+        self.weight_quant = model.weight_quant
         # Speculative decoding: rounds are synchronous, so the tick ring
         # is off (the multi-token retire is the amortization).
         self.spec_k = 0
@@ -542,7 +553,8 @@ class ServingEngine:
                     f"the original stream already finished")
             forced = tuple(int(t) for t in fp)
         P = int(prompt.shape[0])
-        if P + max_new_tokens - 1 > self.model.max_len:
+        if (not self.model.unbounded
+                and P + max_new_tokens - 1 > self.model.max_len):
             raise ValueError(
                 f"prompt ({P}) + max_new_tokens ({max_new_tokens}) - 1 "
                 f"exceeds max_len={self.model.max_len}")

@@ -274,7 +274,8 @@ class SlotPool:
 
     def can_admit(self, prompt, max_new: int) -> bool:
         """Scheduler admission gate: free slots are the only capacity
-        axis (every slot reserves max_len KV rows)."""
+        axis (every slot reserves its W KV rows: max_len, or a rolling
+        window's)."""
         del prompt, max_new
         return self.has_free()
 

@@ -66,15 +66,17 @@ class TransferVerifyError(TransferError):
 @dataclasses.dataclass(frozen=True)
 class BlockTransfer:
     """One handoff manifest: the prompt it came from, the block rows
-    (one stacked [n, block_size, Hkv, D] CPU tensor per pool, in leaf
-    order: layer 0 K, layer 0 V, layer 1 K, ...), and the two digest
-    layers binding them together."""
+    (one stacked CPU tensor per pool, in `gather_block_rows`' leaf
+    order: layer 0 K, layer 0 V, then under int8 KV layer 0's K and V
+    scales [n, block_size, Hkv], then layer 1 ...; each row tensor
+    carries its leaf's dtype, which ingest checks against the
+    destination's), and the two digest layers binding them together."""
 
     prompt: np.ndarray                       # int64 [P]
     block_size: int
     chain_digests: Tuple[bytes, ...]         # allocator prefix chain
     byte_digests: Tuple[bytes, ...]          # KV-row content x chain
-    rows: List                               # per-leaf [n, bs, Hkv, D]
+    rows: List                               # per-leaf [n, bs, Hkv(, D)]
     trace_id: str = ""
     parent_span: str = ""
 
@@ -160,7 +162,7 @@ def export_blocks(pool, prompt, *, trace_id: str = "",
 
 
 def _leaves(pool) -> list:
-    return [t for pair in pool._pools for t in pair]
+    return [t for layer in pool._pools for t in layer]
 
 
 def _check_compat(pool, tr: BlockTransfer):

@@ -657,3 +657,141 @@ def test_spec_round_launches_decode_kernel_and_syncs_once(paged):
     assert tpa.paged_decode_cuda.launches == before[1]
     assert sorted(proposed.tolist()) == [0, 4, 4]
     assert all(1 <= n <= 5 for n, p in zip(n_emit, proposed) if p)
+
+
+# -- int8 weights, int8 KV and the rolling window --------------------------
+
+@pytest.mark.gpu
+def test_cuda_int8_dense_bitwise_dequantized_product():
+    """An int8 `_Dense` on the card (bf16 compute) == ``x @`` its
+    dequantized kernel, and == a float `_Dense` holding that kernel,
+    bit for bit; the codes and scales the card computes equal the
+    CPU's."""
+    dev = _card()
+    from horovod_tpu_torch.ops.quantization import (dequantize_int8,
+                                                    quantize_int8)
+    from horovod_tpu_torch.parallel.tensor import _Dense
+    w = _randn(0, 256, 384) * 0.05
+    x = _randn(1, 3, 7, 256).to(dev, torch.bfloat16)
+    q, s = quantize_int8(w.to(dev), axis=0)
+    qc, sc = quantize_int8(w, axis=0)
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    dq = _Dense(256, 384, dtype=torch.bfloat16, weight_quant="int8",
+                device=dev)
+    dq.kernel_q.copy_(q)
+    dq.kernel_scale.copy_(s)
+    fl = _Dense(256, 384, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        fl.kernel.data = dequantize_int8(q, s, torch.bfloat16)
+        y = dq(x)
+        assert torch.equal(y, x @ dequantize_int8(q, s, torch.bfloat16)
+                           + dq.bias.to(torch.bfloat16))
+        assert torch.equal(y, fl(x))
+
+
+def _kv_models(dev):
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    kw = dict(max_len=256, dtype=torch.bfloat16, attn_impl="flash",
+              decode_prefix_block=64, decode_prefix_impl="pallas",
+              device=dev)
+    plain = TransformerLM(512, 2, 8, 128, **kw).init_weights(5)
+    quant = TransformerLM(512, 2, 8, 128, kv_quant="int8", **kw)
+    quant.load_state_dict(plain.state_dict())
+    return plain, quant
+
+
+def _forced(model, paged, prompt, forced):
+    """Teacher-forced last-position logits: the prompt, then one S=1
+    call per forced token, on the linear cache or a paged pool of
+    16-token blocks (the kernel's mode)."""
+    from horovod_tpu_torch.models import transformer as tt
+    L, n = prompt.shape[0], forced.shape[1]
+    dev = prompt.device
+    outs = []
+    with torch.no_grad():
+        if not paged:
+            cache = tt.init_cache(model, L)
+            toks = prompt
+            for t in range(n + 1):
+                hidden, head = model(toks, cache, return_hidden=True)
+                cache.index += toks.shape[1]
+                outs.append((hidden[:, -1] @ head.to(hidden.dtype).T).float())
+                toks = forced[:, t:t + 1]
+            return torch.stack(outs, 1)
+        spec = tt.paged_cache_spec(model, 16)
+        T = spec.blocks_per_seq
+        pools = tt.init_paged_pools(model, spec, L * T + 1)
+        tables = (torch.arange(L * T, dtype=torch.int32, device=dev)
+                  .view(L, T) + 1)
+        fills = torch.zeros(L, dtype=torch.int32, device=dev)
+        outs.append(torch.stack([tt.paged_prefill_chunk(
+            model, spec, pools, tables, fills, b, prompt[b],
+            paged_kernel="pallas", fill=0) for b in range(L)]))
+        live = torch.ones(L, dtype=torch.bool, device=dev)
+        done = torch.zeros(L, dtype=torch.bool, device=dev)
+        for t in range(n):
+            outs.append(tt.paged_decode_logits(
+                model, spec, pools, tables, fills, forced[:, t], live, done,
+                paged_kernel="pallas"))
+        return torch.stack(outs, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+def test_cuda_int8_kv_walks_within_tolerance_of_bf16(paged):
+    """int8 KV on the card: the plain prefix loop (linear cache) and the
+    paged walk, each dequantizing per block, against the bf16-KV run of
+    the same model through B3 / B4: teacher-forced logits within 0.08
+    of the largest logit (the reference's int8-KV bound); the int8 runs
+    launch neither decode kernel."""
+    dev = _card()
+    plain, quant = _kv_models(dev)
+    rs = np.random.RandomState(6)
+    prompt = torch.from_numpy(rs.randint(0, 512, (3, 100))).to(dev)
+    forced = torch.from_numpy(rs.randint(0, 512, (3, 12))).to(dev)
+    ref = _forced(plain, paged, prompt, forced)
+    before = (tfa.flash_decode_cuda.launches, tpa.paged_decode_cuda.launches)
+    got = _forced(quant, paged, prompt, forced)
+    assert (tfa.flash_decode_cuda.launches,
+            tpa.paged_decode_cuda.launches) == before
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert torch.isfinite(got).all() and err < 0.08, err
+
+
+@pytest.mark.gpu
+def test_cuda_rolling_cache_matches_cpu_run():
+    """The rolling window cache on the card against the CPU run of the
+    same f32 model (RoPE, GQA, window 16, max_len 64): a 40-token
+    one-pass prefill, a 24-token append and S=1 ticks to position 100
+    (past max_len). Logits within 1e-4 of the largest (f32 summation
+    order on two devices), the cache rows the same, greedy `generate`
+    past max_len token-exact."""
+    dev = _card()
+    from horovod_tpu_torch.models.transformer import (TransformerLM,
+                                                      generate, init_cache)
+    kw = dict(max_len=64, dtype=torch.float32, num_kv_heads=2,
+              pos_emb="rope", window=16, attn_impl="flash")
+    cpu = TransformerLM(128, 2, 4, 64, device="cpu", **kw).init_weights(7)
+    card = TransformerLM(128, 2, 4, 64, device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(8)
+    calls = [(rs.randint(0, 128, (2, 40)), False),
+             (rs.randint(0, 128, (2, 24)), True)]
+    calls += [(rs.randint(0, 128, (2, 1)), True) for _ in range(36)]
+    caches = {m: init_cache(m, 2) for m in (cpu, card)}
+    with torch.no_grad():
+        for toks, chunked in calls:
+            outs = []
+            for m in (cpu, card):
+                t = torch.from_numpy(toks).to(m.device)
+                outs.append(m(t, caches[m], chunked_prefill=chunked).cpu())
+                caches[m].index += t.shape[1]
+            err = float((outs[1] - outs[0]).abs().max()
+                        / outs[0].abs().max())
+            assert err < 1e-4, err
+    assert caches[card].k[0].shape == (2, 16, 2, 64)
+    assert torch.allclose(caches[card].k[1].cpu(), caches[cpu].k[1],
+                          atol=1e-4)
+    prompt = torch.from_numpy(rs.randint(0, 128, (2, 20)))
+    want = generate(cpu, prompt, 70)
+    assert torch.equal(generate(card, prompt.to(dev), 70).cpu(), want)

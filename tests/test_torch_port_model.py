@@ -166,14 +166,20 @@ def test_serving_params_casts_matrices_only(pairs):
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError):
-        tt.TransformerLM(VOCAB, 1, 2, 8, device="cpu", kv_quant="int8")
+    """Sequence parallelism is still a later slice; int8 KV and the
+    rolling window cache are ported, so what remains is the reference's
+    own refusals: an unknown quantization and a learned-position window
+    model generating past max_len (only RoPE + window is unbounded)."""
     with pytest.raises(NotImplementedError):
         tt.make_attn_fn("ring")
+    with pytest.raises(ValueError, match="kv_quant"):
+        tt.TransformerLM(VOCAB, 1, 2, 8, device="cpu", kv_quant="int4")
     m = tt.TransformerLM(VOCAB, 1, 2, 8, max_len=16, window=4,
                          dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
-        tt.generate(m, torch.zeros(1, 3, dtype=torch.long), 2)
+    with pytest.raises(ValueError, match="window= for unbounded"):
+        tt.generate(m, torch.zeros(1, 3, dtype=torch.long), 15)
+    assert tt.generate(m, torch.zeros(1, 3, dtype=torch.long),
+                       14).shape == (1, 17)
 
 
 @pytest.mark.parametrize("prompt_len", [5, 13, 27])

@@ -232,11 +232,12 @@ def test_priority_preemption_recompute_token_exact(lm):
 
 
 def test_later_slices_raise(lm):
+    """Sharded serving is still a later slice (int8 weights are ported:
+    `tests/test_torch_port_quant.py`)."""
     _, _, port = lm
     m = port()
-    for kw in (dict(mesh=2), dict(weight_quant="int8")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ServingEngine(m, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ServingEngine(m, mesh=2)
 
 
 # -- the import boundary ----------------------------------------------------
@@ -246,6 +247,7 @@ def test_import_leaves_jax_out():
             "horovod_tpu_torch.compat.from_jax, "
             "horovod_tpu_torch.ops._build, "
             "horovod_tpu_torch.ops.paged_attention, "
+            "horovod_tpu_torch.ops.quantization, "
             "horovod_tpu_torch.serving.paging, "
             "horovod_tpu_torch.serving.transfer, "
             "horovod_tpu_torch.optim, horovod_tpu_torch.ops.eager, "

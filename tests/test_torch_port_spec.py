@@ -553,3 +553,48 @@ def test_cross_engine_resume(lm):
             prompt, steps, forced_prefix=plain[0][:n]).result(
             timeout=300).tokens))
     assert on_plain == spec[0] and on_spec == plain[0]
+
+
+# -- the int8-weight legs -------------------------------------------------------
+
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+def test_int8_spec_engine_streams_match_jax_int8_generate(lm, paged):
+    """The JAX `TestWeightQuantServing` legs in the port:
+    `ServingEngine(weight_quant="int8")` on the float target with the
+    int8 target as its own draft (a quantized model passed as the draft
+    is used as it is), fixed and paged: every stream == JAX `generate`
+    of the int8 model on the quantized tree, and rounds retire more than
+    one token."""
+    from horovod_tpu.ops.quantization import quantize_lm_params
+    from horovod_tpu_torch.ops.quantization import quantize_lm
+    jm, params, _, tm, _ = lm
+    qm, qp = jm.clone(weight_quant="int8"), quantize_lm_params(params)
+    prompts = _prompts(4, seed=4)
+    refs = [np.asarray(jt.generate(qm, qp, jnp.asarray(p)[None], 7))
+            [0, len(p):].tolist() for p in prompts]
+    draft = quantize_lm(tm)
+    out, snap = _streams(ServingEngine, tm, prompts, 7, weight_quant="int8",
+                         spec_draft=draft, spec_k=K, **(PAGED if paged
+                                                       else {}))
+    assert out == refs
+    assert snap["spec_multi_token_ticks"] >= 1
+
+
+def test_generate_speculative_int8_gqa_matches_jax():
+    """`test_composes_with_int8_weights_and_gqa` in the port: an int8
+    GQA target and a small float draft; the output == the JAX int8
+    target's greedy `generate`, and the round stats == the JAX
+    function's."""
+    from horovod_tpu.ops.quantization import quantize_lm_params
+    from horovod_tpu_torch.ops.quantization import quantize_lm
+    jm, jp, tm = _spec_pair(5, heads=4, num_kv_heads=2)
+    dm, dp, dt_ = _spec_pair(96, layers=1)
+    q_m, q_p = jm.clone(weight_quant="int8"), quantize_lm_params(jp)
+    want = np.asarray(jt.generate(q_m, q_p, PROMPT, steps=10))
+    jgot, jstats = jspec.generate_speculative(dm, dp, q_m, q_p, PROMPT,
+                                              steps=10, k=3,
+                                              return_stats=True)
+    got, stats = tspec.generate_speculative(dt_, quantize_lm(tm), PROMPT,
+                                            10, k=3, return_stats=True)
+    assert got.tolist() == want.tolist() == np.asarray(jgot).tolist()
+    assert stats == jstats
