@@ -180,12 +180,38 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    where the rolling branch without the call's own rows (a planted
    fault) must fail; the fixed engine on phase 4's burst against
    `generate_bucketed` under the tie-aware rule.
+10. Threefry sampling and the serving fleet, after phase 9 (phase 3's
+   model; each paged replica is phase 4b's engine, 16 slots over 1025
+   blocks of 16, the replicas sharing the model's weights). (a) Random
+   bits, uniforms, splits and fold-ins on the card bitwise the CPU's
+   for a [16, 32768] draw over 16 keys (Gumbel noise within the port's
+   stated ulp rule); a seeded `generate` of 4 x 512 -> 128
+   (temperature 0.8, top_p 0.95) equal run to run, and with the key
+   advanced one split too many (a planted fault) different; one tick
+   of phase 4's 8 lanes greedy against sampled, and the threefry draw
+   alone. (b) Phase 4b's burst, half greedy and half seeded, on one
+   paged engine (the reference), then through `ServingRouter` over two
+   paged replicas, then again with ``router.replica_kill`` armed once
+   request 0 has 16 tokens: every stream equal to its reference under
+   the tie-aware rule (extended to seeded streams with their Gumbel
+   noise); migrations and replacements printed; the dead replica's KV
+   freed before its replacement is built (peak memory within half a
+   pool of the level before the kill). (c) The burst through
+   `DisaggRouter` (one prefill, one decode replica) in host and in
+   device transfer mode: streams equal to the one engine's, handoffs
+   and prompt tokens the decode side skipped > 0; a
+   ``disagg.block_corrupt`` drill on a fresh prompt drops the transfer
+   and keeps the stream. (d) The exporter on an ephemeral port,
+   scraped during (b): /metrics parses and carries the router's
+   counters. (e) TTFT p50, TPOT p50 and tokens/s of (b) and (c) beside
+   phase 4b's. (f) B4 launches >= ticks x 12 over each run's engines.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
 engine, training, training under PowerSGD, each speculative run, each
-phase-9 generate and engine run) and read just after. Launches made to compare or time
-a kernel do not count.
+phase-9 generate and engine run, each phase-10 generate, engine,
+router and disagg run) and read just after. Launches made to compare
+or time a kernel do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
 
@@ -287,6 +313,14 @@ WINDOW_TIE_TOL = LOGIT_TOL
 # The same model in f32: its rolling decode's teacher-forced logits
 # against its one-pass forward (absolute, logit units).
 WINDOW_F32_TOL = 1e-3
+# Phase 10, the fleet: the seeded half of phase 4b's burst samples at
+# this temperature (no nucleus, so the tie-aware rule sees the exact
+# scores); `generate`'s seed; the chaos kill is armed once request 0
+# has FLEET_KILL_AT of its 64 tokens, under the chaos seed.
+FLEET_TEMPERATURE = 0.8
+FLEET_SEED = 2026
+FLEET_KILL_AT = 16
+FLEET_CHAOS_SEED = 10
 
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:321",
@@ -2380,6 +2414,489 @@ def run_variants(model, tfa, tpa, dev, gen, eng, peng):
     return out
 
 
+# -- phase 10: threefry sampling and the serving fleet ----------------------
+
+def fleet_engine_kw():
+    """Each paged replica of phase 10: phase 4b's engine (16 slots over
+    1025 blocks of 16 tokens through the paged-decode kernel)."""
+    return dict(num_slots=16, paged=True, paged_kernel="pallas",
+                kv_block_size=16, kv_blocks=1025, max_queue=64,
+                warmup=True)
+
+
+def fleet_requests(vocab):
+    """Phase 4b's burst, half greedy and half seeded: the odd requests
+    sample at FLEET_TEMPERATURE with seed 1000 + i."""
+    return [(p, FLEET_TEMPERATURE if i % 2 else 0.0, 1000 + i)
+            for i, p in enumerate(paged_prompts(vocab))]
+
+
+def drill_request(vocab):
+    """The corrupt-block drill's request: a fresh 300-token prompt (no
+    block of it is cached anywhere), seeded."""
+    import numpy as np
+    return (np.random.RandomState(23).randint(0, vocab, (300,)),
+            FLEET_TEMPERATURE, 4242)
+
+
+def serve_requests(submit, reqs, new=64):
+    """Submit ``reqs`` [(prompt, temperature, seed)] as one burst through
+    ``submit`` and wait for all; returns (results, wall seconds)."""
+    import torch
+    t0 = time.time()
+    handles = [submit(p, new, temperature=t, seed=s) for p, t, s in reqs]
+    results = [h.result(timeout=600) for h in handles]
+    torch.cuda.synchronize()
+    return results, time.time() - t0
+
+
+def fleet_readings(results, seconds):
+    """TTFT / TPOT p50 (ms) and output tokens/s of one burst, from the
+    client-visible results."""
+    import numpy as np
+    tokens = sum(len(r.tokens) for r in results)
+    return dict(seconds=seconds, tokens=tokens,
+                tokens_per_s=tokens / seconds,
+                ttft_ms_p50=float(np.median([r.ttft_s for r in results]))
+                * 1e3,
+                tpot_ms_p50=float(np.median([r.tpot_s for r in results]))
+                * 1e3)
+
+
+def sampled_verdict(model, req, ref, got):
+    """`stream_verdict` for greedy or seeded streams: None when equal;
+    else, at the first difference d, the scores that picked token d —
+    the reference stream's teacher-forced logits over the temperature
+    plus the request's Gumbel noise for ordinal d (the key after d
+    carry-splits, then split) — and whether both picks sit within
+    LOGIT_TOL / temperature of the top (a near tie that another
+    summation order may flip). Anything else is a fault."""
+    import torch
+    from horovod_tpu_torch.ops import threefry
+    prompt, temp, seed = req
+    if list(got) == list(ref):
+        return None
+    d = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+             min(len(ref), len(got)))
+    if d >= min(len(ref), len(got)):
+        return dict(position=d, gap=float("inf"), near_tie=False)
+    seq = torch.as_tensor(list(prompt) + list(ref[:d]),
+                          device=model.device)[None].long()
+    with torch.no_grad():
+        hidden, head = model(seq, return_hidden=True)
+        scores = (hidden[0, -1] @ head.to(hidden.dtype).T).float()
+    tol = LOGIT_TOL
+    if temp > 0:
+        r = threefry.split(threefry.advance(threefry.prng_key(seed), d))[1]
+        scores = scores / temp + threefry.gumbel(
+            r, (model.vocab_size,), device=model.device)
+        tol = LOGIT_TOL / temp
+    gap = float(scores.max() - torch.minimum(scores[int(ref[d])],
+                                             scores[int(got[d])]))
+    return dict(position=d, gap=gap, near_tie=gap < tol)
+
+
+def check_fleet_streams(model, reqs, ref, got, what):
+    """Every stream of ``got`` against ``ref`` under `sampled_verdict`;
+    raises on a fault. Returns (streams equal, near-tie divergences)."""
+    equal, ties, faults = 0, [], []
+    for i, (req, a, b) in enumerate(zip(reqs, ref, got)):
+        v = sampled_verdict(model, req, a, b)
+        if v is None:
+            equal += 1
+        elif v["near_tie"]:
+            ties.append(dict(stream=i, **v))
+        else:
+            faults.append(dict(stream=i, **v))
+    log(f"10 {what}: {equal} of {len(reqs)} streams equal, near ties "
+        f"{ties}")
+    if faults:
+        raise AssertionError(f"{what}: streams differ off a near tie: "
+                             f"{faults}")
+    return equal, ties
+
+
+class counting:
+    """Context: the launch counts of ``kernels`` set to 0 on entry and
+    read into ``self.launches`` on exit (after a synchronize)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def __enter__(self):
+        import torch
+        torch.cuda.synchronize()
+        for fn in self.kernels.values():
+            fn.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize()
+        self.launches = {k: fn.launches for k, fn in self.kernels.items()}
+
+
+def check_fleet_launches(run, engines, layers, what):
+    """B4 launched at least ticks x layers over the run's engines."""
+    ticks = sum(e.metrics_snapshot()["ticks"] for e in engines)
+    run["ticks"] = ticks
+    if run["launches"]["paged_decode"] < ticks * layers:
+        raise AssertionError(f"{what}: paged_decode launches "
+                             f"{run['launches']['paged_decode']} < ticks "
+                             f"{ticks} x {layers}")
+
+
+def check_threefry_card(dev):
+    """10a: random bits, uniforms, splits and fold-ins on the card
+    against the same calls on the CPU for a [16, 32768] draw over 16
+    keys (seeds 0..13, 2**31 - 1 and 2**32 + 5)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.ops import threefry
+    seeds = list(range(14)) + [2 ** 31 - 1, 2 ** 32 + 5]
+    keys = np.stack([threefry.prng_key(s) for s in seeds])
+    kt = torch.from_numpy(keys.astype(np.int64))
+    V = 32768
+    checks = {
+        "random_bits": torch.equal(
+            threefry.random_bits(keys, (V,), device=dev).cpu(),
+            threefry.random_bits(keys, (V,))),
+        "uniform": torch.equal(
+            threefry.uniform(keys, (V,), device=dev).cpu(),
+            threefry.uniform(keys, (V,))),
+        "split": torch.equal(threefry.split(kt.to(dev), 3).cpu(),
+                             threefry.split(kt, 3))
+        and np.array_equal(threefry.split(kt, 3).numpy(),
+                           threefry.split(keys, 3)),
+        "fold_in": torch.equal(
+            threefry.fold_in(kt.to(dev), 2 ** 31 - 1).cpu(),
+            threefry.fold_in(kt, 2 ** 31 - 1))
+        and np.array_equal(threefry.fold_in(kt, 7).numpy(),
+                           threefry.fold_in(keys, 7)),
+    }
+    g = threefry.gumbel(keys, (V,), device=dev).cpu().numpy()
+    gc = threefry.gumbel(keys, (V,)).numpy()
+    gumbel_err = float(np.abs(g - gc).max())
+    checks["gumbel"] = bool(np.all(np.abs(g - gc)
+                                   <= np.spacing(np.abs(gc)) + 2.0 ** -23))
+    log(f"10a threefry on the card vs the CPU, [16, {V}] over 16 keys: "
+        f"{checks}, gumbel max |diff| {gumbel_err:.3g}")
+    if not all(checks.values()):
+        raise AssertionError(f"threefry differs on the card: {checks}")
+    return dict(checks=checks, gumbel_max_abs_diff=gumbel_err)
+
+
+def seeded_generate(model, kernels, dev):
+    """10a: a seeded `generate` of 4 x 512 -> 128 (FLEET_TEMPERATURE,
+    top_p 0.95) twice, which must agree token for token, then with the
+    key advanced one split too many (a planted fault), which must
+    change the stream (its first 16 tokens: every token's noise moves)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import generate
+    from horovod_tpu_torch.ops import threefry
+    g = torch.Generator(device=dev).manual_seed(7)
+    prompt = torch.randint(0, model.vocab_size, (4, 512), device=dev,
+                           generator=g)
+    key = threefry.prng_key(FLEET_SEED)
+    kw = dict(temperature=FLEET_TEMPERATURE, top_p=0.95)
+    with counting(kernels) as c:
+        t0 = time.time()
+        first = generate(model, prompt, 128, rng=key, **kw)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    again = generate(model, prompt, 128, rng=key, **kw)
+    fault = generate(model, prompt, 16, rng=threefry.split(key)[0], **kw)
+    same = bool(torch.equal(first, again))
+    caught = not bool(torch.equal(first[:, :528], fault))
+    log(f"10a seeded generate 4x512 -> 128 (T {FLEET_TEMPERATURE}, top_p "
+        f"0.95): {dt:.3f} s, run to run equal {same}; one extra split "
+        f"(planted fault) changes the stream: {caught}, launches "
+        f"{c.launches}")
+    if first.shape != (4, 640) or not same:
+        raise AssertionError("seeded generate is not reproducible")
+    if not caught:
+        raise AssertionError("an extra split of the key went unseen")
+    return dict(seconds=dt, launches=c.launches, reproducible=same,
+                planted_extra_split_caught=caught)
+
+
+def time_sampled_tick(model, dev):
+    """10a: one tick of phase 4's 8-slot pool (its first 8 prompts
+    prefilled), all lanes greedy against all lanes seeded; and the
+    threefry draw alone (the 8 lanes' split on the host plus their
+    [8, 32768] Gumbel noise on the card), by CUDA events."""
+    import torch
+    from horovod_tpu_torch.ops import threefry
+    from horovod_tpu_torch.serving import SlotPool
+    pool = SlotPool(model, 8)
+    for p in engine_prompts(model.vocab_size)[:8]:
+        pool.prefill(pool.alloc(), p, 0.0, None, 0, max_chunk=128)
+
+    def per_tick_ms(n=10):
+        pool.tick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pool.tick()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    greedy = per_tick_ms()
+    for slot in range(8):
+        pool._temps[slot] = FLEET_TEMPERATURE
+        pool._keys.install(slot, threefry.prng_key(100 + slot))
+    sampled = per_tick_ms()
+    draw = cuda_time_ms(lambda: pool._keys.noise(model.vocab_size, dev))
+    pool.release()
+    log(f"10a one tick, 8 lanes (phase 4's prompts): greedy {greedy:.3f} "
+        f"ms, sampled {sampled:.3f} ms; the threefry draw alone "
+        f"{draw:.4f} ms (device)")
+    return dict(greedy_tick_ms=greedy, sampled_tick_ms=sampled,
+                threefry_draw_ms=draw)
+
+
+def scrape_metrics(url):
+    """One Prometheus scrape of ``url``/metrics: every line must parse
+    as HELP / TYPE / a sample. Returns the text."""
+    import re
+    import urllib.request
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                        r'(NaN|[+-]Inf|[-+0-9.eE]+)$')
+    bad = [ln for ln in text.splitlines()
+           if ln and not ln.startswith("#") and not sample.match(ln)]
+    if bad:
+        raise AssertionError(f"/metrics does not parse: {bad[:3]}")
+    return text
+
+
+def router_completed(text):
+    import re
+    return sum(int(m) for m in re.findall(
+        r'^hvd_router_requests_total\{[^}]*outcome="completed"[^}]*\} '
+        r'(\d+)', text, re.M))
+
+
+def run_router(model, kernels, reqs, ref):
+    """10b + 10d: `ServingRouter` over two paged replicas, the mixed
+    burst without a fault (the exporter scraped meanwhile), then with
+    ``router.replica_kill`` armed once request 0 has FLEET_KILL_AT
+    tokens (chaos seed FLEET_CHAOS_SEED). The dead replica's KV must be
+    freed before its replacement is built."""
+    import torch
+    from horovod_tpu_torch.obs.exporter import MetricsServer
+    from horovod_tpu_torch.resilience import chaos
+    from horovod_tpu_torch.serving import ServingEngine, ServingRouter
+    layers = model.num_layers
+    built = []
+
+    def factory():
+        eng = ServingEngine(model, **fleet_engine_kw())
+        built.append(eng)
+        return eng
+
+    with MetricsServer(port=0) as srv:
+        with ServingRouter(factory, num_replicas=2) as router:
+            before = router_completed(scrape_metrics(srv.url))
+            with counting(kernels) as c:
+                hs = [router.submit(p, 64, temperature=t, seed=s)
+                      for p, t, s in reqs]
+                t0 = time.time()
+                wait_for(lambda: len(hs[0].tokens_so_far()) >= 8)
+                during = scrape_metrics(srv.url)
+                results = [h.result(timeout=600) for h in hs]
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+            after = scrape_metrics(srv.url)
+            snap = router.metrics_snapshot()
+        plain = dict(fleet_readings(results, dt), launches=c.launches,
+                     migrations=snap["migrations"],
+                     hedges=snap["hedges"])
+        check_fleet_launches(plain, built, layers, "router")
+        plain["streams"] = [r.tokens.tolist() for r in results]
+        scraped = router_completed(after) - before
+        log(f"10d exporter on port {srv.port}: /metrics parses "
+            f"({len(during.splitlines())} lines mid-burst, "
+            f"{len(after.splitlines())} after), router completed counter "
+            f"+{scraped}")
+        if scraped < len(reqs) or "hvd_router_replicas" not in during:
+            raise AssertionError(f"the exporter does not carry the "
+                                 f"router's counters ({scraped})")
+    equal, ties = check_fleet_streams(model, reqs, ref, plain["streams"],
+                                      "router vs one paged engine")
+    plain.update(equal_streams=equal, near_ties=ties)
+
+    built.clear()
+    with ServingRouter(factory, num_replicas=2) as router:
+        with counting(kernels) as c:
+            hs = [router.submit(p, 64, temperature=t, seed=s)
+                  for p, t, s in reqs]
+            t0 = time.time()
+            wait_for(lambda: len(hs[0].tokens_so_far()) >= FLEET_KILL_AT,
+                     dt=0.001)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with chaos.armed("router.replica_kill:1",
+                             seed=FLEET_CHAOS_SEED) as monkey:
+                wait_for(lambda: monkey.fired("router.replica_kill") == 1)
+                killed_at = len(hs[0].tokens_so_far())
+                results = [h.result(timeout=600) for h in hs]
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            wait_for(lambda: router.metrics_snapshot()["replacements"] == 1)
+            torch.cuda.synchronize()
+        snap = router.metrics_snapshot()
+        peak = torch.cuda.max_memory_allocated()
+        after_mem = torch.cuda.memory_allocated()
+        kv = sum(t.numel() * t.element_size() for layer in
+                 built[-1].pool._pools for t in layer)
+    kill = dict(fleet_readings(results, dt), launches=c.launches,
+                migrations=snap["migrations"],
+                migrated_tokens=snap["migrated_tokens"],
+                replacements=snap["replacements"],
+                replica_deaths=snap["replica_deaths"],
+                request0_tokens_at_kill=killed_at, base_bytes=base,
+                peak_bytes=peak, after_bytes=after_mem, pool_kv_bytes=kv)
+    check_fleet_launches(kill, built, layers, "router under kill")
+    kill["streams"] = [r.tokens.tolist() for r in results]
+    log(f"10b router kill: request 0 at {killed_at} tokens, deaths "
+        f"{kill['replica_deaths']}, migrations {kill['migrations']} "
+        f"({kill['migrated_tokens']} tokens), replacements "
+        f"{kill['replacements']}; memory base {base / 1e9:.3f} GB, peak "
+        f"after the replacement {peak / 1e9:.3f} GB, now "
+        f"{after_mem / 1e9:.3f} GB (one pool {kv / 1e9:.3f} GB)")
+    if (kill["replica_deaths"] != 1 or kill["migrations"] < 1
+            or kill["replacements"] != 1):
+        raise AssertionError(f"the kill did not migrate: {kill}")
+    if peak - base > kv // 2 or after_mem - base > kv // 4:
+        raise AssertionError(f"a killed replica's KV outlived its "
+                             f"replacement's build: base {base}, peak "
+                             f"{peak}, after {after_mem}, pool {kv}")
+    equal, ties = check_fleet_streams(model, reqs, plain["streams"],
+                                      kill["streams"],
+                                      "router kill vs no-kill router")
+    kill.update(equal_streams=equal, near_ties=ties)
+    return dict(plain=plain, kill=kill)
+
+
+def run_disagg(model, kernels, reqs, ref, drill, drill_ref):
+    """10c: `DisaggRouter`, one prefill and one decode paged replica,
+    the mixed burst in host then device transfer mode; after the host
+    burst the ``disagg.block_corrupt`` drill on a fresh prompt."""
+    import torch
+    from horovod_tpu_torch.resilience import chaos
+    from horovod_tpu_torch.serving import ServingEngine, ServingRouter
+    out = {}
+    for mode in ("host", "device"):
+        built = []
+
+        def factory():
+            eng = ServingEngine(model, **fleet_engine_kw())
+            built.append(eng)
+            return eng
+
+        router = ServingRouter(factory, disagg={
+            "prefill": 1, "decode": 1, "transfer": mode})
+        try:
+            with counting(kernels) as c:
+                results, dt = serve_requests(router.submit, reqs)
+            snap = router.metrics_snapshot()
+            run = dict(fleet_readings(results, dt), launches=c.launches,
+                       handoffs=snap["disagg"]["handoffs"],
+                       fallbacks=snap["disagg"]["fallbacks"],
+                       decode_prefix_tokens=sum(r.prefix_tokens_cached
+                                                for r in results))
+            check_fleet_launches(run, built, model.num_layers,
+                                 f"disagg {mode}")
+            run["streams"] = [r.tokens.tolist() for r in results]
+            if mode == "host":
+                with chaos.armed("disagg.block_corrupt:1") as monkey:
+                    (res,), _ = serve_requests(router.submit, [drill])
+                run["drill"] = dict(
+                    fired=monkey.fired("disagg.block_corrupt"),
+                    prefix_tokens_cached=res.prefix_tokens_cached,
+                    stream=res.tokens.tolist())
+        finally:
+            router.shutdown()
+        log(f"10c disagg ({mode}): handoffs {run['handoffs']}, fallbacks "
+            f"{run['fallbacks']}, prompt tokens the decode side skipped "
+            f"{run['decode_prefix_tokens']}, ticks {run['ticks']}, "
+            f"launches {run['launches']}")
+        if run["handoffs"] <= 0 or run["decode_prefix_tokens"] <= 0:
+            raise AssertionError(f"disagg {mode}: no transfer landed")
+        equal, ties = check_fleet_streams(
+            model, reqs, ref, run["streams"],
+            f"disagg {mode} vs one paged engine")
+        run.update(equal_streams=equal, near_ties=ties)
+        out[mode] = run
+    d = out["host"]["drill"]
+    log(f"10c corrupt-block drill: fired {d['fired']}, prompt tokens the "
+        f"decode side took from the transfer {d['prefix_tokens_cached']}")
+    if d["fired"] != 1 or d["prefix_tokens_cached"] != 0:
+        raise AssertionError(f"the corrupt transfer was not dropped: {d}")
+    check_fleet_streams(model, [drill], [drill_ref], [d["stream"]],
+                        "corrupt drill vs one paged engine")
+    return out
+
+
+def wait_for(cond, timeout=300.0, dt=0.005):
+    t0 = time.time()
+    while not cond():
+        if time.time() - t0 > timeout:
+            raise AssertionError("condition not reached in time")
+        time.sleep(dt)
+
+
+def run_fleet(model, tfa, tpa, dev, peng):
+    """Phase 10: threefry on the card (10a), the router (10b) with the
+    exporter scraped (10d), disaggregated serving (10c), and their
+    readings beside phase 4b's (10e)."""
+    import torch
+    from horovod_tpu_torch.serving import ServingEngine
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda,
+               "paged_decode": tpa.paged_decode_cuda}
+    t0 = time.time()
+    card = check_threefry_card(dev)
+    gen = seeded_generate(model, kernels, dev)
+    tick = time_sampled_tick(model, dev)
+    reqs = fleet_requests(model.vocab_size)
+    drill = drill_request(model.vocab_size)
+    with ServingEngine(model, **fleet_engine_kw()) as eng:
+        with counting(kernels) as c:
+            results, dt = serve_requests(eng.submit, reqs)
+        single = dict(fleet_readings(results, dt), launches=c.launches)
+        check_fleet_launches(single, [eng], model.num_layers,
+                             "one paged engine")
+        (drill_res,), _ = serve_requests(eng.submit, [drill])
+    ref = [r.tokens.tolist() for r in results]
+    router = run_router(model, kernels, reqs, ref)
+    disagg = run_disagg(model, kernels, reqs, ref, drill,
+                        drill_res.tokens.tolist())
+    label = f"[{nvidia_smi_line()}]"
+    rows = [("phase 4b paged engine (greedy burst)", peng),
+            ("one paged engine, mixed burst", single),
+            ("router, 2 replicas", router["plain"]),
+            ("router, 2 replicas, one killed", router["kill"]),
+            ("disagg host", disagg["host"]),
+            ("disagg device", disagg["device"])]
+    for name, r in rows:
+        log(f"10e {name}: {r['seconds']:.2f} s, {r['tokens_per_s']:.1f} "
+            f"tokens/s, TTFT p50 {r['ttft_ms_p50']:.2f} ms, TPOT p50 "
+            f"{r['tpot_ms_p50']:.2f} ms {label}")
+    out = dict(threefry=card, seeded_generate=gen, tick=tick,
+               single=single, router=router, disagg=disagg,
+               seconds=time.time() - t0)
+    out["runs"] = dict(fleet_generate=gen, fleet_single=single,
+                       fleet_router=router["plain"],
+                       fleet_router_kill=router["kill"],
+                       fleet_disagg_host=disagg["host"],
+                       fleet_disagg_device=disagg["device"])
+    torch.cuda.synchronize()
+    return out
+
+
 def zipf_ids(rs, n, vocab, a=1.1):
     """``n`` ids in [0, vocab) with P(k) proportional to 1 / (k + 1)^a."""
     import numpy as np
@@ -2797,6 +3314,9 @@ def main() -> int:
     variants = run_variants(model, tfa, tpa, dev, gen, eng, peng)
     log(f"int8 weights, int8 KV and the rolling window (phase 9) in "
         f"{variants['seconds']:.1f} s {label}")
+    fleet = run_fleet(model, tfa, tpa, dev, peng)
+    log(f"threefry sampling and the serving fleet (phase 10) in "
+        f"{fleet['seconds']:.1f} s {label}")
 
     del model
     train = run_training(tfa, dev)
@@ -2816,7 +3336,7 @@ def main() -> int:
 
     timing = time_kernels(tfa, dev)
     main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values(),
-                 *variants["runs"].values())
+                 *variants["runs"].values(), *fleet["runs"].values())
     main_launches = {k: sum(run["launches"].get(k, 0) for run in main_runs)
                      for k in REPLACES}
     kernels = []
@@ -2871,7 +3391,7 @@ def main() -> int:
                   torch=torch.__version__, cuda=torch.version.cuda,
                   kernels=kernels, timing=timing, generate=gen, engine=eng,
                   paged_teacher_forced=paged_tf, paged_engine=peng,
-                  speculative=spec, variants=variants,
+                  speculative=spec, variants=variants, fleet=fleet,
                   training=train, data_parallel_surface=surface,
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)

@@ -30,7 +30,6 @@ are later slices; int8 weights come from `ops.quantization.quantize_lm`.
 from __future__ import annotations
 
 import functools
-import hashlib
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
@@ -40,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch import optim
+from horovod_tpu_torch.ops import threefry
 from horovod_tpu_torch.ops.quantization import check_quant
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  blockwise_attention,
@@ -523,15 +523,6 @@ def init_cache(model: TransformerLM, lanes: int) -> KVCache:
                    zeros(shape[:-1], torch.float32))
 
 
-def _gumbel(shape, generator, device) -> torch.Tensor:
-    """Gumbel(0, 1) noise drawn from ``generator`` (on its own device),
-    the sampling noise of Gumbel-max: argmax(logits + noise) is a
-    categorical sample."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return (-torch.log(-torch.log(u))).to(device)
-
-
 def nucleus_mask(logits: torch.Tensor, top_p) -> torch.Tensor:
     """Top-p truncation: every logit outside the smallest prefix of the
     sorted distribution with cumulative probability >= top_p goes to
@@ -581,8 +572,7 @@ def _last_logits(model: TransformerLM, cache: KVCache, toks, *,
 
 @torch.no_grad()
 def generate(model: TransformerLM, prompt, steps: int, *,
-             temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None,
+             temperature: float = 0.0, rng=None,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
              eos_id: Optional[int] = None, pad_id: int = 0,
              early_stop: bool = False) -> torch.Tensor:
@@ -592,11 +582,11 @@ def generate(model: TransformerLM, prompt, steps: int, *,
     flash-decode kernel under ``decode_prefix_impl="pallas"``).
     Returns [B, P + steps] on the model's device.
 
-    Greedy at ``temperature=0``; otherwise Gumbel-max sampling with
-    noise from ``generator`` (a `torch.Generator`; seeded streams do
-    not reproduce `jax.random`'s), optionally truncated to ``top_k``
-    and/or the ``top_p`` nucleus. ``eos_id``: finished rows emit
-    ``pad_id`` afterwards; ``early_stop`` (requires eos_id) ends the
+    Greedy at ``temperature=0``; otherwise Gumbel-max sampling keyed by
+    ``rng`` (a threefry key, `ops.threefry.prng_key`), split as the JAX
+    package splits it, so a seeded stream equals the reference's;
+    optionally truncated to ``top_k`` and/or the ``top_p`` nucleus.
+    ``eos_id``: finished rows emit ``pad_id`` afterwards; ``early_stop`` (requires eos_id) ends the
     loop once every row is done — that check reads the device once
     per token. ``P + steps - 1`` must fit max_len, except for a RoPE
     model with a ``window`` (its rolling cache generates any length)."""
@@ -604,8 +594,8 @@ def generate(model: TransformerLM, prompt, steps: int, *,
     B, P = prompt.shape
     if steps <= 0:
         return prompt
-    if temperature > 0 and generator is None:
-        raise ValueError("sampling (temperature > 0) requires generator")
+    if temperature > 0 and rng is None:
+        raise ValueError("sampling (temperature > 0) requires rng")
     if (top_k is not None or top_p is not None) and temperature <= 0:
         raise ValueError("top_k/top_p require temperature > 0")
     if top_p is not None and not 0 < top_p <= 1:
@@ -626,21 +616,27 @@ def generate(model: TransformerLM, prompt, steps: int, *,
         raise ValueError(f"prompt ({P}) + steps ({steps}) - 1 exceeds "
                          f"max_len={model.max_len} (use pos_emb='rope' "
                          f"with window= for unbounded generation)")
+    if rng is None:
+        rng = threefry.prng_key(0)
     cache = init_cache(model, B)
-    gen = _generate_scan(model, cache, prompt, generator, steps,
-                         float(temperature), top_k, top_p, eos_id, pad_id,
+    gen = _generate_scan(model, cache, prompt, threefry.as_keys(rng),
+                         steps, float(temperature), top_k, top_p, eos_id,
+                         pad_id,
                          greedy=temperature <= 0, early_stop=early_stop)
     return torch.cat([prompt, gen], dim=1)
 
 
-def _generate_scan(model, cache, prompt, generator, steps, temperature,
+def _generate_scan(model, cache, prompt, rng, steps, temperature,
                    top_k=None, top_p=None, eos=None, pad=0, *,
                    greedy=False, early_stop=False) -> torch.Tensor:
     """The prefill + decode loop of `generate` (the JAX package's
     compiled scan; a Python loop here, with no host read unless
-    ``early_stop``). Returns the [B, steps] generated tokens."""
+    ``early_stop``). The key chain is the reference's: ``rng, r0 =
+    split(rng)`` for the prefill's token, then ``r, r_tick = split(r)``
+    each tick, every key drawing the noise of the whole [B, V] batch.
+    Returns the [B, steps] generated tokens."""
 
-    def pick(logits):
+    def pick(logits, r):
         if greedy:
             return torch.argmax(logits, dim=-1)
         logits = logits / temperature
@@ -651,10 +647,10 @@ def _generate_scan(model, cache, prompt, generator, steps, temperature,
                                  torch.full_like(logits, neg), logits)
         if top_p is not None:
             logits = nucleus_mask(logits, top_p)
-        noise = _gumbel(logits.shape, generator, logits.device)
-        return torch.argmax(logits + noise, dim=-1)
+        return threefry.categorical(r, logits)
 
-    tok = pick(_last_logits(model, cache, prompt))
+    rng, r0 = threefry.split(rng)
+    tok = pick(_last_logits(model, cache, prompt), r0)
     done = (tok == eos) if eos is not None else None
     out = [tok]
     P = prompt.shape[1]
@@ -662,26 +658,15 @@ def _generate_scan(model, cache, prompt, generator, steps, temperature,
         if early_stop and bool(done.all()):
             out.append(torch.full_like(tok, pad))
             continue
+        rng, r_tick = threefry.split(rng)
         nxt = pick(_last_logits(model, cache, tok[:, None],
-                                prefix_len=P + t + 1))
+                                prefix_len=P + t + 1), r_tick)
         if eos is not None:
             nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
             done = done | (nxt == eos)
         out.append(nxt)
         tok = nxt
     return torch.stack(out, dim=1)
-
-
-def _bucket_generator(generator: torch.Generator, n: int) -> torch.Generator:
-    """A generator for the bucket of length-``n`` prompts, derived from
-    the caller's generator state and ``n`` without advancing it (the
-    counterpart of ``jax.random.fold_in(rng, n)``): buckets draw
-    independent noise, and the same caller state gives the same
-    streams."""
-    h = hashlib.blake2b(generator.get_state().numpy().tobytes()
-                        + int(n).to_bytes(8, "little"), digest_size=8)
-    return torch.Generator(device=generator.device).manual_seed(
-        int.from_bytes(h.digest(), "little") >> 1)
 
 
 def generate_bucketed(model: TransformerLM, prompts, steps: int, **kw):
@@ -691,8 +676,8 @@ def generate_bucketed(model: TransformerLM, prompts, steps: int, **kw):
     list of 1-D [P_i + steps] tensors. Every `generate` keyword passes
     through (eos_id / pad_id keep their per-row contract, and
     ``early_stop`` stops each bucket at its own last finisher); under
-    sampling each bucket draws from its own generator
-    (`_bucket_generator`)."""
+    sampling the bucket of length-``n`` prompts draws from
+    ``fold_in(rng, n)``, as in the JAX package."""
     arrs = [torch.as_tensor(p) for p in prompts]
     by_len: dict = {}
     for idx, p in enumerate(arrs):
@@ -705,8 +690,8 @@ def generate_bucketed(model: TransformerLM, prompts, steps: int, **kw):
     out: list = [None] * len(arrs)
     for n, idxs in by_len.items():
         bkw = kw
-        if kw.get("generator") is not None:
-            bkw = dict(kw, generator=_bucket_generator(kw["generator"], n))
+        if kw.get("rng") is not None:
+            bkw = dict(kw, rng=threefry.fold_in(kw["rng"], n))
         res = generate(model, torch.stack([arrs[i] for i in idxs]), steps,
                        **bkw)
         for row, i in enumerate(idxs):

@@ -21,14 +21,18 @@ timeline records NEGOTIATING, then TOP_LEVEL with the op's activity,
 then DONE; the `StallMonitor` of `init` brackets the op; and each
 collective that reaches `torch.distributed` first passes the
 ``collective_slow`` chaos site and counts on
-``collective_metrics()["dispatched"]``. The JAX package's straggler
-tracker (`obs/straggler.py`) is not ported yet (ROADMAP Queue A 6), so
-no dispatch time is recorded for it.
+``collective_metrics()["dispatched"]``. Each op's host-side
+enter -> exit time lands in the straggler tracker
+(`obs.straggler.tracker().record`), as the JAX package's
+`_run_collective` records it (`horovod_tpu/ops/eager.py:403-462`): a
+slow peer's rendezvous, the ``collective_slow`` delay and host stalls
+all fall inside the bracket.
 """
 
 from __future__ import annotations
 
 import re
+import time
 from typing import List, Optional, Sequence
 
 import torch
@@ -126,19 +130,22 @@ def _dispatched():
 
 
 class _Op:
-    """The hooks around one eager op: timeline phases and the stall
-    monitor's bracket (`__enter__`/`__exit__`), and `dispatch` just
-    before the collective reaches `torch.distributed`."""
+    """The hooks around one eager op: timeline phases, the stall
+    monitor's bracket and the straggler tracker's timing
+    (`__enter__`/`__exit__`), and `dispatch` just before the collective
+    reaches `torch.distributed`."""
 
     def __init__(self, st, opname: str, kind: str, activity: str):
         self.st, self.opname = st, opname
         self.kind, self.activity = kind, activity
+        self.t_enter = 0.0
 
     def _timeline(self, phase, activity=None):
         if self.st.timeline is not None:
             self.st.timeline.record(self.opname, phase, activity)
 
     def __enter__(self):
+        self.t_enter = time.time()
         if self.st.stall_monitor is not None:
             self.st.stall_monitor.begin(self.opname)
         self._timeline("NEGOTIATING")
@@ -155,10 +162,14 @@ class _Op:
         chaos.slow_site("collective_slow")
         _dispatched().inc(op=self.kind)
 
-    def __exit__(self, *exc):
+    def __exit__(self, exc_type, *exc):
         self._timeline("DONE")
         if self.st.stall_monitor is not None:
             self.st.stall_monitor.end(self.opname)
+        if exc_type is None:
+            from horovod_tpu_torch.obs import straggler
+            straggler.tracker().record(self.kind,
+                                       time.time() - self.t_enter)
         return False
 
 

@@ -130,6 +130,11 @@ def init(device=None, *, rank: Optional[int] = None,
             st.timeline = Timeline(config.timeline_path)
         from horovod_tpu_torch.utils.stall import StallMonitor
         st.stall_monitor = StallMonitor(config.stall_warning_time)
+        # Observability exporter: env-gated — with HVD_METRICS_PORT
+        # unset this is a no-op, so the knob alone turns the HTTP
+        # endpoint on for any init()'d process.
+        from horovod_tpu_torch.obs.exporter import start_exporter
+        start_exporter()
         st.initialized = True
         st.shut_down = False
         atexit.register(shutdown)

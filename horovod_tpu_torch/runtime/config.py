@@ -38,6 +38,19 @@ DEFAULT_KV_BLOCK_SIZE = 16
 DEFAULT_SPEC_K = 4
 # Overload control: the preemption swap shelf's host-RAM byte budget.
 DEFAULT_SWAP_BYTES = 256 << 20
+# Serving fleet (serving/router.py): replica count, monitor sweep
+# interval, cold-replacement budget, hedge-delay TTFT quantile, and the
+# retry budget's token-bucket capacity.
+DEFAULT_ROUTER_REPLICAS = 2
+DEFAULT_ROUTER_POLL_S = 0.02
+DEFAULT_ROUTER_REPLACEMENTS = 4
+DEFAULT_HEDGE_QUANTILE = 0.95
+DEFAULT_RETRY_BUDGET = 16
+# Disaggregated serving (serving/disagg.py): pool sizes and the
+# KV-block transfer mode.
+DEFAULT_DISAGG_PREFILL = 1
+DEFAULT_DISAGG_DECODE = 1
+DEFAULT_DISAGG_TRANSFER = "host"
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +311,103 @@ register_knob(
     "(1 no hedging -> 2 spec-k capped -> 3 lowest-priority streams "
     "preempted), driven by per-tenant SLO fast burn and the "
     "serving.overload_storm chaos site; 0 disables")
+register_knob(
+    "HVD_IO_RETRIES", "int", "3", "resilience/retry.py",
+    "Checkpoint/data I/O retry attempts under the shared RetryPolicy "
+    "(0 disables retries)")
+register_knob(
+    "HVD_METRICS_PORT", "int", "(unset)", "obs/exporter.py",
+    "Serve Prometheus /metrics + /healthz + /metrics.json on this "
+    "port (0 = ephemeral; binds 127.0.0.1 — wider exposure is a "
+    "programmatic host= opt-in); honored by init() and "
+    "ServingEngine construction, unset disables the exporter, "
+    "docs/observability.md")
+register_knob(
+    "HVD_FLEET_RANKS", "str", "(unset)", "obs/aggregate.py",
+    "Comma-separated per-rank exporter base URLs (host:port) the "
+    "/fleet endpoint aggregates; unset = this process's registry "
+    "alone, docs/observability.md")
+register_knob(
+    "HVD_STRAGGLER_CYCLES", "int", "64", "obs/straggler.py",
+    "Collective dispatches per straggler timing-window exchange "
+    "(0 disables the periodic exchange; windows still accumulate "
+    "for the fleet collector)")
+register_knob(
+    "HVD_ROUTER_REPLICAS", "int", str(DEFAULT_ROUTER_REPLICAS),
+    "runtime/config.py",
+    "Serving fleet: ServingRouter replica count when the caller "
+    "doesn't pass num_replicas, docs/serving.md 'Fleet failover'")
+register_knob(
+    "HVD_ROUTER_POLL", "float", str(DEFAULT_ROUTER_POLL_S),
+    "runtime/config.py",
+    "Serving fleet: router monitor sweep interval in seconds "
+    "(health checks, hedge scans, migration processing, chaos "
+    "kills) — the failover-detection latency floor")
+register_knob(
+    "HVD_ROUTER_REPLACEMENTS", "int", str(DEFAULT_ROUTER_REPLACEMENTS),
+    "runtime/config.py",
+    "Serving fleet: cold replacements the router may build for "
+    "dead/drained replicas over its lifetime (the factory-call "
+    "budget; the fleet shrinks once spent)")
+register_knob(
+    "HVD_HEDGE_QUANTILE", "float", str(DEFAULT_HEDGE_QUANTILE),
+    "runtime/config.py",
+    "Serving fleet: TTFT quantile (0, 1] deriving the hedge delay — "
+    "a request with no first token after the fleet's q-th TTFT "
+    "quantile is duplicated on a second replica and the loser "
+    "cancelled; <= 0 disables hedging")
+register_knob(
+    "HVD_DETECTOR_SWEEP_S", "float", "0.05",
+    "resilience/detector.py",
+    "Failure detector: shared sweep-thread cadence in seconds (per-"
+    "peer poll intervals may ask for faster; floor 0.005), "
+    "docs/resilience.md 'Failure detection'")
+register_knob(
+    "HVD_DETECTOR_HYSTERESIS", "int", "2",
+    "resilience/detector.py",
+    "Failure detector: consecutive good observations required to "
+    "leave SUSPECT (recovery hysteresis; death is never gated)")
+register_knob(
+    "HVD_DETECTOR_FLAP_WINDOW_S", "float", "30",
+    "resilience/detector.py",
+    "Failure detector: flap-damping window — recoveries inside it "
+    "count against HVD_DETECTOR_FLAP_MAX")
+register_knob(
+    "HVD_DETECTOR_FLAP_MAX", "int", "4",
+    "resilience/detector.py",
+    "Failure detector: recoveries allowed per flap window before the "
+    "peer is damped (held at SUSPECT — drained, not resurrected — "
+    "until the window decays)")
+register_knob(
+    "HVD_RETRY_BUDGET", "int", str(DEFAULT_RETRY_BUDGET),
+    "runtime/config.py",
+    "Serving fleet: router retry-budget token-bucket capacity for "
+    "shed/failed submits (refills at capacity/60 per second; 0 "
+    "disables retries — first answer wins)")
+register_knob(
+    "HVD_DISAGG", "flag", "0",
+    "serving/disagg.py",
+    "Disaggregated serving: 1 makes ServingRouter construct a "
+    "DisaggRouter — requests prefill on a dedicated pool, migrate "
+    "their KV blocks to a decode pool at prefill-complete "
+    "(docs/serving.md \"Disaggregated serving\")")
+register_knob(
+    "HVD_DISAGG_PREFILL", "int", str(DEFAULT_DISAGG_PREFILL),
+    "serving/disagg.py",
+    "Disaggregated serving: prefill-pool replica count (sized "
+    "independently of the decode pool — the MPMD split's point)")
+register_knob(
+    "HVD_DISAGG_DECODE", "int", str(DEFAULT_DISAGG_DECODE),
+    "serving/disagg.py",
+    "Disaggregated serving: decode-pool replica count (the base "
+    "router fleet; HVD_ROUTER_REPLICAS is ignored when disagg is "
+    "on)")
+register_knob(
+    "HVD_DISAGG_TRANSFER", "str", DEFAULT_DISAGG_TRANSFER,
+    "serving/transfer.py",
+    "KV-block transfer mode between pools: 'host' bounces rows "
+    "through host memory, 'device' keeps them on the card for the "
+    "graft (one card; a cross-mesh re-commit is ROADMAP Queue A 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +471,23 @@ class Config:
         self.spec_k = env_int("HVD_SPEC_K", DEFAULT_SPEC_K)
         self.weight_quant = env_str("HVD_WEIGHT_QUANT")
         self.serve_mesh = env_str("HVD_SERVE_MESH")
+        self.router_replicas = env_int("HVD_ROUTER_REPLICAS",
+                                       DEFAULT_ROUTER_REPLICAS)
+        self.router_poll_s = env_float("HVD_ROUTER_POLL",
+                                       DEFAULT_ROUTER_POLL_S)
+        self.router_replacements = env_int(
+            "HVD_ROUTER_REPLACEMENTS", DEFAULT_ROUTER_REPLACEMENTS)
+        self.hedge_quantile = env_float("HVD_HEDGE_QUANTILE",
+                                        DEFAULT_HEDGE_QUANTILE)
+        self.retry_budget = env_int("HVD_RETRY_BUDGET",
+                                    DEFAULT_RETRY_BUDGET)
+        self.disagg = env_int("HVD_DISAGG", 0)
+        self.disagg_prefill = env_int("HVD_DISAGG_PREFILL",
+                                      DEFAULT_DISAGG_PREFILL)
+        self.disagg_decode = env_int("HVD_DISAGG_DECODE",
+                                     DEFAULT_DISAGG_DECODE)
+        self.disagg_transfer = env_str("HVD_DISAGG_TRANSFER",
+                                       DEFAULT_DISAGG_TRANSFER)
         self.preempt = env_int("HVD_PREEMPT", 0) != 0
         self.tenant_weights = env_str("HVD_TENANT_WEIGHTS")
         self.brownout = env_int("HVD_BROWNOUT", 1) != 0

@@ -12,24 +12,34 @@
   refcounted fixed-size blocks (block tables, copy-on-write,
   LRU-cached shared prompt prefixes) and the batched paged tick
   (paged-decode kernel on the card); `ServingEngine(paged=True)`.
-* `transfer` — digest-verified KV-block export/ingest (what swap
-  preemption shelves and re-grafts).
+* `router.ServingRouter` — fleet failover over N engine replicas:
+  health-gated + load-aware routing, retry budgets, hedged
+  slow-starters, and token-exact migration of in-flight streams off
+  dead replicas (docs/serving.md "Fleet failover").
+* `disagg.DisaggRouter` / `transfer` — disaggregated prefill/decode
+  placement: a prefill pool runs prompts, the KV blocks migrate
+  (digest-verified) into the decode pool's prefix cache, and the
+  stream resumes mid-flight token-exact (``ServingRouter(disagg=...)``
+  / ``HVD_DISAGG=1``); the same transfer is what swap preemption
+  shelves and re-grafts.
 * `admission`, `metrics`, `overload` — admission control, request
   metrics, preemption/brownout.
-
-Routing and disaggregation are later slices of the port.
 """
 
 from horovod_tpu_torch.serving.admission import (
-    DeadlineExceededError, EngineClosedError, QueueFullError,
-    SamplingParams, ServingError,
+    AdmissionQueue, DeadlineExceededError, EngineClosedError,
+    QueueFullError, SamplingParams, ServingError,
 )
+from horovod_tpu_torch.serving.disagg import DisaggRouter
 from horovod_tpu_torch.serving.engine import RequestHandle, ServingEngine
 from horovod_tpu_torch.serving.metrics import EngineMetrics
 from horovod_tpu_torch.serving.scheduler import (
     CompletedRequest, ContinuousBatchingScheduler,
 )
 from horovod_tpu_torch.serving.paging import BlockPool, PagedSlotPool
+from horovod_tpu_torch.serving.router import (
+    RetryBudget, RouterHandle, ServingRouter,
+)
 from horovod_tpu_torch.serving.slots import Admission, SlotPool
 from horovod_tpu_torch.serving.transfer import (
     BlockTransfer, TransferCompatError, TransferError,
@@ -38,11 +48,13 @@ from horovod_tpu_torch.serving.transfer import (
 )
 
 __all__ = [
-    "ServingEngine", "RequestHandle", "SamplingParams", "CompletedRequest",
-    "ContinuousBatchingScheduler", "SlotPool", "EngineMetrics",
+    "ServingEngine", "RequestHandle", "CompletedRequest",
+    "SamplingParams", "SlotPool", "ContinuousBatchingScheduler",
+    "AdmissionQueue", "EngineMetrics", "ServingError",
     "QueueFullError", "DeadlineExceededError", "EngineClosedError",
-    "ServingError", "Admission", "BlockPool", "PagedSlotPool",
-    "BlockTransfer", "TransferError", "TransferExportError",
-    "TransferCompatError", "TransferVerifyError", "export_blocks",
-    "ingest_blocks",
+    "Admission", "BlockPool", "PagedSlotPool",
+    "ServingRouter", "RouterHandle", "RetryBudget",
+    "DisaggRouter", "BlockTransfer", "TransferError",
+    "TransferExportError", "TransferCompatError",
+    "TransferVerifyError", "export_blocks", "ingest_blocks",
 ]

@@ -236,7 +236,7 @@ class ServingEngine:
         if mesh is not None or _cfg.serve_mesh.strip():
             raise NotImplementedError(
                 "mesh / HVD_SERVE_MESH (sharded serving): a later slice "
-                "of the PyTorch port")
+                "of the PyTorch port (ROADMAP Queue A 8)")
         # Weight-only int8 at the engine door: the block kernels become
         # int8 codes plus per-channel scales.
         if weight_quant is None:
@@ -400,8 +400,11 @@ class ServingEngine:
         # mid-prefill / queued requests with their trace_ids.
         _flightrec.register_inflight(
             f"serving_engine_{self._engine_id}", self._inflight_states)
-        # The HTTP metrics exporter (HVD_METRICS_PORT) is a later slice
-        # of the port; the registry above is what it will serve.
+        # Env-gated exporter bring-up (no-op unless HVD_METRICS_PORT
+        # is set): a serving process that never calls init() still
+        # honors the knob.
+        from horovod_tpu_torch.obs.exporter import start_exporter
+        start_exporter()
         self._watchdog: Optional[threading.Thread] = None
         self._wd_stop = threading.Event()
         if auto_restart:
@@ -657,6 +660,16 @@ class ServingEngine:
                      trace_id=req.trace_id,
                      prompt_tokens=P, max_new_tokens=max_new_tokens)
         return RequestHandle(req)
+
+    def release_device_memory(self):
+        """Free the KV of a shut-down engine's pool: a router calls it
+        for a dead replica before building the replacement, so one card
+        never holds both replicas' pools. Raises `RuntimeError` while
+        the dispatch thread still runs."""
+        if self._thread.is_alive():
+            raise RuntimeError("release_device_memory on an engine whose "
+                               "dispatch thread still runs")
+        self.pool.release()
 
     def offer_transfer(self, transfer) -> bool:
         """Enqueue an inbound KV-block transfer (serving/transfer.py)

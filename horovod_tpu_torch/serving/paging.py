@@ -20,8 +20,8 @@ This module is the vLLM-style fix, in two halves:
   the tick run the paged primitives of `models.transformer`
   (`paged_prefill_chunk`, `paged_decode_tick`) over per-layer block
   pools read through the block tables; the tick ring (pinned host
-  buffers + CUDA events) and per-request `torch.Generator` sampling
-  are `serving.slots.SlotPool`'s.
+  buffers + CUDA events) and per-request threefry sampling
+  (`serving.slots.LaneKeys`) are `serving.slots.SlotPool`'s.
 
 Shared-prefix caching: admission hashes the prompt's block-aligned
 prefix chain (`BlockPool.match`) against resident blocks, PINS the
@@ -55,15 +55,16 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.annotations import hot_path
+from horovod_tpu_torch.ops import threefry
 from horovod_tpu_torch.models.transformer import (
-    TransformerLM, _gumbel, init_paged_pools, init_slot_cache,
+    TransformerLM, init_paged_pools, init_slot_cache,
     paged_cache_spec, paged_copy_block, paged_decode_tick,
     paged_prefill_chunk, paged_spec_round, prefill_chunks,
     slot_decode_model, slot_prefill_advance, slot_reset,
 )
 from horovod_tpu_torch.serving.slots import (
-    Admission, TickHandle, _first_token, read_round, resolve_spec_draft,
-    spec_k_eff, validate_spec_draft,
+    Admission, LaneKeys, TickHandle, _first_token, read_round,
+    resolve_spec_draft, spec_k_eff, validate_spec_draft,
 )
 
 
@@ -595,8 +596,7 @@ class PagedSlotPool:
         self._top_ps = torch.ones(num_slots, device=dev)
         self._live = torch.zeros(num_slots, dtype=torch.bool, device=dev)
         self._done = torch.zeros(num_slots, dtype=torch.bool, device=dev)
-        self._gens: List[Optional[torch.Generator]] = [None] * num_slots
-        self._sampled: set = set()
+        self._keys = LaneKeys(num_slots)
         self._free_lanes: List[int] = list(range(num_slots))
         # Host-side admission state: what admit() granted, consumed by
         # begin_prefill/finish_prefill; plus a CONSERVATIVE per-lane
@@ -639,6 +639,11 @@ class PagedSlotPool:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def release(self):
+        """Drop the block pools (and a draft's cache) of a pool whose
+        engine has stopped for good, as `SlotPool.release` does."""
+        self._pools = self._drf_cache = None
 
     def clone_fresh(self) -> "PagedSlotPool":
         """The watchdog's restart primitive: a brand-new pool — fresh
@@ -798,21 +803,14 @@ class PagedSlotPool:
         self.maybe_compiling = ("first_token",) not in self._seen_shapes
         try:
             tp = 1.0 if top_p is None else float(top_p)
-            gen = None
-            if temperature > 0:
-                gen = torch.Generator(device=self.device).manual_seed(
-                    int(seed))
-            tok = _first_token(logits, float(temperature), tp, gen,
-                               int(rng_skip))
+            tok, rng = _first_token(logits, float(temperature), tp,
+                                    threefry.prng_key(seed),
+                                    int(rng_skip))
             self._note_shape(("first_token",))
             self._toks[slot] = tok
             self._temps[slot] = float(temperature)
             self._top_ps[slot] = tp
-            self._gens[slot] = gen
-            if gen is not None:
-                self._sampled.add(slot)
-            else:
-                self._sampled.discard(slot)
+            self._keys.install(slot, rng)
             self._live[slot] = True
             self._done[slot] = self.eos_id is not None and tok == self.eos_id
             info = self._admit_info.pop(slot, None)
@@ -852,7 +850,7 @@ class PagedSlotPool:
     def fork(self, slot: int) -> Optional[int]:
         """Clone lane ``slot`` into a fresh lane sharing its ENTIRE
         block chain (refcounted — zero KV bytes copied up front):
-        sampling state (the generator's state included), fill and done
+        sampling state (the threefry key included), fill and done
         flag are duplicated, so both lanes continue from the identical
         sequence state. The first append by either lane into the shared
         tail block triggers copy-on-write. None when no lane is free."""
@@ -863,12 +861,7 @@ class PagedSlotPool:
         for t in (self._tables, self._fills, self._toks, self._temps,
                   self._top_ps, self._live, self._done):
             t[dst] = t[slot]
-        gen = self._gens[slot]
-        if gen is not None:
-            twin = torch.Generator(device=gen.device)
-            twin.set_state(gen.get_state())
-            self._gens[dst] = twin
-            self._sampled.add(dst)
+        self._keys.copy(slot, dst)
         self._est_fill[dst] = self._est_fill[slot]
         if slot in self._ticking:
             self._ticking.add(dst)
@@ -909,17 +902,6 @@ class PagedSlotPool:
 
     # -- the tick (split for pipelining) ------------------------------
 
-    def _noise(self) -> Optional[torch.Tensor]:
-        """Per-lane Gumbel noise for the sampled lanes (one draw each
-        from its request's generator); None when every lane is greedy."""
-        if not self._sampled:
-            return None
-        V = self.model.vocab_size
-        noise = torch.zeros(self.num_slots, V, device=self.device)
-        for slot in sorted(self._sampled):
-            noise[slot] = _gumbel((V,), self._gens[slot], self.device)
-        return noise
-
     @hot_path
     def tick_dispatch(self) -> TickHandle:
         """Enqueue one paged decode tick over every lane and start the
@@ -940,7 +922,8 @@ class PagedSlotPool:
             self._toks, self._done = paged_decode_tick(
                 self.model, self.spec, self._pools, self._tables,
                 self._fills, self._toks, self._temps, self._top_ps,
-                self._noise(), self._live, self._done, self._eos,
+                self._keys.noise(self.model.vocab_size, self.device),
+                self._live, self._done, self._eos,
                 paged_kernel=self.kernel_mode, prefix_len=bound)
             self._note_shape(("paged_tick",))
         finally:
@@ -1065,6 +1048,5 @@ class PagedSlotPool:
         self._toks[slot] = 0
         self._temps[slot] = 0.0
         self._top_ps[slot] = 1.0
-        self._gens[slot] = None
-        self._sampled.discard(slot)
+        self._keys.install(slot, None)
         self._free_lanes.append(slot)

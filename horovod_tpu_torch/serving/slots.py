@@ -4,7 +4,7 @@ Counterpart of `horovod_tpu.serving.slots`. The pool is a `KVCache`
 whose lanes are the decode slots (`models.transformer`'s slot
 primitives); this module adds the host bookkeeping the scheduler
 needs: a free list, per-slot sampling state (temperature, top_p and a
-per-request `torch.Generator`), per-slot live/done occupancy flags, and
+per-request threefry key), per-slot live/done occupancy flags, and
 reset-on-retire hygiene.
 
 Slot lifecycle::
@@ -27,25 +27,28 @@ slot cache, prefilled chunk for chunk beside the target's, and
 retires 1..k+1 tokens per lane, greedy only, with ONE device-to-host
 read per round.
 
-Sampling: each request owns a `torch.Generator` seeded from its seed;
-every token it samples draws one Gumbel-noise vector from it, so the
-stream is keyed by token ordinal and independent of the slot and the
-batch. Greedy requests draw nothing. Streams do not reproduce
-`jax.random`'s threefry bits.
+Sampling: each request owns a threefry key, ``PRNGKey(seed)`` split as
+the JAX package splits it (`ops.threefry`): ``rng, r0 = split(key)``
+for the first token, then ``rng, r = split(rng)`` each tick, ``r``
+keying the lane's Gumbel noise. The stream is keyed by token ordinal,
+independent of the slot and the batch, and equals the reference's for
+the same seed. Keys live on the host (`LaneKeys`); greedy requests
+hold none.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from horovod_tpu_torch.annotations import hot_path
+from horovod_tpu_torch.ops import threefry
 from horovod_tpu_torch.models.transformer import (
-    TransformerLM, _gumbel, init_slot_cache, prefill_chunks, sample_token,
+    TransformerLM, init_slot_cache, prefill_chunks, sample_token,
     slot_decode_model, slot_decode_tick, slot_prefill_advance,
     slot_prefill_chunk, slot_reset, slot_spec_round,
 )
@@ -112,25 +115,68 @@ def read_round(emitted, n_emit, proposed):
 
 @torch.no_grad()
 def _first_token(logits: torch.Tensor, temp: float, top_p: float,
-                 generator: Optional[torch.Generator],
-                 skips: int) -> int:
-    """First-token sample closing a prefill, from [V] f32 logits.
+                 key: Optional[np.ndarray], skips: int
+                 ) -> Tuple[int, Optional[np.ndarray]]:
+    """First-token sample closing a prefill, from [V] f32 logits: split
+    the request key exactly as `generate` does (``rng, r0 =
+    split(key)``; the tick keeps splitting ``rng``). Returns ``(token,
+    rng)``; ``key`` and ``rng`` are None for a greedy request.
 
-    ``skips`` (normally 0) discards that many noise draws first — the
-    forced-prefix continuation hook: a request resubmitted with its
-    first k generated tokens folded into the prompt samples token k+1
-    from the draw the original stream would have used (one draw per
-    sampled token). The int() readback is the one per-request sync."""
-    noise = None
+    ``skips`` (normally 0) advances the key by that many carry-splits
+    first — the forced-prefix continuation hook: a request resubmitted
+    with its first k generated tokens folded into the prompt samples
+    token k+1 from the SAME key the original stream would have used
+    (each token consumes one split). The int() readback is the one
+    per-request sync."""
+    noise = rng = None
     if temp > 0:
-        for _ in range(skips):
-            _gumbel(logits.shape, generator, logits.device)
-        noise = _gumbel(logits.shape, generator, logits.device)[None]
+        rng, r0 = threefry.split(threefry.advance(key, skips))
+        noise = threefry.gumbel(r0, logits.shape, device=logits.device)
+        noise = noise[None]
     dev = logits.device
     tok = sample_token(logits[None], torch.full((1,), temp, device=dev),
                        torch.full((1,), top_p, device=dev), noise)
     # hvd: disable=HVD001(the ONE designed per-request sync — TTFT wants the first token now)
-    return int(tok[0])
+    return int(tok[0]), rng
+
+
+class LaneKeys:
+    """The host side of a pool's sampling: one threefry key per sampled
+    lane. `install` sets a lane's key when its first token is drawn;
+    `noise` splits every sampled lane's key once (``rng, r =
+    split(rng)``, the reference tick's split) and draws the lanes'
+    Gumbel noise on the device in one batched call keyed by the
+    ``r``s. Greedy lanes hold no key and their noise rows are unused."""
+
+    def __init__(self, num_slots: int):
+        self.keys = np.zeros((num_slots, 2), np.uint32)
+        self.sampled: set = set()
+
+    def install(self, slot: int, rng: Optional[np.ndarray]):
+        """Set ``slot``'s key (None: the lane is greedy)."""
+        if rng is None:
+            self.sampled.discard(slot)
+        else:
+            self.keys[slot] = rng
+            self.sampled.add(slot)
+
+    def copy(self, src: int, dst: int):
+        """``dst`` continues ``src``'s stream (a fork or a preemption
+        twin): a copy of the key pair."""
+        self.install(dst, self.keys[src].copy() if src in self.sampled
+                     else None)
+
+    def noise(self, vocab: int, device) -> Optional[torch.Tensor]:
+        """[num_slots, vocab] Gumbel noise for this tick (None when no
+        lane samples), advancing each sampled lane's key by one split."""
+        if not self.sampled:
+            return None
+        lanes = sorted(self.sampled)
+        pairs = threefry.split(self.keys[lanes])
+        self.keys[lanes] = pairs[:, 0]
+        draw = np.zeros_like(self.keys)
+        draw[lanes] = pairs[:, 1]
+        return threefry.gumbel(draw, (vocab,), device=device)
 
 
 @dataclass(frozen=True)
@@ -199,10 +245,9 @@ class SlotPool:
         self._top_ps = torch.ones(num_slots, device=dev)
         self._live = torch.zeros(num_slots, dtype=torch.bool, device=dev)
         self._done = torch.zeros(num_slots, dtype=torch.bool, device=dev)
-        # Host mirror of the sampling state: lanes with temperature > 0
-        # and their per-request generators (the tick draws their noise).
-        self._gens: List[Optional[torch.Generator]] = [None] * num_slots
-        self._sampled: set = set()
+        # Host mirror of the sampling state: the sampled lanes' keys
+        # (the tick draws their noise).
+        self._keys = LaneKeys(num_slots)
         self._free: List[int] = list(range(num_slots))
         # Host mirror of each slot's fill (prompt tokens streamed in so
         # far, plus the tokens spec rounds emitted — an upper bound, as
@@ -339,21 +384,14 @@ class SlotPool:
         self.maybe_compiling = ("first_token",) not in self._seen_shapes
         try:
             tp = 1.0 if top_p is None else float(top_p)
-            gen = None
-            if temperature > 0:
-                gen = torch.Generator(device=self.device).manual_seed(
-                    int(seed))
-            tok = _first_token(logits, float(temperature), tp, gen,
-                               int(rng_skip))
+            tok, rng = _first_token(logits, float(temperature), tp,
+                                    threefry.prng_key(seed),
+                                    int(rng_skip))
             self._note_shape(("first_token",))
             self._toks[slot] = tok
             self._temps[slot] = float(temperature)
             self._top_ps[slot] = tp
-            self._gens[slot] = gen
-            if gen is not None:
-                self._sampled.add(slot)
-            else:
-                self._sampled.discard(slot)
+            self._keys.install(slot, rng)
             self._live[slot] = True
             # A first token that IS eos arms the on-device stop at once.
             self._done[slot] = self.eos_id is not None and tok == self.eos_id
@@ -377,17 +415,6 @@ class SlotPool:
 
     # -- the tick (split for pipelining) ------------------------------
 
-    def _noise(self) -> Optional[torch.Tensor]:
-        """Per-lane Gumbel noise for the sampled lanes (one draw each
-        from its request's generator); None when every lane is greedy."""
-        if not self._sampled:
-            return None
-        V = self.model.vocab_size
-        noise = torch.zeros(self.num_slots, V, device=self.device)
-        for slot in sorted(self._sampled):
-            noise[slot] = _gumbel((V,), self._gens[slot], self.device)
-        return noise
-
     @hot_path
     def tick_dispatch(self) -> TickHandle:
         """Enqueue one batched decode tick over every slot and start
@@ -396,8 +423,9 @@ class SlotPool:
         try:
             self._toks, self._done = slot_decode_tick(
                 self.dec_model, self._cache, self._toks, self._temps,
-                self._top_ps, self._noise(), self._live, self._done,
-                self._eos)
+                self._top_ps,
+                self._keys.noise(self.model.vocab_size, self.device),
+                self._live, self._done, self._eos)
             self._note_shape(("tick",))
         finally:
             self.maybe_compiling = False
@@ -479,6 +507,12 @@ class SlotPool:
         return {"compiles": self.compiles - before,
                 "seconds": time.time() - t0, "prefill_sizes": sizes}
 
+    def release(self):
+        """Drop the KV caches of a pool whose engine has stopped for
+        good (a router's dead replica), so their device memory serves
+        the replacement; the pool takes no device call afterwards."""
+        self._cache = self._drf_cache = None
+
     def free(self, slot: int):
         """Retire a slot: zero its rows, clear its flags and sampling
         state, and return it to the free list."""
@@ -493,6 +527,5 @@ class SlotPool:
         self._toks[slot] = 0
         self._temps[slot] = 0.0
         self._top_ps[slot] = 1.0
-        self._gens[slot] = None
-        self._sampled.discard(slot)
+        self._keys.install(slot, None)
         self._free.append(slot)

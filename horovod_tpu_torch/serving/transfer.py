@@ -1,11 +1,14 @@
-"""KV-block transfer between paged pools: what swap preemption shelves
-and re-grafts.
+"""KV-block transfer between paged pools: the prefill -> decode handoff
+of disaggregated serving (`serving.disagg`), and what swap preemption
+shelves and re-grafts.
 
-Counterpart of `horovod_tpu.serving.transfer`, host mode only. The
-wire format and its two primitives:
+Counterpart of `horovod_tpu.serving.transfer`. The wire format and its
+two primitives:
 
 * **`export_blocks`** — pull a prompt's FULL resident block rows out of
-  a `PagedSlotPool` as host tensors, stamped with two digest layers:
+  a `PagedSlotPool` as host tensors (``mode="host"``) or as tensors on
+  the pool's device (``mode="device"``: on one card the rows stay CUDA
+  tensors for the graft), stamped with two digest layers:
   the allocator's blake2b *chain* digests (each block's identity
   commits to the entire token prefix behind it) and per-block *byte*
   digests over the exported KV rows themselves, bound to the chain.
@@ -21,16 +24,18 @@ Any failure — geometry mismatch, digest mismatch (the
 ``disagg.block_corrupt`` chaos site flips a byte here), an export that
 raced the allocator — raises a typed `TransferError`; callers fall
 back to token-level forced-prefix recompute, and the stream stays
-token-exact either way. Rows leave the device with one ``.cpu()`` per
-export: a host sync, once per preemption, off the tick ring.
-Device-resident transfers between meshes (the JAX package's
-``mode="device"``) are a later slice of the port.
+token-exact either way. The digests read host bytes once per export
+in either mode (a host sync, once per handoff, off the tick ring).
+A re-commit of the rows under another mesh's layouts (the JAX
+package's ``shard_paged_pools`` after a cross-mesh graft) belongs to
+the multi-GPU slice of the port (ROADMAP Queue A 8) and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -65,20 +70,33 @@ class TransferVerifyError(TransferError):
 
 @dataclasses.dataclass(frozen=True)
 class BlockTransfer:
-    """One handoff manifest: the prompt it came from, the block rows
-    (one stacked CPU tensor per pool, in `gather_block_rows`' leaf
-    order: layer 0 K, layer 0 V, then under int8 KV layer 0's K and V
-    scales [n, block_size, Hkv], then layer 1 ...; each row tensor
-    carries its leaf's dtype, which ingest checks against the
-    destination's), and the two digest layers binding them together."""
+    """One handoff manifest: the prompt it came from, the tokens the
+    prefill sampled, the block rows (one stacked tensor per pool, in
+    `gather_block_rows`' leaf order: layer 0 K, layer 0 V, then under
+    int8 KV layer 0's K and V scales [n, block_size, Hkv], then layer
+    1 ...; each row tensor carries its leaf's dtype, which ingest
+    checks against the destination's), and the two digest layers
+    binding them together.
+
+    ``rows`` are CPU tensors in ``"host"`` mode and tensors on the
+    source pool's device in ``"device"`` mode; everything else is host
+    metadata."""
 
     prompt: np.ndarray                       # int64 [P]
+    emitted: Tuple[int, ...]                 # tokens prefill sampled
     block_size: int
     chain_digests: Tuple[bytes, ...]         # allocator prefix chain
     byte_digests: Tuple[bytes, ...]          # KV-row content x chain
     rows: List                               # per-leaf [n, bs, Hkv(, D)]
+    kv_shapes: Tuple[Tuple[int, ...], ...]   # per-leaf row shape [1:]
+    kv_dtypes: Tuple[str, ...]
+    mode: str = "host"
+    # Causal-span parent for the transfer.* spans the ingest side
+    # emits: the exporter's handoff span id, so both halves of the
+    # handoff hang under ONE node of the request's trace tree.
     trace_id: str = ""
     parent_span: str = ""
+    t_export: float = 0.0
 
     @property
     def num_blocks(self) -> int:
@@ -106,7 +124,8 @@ def _byte_digest(leaf_rows: List[torch.Tensor], chain: bytes) -> bytes:
     return h.digest()
 
 
-def export_blocks(pool, prompt, *, trace_id: str = "",
+def export_blocks(pool, prompt, emitted=(), *, mode: str = "host",
+                  trace_id: str = "",
                   parent_span: str = "") -> Optional[BlockTransfer]:
     """Extract ``prompt``'s full resident prefix blocks from a
     `PagedSlotPool` as a `BlockTransfer`, or None when there is nothing
@@ -117,7 +136,12 @@ def export_blocks(pool, prompt, *, trace_id: str = "",
     an epoch check — the allocator's ``_epoch`` is recorded before the
     digest lookup and re-checked after the host read, and a bump in
     between (an evict recycling one of the blocks) retries the export.
-    The read is stream-ordered after every tick already dispatched."""
+    The read is stream-ordered after every tick already dispatched.
+    ``emitted`` records the tokens the source sampled (the decode side
+    resumes after them)."""
+    if mode not in ("host", "device"):
+        raise ValueError(
+            f"transfer mode must be host|device, got {mode!r}")
     blocks = getattr(pool, "blocks", None)
     if blocks is None or not getattr(blocks, "prefix_cache", False):
         return None
@@ -128,7 +152,7 @@ def export_blocks(pool, prompt, *, trace_id: str = "",
     if n == 0:
         return None
     sid = _spans.begin_span("transfer.export", trace_id=trace_id,
-                            parent_id=parent_span, mode="host")
+                            parent_id=parent_span, mode=mode)
     chain = blocks._chain(prompt, n)
     for _ in range(_EXPORT_RETRIES):
         epoch = blocks._epoch
@@ -141,18 +165,25 @@ def export_blocks(pool, prompt, *, trace_id: str = "",
         if not bids:
             _spans.end_span(sid, status="not_resident")
             return None
-        # hvd: disable=HVD001(the transfer's designed host bounce — export runs off the decode tick ring, once per handoff)
-        rows = [r.cpu() for r in gather_block_rows(pool._pools, bids)]
+        rows = gather_block_rows(pool._pools, bids)
+        # hvd: disable=HVD001(the transfer's designed host bounce — export runs off the decode tick ring, once per handoff; device mode reads the bytes for the digests only)
+        host_rows = [r.cpu() for r in rows]
+        if mode == "host":
+            rows = host_rows
         if blocks._epoch != epoch:
             continue   # an evict/alloc raced the gather — retry
         m = len(bids)
         byte_digests = tuple(
-            _byte_digest([r[i] for r in rows], chain[i])
+            _byte_digest([r[i] for r in host_rows], chain[i])
             for i in range(m))
         tr = BlockTransfer(
-            prompt=prompt, block_size=bs, chain_digests=tuple(chain[:m]),
-            byte_digests=byte_digests, rows=rows, trace_id=trace_id,
-            parent_span=parent_span)
+            prompt=prompt, emitted=tuple(int(t) for t in emitted),
+            block_size=bs, chain_digests=tuple(chain[:m]),
+            byte_digests=byte_digests, rows=rows,
+            kv_shapes=tuple(tuple(r.shape[1:]) for r in rows),
+            kv_dtypes=tuple(str(r.dtype) for r in rows),
+            mode=mode, trace_id=trace_id, parent_span=parent_span,
+            t_export=time.time())
         _spans.end_span(sid, status="ok", blocks=m, bytes=tr.nbytes)
         return tr
     _spans.end_span(sid, status="raced")
@@ -200,6 +231,11 @@ def ingest_blocks(pool, tr: BlockTransfer) -> int:
     blocks = getattr(pool, "blocks", None)
     if blocks is None or not getattr(blocks, "prefix_cache", False):
         return 0
+    if getattr(pool, "mesh", None) is not None:
+        raise NotImplementedError(
+            "re-committing transferred blocks under a mesh's layouts "
+            "(sharded serving): a later slice of the PyTorch port "
+            "(ROADMAP Queue A 8)")
     m = tr.num_blocks
     vsid = _spans.begin_span("transfer.verify", trace_id=tr.trace_id,
                              parent_id=tr.parent_span, blocks=m)
@@ -211,10 +247,11 @@ def ingest_blocks(pool, tr: BlockTransfer) -> int:
                 f"manifest arity mismatch: {m} chain digests, "
                 f"{len(tr.byte_digests)} byte digests, rows "
                 f"{[len(r) for r in tr.rows]}")
-        # Copies for verification (and for the corrupt drill — flipping
-        # the copy models a wire fault without touching the caller's
-        # buffers).
-        rows_h = [r.clone() for r in tr.rows]
+        # Host copies for verification (and for the corrupt drill —
+        # flipping the copy models a wire fault without touching the
+        # caller's buffers).
+        # hvd: disable=HVD001(verify wants host bytes; once per handoff, off the tick ring)
+        rows_h = [r.cpu().clone() for r in tr.rows]
         if chaos.fires("disagg.block_corrupt"):
             rows_h[0].view(torch.uint8).view(-1)[0] ^= 0xFF
         # Layer 1: the chain digests must be the prompt's own chain.
@@ -238,7 +275,7 @@ def ingest_blocks(pool, tr: BlockTransfer) -> int:
     isid = _spans.begin_span("transfer.ingest", trace_id=tr.trace_id,
                              parent_id=tr.parent_span, blocks=m)
     leaves = _leaves(pool)
-    rows_dev = [r.to(leaves[k].device) for k, r in enumerate(rows_h)]
+    rows_dev = [r.to(leaves[k].device) for k, r in enumerate(tr.rows)]
     # Adopt in chain order; stop before cannibalizing our own chain
     # (evicting an earlier grafted block to make room for a later one
     # would break the contiguous prefix `match` needs).

@@ -116,14 +116,17 @@ class StallMonitor:
             from horovod_tpu_torch.obs import catalog as _obs_catalog
             from horovod_tpu_torch.obs import events as _events
             from horovod_tpu_torch.obs import flightrec as _flightrec
+            from horovod_tpu_torch.obs import straggler as _straggler
             _obs_catalog.resilience_metrics()["stalls"].inc(
                 len(stalled))
-            # The port has no cross-rank straggler tracker yet, so the
-            # stall event carries no straggler attribution.
+            # The straggler link (obs/straggler.py): a stall warning
+            # arrives with the newest cross-rank attribution attached.
+            rep = _straggler.last_report()
+            extra = ({"straggler": rep} if rep else {})
             for name in stalled:
                 _events.emit(
                     "stall", op=name,
-                    threshold_s=self._warning_time)
+                    threshold_s=self._warning_time, **extra)
             # A stall trip is a flight-recorder trigger (no-op unless
             # HVD_FLIGHT_DIR is set): the bundle captures the pending
             # ops, the in-flight requests and the metric state the

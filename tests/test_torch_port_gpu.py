@@ -795,3 +795,57 @@ def test_cuda_rolling_cache_matches_cpu_run():
     prompt = torch.from_numpy(rs.randint(0, 128, (2, 20)))
     want = generate(cpu, prompt, 70)
     assert torch.equal(generate(card, prompt.to(dev), 70).cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_threefry_bits_equal_cpu():
+    """Threefry on the card: random bits, uniforms and the batched
+    per-lane draw are bitwise the CPU's (int64 add/rotate/xor only);
+    the Gumbel noise agrees within the rule of
+    tests/test_torch_port_threefry.py (ulp + 2**-23)."""
+    dev = _card()
+    from horovod_tpu_torch.ops import threefry
+    keys = np.stack([threefry.prng_key(s) for s in (0, 7, 2 ** 32 + 5)])
+    for key in (keys[1], keys):
+        shape = (4, 1000) if key.ndim == 1 else (32768,)
+        bits = threefry.random_bits(key, shape, device=dev)
+        assert bits.is_cuda
+        assert torch.equal(bits.cpu(), threefry.random_bits(key, shape))
+        u = threefry.uniform(key, shape, device=dev).cpu()
+        assert torch.equal(u, threefry.uniform(key, shape))
+        g = threefry.gumbel(key, shape, device=dev).cpu().numpy()
+        gc = threefry.gumbel(key, shape).numpy()
+        assert np.all(np.abs(g - gc) <= np.spacing(np.abs(gc)) + 2.0 ** -23)
+    np.testing.assert_array_equal(threefry.split(keys),
+                                  np.stack([threefry.split(k)
+                                            for k in keys]))
+
+
+@pytest.mark.gpu
+def test_cuda_device_mode_export_ingest_roundtrip():
+    """``export_blocks(mode="device")`` keeps the rows as CUDA tensors
+    and the graft into a second paged engine on the card gives the
+    single engine's stream, with the prompt's full blocks matched."""
+    dev = _card()
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    from horovod_tpu_torch.serving import (ServingEngine, export_blocks,
+                                           ingest_blocks)
+    model = TransformerLM(128, 2, 4, 64, max_len=64, dtype=torch.float32,
+                          device=dev).init_weights(5)
+    prompt = np.random.RandomState(2).randint(0, 128, (34,))
+    kw = dict(num_slots=2, paged=True, kv_block_size=16)
+    with ServingEngine(model, **kw) as eng:
+        ref = list(eng.submit(prompt, 8, temperature=0.8, seed=3)
+                   .result(timeout=300).tokens)
+    with ServingEngine(model, **kw) as eng:
+        first = eng.submit(prompt, 1).result(timeout=300)
+        tr = export_blocks(eng.pool, prompt, (int(first.tokens[0]),),
+                           mode="device")
+    assert tr.mode == "device" and tr.num_blocks == 2
+    assert all(r.is_cuda for r in tr.rows)
+    with ServingEngine(model, **kw) as eng:
+        assert ingest_blocks(eng.pool, tr) == 2
+        res = eng.submit(prompt, 8, temperature=0.8, seed=3).result(
+            timeout=300)
+    assert list(res.tokens) == ref
+    assert res.prefix_tokens_cached == 32

@@ -19,6 +19,7 @@ from horovod_tpu.models import transformer as jt
 from horovod_tpu.parallel.tensor import unbox
 from horovod_tpu_torch.compat.from_jax import params_from_jax
 from horovod_tpu_torch.models import transformer as tt
+from horovod_tpu_torch.ops import threefry
 
 VOCAB, LAYERS, HEADS, HEAD_DIM, MAX_LEN = 64, 2, 4, 8, 32
 
@@ -137,19 +138,24 @@ def test_generate_eos_pads_after_stop(pairs):
 
 
 def test_generate_sampling_seeded_and_validated(pairs):
-    _, _, tm = pairs["gpt"]
-    prompt = torch.from_numpy(_tokens(1, 3, seed=1))
+    """Seeded sampling takes a threefry key (``rng=``) and reproduces
+    the JAX package's stream for the same seed, under top-k and top-p."""
+    jm, params, tm = pairs["gpt"]
+    prompt = _tokens(1, 3, seed=1)
 
     def run(seed, **kw):
-        g = torch.Generator().manual_seed(seed)
-        return tt.generate(tm, prompt, 10, temperature=0.8, generator=g,
+        return tt.generate(tm, torch.from_numpy(prompt), 10,
+                           temperature=0.8, rng=threefry.prng_key(seed),
                            **kw)
-    assert torch.equal(run(5, top_k=8), run(5, top_k=8))
-    assert torch.equal(run(5, top_p=0.9), run(5, top_p=0.9))
-    with pytest.raises(ValueError, match="generator"):
-        tt.generate(tm, prompt, 4, temperature=0.5)
+    for kw in ({"top_k": 8}, {"top_p": 0.9}):
+        assert torch.equal(run(5, **kw), run(5, **kw))
+        ref = jt.generate(jm, params, jnp.asarray(prompt), 10,
+                          temperature=0.8, rng=jax.random.PRNGKey(5), **kw)
+        assert run(5, **kw).tolist() == np.asarray(ref).tolist()
+    with pytest.raises(ValueError, match="rng"):
+        tt.generate(tm, torch.from_numpy(prompt), 4, temperature=0.5)
     with pytest.raises(ValueError, match="max_len"):
-        tt.generate(tm, prompt, MAX_LEN)
+        tt.generate(tm, torch.from_numpy(prompt), MAX_LEN)
 
 
 def test_serving_params_casts_matrices_only(pairs):

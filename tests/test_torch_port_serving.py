@@ -148,7 +148,7 @@ def test_shutdown_drain_resolves_everything(lm):
 
 
 def test_seeded_sampling_reproducible_and_resumable(lm):
-    """Per-request generators: the same seed gives the same stream in
+    """Per-request threefry keys: the same seed gives the same stream in
     any slot/batch mix, and a forced-prefix resume continues it."""
     _, _, port = lm
     p = np.arange(3, 9)
@@ -259,6 +259,14 @@ def test_import_leaves_jax_out():
             "horovod_tpu_torch.ops.compression, "
             "horovod_tpu_torch.ops.sparse, horovod_tpu_torch.callbacks, "
             "horovod_tpu_torch.utils.timeline, "
+            "horovod_tpu_torch.ops.threefry, "
+            "horovod_tpu_torch.serving.router, "
+            "horovod_tpu_torch.serving.disagg, "
+            "horovod_tpu_torch.obs.exporter, "
+            "horovod_tpu_torch.obs.aggregate, "
+            "horovod_tpu_torch.obs.straggler, "
+            "horovod_tpu_torch.resilience.detector, "
+            "horovod_tpu_torch.resilience.retry, "
             "horovod_tpu_torch.runner; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'optax')) or m == 'horovod_tpu' "

@@ -25,6 +25,7 @@ from horovod_tpu.parallel.tensor import unbox
 from horovod_tpu.serving import ServingEngine as JaxEngine
 from horovod_tpu_torch.compat.from_jax import params_from_jax
 from horovod_tpu_torch.models import transformer as tt
+from horovod_tpu_torch.ops import threefry
 from horovod_tpu_torch.parallel.tensor import rolling_keep
 from horovod_tpu_torch.serving import PagedSlotPool, ServingEngine
 
@@ -242,11 +243,11 @@ def test_generate_bucketed_token_exact_vs_jax(params, case):
 
 
 def test_generate_bucketed_refusals_and_seeded_streams(params):
-    """A 2-D prompt is refused in both packages. Under sampling each
-    bucket draws from its own generator, derived from the caller's
-    state and the bucket length without advancing it: the same state
-    gives the same rows, and a row differs from the one its prompt gets
-    when it shares the caller's generator directly."""
+    """A 2-D prompt is refused in both packages. Under sampling the
+    bucket of length-n prompts draws from ``fold_in(rng, n)`` as in the
+    JAX package: the caller's key is not consumed, the rows equal the
+    reference's, and a row differs from the one its prompt gets when it
+    uses the caller's key directly."""
     jm, p, tm = _pair(params, "gpt")
     bad = [np.zeros((2, 3), np.int32)]
     with pytest.raises(ValueError, match="1-D prompts"):
@@ -255,14 +256,15 @@ def test_generate_bucketed_refusals_and_seeded_streams(params):
         tt.generate_bucketed(tm, bad, 4)
     rs = np.random.RandomState(6)
     prompts = [rs.randint(0, VOCAB, (n,)) for n in (4, 6, 4)]
-    g = torch.Generator().manual_seed(11)
-    state = g.get_state()
-    a = tt.generate_bucketed(tm, prompts, 12, temperature=1.0, generator=g)
-    assert torch.equal(g.get_state(), state)
-    b = tt.generate_bucketed(tm, prompts, 12, temperature=1.0, generator=g)
+    key = threefry.prng_key(11)
+    a = tt.generate_bucketed(tm, prompts, 12, temperature=1.0, rng=key)
+    assert key.tolist() == threefry.prng_key(11).tolist()
+    b = tt.generate_bucketed(tm, prompts, 12, temperature=1.0, rng=key)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ref = jt.generate_bucketed(jm, p, [jnp.asarray(q) for q in prompts], 12,
+                               temperature=1.0, rng=jax.random.PRNGKey(11))
+    assert [x.tolist() for x in a] == [np.asarray(r).tolist() for r in ref]
     direct = tt.generate(tm, torch.from_numpy(np.stack([prompts[0],
                                                         prompts[2]])),
-                         12, temperature=1.0,
-                         generator=torch.Generator().manual_seed(11))
+                         12, temperature=1.0, rng=threefry.prng_key(11))
     assert not torch.equal(direct[0], a[0])
