@@ -3,8 +3,9 @@
 short call that builds, checks and times them without the model phases
 of `chip_smoke.py`.
 
-    python3 chip_probe.py [fwd] [decode] [paged] [sweep] [spec]
-                          # default: all but spec; one card, ~1 min each
+    python3 chip_probe.py [fwd] [decode] [paged] [sweep] [spec] [hf]
+                          # default: all but spec and hf; one card,
+                          # ~1 min each (hf: ~5 min)
 
 Builds every kernel (printing the ptxas lines of the forward and decode
 sources) and then, per part asked for:
@@ -24,6 +25,15 @@ sources) and then, per part asked for:
   `chip_smoke.SPEC_K`) over a ladder of noise shares (how
   `chip_smoke.SPEC_NOISE` was chosen), then phases 4, 4b and 8 of
   `chip_smoke.py`.
+* hf: phase 11's models over four (weight seed, prompt seed) pairs, the
+  first `chip_smoke.py`'s own: the teacher-forced logits (prefill + 8
+  ticks of the greedy tokens), kernels vs plain versions, in bf16 (how
+  `chip_smoke.HF_LOGIT_TOL` was chosen) beside the plain decode one key
+  short and losing half of each lane's keys, and in f32 beside the
+  decode one key short (how `chip_smoke.HF_F32_LOGIT_TOL` was chosen);
+  for the first two pairs the f32 paged teacher forcing at the model's
+  own tables (`chip_smoke.paged_teacher_forced`, 4 ticks, timed); then the
+  kernels line's rows of each model (`chip_smoke.time_coverage`).
 
 A failing case is printed and the probe goes on to the next. With
 decode or paged it then times both decode ticks as `chip_smoke.py`
@@ -168,6 +178,71 @@ def probe_spec(cs, tfa, tpa, dev):
     print(f"phase 8: {time.time() - t0:.1f} s", flush=True)
 
 
+def probe_hf(cs, tfa, tpa, dev):
+    """Readings of phase 11's logits rules over seeds (see the module
+    docstring)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import generate
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    for what, tag, family, cfg, seed, pseed in cs.HF_MODELS:
+        for i in range(4):
+            w_seed, p_seed = seed + 10 * i, 17 + i
+            t0 = time.time()
+            model = cs.build_hf(family, cfg, dev, w_seed, torch.bfloat16)
+            prompt = cs.hf_prompt(model, dev, p_seed)
+            with torch.no_grad():
+                gen = generate(model, prompt, 8)[:, 512:]
+            k, p, f = cs.forced_logits(model, tfa, prompt, gen,
+                                       cs.one_key_short(tfa))
+            _, _, h = cs.forced_logits(
+                model, tfa, prompt, gen,
+                lambda q, k, v, n: tfa.flash_decode_plain(q, k, v,
+                                                          (n + 1) // 2))
+            print(f"hf {what} seeds ({w_seed}, {p_seed}) bf16: kernels vs "
+                  f"plain {err(k, p):.4f}, scale {float(p.abs().max()):.3f}"
+                  f", argmax agreement {cs.argmax_agreement(k, p):.3f}; "
+                  f"one key short {err(f, p):.4f}; half the keys lost "
+                  f"{err(h, p):.4f}", flush=True)
+            del model
+            torch.cuda.empty_cache()
+            model = cs.build_hf(family, cfg, dev, w_seed, torch.float32)
+            k, p, f = cs.forced_logits(model, tfa, prompt, gen,
+                                       cs.one_key_short(tfa))
+            print(f"hf {what} seeds ({w_seed}, {p_seed}) f32: kernels vs "
+                  f"plain {err(k, p):.4g}, scale {float(p.abs().max()):.3f}"
+                  f", argmax agreement {cs.argmax_agreement(k, p):.3f}; "
+                  f"one key short {err(f, p):.4g} ({time.time() - t0:.1f} "
+                  f"s)", flush=True)
+            if i < 2:
+                def key_short(q, k_new, v_new, table, fill, k_pool, v_pool):
+                    return tpa.paged_decode_cuda(
+                        q, k_new, v_new, table, (fill - 1).clamp(min=0),
+                        k_pool, v_pool)
+                t0 = time.time()
+                try:
+                    cs.paged_teacher_forced(
+                        model, tpa, dev, tol=1e-2,
+                        n_ticks=4, fault=key_short,
+                        what=f"hf {what} seeds ({w_seed}) f32 paged")
+                except Exception:
+                    traceback.print_exc()
+                print(f"hf {what} f32 paged teacher forcing "
+                      f"{time.time() - t0:.1f} s", flush=True)
+            del model
+            torch.cuda.empty_cache()
+        t0 = time.time()
+        try:
+            rows = cs.time_coverage(tfa, tpa, dev, cfg, pseed)
+            print(json.dumps({tag: rows}), flush=True)
+        except Exception:
+            traceback.print_exc()
+        print(f"hf {what} time_coverage {time.time() - t0:.1f} s",
+              flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -175,7 +250,7 @@ def main() -> int:
         return 2
     every = {"fwd", "decode", "paged", "sweep"}
     parts = set(sys.argv[1:]) or every
-    if not parts <= every | {"spec"}:
+    if not parts <= every | {"spec", "hf"}:
         print(f"chip_probe: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -224,6 +299,8 @@ def main() -> int:
         sweep_splits(cs, tfa, tpa, dev, g)
     if "spec" in parts:
         probe_spec(cs, tfa, tpa, dev)
+    if "hf" in parts:
+        probe_hf(cs, tfa, tpa, dev)
     print(f"nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     return 0
 

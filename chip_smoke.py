@@ -3,7 +3,7 @@
 NVIDIA H100: the quickest proof that the port builds, is right and
 serves on the card.
 
-    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~5 minutes
+    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~8 minutes
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
@@ -11,8 +11,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    the five CUDA kernels built from ``horovod_tpu_torch/csrc`` with
    nvcc, one process per source started together (the ``-Xptxas -v``
    register / shared-memory lines are printed). Each bf16 tensor-core
-   instantiation of the forward and backward kernels (forward, dQ,
-   dK/dV at D 64 and 128: six) reports its registers and spills
+   instantiation of the forward and backward kernels (forward at D 64,
+   128 and 256, dQ and dK/dV at D 64 and 128: seven) reports its
+   registers and spills
    (ptxas), its dynamic shared memory and its HGMMA (wgmma)
    instructions (cuobjdump -sass); a spill, or one with no HGMMA, fails
    the run.
@@ -206,12 +207,46 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    counters. (e) TTFT p50, TPOT p50 and tokens/s of (b) and (c) beside
    phase 4b's. (f) B4 launches >= ticks x 12 over each run's engines.
 
+11. The HF families at full width, the instantiations they bring, and
+   the first torch.profiler traces. (a) Gemma-1 2B (google/gemma-2b's
+   config: vocab 256000, 18 layers, 8 heads x 256 over 1 kv head,
+   GeGLU, 2.51 B params) and (b) Qwen2-0.5B (Qwen/Qwen2-0.5B's: vocab
+   151936, 24 layers, 14 heads x 64 over 2, qkv biases, tied head; its
+   max_position_embeddings cut to 4096 for the caches), each from
+   random HF-layout weights (seeded) mapped through
+   `compat.hf.from_hf_state_dict`: `generate` 4 x 512 -> 128, its
+   teacher-forced logits against the plain versions (HF_LOGIT_TOL of
+   the family, argmax agreement; the plain decode one key short, a
+   planted fault, must fail), a seeded `generate` (its
+   extra-split fault), and the paged engine (16 slots) over 16 requests
+   of 64..512 prompt tokens x 64 new. Then the same weights in f32:
+   the teacher-forced logits and phase 3b's paged teacher forcing at
+   the model's own tables, held to HF_F32_LOGIT_TOL, each refusing a
+   decode one key short. (c) The forward at [2,1024,8,256] (Hkv 1) and
+   [2,1024,14,64] (Hkv 2), both decode kernels at D = 256 groups 1 and
+   8, D = 128 group 6 and D = 64 groups 3, 5 and 7, f32 and bf16, each
+   against its plain version and its planted fault (the forward one key
+   short, the decode one key short, the paged table swap). (d) One
+   training step of phase 5 and one tick of phase 4b's paged pool
+   traced through `obs.profiler_session` and read by
+   `utils.profile_analysis`: top categories and kernels by device time,
+   the device's busy share of the window, and the launches of the
+   forward, dQ, dK/dV (12 each a step) and paged-decode (12 a tick)
+   kernels, which must match. The kernels line gains rows for each HF
+   model's path (``name@gemma-2b``, ``name@qwen2-0.5b``): the forward
+   at its prefill shape [4, 512], the decode tick at 4 lanes x 640
+   keys and the paged tick at its engine's 16 lanes, each kernel held
+   against its plain version (and a planted fault) on the very inputs
+   it is timed on.
+
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
 engine, training, training under PowerSGD, each speculative run, each
 phase-9 generate and engine run, each phase-10 generate, engine,
-router and disagg run) and read just after. Launches made to compare
-or time a kernel do not count.
+router and disagg run, each phase-11 generate and engine run) and read
+just after. Each HF model's runs count into its own rows of the
+kernels line. Launches made to compare or time a kernel, and the
+traced step and tick, do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
 
@@ -451,6 +486,7 @@ def report_wgmma_kernels(build):
     in its SASS); a spill, or an instantiation with no HGMMA, fails the
     run."""
     import ctypes
+    import re
     rows = {}
     for stem in WGMMA_SOURCES:
         lib = build.library(stem)
@@ -461,7 +497,7 @@ def report_wgmma_kernels(build):
         for name, info in ptxas_entries(build.ptxas_reports[stem]).items():
             if "wgmma" not in name:
                 continue
-            D = 128 if "ILi128E" in name else 64
+            D = int(re.search(r"ILi(\d+)E", name).group(1))
             info = dict(info, D=D, dynamic_smem_bytes=smem(D),
                         hgmma=sass.get(name, 0))
             rows[f"{stem} bf16 D={D}"] = info
@@ -473,9 +509,11 @@ def report_wgmma_kernels(build):
                 raise AssertionError(f"{stem} D={D} spills: {info}")
             if info["hgmma"] == 0:
                 raise AssertionError(f"{stem} D={D} issues no wgmma")
-    if len(rows) != 2 * len(WGMMA_SOURCES):
-        raise AssertionError(f"expected {2 * len(WGMMA_SOURCES)} wgmma "
-                             f"instantiations, found {sorted(rows)}")
+    want = {f"{stem} bf16 D={D}" for stem in WGMMA_SOURCES
+            for D in (64, 128)} | {"flash_fwd bf16 D=256"}
+    if set(rows) != want:
+        raise AssertionError(f"expected the wgmma instantiations "
+                             f"{sorted(want)}, found {sorted(rows)}")
     return rows
 
 
@@ -659,7 +697,7 @@ def check_decode(tfa, dev, g, errs):
 
 
 def paged_case(g, dev, dt, hkv, fills, *, bs=16, T=128, nb=None,
-               free=()):
+               free=(), H=8, D=128):
     """One paged-decode input set: one lane per fill over a pool of
     ``nb`` blocks (default: lanes x T + 1), each lane's table a random
     draw of T distinct pool blocks (lanes may share blocks, as prefix
@@ -668,15 +706,15 @@ def paged_case(g, dev, dt, hkv, fills, *, bs=16, T=128, nb=None,
     import torch
     L = len(fills)
     nb = nb or L * T + 1
-    kp = torch.randn(nb, bs, hkv, 128, device=dev, generator=g).to(dt)
-    vp = torch.randn(nb, bs, hkv, 128, device=dev, generator=g).to(dt)
+    kp = torch.randn(nb, bs, hkv, D, device=dev, generator=g).to(dt)
+    vp = torch.randn(nb, bs, hkv, D, device=dev, generator=g).to(dt)
     tables = torch.stack([
         torch.randperm(nb - 1, device=dev, generator=g)[:T] + 1
         for _ in range(L)]).int()
     tables[list(free)] = 0
-    q = torch.randn(L, 8, 128, device=dev, generator=g).to(dt)
-    kn = torch.randn(L, hkv, 128, device=dev, generator=g).to(dt)
-    vn = torch.randn(L, hkv, 128, device=dev, generator=g).to(dt)
+    q = torch.randn(L, H, D, device=dev, generator=g).to(dt)
+    kn = torch.randn(L, hkv, D, device=dev, generator=g).to(dt)
+    vn = torch.randn(L, hkv, D, device=dev, generator=g).to(dt)
     fill = torch.tensor(fills, dtype=torch.int32, device=dev)
     return q, kn, vn, tables, fill, kp, vp
 
@@ -1329,6 +1367,14 @@ def run_training(tfa, dev):
             if n < model.num_layers * TRAIN_STEPS:
                 raise AssertionError(f"{k} launched {n} < "
                                      f"{model.num_layers} x {TRAIN_STEPS}")
+        # 11d: one more step under the profiler (not counted above).
+        info["trace"] = traced(lambda: step(tokens), "training step "
+                               "(B=8 x 2048, AdamW)")
+        for k in wrappers:
+            n = info["trace"]["launches"][k]
+            if n != model.num_layers:
+                raise AssertionError(f"the traced step launched {k} {n} "
+                                     f"times, not {model.num_layers}")
         info.update(check_train_step(model, tfa, tokens[:2]))
         return info
     finally:
@@ -1586,7 +1632,8 @@ class plain_paged_decode:
         self.tpa.paged_decode_attention = self.saved
 
 
-def paged_teacher_forced(model, tpa, dev):
+def paged_teacher_forced(model, tpa, dev, *, tol=LOGIT_TOL, n_ticks=8,
+                         fault=None, what="paged"):
     """Phase 3b: teacher-forced logits on the paged primitives, the
     paged-decode kernel vs its plain version, at the paged engine's
     geometry: 16 lanes over 1025 blocks of 16 tokens, each lane's chain
@@ -1594,17 +1641,18 @@ def paged_teacher_forced(model, tpa, dev):
     0..12 are prefilled in 128-token chunks (`paged_prefill_chunk`)
     and then live; lane 12 ends its ticks at the fill == max_len
     boundary. Lanes 13 and 14 are prefilled and done, lane 15 is free.
-    Then 8 teacher-forced ticks over all 16 lanes as ONE batched call
-    each (`paged_decode_logits`, the engine tick's model half). The
-    plain decode run one key short (a planted fault) must fail the
-    same comparison, and the pools must hold rows exactly where the
-    lanes' fills put them: no write of a done, free or boundary lane
-    reaches a real block."""
+    Then ``n_ticks`` teacher-forced ticks over all 16 lanes as ONE
+    batched call each (`paged_decode_logits`, the engine tick's model
+    half), held to ``tol``. The decode one key short (a planted fault:
+    ``fault``, by default the plain version) must fail the same
+    comparison, and the pools must hold rows exactly where the lanes'
+    fills put them: no write of a done, free or boundary lane reaches a
+    real block."""
     import numpy as np
     import torch
     from horovod_tpu_torch.models import transformer as tt
     g = torch.Generator(device=dev).manual_seed(11)
-    L, n_ticks, bs, nb, chunk = 16, 8, 16, 1025, 128
+    L, bs, nb, chunk = 16, 16, 1025, 128
     W = model.max_len
     lens = [32, 47, 100, 128, 200, 255, 256, 300, 384, 420, 511, 512,
             W - n_ticks + 1, 160, 96, 0]
@@ -1635,7 +1683,7 @@ def paged_teacher_forced(model, tpa, dev):
     forced = torch.randint(0, model.vocab_size, (L, n_ticks), device=dev,
                            generator=g)
 
-    def run(snapshot=False):
+    def prefill():
         pools = tt.init_paged_pools(model, spec, nb)
         fills = torch.zeros(L, dtype=torch.int32, device=dev)
         outs = []
@@ -1647,13 +1695,17 @@ def paged_teacher_forced(model, tpa, dev):
                     fill=o)
             if n:
                 outs.append(last)
-        snap = ([(k.clone(), v.clone()) for k, v in pools] if snapshot
-                else None)
+        return torch.stack(outs), pools, fills
+
+    def run():
+        """The ticks from copies of the prefilled pools and fills."""
+        pools = [tuple(t.clone() for t in layer) for layer in snap]
+        fills = fills0.clone()
         ticks = [tt.paged_decode_logits(
             model, spec, pools, tables, fills, forced[:, t], live, done,
             paged_kernel="pallas", prefix_len=max(lens) + t + 1)
             for t in range(n_ticks)]
-        return torch.stack(outs), torch.stack(ticks, 1), pools, fills, snap
+        return torch.stack(ticks, 1), pools, fills
 
     def one_key_short(q, k_new, v_new, table, fill, k_pool, v_pool):
         return tpa.paged_decode_plain(q, k_new, v_new, table,
@@ -1663,16 +1715,19 @@ def paged_teacher_forced(model, tpa, dev):
     sel = torch.from_numpy(adv).to(dev)
 
     def compared(run_out):
-        pre, ticks = run_out[:2]
-        return torch.cat([pre.flatten(0, -2), ticks[sel].flatten(0, -2)])
+        return torch.cat([pre.flatten(0, -2),
+                          run_out[0][sel].flatten(0, -2)])
 
     with torch.no_grad():
+        # The prefill (S > 1 chunks) walks the tables without the
+        # paged-decode kernel: one prefill serves the three tick runs.
+        pre, snap, fills0 = prefill()
         before = tpa.paged_decode_cuda.launches
-        k_out = run(snapshot=True)
+        k_out = run()
         launched = tpa.paged_decode_cuda.launches - before
         with plain_paged_decode(tpa):
             p_out = run()
-        with plain_paged_decode(tpa, one_key_short):
+        with plain_paged_decode(tpa, fault or one_key_short):
             f_out = run()
     torch.cuda.synchronize()
     if launched != n_ticks * model.num_layers:
@@ -1684,28 +1739,28 @@ def paged_teacher_forced(model, tpa, dev):
     agree = argmax_agreement(k_logits, p_logits)
     fault_err = float((f_logits - p_logits).abs().max())
     fault_agree = argmax_agreement(f_logits, p_logits)
-    finite = bool(torch.isfinite(k_out[1]).all())
-    log(f"paged teacher-forced logits (16 lanes: prefill + {n_ticks} "
-        f"batched ticks), kernel vs plain: max_abs_err {err:.4f} (tol "
-        f"{LOGIT_TOL}), argmax agreement {agree:.3f} (min "
+    finite = bool(torch.isfinite(k_out[0]).all())
+    log(f"{what} teacher-forced logits (16 lanes: prefill + {n_ticks} "
+        f"batched ticks), kernel vs plain: max_abs_err {err:.4g} (tol "
+        f"{tol}), argmax agreement {agree:.3f} (min "
         f"{MIN_ARGMAX_AGREEMENT}), |logit| max "
         f"{float(p_logits.abs().max()):.3f}; plain rows within the "
         f"tolerance of a tie / tied / all: {near_ties(p_logits)}")
-    log(f"paged teacher-forced logits, planted decode fault (one key "
-        f"short) vs plain: max_abs_err {fault_err:.4f}, argmax agreement "
+    log(f"{what} teacher-forced logits, planted decode fault (one key "
+        f"short) vs plain: max_abs_err {fault_err:.4g}, argmax agreement "
         f"{fault_agree:.3f}")
-    if not finite or err > LOGIT_TOL:
-        raise AssertionError(f"paged logits differ: {err}")
+    if not finite or err > tol:
+        raise AssertionError(f"{what} logits differ: {err}")
     if agree < MIN_ARGMAX_AGREEMENT:
-        raise AssertionError(f"paged argmax agreement {agree}")
-    if fault_err <= LOGIT_TOL:
-        raise AssertionError(f"the paged logits check does not see a "
+        raise AssertionError(f"{what} argmax agreement {agree}")
+    if fault_err <= tol:
+        raise AssertionError(f"the {what} logits check does not see a "
                              f"decode one key short ({fault_err})")
     # The tick's write routing, on the kernel run's pools and fills:
     # rows hold bytes exactly where the fills put them, and the ticks
     # left every prefilled row as it was (a clipped id at the boundary
     # would overwrite the lane's last real block).
-    _, _, pools, fills, snap = k_out
+    _, pools, fills = k_out
     want = [n + n_ticks if adv[b] else n for b, n in enumerate(lens)]
     if fills.tolist() != want:
         raise AssertionError(f"paged fills {fills.tolist()} != {want}")
@@ -1723,7 +1778,7 @@ def paged_teacher_forced(model, tpa, dev):
     return dict(logits_max_abs_err=err, argmax_agreement=agree,
                 planted_fault_logits_err=fault_err,
                 planted_fault_argmax_agreement=fault_agree,
-                lanes=L, ticks=n_ticks)
+                lanes=L, ticks=n_ticks, table_entries=spec.blocks_per_seq)
 
 
 def run_paged_engine(model, kernels):
@@ -2586,11 +2641,11 @@ def check_threefry_card(dev):
     return dict(checks=checks, gumbel_max_abs_diff=gumbel_err)
 
 
-def seeded_generate(model, kernels, dev):
-    """10a: a seeded `generate` of 4 x 512 -> 128 (FLEET_TEMPERATURE,
-    top_p 0.95) twice, which must agree token for token, then with the
-    key advanced one split too many (a planted fault), which must
-    change the stream (its first 16 tokens: every token's noise moves)."""
+def seeded_generate(model, kernels, dev, temperature=FLEET_TEMPERATURE):
+    """10a: a seeded `generate` of 4 x 512 -> 128 (``temperature``, top_p
+    0.95) twice, which must agree token for token, then with the key
+    advanced one split too many (a planted fault), which must change the
+    stream (its first 16 tokens: every token's noise moves)."""
     import torch
     from horovod_tpu_torch.models.transformer import generate
     from horovod_tpu_torch.ops import threefry
@@ -2598,7 +2653,7 @@ def seeded_generate(model, kernels, dev):
     prompt = torch.randint(0, model.vocab_size, (4, 512), device=dev,
                            generator=g)
     key = threefry.prng_key(FLEET_SEED)
-    kw = dict(temperature=FLEET_TEMPERATURE, top_p=0.95)
+    kw = dict(temperature=temperature, top_p=0.95)
     with counting(kernels) as c:
         t0 = time.time()
         first = generate(model, prompt, 128, rng=key, **kw)
@@ -2608,7 +2663,7 @@ def seeded_generate(model, kernels, dev):
     fault = generate(model, prompt, 16, rng=threefry.split(key)[0], **kw)
     same = bool(torch.equal(first, again))
     caught = not bool(torch.equal(first[:, :528], fault))
-    log(f"10a seeded generate 4x512 -> 128 (T {FLEET_TEMPERATURE}, top_p "
+    log(f"10a seeded generate 4x512 -> 128 (T {temperature:.3g}, top_p "
         f"0.95): {dt:.3f} s, run to run equal {same}; one extra split "
         f"(planted fault) changes the stream: {caught}, launches "
         f"{c.launches}")
@@ -3224,6 +3279,639 @@ def run_dp_surface(tfa, dev, base_step_ms):
                 launcher=launcher)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the HF families at full width, the kernel instantiations they
+# bring, and the first torch.profiler traces.
+# ---------------------------------------------------------------------------
+
+# 11c: the forward at Gemma-2B's heads (8 x 256 over 1 kv head) and
+# Qwen2-0.5B's (14 x 64 over 2), (name, (B, S, H, Hkv, D)).
+COVERAGE_FWD = [("Gemma-2B [2,1024,8,256] Hkv 1", (2, 1024, 8, 1, 256)),
+                ("Qwen2-0.5B [2,1024,14,64] Hkv 2", (2, 1024, 14, 2, 64))]
+# 11c: the decode kernels' new instantiations, (H, Hkv, D): D = 256 at
+# groups 1 and 8 (Gemma's), D = 128 at group 6 (Qwen2-1.5B's), D = 64 at
+# groups 3, 5 and 7 (Qwen2-0.5B's is 7).
+COVERAGE_DECODE = [(8, 8, 256), (8, 1, 256), (12, 2, 128), (6, 2, 64),
+                   (10, 2, 64), (14, 2, 64)]
+
+
+def coverage_lengths(tfa, dev, L, W, hkv):
+    """Decode lengths 0, 1, on and one past the first split boundaries
+    of the kernel's own split count, W - 1 and W; L of them."""
+    import math
+    c = math.ceil(W / tfa.decode_splits(W, hkv * L, tfa._sm_count(dev)))
+    return ([0, 1, c, c + 1, 2 * c, min(3 * c - 1, W - 1), W - 1, W]
+            + [W // 2] * L)[:L]
+
+
+def coverage_key(kind, dtype, H, Hkv, D):
+    return f"{kind} {dtype} H={H} Hkv={Hkv} D={D}"
+
+
+def hold(step, kind, name, out, ref, dtype, fault_out):
+    """``out`` (a kernel's) against ``ref`` (its plain version on the
+    same inputs) under TOL[dtype], and ``fault_out`` (a planted fault),
+    which the same rule must refuse. Returns the two errors."""
+    import torch
+    err, ok = max_err(out, ref, TOL[dtype])
+    ferr, fok = max_err(fault_out, ref, TOL[dtype])
+    log(f"{step} {kind} {dtype:8s} {name}: max_abs_err {err:.3e} (tol "
+        f"{TOL[dtype]}); planted fault {ferr:.3e}, caught {not fok}")
+    if not ok or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{kind} {dtype} {name}: err {err}")
+    if fok:
+        raise AssertionError(f"{kind} {dtype} {name}: the check does not "
+                             f"see its planted fault")
+    return dict(case=name, max_abs_err=err, planted_fault_err=ferr)
+
+
+def check_coverage(tfa, tpa, dev):
+    """Phase 11c: every new instantiation against its plain version, f32
+    and bf16, each with a planted fault it must catch: the forward's
+    plain version one key short (q_offset -1: each row misses its own
+    key, row 0 attends nothing), the decode kernel run one key short
+    (length - 1) and the paged table fault of phase 2b (a lane's first
+    entry swapped with the entry holding its fill)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1111)
+    errs = {}
+
+    def held(kind, geo, name, out, ref, dtype, fault_out):
+        errs[coverage_key(kind, dtype, *geo)] = hold(
+            "11c", kind, name, out, ref, dtype, fault_out)
+
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, (B, S, H, Hkv, D) in COVERAGE_FWD:
+            q = torch.randn(B, S, H, D, device=dev, generator=g).to(dt)
+            k, v = (torch.randn(B, S, Hkv, D, device=dev,
+                                generator=g).to(dt) for _ in range(2))
+            out, lse = tfa.flash_fwd_cuda(q, k, v, causal=True)
+            ref, rlse = tfa.flash_attention_plain(q, k, v, causal=True)
+            short, _ = tfa.flash_attention_plain(q, k, v, causal=True,
+                                                 q_offset=-1)
+            torch.cuda.synchronize()
+            lerr, lok = max_err(lse, rlse, (LSE_TOL, 0.0))
+            if not lok:
+                raise AssertionError(f"flash_fwd {dtype} {name}: lse err "
+                                     f"{lerr}")
+            held("flash_fwd", (H, Hkv, D), name, out, ref, dtype, short)
+            del q, k, v, out, ref, short
+        for H, Hkv, D in COVERAGE_DECODE:
+            L, W = 8, 2048
+            name = f"H {H} Hkv {Hkv} D {D} (group {H // Hkv})"
+            lens = coverage_lengths(tfa, dev, L, W, Hkv)
+            length = torch.tensor(lens, dtype=torch.int32, device=dev)
+            q = torch.randn(L, 1, H, D, device=dev, generator=g).to(dt)
+            kc, vc = (torch.randn(L, W, Hkv, D, device=dev,
+                                  generator=g).to(dt) for _ in range(2))
+            out = tfa.flash_decode_cuda(q, kc, vc, length)
+            short = tfa.flash_decode_cuda(q, kc, vc,
+                                          (length - 1).clamp(min=0))
+            ref = tfa.flash_decode_plain(q, kc, vc, length)
+            torch.cuda.synchronize()
+            if out[lens.index(0)].any():
+                raise AssertionError(f"flash_decode {name}: a length-0 "
+                                     f"lane is not zero")
+            held("flash_decode", (H, Hkv, D), f"{name} lengths {lens}", out,
+                 ref, dtype, short)
+            fills = PAGED_FILLS
+            args = paged_case(g, dev, dt, Hkv, fills, H=H, D=D)
+            out = tpa.paged_decode_cuda(*args)
+            qq, kn, vn, tables, fill, kp, vp = args
+            bad = tables.clone()
+            j = fills[4] // 16
+            bad[4, [0, j]] = tables[4, [j, 0]]
+            fault = tpa.paged_decode_cuda(qq, kn, vn, bad, fill, kp, vp)
+            ref = tpa.paged_decode_plain(*args)
+            torch.cuda.synchronize()
+            held("paged_decode", (H, Hkv, D), f"{name} fills {fills}", out,
+                 ref, dtype, fault)
+            del q, kc, vc, args, out, fault, ref
+    return errs
+
+
+def gqa_sdpa(q, k, v, **kw):
+    """One PyTorch call for grouped-query attention on [B, S, H, D]
+    layouts already transposed to [B, H, S, D] (the library yardstick;
+    the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+
+def hf_prompts(vocab, seed):
+    """Phase 11's engine burst: 16 prompts of 64..512 tokens."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, vocab, (int(n),)) for n in rs.randint(64, 513, 16)]
+
+
+# 11a: google/gemma-2b's published config (its "hidden_act" reads
+# "gelu", which transformers runs as the tanh approximation for Gemma;
+# both activation fields are written here as that approximation, the
+# one `compat.hf` converts with parity).
+GEMMA_2B = dict(
+    model_type="gemma", vocab_size=256000, hidden_size=2048,
+    intermediate_size=16384, num_hidden_layers=18, num_attention_heads=8,
+    num_key_value_heads=1, head_dim=256, hidden_act="gelu_pytorch_tanh",
+    hidden_activation="gelu_pytorch_tanh", max_position_embeddings=8192,
+    rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=True,
+    attention_bias=False)
+# 11b: Qwen/Qwen2-0.5B's published config, max_position_embeddings cut
+# from 131072 to 4096 (the caches are sized by it; the phase's sequences
+# stay under 700 positions).
+QWEN2_0_5B = dict(
+    model_type="qwen2", vocab_size=151936, hidden_size=896,
+    intermediate_size=4864, num_hidden_layers=24, num_attention_heads=14,
+    num_key_value_heads=2, hidden_act="silu", max_position_embeddings=4096,
+    rms_norm_eps=1e-6, rope_theta=1e6, tie_word_embeddings=True,
+    use_sliding_window=False, sliding_window=None)
+QWEN2_PUBLISHED_MAX_POSITION = 131072
+# Phase 11's models: (name, the kernels line's row tag, family, config,
+# weight seed, the engine burst's prompt seed).
+HF_MODELS = [("Gemma-2B", "gemma-2b", "gemma", GEMMA_2B, 2, 11),
+             ("Qwen2-0.5B", "qwen2-0.5b", "qwen2", QWEN2_0_5B, 3, 12)]
+# Teacher-forced logits of the bf16 HF models (prefill + 8 ticks),
+# kernels vs plain versions, max |k - p| per family. The bf16 roundings
+# of 18-24 layers this wide exceed phase 3's 0.06: over four (weight,
+# prompt) seeds `chip_probe.py hf` read 0.1094-0.1152 (Gemma-2B, logit
+# scale 6.5-7.4) and 0.0547-0.0625 (Qwen2-0.5B, 3.1-3.4), and the plain
+# decode one key short (the planted fault here too) 0.1538-0.1797 and
+# 0.1816-0.2109, on an H100 80GB HBM3 at 700 W. Each limit sits just
+# above its family's readings and under its faults; Gemma's margin is a
+# bf16 step either way, so the f32 twin below is the fine check.
+HF_LOGIT_TOL = {"gemma": 0.14, "qwen2": 0.09}
+# The same weights computing in f32, where the kernels and their plain
+# versions differ by summation order only: the probe read 3.09e-5 to
+# 3.49e-5 (Gemma-2B) and 6.4e-6 to 7.4e-6 (Qwen2-0.5B) on `generate`'s
+# path, 1.2e-5 to 1.3e-5 and 4.6e-6 to 5.2e-6 on the paged path (4
+# ticks), against 0.049-0.21 for the decode one key short: each limit
+# is ~1.5x its family's largest reading.
+HF_F32_LOGIT_TOL = {"gemma": 5e-5, "qwen2": 1.2e-5}
+# Ticks of the f32 paged teacher forcing at the HF geometry (its plain
+# walk reads whole tables of max_position / 16 entries: 0.45 s a call
+# at Gemma's 512).
+HF_PAGED_TICKS = 2
+
+
+def hf_heads(cfg):
+    """(H, Hkv, D, max_position) of an HF config."""
+    H, Hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    return (H, Hkv, cfg.get("head_dim") or cfg["hidden_size"] // H,
+            cfg["max_position_embeddings"])
+
+
+def time_coverage(tfa, tpa, dev, cfg, prompt_seed):
+    """The kernels line's rows of one HF model's path (bf16, the model's
+    heads): the forward at the prefill shape [4, 512, H, D], the decode
+    tick of `generate` (4 lanes of 640 keys in its max_position-slot
+    cache) and the paged tick at the engine's geometry (the 16 lanes of
+    the burst half way through their 64 new tokens, tables of
+    max_position / 16 entries). Each kernel is first held against its
+    plain version on the very inputs it is timed on (TOL bf16), with a
+    planted fault the same rule must refuse: the plain forward one key
+    short (q_offset -1), the decode kernels one key short on every lane
+    (length - 1, fill - 1). Then kernel, plain-version and library
+    times, and the bound from these inputs."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(98)
+    bf = torch.bfloat16
+    H, Hkv, D, W = hf_heads(cfg)
+    name = f"H {H} Hkv {Hkv} D {D}"
+    rows = {}
+    B, S = 4, 512
+    q = torch.randn(B, S, H, D, device=dev, generator=g).to(bf)
+    k, v = (torch.randn(B, S, Hkv, D, device=dev, generator=g).to(bf)
+            for _ in range(2))
+    out, _ = tfa.flash_fwd_cuda(q, k, v, causal=True)
+    ref, _ = tfa.flash_attention_plain(q, k, v, causal=True)
+    short, _ = tfa.flash_attention_plain(q, k, v, causal=True, q_offset=-1)
+    torch.cuda.synchronize()
+    held = hold("11", "flash_fwd", f"{name} [{B},{S}] causal", out, ref,
+                "bfloat16", short)
+    del out, ref, short
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    flops = 2.0 * S * S * D * H * B                  # causal: half of 4*S^2*D
+    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * 2 + B * H * S * 4
+    t_flop, t_byte = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    rows["flash_fwd"] = dict(
+        shape=[B, S, H, Hkv, D], dtype="bfloat16", **held,
+        ms=cuda_time_ms(lambda: tfa.flash_fwd_cuda(q, k, v, causal=True)),
+        plain_ms=cuda_time_ms(
+            lambda: tfa.flash_attention_plain(q, k, v, causal=True)),
+        library_ms=cuda_time_ms(lambda: gqa_sdpa(qt, kt, vt,
+                                                 is_causal=True)),
+        bound_ms=max(t_flop, t_byte) * 1e3,
+        bound_by="operations" if t_flop >= t_byte else "bytes",
+        library="torch.nn.functional.scaled_dot_product_attention("
+                "enable_gqa=True)")
+
+    L, n = 4, 640
+    q1 = torch.randn(L, 1, H, D, device=dev, generator=g).to(bf)
+    kc, vc = (torch.randn(L, W, Hkv, D, device=dev, generator=g).to(bf)
+              for _ in range(2))
+    length = torch.full((L,), n, dtype=torch.int32, device=dev)
+    out = tfa.flash_decode_cuda(q1, kc, vc, length)
+    short = tfa.flash_decode_cuda(q1, kc, vc, length - 1)
+    ref = tfa.flash_decode_plain(q1, kc, vc, length)
+    torch.cuda.synchronize()
+    held = hold("11", "flash_decode", f"{name} {L} lanes x {n} of {W}",
+                out, ref, "bfloat16", short)
+    del out, ref, short
+    qd = q1.transpose(1, 2).contiguous()
+    kd, vd = (t[:, :n].transpose(1, 2).contiguous() for t in (kc, vc))
+    nbytes = L * n * Hkv * D * 2 * 2 + 2 * L * H * D * 2 + L * 4
+    flops = 4.0 * L * n * H * D
+    t_flop, t_byte = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    rows["flash_decode"] = dict(
+        shape=[L, W, H, Hkv, D], dtype="bfloat16", lengths=n, **held,
+        ms=cuda_time_ms(lambda: tfa.flash_decode_cuda(q1, kc, vc, length),
+                        iters=50),
+        splits=tfa.decode_splits(W, Hkv * L, tfa._sm_count(dev)),
+        plain_ms=cuda_time_ms(
+            lambda: tfa.flash_decode_plain(q1, kc, vc, length)),
+        library_ms=cuda_time_ms(lambda: gqa_sdpa(qd, kd, vd), iters=50),
+        bound_ms=max(t_flop, t_byte) * 1e3,
+        bound_by="operations" if t_flop >= t_byte else "bytes",
+        library=f"scaled_dot_product_attention(enable_gqa=True) over the "
+                f"{n} filled rows")
+    rows["flash_decode"]["bound_share"] = (rows["flash_decode"]["bound_ms"]
+                                           / rows["flash_decode"]["ms"])
+
+    bs, T = 16, W // 16
+    fills = [len(p) + 32
+             for p in hf_prompts(cfg["vocab_size"], prompt_seed)]
+    args = paged_case(g, dev, bf, Hkv, fills, bs=bs, T=T,
+                      nb=len(fills) * T + 1, H=H, D=D)
+    qp, kn, vn, tables, fill, kp, vp = args
+    out = tpa.paged_decode_cuda(*args)
+    short = tpa.paged_decode_cuda(qp, kn, vn, tables, fill - 1, kp, vp)
+    ref = tpa.paged_decode_plain(*args)
+    torch.cuda.synchronize()
+    held = hold("11", "paged_decode", f"{name} {len(fills)} lanes, tables "
+                f"of {T}, fills {fills}", out, ref, "bfloat16", short)
+    del out, ref, short
+    span = -(-max(f + 1 for f in fills) // bs)      # entries any lane needs
+    pos = torch.arange(span * bs, device=dev)
+    keep = (pos[None, :] <= fill[:, None].long())[:, None, None, :]
+
+    def gather_sdpa():
+        kg = kp[tables[:, :span].long()].flatten(1, 2).transpose(1, 2)
+        vg = vp[tables[:, :span].long()].flatten(1, 2).transpose(1, 2)
+        return gqa_sdpa(qp[:, :, None], kg, vg, attn_mask=keep)
+
+    ms = cuda_time_ms(lambda: tpa.paged_decode_cuda(*args), iters=50)
+    bound_ms, bound_by = paged_bound(fill, len(fills), H, Hkv, D, T, bs)
+    rows["paged_decode"] = dict(
+        shape=[len(fills), T * bs, H, Hkv, D], dtype="bfloat16",
+        block_size=bs, fills=fills, ms=ms, **held,
+        splits=tpa.paged_decode_cuda.splits_last,
+        plain_ms=cuda_time_ms(lambda: tpa.paged_decode_plain(*args),
+                              iters=5, warmup=1),
+        library_ms=cuda_time_ms(gather_sdpa, iters=50),
+        bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+        library="k_pool[table] gather of the filled span + "
+                "scaled_dot_product_attention(enable_gqa=True) with a "
+                "length mask (two calls)")
+    return rows
+
+
+def hf_state_dict(family, cfg, dev, seed):
+    """Random weights in the HF checkpoint layout of ``family`` (the key
+    names and [out, in] shapes transformers' model carries), bf16 on the
+    card from ``seed``: projections, embedding and q/k/v biases N(0,
+    0.02) (the configs' initializer range), norm weights N(0, 0.02)
+    around their init (Gemma's (1 + w): 0; Qwen2's w: 1)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, H, Hkv = (cfg["hidden_size"], cfg["num_attention_heads"],
+                 cfg["num_key_value_heads"])
+    hd = cfg.get("head_dim") or d // H
+    inter = cfg["intermediate_size"]
+    off = 0.0 if family == "gemma" else 1.0
+
+    def w(*shape, mean=0.0):
+        t = torch.randn(shape, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        return t.mul_(0.02).add_(mean)
+
+    sd = {"model.embed_tokens.weight": w(cfg["vocab_size"], d),
+          "model.norm.weight": w(d, mean=off)}
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        for name, rows in (("q", H * hd), ("k", Hkv * hd), ("v", Hkv * hd)):
+            sd[p + f"self_attn.{name}_proj.weight"] = w(rows, d)
+            if family == "qwen2":
+                sd[p + f"self_attn.{name}_proj.bias"] = w(rows)
+        sd[p + "self_attn.o_proj.weight"] = w(d, H * hd)
+        sd[p + "mlp.gate_proj.weight"] = w(inter, d)
+        sd[p + "mlp.up_proj.weight"] = w(inter, d)
+        sd[p + "mlp.down_proj.weight"] = w(d, inter)
+        sd[p + "input_layernorm.weight"] = w(d, mean=off)
+        sd[p + "post_attention_layernorm.weight"] = w(d, mean=off)
+    return sd
+
+
+def build_hf(family, cfg, dev, seed, dtype):
+    """``cfg`` at full width with random HF-layout weights from ``seed``,
+    mapped through the port's `compat.hf.from_hf_state_dict` (the card
+    has no `transformers`), computing in ``dtype`` (bf16: its weights
+    cast for serving)."""
+    import torch
+    from horovod_tpu_torch.compat.hf import from_hf_state_dict
+    from horovod_tpu_torch.models.transformer import serving_params
+    sd = hf_state_dict(family, cfg, dev, seed)
+    model = from_hf_state_dict(
+        family, cfg, sd, dtype=dtype, attn_impl="flash", device=dev,
+        decode_prefix_block=256, decode_prefix_impl="pallas")
+    del sd
+    if dtype == torch.bfloat16:
+        serving_params(model)
+    model.eval()
+    torch.cuda.synchronize()
+    return model
+
+
+def hf_prompt(model, dev, seed=17):
+    """`generate`'s prompt in phase 11: 4 x 512 tokens."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, model.vocab_size, (4, 512), device=dev,
+                         generator=g)
+
+
+def forced_logits(model, tfa, prompt, forced, fault):
+    """Teacher-forced logits (prefill + 8 ticks of ``forced``) through the
+    kernels, through the plain versions, and through the plain versions
+    with the decode ``fault`` (q, k, v, length)."""
+    import torch
+    with torch.no_grad():
+        k_logits = teacher_forced_logits(model, prompt, forced, 8)
+        with plain_attention(model, tfa):
+            p_logits = teacher_forced_logits(model, prompt, forced, 8)
+        with plain_attention(model, tfa, decode=fault):
+            f_logits = teacher_forced_logits(model, prompt, forced, 8)
+    torch.cuda.synchronize()
+    return k_logits, p_logits, f_logits
+
+
+def one_key_short(tfa):
+    """The plain decode one key short (phase 3's planted fault)."""
+    return lambda q, k, v, length: tfa.flash_decode_plain(q, k, v,
+                                                          length - 1)
+
+
+def run_hf_generate(model, tfa, dev, what, tol):
+    """11a/11b `generate`: 4 x 512 -> 128 greedy through the forward and
+    decode kernels, then teacher-forced logits (prefill + 8 ticks)
+    against the same model on the plain versions, max |k - p| <= ``tol``
+    and the tie-aware argmax agreement, and against the plain decode
+    one key short (a planted fault), which the rule must see. Returns
+    (readings, prompt, generated tokens)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import generate
+    prompt = hf_prompt(model, dev)
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda}
+    with counting(kernels) as c:
+        t0 = time.time()
+        out = generate(model, prompt, 128)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    want = {"flash_fwd": model.num_layers,
+            "flash_decode": 127 * model.num_layers}
+    log(f"11 {what} generate 4x512 -> 128 greedy: {dt:.3f} s wall, "
+        f"launches {c.launches}")
+    if out.shape != (4, 640) or not bool((out >= 0).all()) \
+            or not bool((out < model.vocab_size).all()):
+        raise AssertionError(f"{what} generate output invalid")
+    if c.launches != want:
+        raise AssertionError(f"{what} generate launches {c.launches} != "
+                             f"{want}")
+    gen = out[:, 512:]
+    k_logits, p_logits, f_logits = forced_logits(model, tfa, prompt, gen,
+                                                 one_key_short(tfa))
+    err = float((k_logits - p_logits).abs().max())
+    ferr = float((f_logits - p_logits).abs().max())
+    agree = argmax_agreement(k_logits, p_logits)
+    scale = float(p_logits.abs().max())
+    log(f"11 {what} teacher-forced logits (prefill + 8 ticks), kernels vs "
+        f"plain: max_abs_err {err:.4f} (tol {tol}) at a logit scale (max "
+        f"|logit|) of {scale:.3f}; argmax agreement {agree:.3f} (min "
+        f"{MIN_ARGMAX_AGREEMENT}); planted fault (decode one key short) "
+        f"max_abs_err {ferr:.4f}, caught {ferr > tol}")
+    if not bool(torch.isfinite(k_logits).all()) or err > tol:
+        raise AssertionError(f"{what} logits differ: {err}")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"{what} argmax agreement {agree}")
+    if ferr <= tol:
+        raise AssertionError(f"{what}: the logits check does not see a "
+                             f"decode one key short ({ferr})")
+    if not torch.equal(k_logits.argmax(-1)[:, :-1], gen[:, :8]):
+        raise AssertionError(f"{what} generate's greedy tokens are not the "
+                             f"argmax of its own teacher-forced logits")
+    return (dict(seconds=dt, launches=c.launches, logits_max_abs_err=err,
+                 logits_tol=tol, logit_scale=scale, argmax_agreement=agree,
+                 planted_fault_logits_err=ferr), prompt, gen)
+
+
+def run_hf_f32(what, family, cfg, seed, tfa, tpa, dev, prompt, gen):
+    """11a/11b in f32: the same weights computing in f32, where kernels
+    and plain versions differ by summation order only, so that a fault
+    as fine as one lost key shows. `generate`'s teacher-forced logits
+    (the bf16 run's prompt and first 8 tokens), then phase 3b's paged
+    teacher forcing at this model's geometry (tables of max_position /
+    16 entries, `HF_PAGED_TICKS` ticks), each held to the family's
+    HF_F32_LOGIT_TOL and against the decode one key short, which it
+    must refuse (the plain decode in the first; the paged kernel itself
+    in the second, whose plain walk over whole tables is slow)."""
+    import torch
+    t0 = time.time()
+    tol = HF_F32_LOGIT_TOL[family]
+    model = build_hf(family, cfg, dev, seed, torch.float32)
+    k_logits, p_logits, f_logits = forced_logits(model, tfa, prompt,
+                                                 gen[:, :8],
+                                                 one_key_short(tfa))
+    err = float((k_logits - p_logits).abs().max())
+    ferr = float((f_logits - p_logits).abs().max())
+    agree = argmax_agreement(k_logits, p_logits)
+    log(f"11 {what} f32 teacher-forced logits (prefill + 8 ticks), "
+        f"kernels vs plain: max_abs_err {err:.4g} (tol {tol}) "
+        f"at a logit scale of {float(p_logits.abs().max()):.3f}; argmax "
+        f"agreement {agree:.3f}; planted fault (decode one key short) "
+        f"max_abs_err {ferr:.4g}, caught {ferr > tol}")
+    if not bool(torch.isfinite(k_logits).all()) or err > tol:
+        raise AssertionError(f"{what} f32 logits differ: {err}")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"{what} f32 argmax agreement {agree}")
+    if ferr <= tol:
+        raise AssertionError(f"{what}: the f32 logits check does not see "
+                             f"a decode one key short ({ferr})")
+
+    def kernel_key_short(q, k_new, v_new, table, fill, k_pool, v_pool):
+        return tpa.paged_decode_cuda(q, k_new, v_new, table,
+                                     (fill - 1).clamp(min=0), k_pool,
+                                     v_pool)
+
+    paged = paged_teacher_forced(model, tpa, dev, tol=tol,
+                                 n_ticks=HF_PAGED_TICKS,
+                                 fault=kernel_key_short,
+                                 what=f"11 {what} f32 paged")
+    del model
+    torch.cuda.empty_cache()
+    return dict(logits_max_abs_err=err, planted_fault_logits_err=ferr,
+                argmax_agreement=agree, paged=paged,
+                seconds=time.time() - t0)
+
+
+def run_hf_model(what, family, cfg, seed, prompt_seed, tfa, tpa, dev):
+    """11a / 11b: ``cfg`` at full width in bf16 (`build_hf`): `generate`
+    and its logits check, one seeded `generate`, and the paged engine
+    (16 slots) over a burst of 16 requests of 64..512 prompt tokens, 64
+    new tokens each; then the f32 checks (`run_hf_f32`)."""
+    import torch
+    t0 = time.time()
+    model = build_hf(family, cfg, dev, seed, torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"11 {what}: {n_params / 1e9:.3f} B params, {nbytes / 1e9:.3f} GB "
+        f"bf16, {model.num_layers} layers, {model.num_heads} heads x "
+        f"{model.head_dim} over {model.num_kv} kv heads, built from the HF "
+        f"layout in {time.time() - t0:.1f} s")
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda,
+               "paged_decode": tpa.paged_decode_cuda}
+    gen, prompt, tokens = run_hf_generate(model, tfa, dev, what,
+                                          HF_LOGIT_TOL[family])
+    # Sampling at a quarter of the measured logit scale, as phase 10's
+    # FLEET_TEMPERATURE of 0.8 is of its model's scale of 3.3, keeps the
+    # draw as live at any scale.
+    seeded = seeded_generate(model, kernels, dev,
+                             temperature=gen["logit_scale"] / 4)
+    prompts = hf_prompts(model.vocab_size, prompt_seed)
+    peng = serve_burst(model, prompts, 64, kernels, num_slots=16,
+                       paged=True, paged_kernel="pallas", kv_block_size=16)
+    if peng["launches"]["paged_decode"] < peng["ticks"] * model.num_layers:
+        raise AssertionError(f"{what} paged_decode launches "
+                             f"{peng['launches']['paged_decode']} < ticks "
+                             f"{peng['ticks']} x {model.num_layers}")
+    log(f"11 {what} paged engine, 16 slots, 16 req (64..512 prompt "
+        f"tokens) x 64 new: {peng['seconds']:.2f} s, "
+        f"{peng['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{peng['ttft_ms_p50']} ms, TPOT p50 {peng['tpot_ms_p50']} ms, "
+        f"{peng['ticks']} ticks, launches {peng['launches']}, KV "
+        f"{peng['kv_bytes'] / 1e9:.3f} GB")
+    del model
+    torch.cuda.empty_cache()
+    f32 = run_hf_f32(what, family, cfg, seed, tfa, tpa, dev, prompt, tokens)
+    return dict(params=n_params, weight_bytes=nbytes, generate=gen,
+                seeded_generate=seeded, paged_engine=peng, f32=f32,
+                seconds=time.time() - t0,
+                runs={"generate": gen, "seeded": seeded, "engine": peng})
+
+
+# 11d: the kernel names a traced step and tick must show, each launch
+# one event: the bf16 training kernels and the paged split kernel.
+TRACE_KERNELS = {"flash_fwd": "flash_fwd_wgmma",
+                 "flash_bwd_dq": "flash_bwd_dq_wgmma",
+                 "flash_bwd_dkv": "flash_bwd_dkv_wgmma",
+                 "paged_decode": "paged_decode_split"}
+
+
+def traced(fn, what):
+    """Run ``fn`` once under the port's `profiler_session` into a fresh
+    directory and read the trace back with the port's analysis: top ops
+    by device time, the device's busy share of the traced window
+    (union of device events over the extent of every event), and the
+    launches of each `TRACE_KERNELS` entry."""
+    import re
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.obs.profiling import profiler_session
+    from horovod_tpu_torch.utils import profile_analysis as pa
+    d = tempfile.mkdtemp(prefix="hvd_trace_")
+    try:
+        t0 = time.time()
+        with profiler_session(d):
+            fn()
+        res = pa.analyze_profile_dir(d, min_mtime=t0)
+        trace = pa.load_trace(d, min_mtime=t0)
+        trace_bytes = os.path.getsize(pa.find_trace_file(d, min_mtime=t0))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if res is None:
+        raise AssertionError(f"the {what} trace has no device timeline")
+    events = trace["traceEvents"]
+    dev_ev = pa._device_events(events, pa._device_pids(events))
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events if e.get("ph") == "X" and "dur" in e]
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    busy = sum(e - s for s, e in pa._merge(
+        [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+         for e in dev_ev]))
+    counts = {k: sum(1 for e in dev_ev if e.get("cat") == "kernel"
+                     and re.search(rf"\b{name}\b", e.get("name", "")))
+              for k, name in TRACE_KERNELS.items()}
+    b = res["op_breakdown"]
+    log(f"11d {what} trace: window {window / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms = {100 * busy / window:.1f} %, device "
+        f"events {len(dev_ev)}, kernel launches {counts}, trace "
+        f"{trace_bytes / 1e6:.1f} MB")
+    log(f"11d {what} top categories by device time: " + "; ".join(
+        f"{c['category']} {c['us'] / 1e3:.3f} ms ({100 * c['share']:.1f} %)"
+        for c in b["categories"][:8]))
+    log(f"11d {what} top kernels by device time: " + "; ".join(
+        f"{o['name'][:60]} {o['us'] / 1e3:.3f} ms ({100 * o['share']:.1f} %)"
+        for o in b["top_ops"][:6]))
+    return dict(window_us=window, device_busy_us=busy,
+                busy_share=busy / window, device_events=len(dev_ev),
+                launches=counts, overlap={k: v for k, v in res.items()
+                                          if k != "op_breakdown"},
+                op_breakdown=b)
+
+
+def trace_paged_tick(model, tpa, dev):
+    """11d: one tick of phase 4b's paged pool (16 lanes over 1025 blocks
+    of 16, the kernel mode of the engine) with 16 of phase 4b's
+    prompts prefilled, traced; the trace must count one paged-decode
+    launch per layer."""
+    from horovod_tpu_torch.serving.paging import PagedSlotPool
+    pool = PagedSlotPool(model, 16, num_blocks=1025, block_size=16,
+                         kernel="pallas")
+    for prompt in paged_prompts(model.vocab_size)[:16]:
+        adm = pool.admit(prompt, 64)
+        pool.prefill(adm.slot, prompt, 0.0, None, 0)
+    pool.tick()                                   # warm
+    out = traced(pool.tick, "paged tick (phase 4b's pool, 16 lanes)")
+    pool.release()
+    n = out["launches"]["paged_decode"]
+    if n != model.num_layers:
+        raise AssertionError(f"the traced tick launched paged_decode {n} "
+                             f"times, not {model.num_layers}")
+    return out
+
+
+def run_hf(tfa, tpa, dev):
+    """Phase 11 (a-c): the new instantiations against their plain
+    versions, then each of `HF_MODELS` at full width and the kernels
+    line's rows of its path."""
+    t0 = time.time()
+    coverage = check_coverage(tfa, tpa, dev)
+    log(f"11c: {len(coverage)} instantiation checks held, every planted "
+        f"fault caught, in {time.time() - t0:.1f} s")
+    models = {}
+    for what, tag, family, cfg, seed, prompt_seed in HF_MODELS:
+        if cfg is QWEN2_0_5B:
+            log(f"11b {what}: max_position_embeddings cut from "
+                f"{QWEN2_PUBLISHED_MAX_POSITION} to "
+                f"{cfg['max_position_embeddings']} (the caches' length)")
+        models[tag] = run_hf_model(what, family, cfg, seed, prompt_seed,
+                                   tfa, tpa, dev)
+        models[tag]["timing"] = time_coverage(tfa, tpa, dev, cfg,
+                                              prompt_seed)
+    return dict(coverage=coverage, models=models, seconds=time.time() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", metavar="PATH",
@@ -3317,6 +4005,7 @@ def main() -> int:
     fleet = run_fleet(model, tfa, tpa, dev, peng)
     log(f"threefry sampling and the serving fleet (phase 10) in "
         f"{fleet['seconds']:.1f} s {label}")
+    trace_tick = trace_paged_tick(model, tpa, dev)
 
     del model
     train = run_training(tfa, dev)
@@ -3333,6 +4022,10 @@ def main() -> int:
         f"{psgd['step_ms_median_after_first']:.1f} ms a step vs "
         f"{psgd['uncompressed_step_ms']:.1f} ms uncompressed, wire ratio "
         f"{psgd['wire_ratio']:.5f} {label}")
+
+    hf = run_hf(tfa, tpa, dev)
+    log(f"HF families, coverage and traces (phase 11) in "
+        f"{hf['seconds']:.1f} s {label}")
 
     timing = time_kernels(tfa, dev)
     main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values(),
@@ -3358,6 +4051,31 @@ def main() -> int:
             f"plain, {t['library_ms']:.4f} ms library, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']} "
             f"{label}")
+    for _, tag, *_ in HF_MODELS:
+        m = hf["models"][tag]
+        for kern in ("flash_fwd", "flash_decode", "paged_decode"):
+            t = m["timing"][kern]
+            name = f"{kern}@{tag}"
+            launches = sum(run["launches"].get(kern, 0)
+                           for run in m["runs"].values())
+            if launches <= 0:
+                raise AssertionError(f"{name} never launched on the main "
+                                     f"path")
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"horovod_tpu_torch/csrc/{kern}.cu",
+                "replaces": REPLACES[kern], "launches": launches,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": t["shape"],
+                "planted_fault_err": t["planted_fault_err"],
+                **{k: t[k] for k in ("splits", "bound_share") if k in t}})
+            log(f"{name}: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms "
+                f"plain, {t['library_ms']:.4f} ms library, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']}"
+                f", max_abs_err {t['max_abs_err']:.3e} on these inputs, "
+                f"launches {launches} {label}")
     for at in ("at_1x2048", "at_8x2048"):
         t = timing["flash_fwd"][at]
         log(f"flash_fwd {at}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
@@ -3393,6 +4111,7 @@ def main() -> int:
                   paged_teacher_forced=paged_tf, paged_engine=peng,
                   speculative=spec, variants=variants, fleet=fleet,
                   training=train, data_parallel_surface=surface,
+                  hf=hf, trace_paged_tick=trace_tick,
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)
     if args.json:

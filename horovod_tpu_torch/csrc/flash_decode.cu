@@ -24,7 +24,8 @@
 //    one block per pair gave 64.
 //  * The loads, per-thread softmax state, the block's partial and the
 //    merge kernel are `decode_split.cuh`'s, shared with the paged
-//    decode: 16-byte loads a lane (two bf16 rows a warp load), each warp
+//    decode: 16-byte loads a lane (two bf16 rows of 128 a warp load, one
+//    of 256; an f32 row of 256 two loads a lane), each warp
 //    issuing the loads of its next step before it reduces the current
 //    one; the block writes one f32 partial (m, l, unnormalized o) per
 //    query head to a workspace, a split that starts at or past the
@@ -53,10 +54,11 @@ __global__ void __launch_bounds__(decode::NW * 32) flash_decode_split(
     const T* __restrict__ vc, const int* __restrict__ length,
     float* __restrict__ part_o, float* __restrict__ part_ml, int L, int W,
     int H, int Hkv, int chunk, long long qsb, long long qsh, float scale) {
-  constexpr int VD = decode::Row<T, D>::VD;     // elements a lane loads
+  using RW = decode::Row<T, D>;
+  constexpr int VD = RW::VD, NC = RW::NC;
   using R = uint4;                               // one 16-byte load
-  // This thread's VD columns of every row it reads.
-  const int col = (threadIdx.x & 31) % decode::Row<T, D>::LPR * VD;
+  // This thread's chunks of every row it reads: columns col + c * CSTEP.
+  const int col = (threadIdx.x & 31) % RW::LPR * VD;
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int sp = blockIdx.z;
@@ -70,14 +72,16 @@ __global__ void __launch_bounds__(decode::NW * 32) flash_decode_split(
     return;
   }
 
-  float qv[GRP][VD];
+  float qv[GRP][RW::EPT];
 #pragma unroll
   for (int g = 0; g < GRP; ++g) {
-    decode::widen(decode::load_raw<R>(
-        q + b * qsb + (long long)(hk * GRP + g) * qsh + col), qv[g],
-                  static_cast<const T*>(nullptr));
 #pragma unroll
-    for (int e = 0; e < VD; ++e) qv[g][e] *= scale;
+    for (int c = 0; c < NC; ++c)
+      decode::widen(decode::load_raw<R>(
+          q + b * qsb + (long long)(hk * GRP + g) * qsh + col + c * RW::CSTEP),
+          qv[g] + c * VD, static_cast<const T*>(nullptr));
+#pragma unroll
+    for (int e = 0; e < RW::EPT; ++e) qv[g][e] *= scale;
   }
 
   const long long row = (long long)Hkv * D;   // cache stride per position
@@ -85,9 +89,12 @@ __global__ void __launch_bounds__(decode::NW * 32) flash_decode_split(
   const T* vb = vc + (long long)b * W * row + hk * D + col;
   decode::split_partial<T, D, GRP, false>(
       qv, j_begin, j_end,
-      [&](int j, R& k, R& v) {
-        k = decode::load_raw<R>(kb + (long long)j * row);
-        v = decode::load_raw<R>(vb + (long long)j * row);
+      [&](int j, R (&k)[NC], R (&v)[NC]) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          k[c] = decode::load_raw<R>(kb + (long long)j * row + c * RW::CSTEP);
+          v[c] = decode::load_raw<R>(vb + (long long)j * row + c * RW::CSTEP);
+        }
       },
       part_o, part_ml, p0);
 }
@@ -110,16 +117,35 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   return decode::launch_merge<T, D>(ws, out, L, H, NS, stream);
 }
 
+// One instantiation per query-head group 1..8 (the reference's Pallas
+// kernel takes any group; 8 covers the families the HF import brings:
+// Gemma's 8:1, Qwen2's 7:1 and 6:1, Qwen2.5-32B's 5:1).
 template <typename T, int D>
 cudaError_t by_group(int grp, const void* q, const void* kc, const void* vc,
                      const void* length, void* out, float* ws, int L, int W,
                      int H, int Hkv, int NS, long long qsb, long long qsh,
                      float scale, cudaStream_t s) {
+#define HVD_GROUP(G)                                                        \
+  case G:                                                                   \
+    return launch<T, D, G>(q, kc, vc, length, out, ws, L, W, H, Hkv, NS, qsb, \
+                           qsh, scale, s);
   switch (grp) {
-    case 1: return launch<T, D, 1>(q, kc, vc, length, out, ws, L, W, H, Hkv, NS, qsb, qsh, scale, s);
-    case 2: return launch<T, D, 2>(q, kc, vc, length, out, ws, L, W, H, Hkv, NS, qsb, qsh, scale, s);
-    case 4: return launch<T, D, 4>(q, kc, vc, length, out, ws, L, W, H, Hkv, NS, qsb, qsh, scale, s);
-    case 8: return launch<T, D, 8>(q, kc, vc, length, out, ws, L, W, H, Hkv, NS, qsb, qsh, scale, s);
+    HVD_GROUP(1) HVD_GROUP(2) HVD_GROUP(3) HVD_GROUP(4)
+    HVD_GROUP(5) HVD_GROUP(6) HVD_GROUP(7) HVD_GROUP(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef HVD_GROUP
+}
+
+template <typename T>
+cudaError_t by_dim(int D, int grp, const void* q, const void* kc,
+                   const void* vc, const void* length, void* out, float* ws,
+                   int L, int W, int H, int Hkv, int NS, long long qsb,
+                   long long qsh, float scale, cudaStream_t s) {
+  switch (D) {
+    case 64: return by_group<T, 64>(grp, q, kc, vc, length, out, ws, L, W, H, Hkv, NS, qsb, qsh, scale, s);
+    case 128: return by_group<T, 128>(grp, q, kc, vc, length, out, ws, L, W, H, Hkv, NS, qsb, qsh, scale, s);
+    case 256: return by_group<T, 256>(grp, q, kc, vc, length, out, ws, L, W, H, Hkv, NS, qsb, qsh, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -129,8 +155,8 @@ cudaError_t by_group(int grp, const void* q, const void* kc, const void* vc,
 extern "C" {
 
 // q [L, 1, H, D] with element strides (qsb, qsh) and a contiguous head
-// dim; caches [L, W, Hkv, D] contiguous; length int32 [L] on device;
-// out [L, 1, H, D] contiguous; ws a float32 workspace of
+// dim, D 64, 128 or 256, H / Hkv 1..8; caches [L, W, Hkv, D]
+// contiguous; length int32 [L] on device; out [L, 1, H, D] contiguous; ws a float32 workspace of
 // splits * L * H * (D + 2) elements (the partials), splits >= 1.
 // dtype: 0 = float32, 1 = bfloat16. Launches the split kernel and the
 // merge kernel on `stream`; returns cudaGetLastError() after the
@@ -141,16 +167,12 @@ int flash_decode(const void* q, const void* kc, const void* vc,
                  long long qsh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
+  if (splits < 1 || Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
   const int grp = H / Hkv;
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64)
-    return by_group<float, 64>(grp, q, kc, vc, length, out, w, L, W, H, Hkv, splits, qsb, qsh, scale, s);
-  if (dtype == 0 && D == 128)
-    return by_group<float, 128>(grp, q, kc, vc, length, out, w, L, W, H, Hkv, splits, qsb, qsh, scale, s);
-  if (dtype == 1 && D == 64)
-    return by_group<__nv_bfloat16, 64>(grp, q, kc, vc, length, out, w, L, W, H, Hkv, splits, qsb, qsh, scale, s);
-  if (dtype == 1 && D == 128)
-    return by_group<__nv_bfloat16, 128>(grp, q, kc, vc, length, out, w, L, W, H, Hkv, splits, qsb, qsh, scale, s);
+  if (dtype == 0)
+    return (int)by_dim<float>(D, grp, q, kc, vc, length, out, w, L, W, H, Hkv, splits, qsb, qsh, scale, s);
+  if (dtype == 1)
+    return (int)by_dim<__nv_bfloat16>(D, grp, q, kc, vc, length, out, w, L, W, H, Hkv, splits, qsb, qsh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

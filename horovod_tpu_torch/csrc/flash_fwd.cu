@@ -22,7 +22,12 @@
 //    before the loop (the rule of `_band_j0`). The q tile is loaded once;
 //    K and V come through a 2-stage ring of TMA loads completed on
 //    mbarriers, the next tile's load in flight while this one computes.
-//    ~81 KB of shared memory at D = 128, so two blocks share an SM.
+//    ~81 KB of shared memory at D = 128, so two blocks share an SM; at
+//    D = 256 (Gemma's heads) five 32 KB tiles, ~161 KB, one block an SM.
+//  * At D = 256 the o accumulator is 128 floats a thread beside the s
+//    tile and p's hi/lo split, and o += p v is two n128 wgmmas per
+//    k-step (`sm90::wgmma_rs<256>`); ptxas's registers and spills of
+//    that instantiation are checked on the card.
 //  * s = q k^T is one SS wgmma per 16-column k-step (both read K-major
 //    from the 128-byte swizzle TMA writes). scale * log2(e) multiplies
 //    the f32 accumulator (exp2 on the card's MUFU); q stays unscaled
@@ -47,7 +52,8 @@
 //
 // f32: the CUDA-core kernel below (`flash_fwd_kernel`), f32 FMA with q
 // pre-scaled: wgmma has no f32 input, and tf32 would not hold the plain
-// forward to 1e-5.
+// forward to 1e-5. Its tiles take 55,552 floats (217 KB) at D = 256,
+// inside the 227 KB a block may opt into.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -307,7 +313,7 @@ struct FwdLayout {                      // byte offsets from the aligned base
 };
 
 template <int D>
-__global__ void __launch_bounds__(WG, 2) flash_fwd_wgmma(
+__global__ void __launch_bounds__(WG, D <= 128 ? 2 : 1) flash_fwd_wgmma(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv,
@@ -543,11 +549,17 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, l, B, Sq, Sk, H, Hkv, st, causal,
                               window, q_offset, k_offset, scale, s);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, o, l, B, Sq, Sk, H, Hkv, st, causal,
+                              window, q_offset, k_offset, scale, s);
   if (dtype == 1 && D == 64)
     return launch_wgmma<64>(q, k, v, o, l, B, Sq, Sk, H, Hkv, st, causal,
                             window, q_offset, k_offset, scale, s);
   if (dtype == 1 && D == 128)
     return launch_wgmma<128>(q, k, v, o, l, B, Sq, Sk, H, Hkv, st, causal,
+                             window, q_offset, k_offset, scale, s);
+  if (dtype == 1 && D == 256)
+    return launch_wgmma<256>(q, k, v, o, l, B, Sq, Sk, H, Hkv, st, causal,
                              window, q_offset, k_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -555,7 +567,10 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
 // Dynamic shared memory of the bf16 (wgmma) kernel at head dim D, in
 // bytes; 0 for a head dim it does not take.
 int flash_fwd_smem_bytes(int D) {
-  return D == 64 ? FwdLayout<64>::BYTES : D == 128 ? FwdLayout<128>::BYTES : 0;
+  return D == 64    ? FwdLayout<64>::BYTES
+         : D == 128 ? FwdLayout<128>::BYTES
+         : D == 256 ? FwdLayout<256>::BYTES
+                    : 0;
 }
 
 const char* flash_fwd_error_string(int err) {

@@ -226,12 +226,23 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
 }
 
 
-// D[64 x N] += A * B with N = D's head dim (64 or 128).
+// D[64 x N] += A * B with N = D's head dim (64, 128 or 256), B read
+// N-major. N = 256 issues two n128 products, the second on boxes 2-3 of
+// the tile (the descriptor's start address + 2 boxes, in 16-byte units)
+// into accumulators 64..127, which is where the n256 layout puts
+// columns 128..255.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, db);
+  } else {
+    static_assert(N == 256, "wgmma_rs takes N = 64, 128 or 256");
+    wgmma_rs_n128(d, a, db);
+    wgmma_rs_n128(d + 64, a, db + ((2 * BOX_BYTES) >> 4));
+  }
 }
 
 // The 32 f32 values of a 64 x 64 accumulator as the A operand of four

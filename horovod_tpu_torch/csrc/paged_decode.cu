@@ -34,10 +34,11 @@
 //    read, not a dependent device-memory round trip before the row load.
 //  * Wide loads and prefetch (decode_split.cuh, shared with
 //    flash_decode.cu): each lane loads 16 bytes of a row, so a warp load
-//    covers two bf16 rows of 128, and each of the eight warps issues the
-//    loads of its next step (8 rows of K and of V) before it reduces the
-//    current one, so a row load waits on one memory round trip and its
-//    latency hides behind the last step's math.
+//    covers two bf16 rows of 128 (one of 256), and each of the eight
+//    warps issues the loads of its next step (8 rows of K and of V at
+//    D = 128) before it reduces the current one, so a row load waits on
+//    one memory round trip and its latency hides behind the last step's
+//    math.
 //    Rows at positions >= npos are never read: table entries past a
 //    lane's filled blocks may name block 0 or stale blocks.
 //  * Each block writes one f32 partial (m, l, unnormalized o) per query
@@ -86,12 +87,13 @@ __global__ void __launch_bounds__(decode::NW * 32) paged_decode_split(
     float* __restrict__ part_ml, int L, int H, int Hkv, int bs, int nt,
     int ce, long long qsl, long long qsh, long long ksl, long long ksh,
     long long vsl, long long vsh, float scale) {
-  constexpr int VD = decode::Row<T, D>::VD;     // elements a lane loads
+  using RW = decode::Row<T, D>;
+  constexpr int VD = RW::VD, NC = RW::NC;
   using R = uint4;                               // one 16-byte load
   __shared__ int sm_tab[MAX_CE];
 
-  // This thread's VD columns of every row it reads.
-  const int col = (threadIdx.x & 31) % decode::Row<T, D>::LPR * VD;
+  // This thread's chunks of every row it reads: columns col + c * CSTEP.
+  const int col = (threadIdx.x & 31) % RW::LPR * VD;
   const int hk = blockIdx.x;
   const int b = blockIdx.y;
   const int sp = blockIdx.z;
@@ -113,17 +115,26 @@ __global__ void __launch_bounds__(decode::NW * 32) paged_decode_split(
     sm_tab[i] = trow[i];
 
   const T* tq = nullptr;
-  float qv[GRP][VD];
+  float qv[GRP][RW::EPT];
 #pragma unroll
   for (int g = 0; g < GRP; ++g) {
-    decode::widen(decode::load_raw<R>(
-        q + b * qsl + (long long)(hk * GRP + g) * qsh + col), qv[g], tq);
 #pragma unroll
-    for (int e = 0; e < VD; ++e)
+    for (int c = 0; c < NC; ++c)
+      decode::widen(decode::load_raw<R>(
+          q + b * qsl + (long long)(hk * GRP + g) * qsh + col + c * RW::CSTEP),
+          qv[g] + c * VD, tq);
+#pragma unroll
+    for (int e = 0; e < RW::EPT; ++e)
       qv[g][e] = decode::round_to(qv[g][e] * scale, tq);
   }
-  const R knr = decode::load_raw<R>(kn + b * ksl + (long long)hk * ksh + col);
-  const R vnr = decode::load_raw<R>(vn + b * vsl + (long long)hk * vsh + col);
+  R knr[NC], vnr[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    knr[c] = decode::load_raw<R>(kn + b * ksl + (long long)hk * ksh + col +
+                                 c * RW::CSTEP);
+    vnr[c] = decode::load_raw<R>(vn + b * vsl + (long long)hk * vsh + col +
+                                 c * RW::CSTEP);
+  }
   __syncthreads();
 
   const long long row = (long long)Hkv * D;   // pool stride per position
@@ -133,18 +144,24 @@ __global__ void __launch_bounds__(decode::NW * 32) paged_decode_split(
   const int j_begin = e_begin * bs;
   decode::split_partial<T, D, GRP, true>(
       qv, j_begin, min(e_end * bs, npos),
-      [&](int j, R& k, R& v) {
+      [&](int j, R (&k)[NC], R (&v)[NC]) {
         if (j == f) {   // the current token's row
-          k = knr;
-          v = vnr;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            k[c] = knr[c];
+            v[c] = vnr[c];
+          }
           return;
         }
         const int rel = j - j_begin;
         const int e = rel / bs;
         const long long off = (long long)sm_tab[e] * blk +
                               (long long)(rel - e * bs) * row;
-        k = decode::load_raw<R>(kb + off);
-        v = decode::load_raw<R>(vb + off);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          k[c] = decode::load_raw<R>(kb + off + c * RW::CSTEP);
+          v[c] = decode::load_raw<R>(vb + off + c * RW::CSTEP);
+        }
       },
       part_o, part_ml, p0);
 }
@@ -176,13 +193,30 @@ cudaError_t launch(const Args& a) {
   return decode::launch_merge<T, D>(a.ws, a.out, a.L, a.H, a.NS, a.stream);
 }
 
+// One instantiation per query-head group 1..8 (the reference's Pallas
+// kernel takes any group; 8 covers the families the HF import brings:
+// Gemma's 8:1, Qwen2's 7:1 and 6:1, Qwen2.5-32B's 5:1).
 template <typename T, int D>
 cudaError_t by_group(int grp, const Args& a) {
   switch (grp) {
     case 1: return launch<T, D, 1>(a);
     case 2: return launch<T, D, 2>(a);
+    case 3: return launch<T, D, 3>(a);
     case 4: return launch<T, D, 4>(a);
+    case 5: return launch<T, D, 5>(a);
+    case 6: return launch<T, D, 6>(a);
+    case 7: return launch<T, D, 7>(a);
     case 8: return launch<T, D, 8>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t by_dim(int D, int grp, const Args& a) {
+  switch (D) {
+    case 64: return by_group<T, 64>(grp, a);
+    case 128: return by_group<T, 128>(grp, a);
+    case 256: return by_group<T, 256>(grp, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -192,7 +226,8 @@ cudaError_t by_group(int grp, const Args& a) {
 extern "C" {
 
 // q [L, H, D] with element strides (qsl, qsh); k_new / v_new [L, Hkv, D]
-// with strides (ksl, ksh) / (vsl, vsh); head dims contiguous. table
+// with strides (ksl, ksh) / (vsl, vsh); head dims contiguous, D 64, 128
+// or 256, H / Hkv 1..8. table
 // [L, nt] and fill [L] contiguous int32 on the device; pools
 // [num_blocks, bs, Hkv, D] contiguous; out [L, H, D] contiguous; ws a
 // float32 workspace of splits * L * H * (D + 2) elements (the
@@ -215,10 +250,8 @@ int paged_decode(const void* q, const void* kn, const void* vn,
                qsl, qsh, ksl, ksh, vsl, vsh, scale,
                static_cast<cudaStream_t>(stream)};
   const int grp = H / Hkv;
-  if (dtype == 0 && D == 64) return by_group<float, 64>(grp, a);
-  if (dtype == 0 && D == 128) return by_group<float, 128>(grp, a);
-  if (dtype == 1 && D == 64) return by_group<__nv_bfloat16, 64>(grp, a);
-  if (dtype == 1 && D == 128) return by_group<__nv_bfloat16, 128>(grp, a);
+  if (dtype == 0) return (int)by_dim<float>(D, grp, a);
+  if (dtype == 1) return (int)by_dim<__nv_bfloat16>(D, grp, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,9 +13,9 @@ the JAX package's):
   rank's histograms bucket by bucket (``HVD_FLEET_RANKS``).
 * `straggler` — collective straggler attribution from the eager ops'
   dispatch timing windows (``HVD_STRAGGLER_CYCLES``).
-
-Profiling (`profile_step`, the profiler session) is a later slice of
-the port (ROADMAP Queue A 9).
+* `profiling` — `profile_step` brackets + the opt-in `torch.profiler`
+  session (``HVD_PROFILE_DIR``), analyzed by
+  `utils.profile_analysis`.
 """
 
 # NOTE: `flightrec` is deliberately NOT imported here — it is also a
@@ -28,6 +28,8 @@ from horovod_tpu_torch.obs.aggregate import FleetAggregator, rank_snapshot
 from horovod_tpu_torch.obs.exporter import (MetricsServer,
                                             render_prometheus,
                                             start_exporter, stop_exporter)
+from horovod_tpu_torch.obs.profiling import (StepProfiler, profile_step,
+                                             profiler_session)
 from horovod_tpu_torch.obs.registry import (Counter, Gauge, Histogram,
                                             MetricRegistry, registry)
 from horovod_tpu_torch.obs.slo import Objective, SLOMonitor
@@ -39,4 +41,5 @@ __all__ = [
     "FleetAggregator", "rank_snapshot", "SLOMonitor", "Objective",
     "MetricsServer", "render_prometheus", "start_exporter",
     "stop_exporter",
+    "StepProfiler", "profile_step", "profiler_session",
 ]

@@ -42,7 +42,13 @@ from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
 from horovod_tpu_torch.runtime.config import env_raw
 
 NEG_INF = float("-inf")
-KERNEL_HEAD_DIMS = (64, 128)
+# Head dims the forward and decode kernels are built for (the
+# reference's Pallas kernels tile the whole head dim as one block and
+# take any); the backward kernels take BWD_HEAD_DIMS only.
+KERNEL_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
+# Query heads per kv head the decode kernels are built for: 1..8.
+DECODE_MAX_GROUP = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -126,6 +132,13 @@ def _check_kernel_operand(name, t, ref):
                          f"{t.data_ptr():#x}, strides {t.stride()})")
 
 
+def _check_head_dim(D):
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the forward and decode kernels take head_dim "
+                         f"{' / '.join(map(str, KERNEL_HEAD_DIMS))}, got "
+                         f"{D}")
+
+
 def _check_kernel_inputs(q, tensors):
     if q.device.type != "cuda":
         raise ValueError(
@@ -133,9 +146,7 @@ def _check_kernel_inputs(q, tensors):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"kernel dtype must be float32 or bfloat16, "
                          f"got {q.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel head_dim must be one of "
-                         f"{KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    _check_head_dim(q.shape[-1])
     for name, t in tensors:
         _check_kernel_operand(name, t, q)
 
@@ -263,8 +274,28 @@ def flash_backward_plain(q, k, v, o, lse, g, *, causal: bool = False,
             dv.transpose(1, 2).to(v.dtype))
 
 
+def _check_bwd_head_dim(D):
+    """The backward kernels are built for `BWD_HEAD_DIMS` only: a CUDA
+    backward at another head dim (Gemma's 256) raises, it never falls
+    back to the plain backward."""
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(
+            f"the flash backward kernels take head_dim "
+            f"{' / '.join(map(str, BWD_HEAD_DIMS))}, got {D}: head_dim "
+            f"{D} training is a later slice of the PyTorch port "
+            f"(ROADMAP Queue B, the backward kernels at D = 256); use "
+            f"bwd_impl='recompute' meanwhile")
+
+
+def _check_decode_group(kind, H, Hkv):
+    if not 1 <= H // Hkv <= DECODE_MAX_GROUP:
+        raise ValueError(f"{kind} kernel takes 1 to {DECODE_MAX_GROUP} "
+                         f"query heads per kv head, got {H // Hkv}")
+
+
 def _bwd_operands(q, k, v, g, lse, dvec):
     """Shared checks of the two backward kernel wrappers."""
+    _check_bwd_head_dim(q.shape[-1])
     _check_kernel_inputs(q, (("q", q), ("k", k), ("v", v), ("dO", g)))
     _gqa_group(q, k, v)
     B, Sq, H, D = q.shape
@@ -293,7 +324,8 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, dvec, *, causal: bool = False,
     forward's ``lse`` and ``dvec = rowsum(dO * O) - dlse``, both float32
     [B, H, Sq] contiguous. bf16 runs the tensor-core kernel (wgmma, TMA
     tensor maps over the operands' own strides), f32 the CUDA-core one.
-    Returns dq [B, Sq, H, D] at q.dtype."""
+    D 64 or 128 (`BWD_HEAD_DIMS`); another head dim raises. Returns dq
+    [B, Sq, H, D] at q.dtype."""
     B, Sq, Sk, H, Hkv, D = _bwd_operands(q, k, v, g, lse, dvec)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
@@ -363,11 +395,13 @@ def flash_backward(q, k, v, o, lse, g, *, causal: bool = False,
     """``(dq, dk, dv)`` of flash attention from the forward's saved
     (q, k, v, out, lse) and the cotangents ``g`` of out and ``dlse`` of
     lse (None: no cotangent). CPU tensors take `flash_backward_plain`;
-    CUDA tensors launch the dQ and dK/dV kernels (or raise)."""
+    CUDA tensors launch the dQ and dK/dV kernels (or raise: at a head
+    dim outside `BWD_HEAD_DIMS`, before any work)."""
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, o, lse, g, causal=causal,
                                     window=window, q_offset=q_offset,
                                     k_offset=k_offset, dlse=dlse)
+    _check_bwd_head_dim(q.shape[-1])
     dvec = (g.float() * o.float()).sum(-1).transpose(1, 2)
     if dlse is not None:
         dvec = dvec - dlse.float()
@@ -626,18 +660,17 @@ def flash_decode_cuda(q, k_cache, v_cache, length, *,
     split kernel, then the merge of its partials):
     q [B, 1, H, D] (strided, 16-byte aligned rows with a contiguous
     head_dim), caches [B, W, Hkv, D] contiguous, ``length`` a device
-    int32 tensor [B] (per-lane filled prefix). H/Hkv must be 1, 2, 4 or
-    8. ``splits`` (default: `decode_splits` of the geometry) is how many
-    key ranges each lane's cache is cut into; the partials go to a
-    workspace allocated here on the current stream."""
+    int32 tensor [B] (per-lane filled prefix). D must be 64, 128 or 256
+    and H/Hkv 1 to 8 (`DECODE_MAX_GROUP`). ``splits`` (default:
+    `decode_splits` of the geometry) is how many key ranges each lane's
+    cache is cut into; the partials go to a workspace allocated here on
+    the current stream."""
     B, W, H, Hkv, D = _decode_shapes(q, k_cache, v_cache)
     _check_kernel_inputs(q, (("q", q), ("k_cache", k_cache),
                              ("v_cache", v_cache)))
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("flash-decode caches must be contiguous")
-    if H // Hkv not in (1, 2, 4, 8):
-        raise ValueError(f"flash-decode kernel takes 1, 2, 4 or 8 query "
-                         f"heads per kv head, got {H // Hkv}")
+    _check_decode_group("flash-decode", H, Hkv)
     if not (isinstance(length, torch.Tensor) and length.dtype == torch.int32
             and length.device == q.device and length.shape == (B,)):
         raise ValueError(

@@ -41,8 +41,9 @@ from typing import Optional
 import torch
 
 from horovod_tpu_torch.ops.flash_attention import (
-    KERNEL_HEAD_DIMS, NEG_INF, _DTYPE_CODE, _F, _I, _L, _P,
-    _check_kernel_operand, _lib_call, _sm_count, decode_splits,
+    NEG_INF, _DTYPE_CODE, _F, _I, _L, _P, _check_decode_group,
+    _check_head_dim, _check_kernel_operand, _lib_call, _sm_count,
+    decode_splits,
 )
 from horovod_tpu_torch.ops.quantization import dequantize_int8
 
@@ -266,11 +267,12 @@ def paged_decode_cuda(q, k_new, v_new, table, fill, k_pool, v_pool, *,
     k_new/v_new [L, Hkv, D] (strided, 16-byte aligned rows with a
     contiguous head dim), ``table`` [L, T] and ``fill`` [L] contiguous
     device int32, pools [num_blocks, block_size, Hkv, D] contiguous.
-    H/Hkv must be 1, 2, 4 or 8. Every table entry a lane reaches must
-    name a block of the pool (the kernel does not bound-check block
-    ids). ``splits`` (default: `paged_decode_splits` of the geometry)
-    is how many ranges each lane's table is cut into; the partials go to
-    a workspace allocated here on the current stream."""
+    D must be 64, 128 or 256 and H/Hkv 1 to 8. Every table entry a lane
+    reaches must name a block of the pool (the kernel does not
+    bound-check block ids). ``splits`` (default: `paged_decode_splits`
+    of the geometry) is how many ranges each lane's table is cut into;
+    the partials go to a workspace allocated here on the current
+    stream."""
     L, H, D, Hkv, bs, T = _decode_shapes(q, k_new, v_new, table, fill,
                                          k_pool, v_pool)
     if q.device.type != "cuda":
@@ -279,12 +281,8 @@ def paged_decode_cuda(q, k_new, v_new, table, fill, k_pool, v_pool, *,
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"kernel dtype must be float32 or bfloat16, "
                          f"got {q.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel head_dim must be one of "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
-    if H // Hkv not in (1, 2, 4, 8):
-        raise ValueError(f"paged-decode kernel takes 1, 2, 4 or 8 query "
-                         f"heads per kv head, got {H // Hkv}")
+    _check_head_dim(D)
+    _check_decode_group("paged-decode", H, Hkv)
     for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new),
                     ("k_pool", k_pool), ("v_pool", v_pool)):
         _check_kernel_operand(name, t, q)

@@ -278,6 +278,11 @@ register_knob(
     "With HVD_LOCK_CHECK=1: write the observed lock-order graph and "
     "any inversions as JSON to this path at process exit")
 register_knob(
+    "HVD_PROFILE_DIR", "str", "(unset)", "obs/profiling.py",
+    "Opt-in torch.profiler trace session directory "
+    "(obs.profiling.profiler_session); analyze captures with "
+    "utils/profile_analysis.py")
+register_knob(
     "HVD_FLIGHT_DIR", "str", "(unset)", "obs/flightrec.py",
     "Crash flight recorder: dump a post-mortem bundle (event ring + "
     "metric snapshot + in-flight trace_ids + config) here on watchdog "

@@ -291,3 +291,114 @@ class TestWrapperDispatch:
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device(None)
 
+
+
+# -- coverage: head_dim 256 and groups 1-8 (the HF families' geometries) ---
+
+from horovod_tpu.ops import paged_attention as jpa  # noqa: E402
+from horovod_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+
+# (H, Hkv, D): Gemma-1's head_dim 256 under MQA (groups 2 and 8), and the
+# Qwen2 groups of 6 (12:2) and 7 (14:2, and 7:1).
+COVERAGE = [(2, 1, 256), (8, 1, 256), (12, 2, 8), (14, 2, 8), (7, 1, 8)]
+COVERAGE_IDS = [f"H{h}-Hkv{k}-D{d}" for h, k, d in COVERAGE]
+
+
+@pytest.mark.parametrize("H,Hkv,D", COVERAGE, ids=COVERAGE_IDS)
+def test_coverage_forward_plain_matches_pallas(H, Hkv, D):
+    """The forward's plain version at the new geometries against the JAX
+    Pallas forward (interpret mode), causal and banded."""
+    q, k, v = _qkv(40 + D + H, 2, 24, 24, H, Hkv, D)
+    for kw in (dict(causal=True), dict(causal=True, window=5)):
+        j_out, j_lse = jfa.flash_attention_lse(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=8,
+            block_k=8, interpret=True, **kw)
+        t_out, t_lse = tfa.flash_attention_lse(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            **kw)
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out),
+                                   atol=TOL, rtol=0)
+        np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse),
+                                   atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("H,Hkv,D", COVERAGE, ids=COVERAGE_IDS)
+def test_coverage_decode_plain_matches_pallas(H, Hkv, D):
+    """The decode kernel's plain version and its split arithmetic at the
+    new geometries against the JAX Pallas decode (interpret mode), per
+    lane (it takes one scalar length)."""
+    W = 32
+    lengths = [1, 9, 16, W]
+    rs = np.random.RandomState(60 + D + H)
+    q = rs.randn(len(lengths), 1, H, D).astype(np.float32)
+    kc = rs.randn(len(lengths), W, Hkv, D).astype(np.float32)
+    vc = rs.randn(len(lengths), W, Hkv, D).astype(np.float32)
+    ref = np.concatenate([np.asarray(jfa.flash_decode_attention(
+        jnp.asarray(q[b:b + 1]), jnp.asarray(kc[b:b + 1]),
+        jnp.asarray(vc[b:b + 1]), jnp.int32(n), block_k=8,
+        interpret=True)) for b, n in enumerate(lengths)])
+    args = (torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+            torch.tensor(lengths, dtype=torch.int32))
+    np.testing.assert_allclose(tfa.flash_decode_plain(*args).numpy(), ref,
+                               atol=TOL, rtol=0)
+    for splits in (1, 3):
+        np.testing.assert_allclose(
+            tfa.flash_decode_split_plain(*args, splits).numpy(), ref,
+            atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("H,Hkv,D", COVERAGE, ids=COVERAGE_IDS)
+def test_coverage_paged_decode_plain_matches_pallas(H, Hkv, D):
+    """The paged-decode kernel's plain version and its split arithmetic
+    at the new geometries against the JAX Pallas paged-decode kernel
+    (interpret mode, vmapped over the lanes), fills 0, on a block
+    boundary, mid-table and at the table's end."""
+    bs, T = 4, 8
+    fills = np.array([0, bs, 13, T * bs - 1, T * bs], np.int32)
+    rs = np.random.RandomState(80 + D + H)
+    L = len(fills)
+    nb = L * T + 1
+    kp = rs.randn(nb, bs, Hkv, D).astype(np.float32)
+    vp = rs.randn(nb, bs, Hkv, D).astype(np.float32)
+    tables = np.stack([rs.permutation(np.arange(1, nb))[:T]
+                       for _ in range(L)]).astype(np.int32)
+    q = rs.randn(L, H, D).astype(np.float32)
+    kn = rs.randn(L, Hkv, D).astype(np.float32)
+    vn = rs.randn(L, Hkv, D).astype(np.float32)
+    jkp, jvp = jnp.asarray(kp)[:, None], jnp.asarray(vp)[:, None]
+    ref = np.stack([np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q[i])[None, None], jnp.asarray(kn[i])[None, None],
+        jnp.asarray(vn[i])[None, None], jkp, jvp, jnp.asarray(tables[i]),
+        jnp.int32(fills[i]), interpret=True))[0, 0] for i in range(L)])
+    args = [torch.from_numpy(a) for a in (q, kn, vn, tables, fills, kp, vp)]
+    np.testing.assert_allclose(tpa.paged_decode_plain(*args).numpy(), ref,
+                               atol=TOL, rtol=0)
+    np.testing.assert_allclose(
+        tpa.paged_decode_split_plain(*args, 3).numpy(), ref, atol=TOL,
+        rtol=0)
+
+
+def test_kernel_wrappers_name_their_limits():
+    """Outside the instantiations the wrappers raise naming the limit,
+    before any launch: the backward at head_dim 256 (a non-CPU tensor)
+    names the later slice; a head_dim the kernels lack, or a decode
+    group above 8, names what they take (the checks the CUDA wrappers
+    run after the device check)."""
+    meta = dict(device="meta")
+    q = torch.empty(1, 8, 2, 256, **meta)
+    lse = torch.empty(1, 2, 8, **meta)
+    with pytest.raises(ValueError, match="later slice"):
+        tfa.flash_backward(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="later slice"):
+        tfa.flash_bwd_dq_cuda(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="later slice"):
+        tfa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse)
+    for D in tfa.KERNEL_HEAD_DIMS:
+        tfa._check_head_dim(D)
+    with pytest.raises(ValueError, match="64 / 128 / 256, got 96"):
+        tfa._check_head_dim(96)
+    for grp in range(1, tfa.DECODE_MAX_GROUP + 1):
+        tfa._check_decode_group("flash-decode", 2 * grp, 2)
+    with pytest.raises(ValueError, match="1 to 8 query heads per kv head, "
+                                         "got 9"):
+        tfa._check_decode_group("paged-decode", 9, 1)

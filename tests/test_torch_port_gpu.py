@@ -849,3 +849,105 @@ def test_cuda_device_mode_export_ingest_roundtrip():
             timeout=300)
     assert list(res.tokens) == ref
     assert res.prefix_tokens_cached == 32
+
+
+# -- coverage: head_dim 256 and decode groups 1-8 ---------------------------
+
+# (H, Hkv, D) of the instantiations the HF families bring: Gemma-1's
+# head_dim 256 (MQA, group 8; and group 1), Qwen2-1.5B's group 6 at 128,
+# groups 3, 5 and 7 at 64 (Qwen2-0.5B's is 7).
+COVERAGE = [(8, 1, 256), (8, 8, 256), (12, 2, 128), (6, 2, 64),
+            (10, 2, 64), (14, 2, 64)]
+
+
+def _close(out, ref, dt):
+    if dt == torch.float32:
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    else:
+        _bf16_close(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_coverage_forward_matches_plain(dtype):
+    """The forward at head_dim 256 (Gemma's 8 heads on 1) and at 14 heads
+    on 2 (Qwen2-0.5B), causal, banded, ragged and offset."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    for i, (H, Hkv, D) in enumerate(((8, 1, 256), (2, 2, 256),
+                                     (14, 2, 64))):
+        for j, c in enumerate((dict(Sq=130, Sk=130, causal=True),
+                               dict(Sq=130, Sk=130, causal=True, window=5),
+                               dict(Sq=40, Sk=300, causal=True,
+                                    q_offset=260),
+                               dict(Sq=16, Sk=199, causal=False))):
+            c = dict(c)
+            Sq, Sk = c.pop("Sq"), c.pop("Sk")
+            q = _randn(10 * i + j, 2, Sq, H, D).to(dev, dt)
+            k = _randn(10 * i + j + 100, 2, Sk, Hkv, D).to(dev, dt)
+            v = _randn(10 * i + j + 200, 2, Sk, Hkv, D).to(dev, dt)
+            out, lse = tfa.flash_fwd_cuda(q, k, v, **c)
+            ref, rlse = tfa.flash_attention_plain(q, k, v, **c)
+            _close(out.float(), ref.float(), dt)
+            torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_coverage_decode_matches_plain(dtype):
+    """Both decode kernels at every new instantiation the HF families run,
+    at split boundaries, length 0 and the table's end."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    W, L, bs = 512, 6, 16
+    for i, (H, Hkv, D) in enumerate(COVERAGE):
+        splits = tfa.decode_splits(W, Hkv * L, tfa._sm_count(dev))
+        c = -(-W // splits)
+        lens = [0, 1, c, c + 1, W - 1, W]
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = _randn(300 + i, L, 1, H, D).to(dev, dt)
+        kc = _randn(310 + i, L, W, Hkv, D).to(dev, dt)
+        vc = _randn(320 + i, L, W, Hkv, D).to(dev, dt)
+        before = tfa.flash_decode_cuda.launches
+        out = tfa.flash_decode_cuda(q, kc, vc, length)
+        assert tfa.flash_decode_cuda.launches == before + 1
+        _close(out, tfa.flash_decode_plain(q, kc, vc, length), dt)
+        assert not out[0].any()
+
+        T = W // bs
+        rs = np.random.RandomState(330 + i)
+        nb = L * T + 1
+        kp = _randn(340 + i, nb, bs, Hkv, D).to(dev, dt)
+        vp = _randn(350 + i, nb, bs, Hkv, D).to(dev, dt)
+        tables = torch.from_numpy(np.stack(
+            [rs.permutation(np.arange(1, nb))[:T] for _ in range(L)]
+        ).astype(np.int32)).to(dev)
+        tables[-1] = 0                            # a free lane
+        fill = torch.tensor([0, bs, c, c - 1, W - 1, 0], dtype=torch.int32,
+                            device=dev)
+        args = (q[:, 0], kc[:, 0], vc[:, 0], tables, fill, kp, vp)
+        out = tpa.paged_decode_cuda(*args)
+        assert torch.isfinite(out.float()).all()
+        _close(out, tpa.paged_decode_plain(*args), dt)
+
+
+@pytest.mark.gpu
+def test_cuda_backward_at_head_dim_256_raises_without_fallback():
+    """The backward kernels are built for head_dim 64 and 128: at 256 a
+    CUDA backward raises naming the later slice, launches nothing and
+    never takes the plain backward; the forward at 256 still runs."""
+    dev = _card()
+    q, k, v = (_randn(400 + i, 1, 64, 2, 256).to(dev, torch.bfloat16)
+               .requires_grad_() for i in range(3))
+    launches = (tfa.flash_bwd_dq_cuda.launches,
+                tfa.flash_bwd_dkv_cuda.launches)
+    out = tfa.flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="later slice"):
+        out.float().sum().backward()
+    o, lse = tfa.flash_fwd_cuda(q.detach(), k.detach(), v.detach(),
+                                causal=True)
+    with pytest.raises(ValueError, match="later slice"):
+        tfa.flash_backward(q.detach(), k.detach(), v.detach(), o, lse,
+                           torch.ones_like(o))
+    assert (tfa.flash_bwd_dq_cuda.launches,
+            tfa.flash_bwd_dkv_cuda.launches) == launches

@@ -267,11 +267,14 @@ def test_import_leaves_jax_out():
             "horovod_tpu_torch.obs.straggler, "
             "horovod_tpu_torch.resilience.detector, "
             "horovod_tpu_torch.resilience.retry, "
-            "horovod_tpu_torch.runner; "
+            "horovod_tpu_torch.runner, horovod_tpu_torch.compat.hf, "
+            "horovod_tpu_torch.obs.profiling, "
+            "horovod_tpu_torch.utils.profile_analysis; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'optax')) or m == 'horovod_tpu' "
             "or m.startswith('horovod_tpu.') or m == 'horovod' "
-            "or m.startswith('horovod.')]; "
+            "or m.startswith('horovod.') or m == 'transformers' "
+            "or m.startswith('transformers.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
