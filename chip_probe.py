@@ -4,8 +4,10 @@ short call that builds, checks and times them without the model phases
 of `chip_smoke.py`.
 
     python3 chip_probe.py [fwd] [decode] [paged] [sweep] [spec] [hf]
-                          # default: all but spec and hf; one card,
-                          # ~1 min each (hf: ~5 min)
+                          [bwd256] [train12] [lr12] [loader]
+                          # default: all but spec, hf, bwd256, train12
+                          # and loader; one card, ~1 min each (hf: ~5
+                          # min); loader alone builds no kernel
 
 Builds every kernel (printing the ptxas lines of the forward and decode
 sources) and then, per part asked for:
@@ -34,6 +36,20 @@ sources) and then, per part asked for:
   for the first two pairs the f32 paged teacher forcing at the model's
   own tables (`chip_smoke.paged_teacher_forced`, 4 ticks, timed); then the
   kernels line's rows of each model (`chip_smoke.time_coverage`).
+* bwd256: the dQ and dK/dV kernels at head_dim 256 (`chip_smoke.py`
+  phase 12a case by case, the wgmma report, and the two kernels timed
+  at [B, 2048, 8, 256] over one kv head for B 1, 2 and 4).
+* train12: `chip_smoke.py` phases 12b (Gemma-2B's training steps and
+  its kernels-vs-plain step, bf16 and the f32 twin) and 12c (the
+  resumable loop), 12c once without and once with
+  ``torch.use_deterministic_algorithms``.
+* lr12: `chip_smoke.py` phase 12b at each (rate, warmup steps) of
+  LR12_SWEEP in turn (how `chip_smoke.GEMMA_LR` and `GEMMA_WARMUP` were
+  chosen); a setting whose losses fail 12b's check is printed and the
+  probe goes on.
+* loader: both readers of `horovod_tpu_torch.data` (the native one and
+  the Python one) on 12b's feed over a 1 GiB corpus (`probe_loader`);
+  host only.
 
 A failing case is printed and the probe goes on to the next. With
 decode or paged it then times both decode ticks as `chip_smoke.py`
@@ -243,6 +259,179 @@ def probe_hf(cs, tfa, tpa, dev):
               flush=True)
 
 
+def probe_bwd256(cs, tfa, build, dev):
+    """The backward kernels at head_dim 256: the wgmma report (registers,
+    spills, shared memory, HGMMA), phase 12a's checks case by case, and
+    both kernels timed at [B, 2048, 8, 256] over one kv head for B 1, 2
+    and 4."""
+    import torch
+    for stem in ("flash_bwd_dq", "flash_bwd_dkv"):
+        for line in build.ptxas_reports[stem].splitlines():
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry", "arning", "rror")):
+                print(stem, line.strip())
+    try:
+        cs.report_wgmma_kernels(build)
+    except Exception:
+        traceback.print_exc()
+    for case in cs.BWD256_CASES:
+        try:
+            print(cs.check_backward(tfa, dev, cases=[case],
+                                    names=cs.BWD256_NAMES), flush=True)
+        except Exception:
+            traceback.print_exc()
+            torch.cuda.synchronize()
+    g = torch.Generator(device=dev).manual_seed(4321)
+    for B in (1, 2, 4):
+        try:
+            rows = cs.time_backward(tfa, dev, g, B, 2048, 8, 1, 256)
+            print(json.dumps({k: {f: r.get(f) for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for k, r in rows.items()}), flush=True)
+        except Exception:
+            traceback.print_exc()
+
+
+def probe_train12(cs, tfa, dev):
+    """Phases 12b and 12c of `chip_smoke.py` alone: Gemma-2B's training
+    steps and its kernels-vs-plain step (bf16 and the f32 twin), then
+    the resumable loop twice, once with ``torch.use_deterministic_
+    algorithms`` (12c's step is bitwise without it)."""
+    import shutil
+    import tempfile
+    import torch
+
+    def deterministic_resume():
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            cs.run_resume(tfa, dev, f"{work}/r1")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    work = tempfile.mkdtemp(prefix="hvd_probe12_")
+    try:
+        for name, fn in (
+                ("12b", lambda: cs.run_gemma_training(
+                    tfa, dev, f"{work}/gemma")),
+                ("12c", lambda: cs.run_resume(tfa, dev, f"{work}/r0")),
+                ("12c deterministic algorithms", deterministic_resume)):
+            t = time.time()
+            try:
+                fn()
+            except Exception:
+                traceback.print_exc()
+            torch.cuda.empty_cache()
+            print(f"{name}: {time.time() - t:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# AdamW's (rate, warmup steps) for 12b's Gemma-2B from random weights.
+LR12_SWEEP = [(3e-4, 1), (3e-4, 3), (1e-4, 1), (1e-4, 3), (5e-5, 1),
+              (3e-5, 1), (1e-5, 1)]
+
+
+def probe_lr12(cs, tfa, dev):
+    """Phase 12b of `chip_smoke.py` at each setting of LR12_SWEEP."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    work = tempfile.mkdtemp(prefix="hvd_probe_lr12_")
+    saved = cs.GEMMA_LR, cs.GEMMA_WARMUP
+    try:
+        for lr, warmup in LR12_SWEEP:
+            cs.GEMMA_LR, cs.GEMMA_WARMUP = lr, warmup
+            t = time.time()
+            try:
+                info = cs.run_gemma_training(tfa, dev, f"{work}/{lr}")
+                print(json.dumps(dict(lr=lr, warmup=warmup,
+                                      losses=info["losses"])), flush=True)
+            except Exception:
+                traceback.print_exc()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"lr {lr} warmup {warmup}: {time.time() - t:.1f} s",
+                  flush=True)
+    finally:
+        cs.GEMMA_LR, cs.GEMMA_WARMUP = saved
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# The loader probe's corpus: LOADER_ROWS rows of 2048 int32 tokens
+# (1 GiB, 268 M tokens) in LOADER_SHARDS shards.
+LOADER_ROWS = 131072
+LOADER_SHARDS = 16
+
+
+def probe_loader(cs):
+    """Both readers of `horovod_tpu_torch.data` on 12b's feed (batches of
+    `chip_smoke.GEMMA_TRAIN_BATCH` x 2048 int32 tokens, shuffled with
+    12b's seed, one rank) over LOADER_ROWS seeded rows written to a temp
+    dir at run time (so every read is warm: the files were just
+    written). Twice each, alternating: the time from construction to the
+    first batch, to the first batch of a start at mid-epoch, and per
+    batch over the rest of the epoch, with an order-sensitive checksum
+    of each stream (the two must agree)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from horovod_tpu_torch import data as hd
+    from horovod_tpu_torch.runtime.config import config
+    S, B = 2048, cs.GEMMA_TRAIN_BATCH
+    spec = hd.lm_spec(S)
+    work = tempfile.mkdtemp(prefix="hvd_probe_loader_")
+    saved = config.use_native
+    try:
+        rs = np.random.RandomState(cs.GEMMA_TRAIN_SEED)
+        tokens = rs.randint(0, 256000, size=(LOADER_ROWS, S),
+                            dtype=np.int32)
+        t = time.perf_counter()
+        paths = hd.write_shards(work, "corpus", spec, {"tokens": tokens},
+                                LOADER_SHARDS)
+        print(f"loader: wrote {tokens.nbytes / 2**30:.2f} GiB in "
+              f"{LOADER_SHARDS} shards in {time.perf_counter() - t:.2f} s "
+              f"({os.cpu_count()} host cores)", flush=True)
+        del tokens
+        sums = {}
+        for native in (True, False, True, False):
+            config.use_native = native
+            t0 = time.perf_counter()
+            ds = hd.ShardedDataset(paths, spec, B, shuffle=True,
+                                   seed=cs.GEMMA_TRAIN_SEED, rank=0,
+                                   world=1, drop_remainder=True)
+            if ds.native != native:
+                raise AssertionError(f"asked native={native}, got "
+                                     f"{ds.native}")
+            steps = ds.steps_per_epoch()
+            it = ds.epoch(0)
+            chk = hash(next(it)["tokens"].tobytes())
+            first_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            n = 1
+            for batch in it:
+                chk = hash((chk, batch["tokens"][:, :8].tobytes()))
+                n += 1
+            per_batch_s = (time.perf_counter() - t1) / (n - 1)
+            t2 = time.perf_counter()
+            mid = next(ds.epoch(0, start_batch=steps // 2))["tokens"]
+            mid_s = time.perf_counter() - t2
+            chk = hash((chk, mid.tobytes()))
+            ds.close()
+            name = "native" if native else "python"
+            if sums.setdefault("stream", chk) != chk:
+                raise AssertionError(f"the {name} reader's stream differs")
+            print(json.dumps(dict(
+                reader=name, batches=n, batch=B, seq=S,
+                first_batch_ms=first_s * 1e3,
+                mid_epoch_first_batch_ms=mid_s * 1e3,
+                per_batch_us=per_batch_s * 1e6,
+                mb_per_s=B * S * 4 / per_batch_s / 1e6)), flush=True)
+    finally:
+        config.use_native = saved
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -250,10 +439,16 @@ def main() -> int:
         return 2
     every = {"fwd", "decode", "paged", "sweep"}
     parts = set(sys.argv[1:]) or every
-    if not parts <= every | {"spec", "hf"}:
+    if not parts <= every | {"spec", "hf", "bwd256", "train12", "lr12",
+                             "loader"}:
         print(f"chip_probe: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    if "loader" in parts:
+        probe_loader(cs)
+        parts.discard("loader")
+        if not parts:
+            return 0
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as tfa
     from horovod_tpu_torch.ops import paged_attention as tpa
@@ -301,6 +496,12 @@ def main() -> int:
         probe_spec(cs, tfa, tpa, dev)
     if "hf" in parts:
         probe_hf(cs, tfa, tpa, dev)
+    if "bwd256" in parts:
+        probe_bwd256(cs, tfa, _build, dev)
+    if "train12" in parts:
+        probe_train12(cs, tfa, dev)
+    if "lr12" in parts:
+        probe_lr12(cs, tfa, dev)
     print(f"nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     return 0
 

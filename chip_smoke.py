@@ -3,7 +3,7 @@
 NVIDIA H100: the quickest proof that the port builds, is right and
 serves on the card.
 
-    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~8 minutes
+    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~9 minutes
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
@@ -11,9 +11,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    the five CUDA kernels built from ``horovod_tpu_torch/csrc`` with
    nvcc, one process per source started together (the ``-Xptxas -v``
    register / shared-memory lines are printed). Each bf16 tensor-core
-   instantiation of the forward and backward kernels (forward at D 64,
-   128 and 256, dQ and dK/dV at D 64 and 128: seven) reports its
-   registers and spills
+   instantiation of the forward and backward kernels (forward, dQ and
+   dK/dV at D 64, 128 and 256: nine) reports its registers and spills
    (ptxas), its dynamic shared memory and its HGMMA (wgmma)
    instructions (cuobjdump -sass); a spill, or one with no HGMMA, fails
    the run.
@@ -239,14 +238,46 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    against its plain version (and a planted fault) on the very inputs
    it is timed on.
 
+12. Gemma-2B training, resumably (after phase 11, in a temporary
+   directory removed after it). (a) The dQ and dK/dV kernels at
+   head_dim 256 against the plain backward, f32 and bf16 at phase 2c's
+   GRAD_TOL (`BWD256_CASES`: Gemma's attention [1, 2048, 8, 256] over
+   one kv head, causal; a 512 window; Hkv = H; ragged Sq = Sk = 1000
+   under Hkv 2 with a cotangent on lse; fused qkv views), phase 2c's
+   planted faults on the first (dK/dV one query row short; p and ds
+   rounded to one bf16 against the hi + lo split), then both kernels
+   timed at [2, 2048, 8, 256], Hkv 1, beside the plain backward, SDPA's
+   backward (GQA) and the bound. (b) Gemma-2B at full width and depth
+   (phase 11's config, 2.506 B params) from random HF-layout weights,
+   f32 params and bf16 compute, AdamW, ``attn_impl="flash"``,
+   ``loss_chunk=512``, B = 2 x 2048, no remat: GEMMA_TRAIN_STEPS steps
+   fed by `data.ShardedDataset` (the native loader, asserted) over
+   `write_token_shards` files of `pack_tokens`-packed seeded
+   documents; the loss finite and falling, each training kernel
+   launched >= 18 x steps, step time, tokens/s and peak memory
+   printed; then one B = 1 step through the kernels against the plain
+   forward and backward (phase 5's tolerances) and its f32 twin, which
+   must hold GEMMA_F32_GRAD_TOL and refuse the planted fault. (c) Phase
+   5's model on `resilience.ElasticTrainer` with a `TrainSnapshot`
+   (dataset cursor, torch.Generator): async saves every
+   RESUME_SAVE_EVERY steps (keep 2), the process's own SIGTERM after
+   step RESUME_KILL_AT (the emergency save), then a fresh model,
+   optimizer, dataset and trainer `resume()`: the restored tree equal
+   to the saved one bitwise, ``resume_gap_batches == 0``, and the
+   resumed losses, final parameters and AdamW state equal to an
+   uninterrupted run's bitwise. The kernels line gains the rows
+   ``flash_bwd_dq@gemma-2b`` and ``flash_bwd_dkv@gemma-2b`` (12a's
+   readings, 12b's launches).
+
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
 engine, training, training under PowerSGD, each speculative run, each
 phase-9 generate and engine run, each phase-10 generate, engine,
-router and disagg run, each phase-11 generate and engine run) and read
-just after. Each HF model's runs count into its own rows of the
-kernels line. Launches made to compare or time a kernel, and the
-traced step and tick, do not count.
+router and disagg run, each phase-11 generate and engine run, 12b's
+training steps) and read just after. Each HF model's runs count into
+its own rows of the kernels line (12b into Gemma-2B's). Launches made
+to compare or time a kernel, and the traced step and tick, do not
+count.
 ``--json PATH`` also writes every number to a JSON file.
 """
 
@@ -510,7 +541,7 @@ def report_wgmma_kernels(build):
             if info["hgmma"] == 0:
                 raise AssertionError(f"{stem} D={D} issues no wgmma")
     want = {f"{stem} bf16 D={D}" for stem in WGMMA_SOURCES
-            for D in (64, 128)} | {"flash_fwd bf16 D=256"}
+            for D in (64, 128, 256)}
     if set(rows) != want:
         raise AssertionError(f"expected the wgmma instantiations "
                              f"{sorted(want)}, found {sorted(rows)}")
@@ -933,16 +964,22 @@ def fused_qkv(B, S, H, D, dev, dt, g):
     return [t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1)]
 
 
-def check_backward(tfa, dev):
-    """Phase 2c: the dQ and dK/dV kernels against the plain backward on
-    the forward kernel's saved (out, lse)."""
+def check_backward(tfa, dev, cases=None, names=("flash_bwd_dq",
+                                                 "flash_bwd_dkv"),
+                   seed=2468):
+    """Phase 2c (and 12a with ``cases=BWD256_CASES``): the dQ and dK/dV
+    kernels against the plain backward on the forward kernel's saved
+    (out, lse). The case named "path ..." also carries the planted
+    faults: the plain dK/dV one query row short (both dtypes) and, in
+    bf16, p and ds rounded to one bf16 against the hi + lo split. Errors
+    go to ``names`` (the dQ and the dK/dV row)."""
     import torch
-    g = torch.Generator(device=dev).manual_seed(2468)
-    errs = {n: {"max_abs_err_f32": 0.0} for n in ("flash_bwd_dq",
-                                                  "flash_bwd_dkv")}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_dq, n_dkv = names
+    errs = {n: {"max_abs_err_f32": 0.0} for n in names}
     # (name, (B, Sq, Sk, H, Hkv, D), kwargs, cotangent on lse, q/k/v as
     # views of one fused projection)
-    cases = [
+    cases = cases or [
         ("path [8,2048,8,128] causal", (8, 2048, 2048, 8, 8, 128),
          dict(causal=True), False, False),
         ("gqa 8/2 window 300 q_offset 256", (2, 384, 640, 8, 2, 128),
@@ -987,8 +1024,8 @@ def check_backward(tfa, dev):
                 f"{max(float(b.float().abs().max()) for b in ref):.3f}")
             if not all(ok for _, ok in res):
                 raise AssertionError(f"flash_bwd {dtype} {name}: {res}")
-            for kern, err in (("flash_bwd_dq", res[0][0]),
-                              ("flash_bwd_dkv", max(res[1][0], res[2][0]))):
+            for kern, err in ((n_dq, res[0][0]),
+                              (n_dkv, max(res[1][0], res[2][0]))):
                 e = errs[kern]
                 if dtype == "float32":
                     e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
@@ -1011,15 +1048,16 @@ def check_backward(tfa, dev):
                 if not caught:
                     raise AssertionError("the backward check does not see "
                                          "a dK/dV one query row short")
-                errs["flash_bwd_dkv"][f"planted_fault_err_{dtype}"] = ferr
+                errs[n_dkv][f"planted_fault_err_{dtype}"] = ferr
             if name.startswith("path") and dtype == "bfloat16":
                 check_rounding_fault(tfa, (q, k, v, out, lse, go), ref, kw,
-                                     tol, errs)
+                                     tol, errs, names)
             del q, k, v, go, out, lse, got, ref
     return errs
 
 
-def check_rounding_fault(tfa, args, ref, kw, tol, errs):
+def check_rounding_fault(tfa, args, ref, kw, tol, errs,
+                         names=("flash_bwd_dq", "flash_bwd_dkv")):
     """The check must see the precision the bf16 kernels' hi/lo split
     buys: the plain backward with p and ds rounded to one bf16 before the
     second-stage products (a planted fault) fails the check against the
@@ -1045,8 +1083,8 @@ def check_rounding_fault(tfa, args, ref, kw, tol, errs):
     if not all(ok for _, ok in counts[True]):
         raise AssertionError(f"the hi + lo split misses the plain "
                              f"backward: {counts[True]}")
-    errs["flash_bwd_dq"]["planted_fault_rounded_err"] = counts[False][0][0]
-    errs["flash_bwd_dkv"]["planted_fault_rounded_err"] = max(
+    errs[names[0]]["planted_fault_rounded_err"] = counts[False][0][0]
+    errs[names[1]]["planted_fault_rounded_err"] = max(
         counts[False][1][0], counts[False][2][0])
 
 
@@ -1223,57 +1261,108 @@ def time_kernels(tfa, dev):
 
     # The training step's attention, [8, 2048, 8, 128] bf16 causal.
     B3, S3 = 8, 2048
-    q3, k3, v3, g3 = (torch.randn(B3, S3, H, D, device=dev,
-                                  generator=g).to(bf) for _ in range(4))
-    o3, lse3 = tfa.flash_fwd_cuda(q3, k3, v3, causal=True)
-    dvec3 = (g3.float() * o3.float()).sum(-1).transpose(1, 2).contiguous()
+    q3, k3, v3 = (torch.randn(B3, S3, H, D, device=dev,
+                              generator=g).to(bf) for _ in range(3))
     prod = 2.0 * S3 * S3 * D * H * B3 / 2    # one causal [S,D]x[D,S] product
     tensor = B3 * S3 * H * D * 2             # one [B, S, H, D] bf16 tensor
-    rowv = 2 * B3 * H * S3 * 4               # lse and dvec, f32
     ms3 = cuda_time_ms(lambda: tfa.flash_fwd_cuda(q3, k3, v3, causal=True),
                        iters=10)
     qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q3, k3, v3))
     rows["flash_fwd"]["at_8x2048"] = dict(
         ms=ms3, bound_ms=max(2 * prod / PEAK_BF16_FLOPS,
-                             (4 * tensor + rowv / 2) / PEAK_BYTES) * 1e3,
+                             (4 * tensor + B3 * H * S3 * 4) / PEAK_BYTES)
+        * 1e3,
         library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True), iters=10))
+    del q3, k3, v3, qs, ks, vs
+    rows.update(time_backward(tfa, dev, g, B3, S3, H, H, D))
+    return rows
+
+
+def time_backward(tfa, dev, g, B, S, H, Hkv, D, tag=""):
+    """The dQ and dK/dV kernels (rows ``flash_bwd_dq<tag>``,
+    ``flash_bwd_dkv<tag>``) and the whole backward as the training step
+    runs it (``flash_backward<tag>``: the eager dvec pass, then both
+    kernels), bf16 causal at [B, S, H, D] over Hkv kv heads, beside the
+    plain backward, SDPA's backward and the bound from these inputs.
+    First the forward, dQ and dK/dV kernels are held against their plain
+    versions on these same inputs (TOL, LSE_TOL, GRAD_TOL): each row's
+    ``max_abs_err`` is read on the inputs it is timed on."""
+    import torch
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    q, go = (torch.randn(B, S, H, D, device=dev, generator=g).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, device=dev, generator=g).to(bf)
+            for _ in range(2))
+    o, lse = tfa.flash_fwd_cuda(q, k, v, causal=True)
+    dvec = (go.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    # Each kernel against its plain version on the inputs it is timed
+    # on: the forward that saves (o, lse), then dQ and dK/dV.
+    ro, rlse = tfa.flash_attention_plain(q, k, v, causal=True)
+    ref = tfa.flash_backward_plain(q, k, v, o, lse, go, causal=True)
+    got = (tfa.flash_bwd_dq_cuda(q, k, v, go, lse, dvec, causal=True),
+           *tfa.flash_bwd_dkv_cuda(q, k, v, go, lse, dvec, causal=True))
+    torch.cuda.synchronize()
+    fwd = [max_err(o, ro, TOL["bfloat16"]), max_err(lse, rlse, (LSE_TOL, 0))]
+    res = [max_err(a, b, GRAD_TOL["bfloat16"]) for a, b in zip(got, ref)]
+    log(f"timed inputs [{B},{S},{H},{D}] Hkv {Hkv} bf16 causal, kernels vs "
+        f"plain: forward out {fwd[0][0]:.3e} lse {fwd[1][0]:.3e}, dq "
+        f"{res[0][0]:.3e} dk {res[1][0]:.3e} dv {res[2][0]:.3e}")
+    if not all(ok for _, ok in fwd + res):
+        raise AssertionError(f"kernels vs plain on the timed inputs "
+                             f"[{B},{S},{H},{D}] Hkv {Hkv}: forward {fwd}, "
+                             f"backward {res}")
+    checked = {"flash_bwd_dq": res[0][0],
+               "flash_bwd_dkv": max(res[1][0], res[2][0])}
+    del ro, rlse, ref, got
+    prod = 2.0 * S * S * D * H * B / 2    # one causal [S,D]x[D,S] product
+    qh = B * S * H * D * 2                # one [B, S, H, D] bf16 tensor
+    kvh = B * S * Hkv * D * 2             # one [B, S, Hkv, D] bf16 tensor
+    rowv = 2 * B * H * S * 4              # lse and dvec, f32
     plain_ms = cuda_time_ms(lambda: tfa.flash_backward_plain(
-        q3, k3, v3, o3, lse3, g3, causal=True), iters=3, warmup=1)
-    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    gs = g3.transpose(1, 2).contiguous()
+        q, k, v, o, lse, go, causal=True), iters=3, warmup=1)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gqa = dict(enable_gqa=True) if Hkv != H else {}
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, **gqa)
+    gs = go.transpose(1, 2).contiguous()
     lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
         os_, (qs, ks, vs), gs, retain_graph=True), iters=10)
-    # The whole backward as the training step runs it (the eager dvec
-    # pass, then both kernels) against the SDPA backward, which also
-    # computes its own rowsum(dO * O).
-    rows["flash_backward"] = dict(
-        shape=[B3, S3, H, D], dtype="bfloat16",
+    del os_, qs, ks, vs
+    # SDPA's backward also computes its own rowsum(dO * O).
+    rows = {f"flash_backward{tag}": dict(
+        shape=[B, S, H, D], hkv=Hkv, dtype="bfloat16",
         ms=cuda_time_ms(lambda: tfa.flash_backward(
-            q3, k3, v3, o3, lse3, g3, causal=True), iters=10),
-        library_ms=lib_ms)
+            q, k, v, o, lse, go, causal=True), iters=10),
+        library_ms=lib_ms, fwd_max_abs_err=fwd[0][0],
+        fwd_lse_max_abs_err=fwd[1][0])}
     kw = dict(causal=True)
     # The function's own products: dQ = s, dp, ds k; dK/dV = s, dp,
-    # p^T dO, ds^T q. The bf16 kernels run ds k (dQ), and p^T dO and
-    # ds^T q (dK/dV), twice each (bf16 hi + lo): that is a choice of
-    # implementation, not work the function needs, so it is not bound.
+    # p^T dO, ds^T q (per query head, folded over the group). The bf16
+    # kernels run ds k (dQ), and p^T dO and ds^T q (dK/dV), twice each
+    # (bf16 hi + lo), and at D = 256 the dK/dV kernel's two warpgroups
+    # each compute s and dp: choices of implementation, not work the
+    # function needs, so they are not bound. Bytes: dQ reads q, k, v,
+    # dO, lse, dvec and writes dq; dK/dV writes dk and dv instead.
     for name, fn, nprod, nbytes in (
             ("flash_bwd_dq", lambda: tfa.flash_bwd_dq_cuda(
-                q3, k3, v3, g3, lse3, dvec3, **kw), 3, 5 * tensor + rowv),
+                q, k, v, go, lse, dvec, **kw), 3, 3 * qh + 2 * kvh + rowv),
             ("flash_bwd_dkv", lambda: tfa.flash_bwd_dkv_cuda(
-                q3, k3, v3, g3, lse3, dvec3, **kw), 4, 6 * tensor + rowv)):
+                q, k, v, go, lse, dvec, **kw), 4, 2 * qh + 4 * kvh + rowv)):
         t_flop, t_byte = nprod * prod / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        rows[name] = dict(
-            shape=[B3, S3, H, D], dtype="bfloat16",
+        rows[name + tag] = dict(
+            shape=[B, S, H, D], hkv=Hkv, dtype="bfloat16",
             ms=cuda_time_ms(fn, iters=20), plain_ms=plain_ms,
+            max_abs_err=checked[name],
             library_ms=lib_ms, bound_ms=max(t_flop, t_byte) * 1e3,
             bound_by="operations" if t_flop >= t_byte else "bytes",
             library="backward of scaled_dot_product_attention(is_causal="
-                    "True) through torch.autograd.grad: dQ, dK and dV in "
-                    "one call, the same number in both backward rows; the "
-                    "plain time is flash_backward_plain, which also "
-                    "computes all three")
+                    f"True{', enable_gqa=True' if gqa else ''}) through "
+                    "torch.autograd.grad: dQ, dK and dV in one call, the "
+                    "same number in both backward rows; the plain time is "
+                    "flash_backward_plain, which also computes all three")
     return rows
 
 
@@ -1381,51 +1470,65 @@ def run_training(tfa, dev):
         hvd.shutdown()
 
 
-def check_train_step(model, tfa, tokens):
+def train_step_errors(model, tfa, tokens):
     """Loss and every parameter's gradient of one step through the
     kernels against the same step on the plain versions, and against
-    the plain backward one query row short (a planted fault)."""
-    import torch
+    the plain backward one query row short (a planted fault): the plain
+    step's gradients are kept, the other two are held to them as they
+    are computed (per-parameter max |k - p| / max |p|), so the
+    gradients are on the card at most twice beside the model."""
     from horovod_tpu_torch.models.transformer import _lm_data_loss
+    named = list(model.named_parameters())
 
-    def grads():
+    def backward():
         model.zero_grad(set_to_none=True)
         loss = _lm_data_loss(model, tokens, 512)
         loss.backward()
-        return float(loss.detach()), [p.grad.clone()
-                                      for p in model.parameters()]
+        return float(loss.detach())
 
-    k_loss, k_grads = grads()
     with plain_training_attention(tfa):
-        p_loss, p_grads = grads()
+        p_loss = backward()
+    p_grads = [p.grad for _, p in named]
+
+    def errors():
+        return {n: float((p.grad - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                for (n, p), g in zip(named, p_grads)}
+
+    k_loss = backward()
+    per = errors()
     with plain_training_attention(tfa, planted_short_backward(tfa)):
-        f_loss, f_grads = grads()
+        f_loss = backward()
+    ferr = max(errors().values())
     model.zero_grad(set_to_none=True)
+    return dict(check_loss=k_loss, check_plain_loss=p_loss,
+                check_grad_err=max(per.values()),
+                check_planted_fault_grad_err=ferr,
+                check_planted_fault_loss=f_loss,
+                top=sorted(per.items(), key=lambda kv: -kv[1])[:3])
 
-    def worst(gs):
-        return max(float((a - b).abs().max() / b.abs().max().clamp_min(
-            1e-30)) for a, b in zip(gs, p_grads))
 
-    err, ferr = worst(k_grads), worst(f_grads)
-    names = [n for n, _ in model.named_parameters()]
-    per = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-           for n, a, b in zip(names, k_grads, p_grads)}
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+def check_train_step(model, tfa, tokens):
+    """Phase 5's `train_step_errors`, held to STEP_LOSS_TOL and
+    STEP_GRAD_TOL, which the planted fault must exceed."""
+    r = train_step_errors(model, tfa, tokens)
+    k_loss, p_loss = r["check_loss"], r["check_plain_loss"]
+    err, ferr = r["check_grad_err"], r["check_planted_fault_grad_err"]
     log(f"train step B=2, kernels vs plain: loss {k_loss:.6f} vs "
         f"{p_loss:.6f} (|diff| {abs(k_loss - p_loss):.2e}, tol "
         f"{STEP_LOSS_TOL}), worst per-parameter gradient error "
-        f"{err:.3e} (tol {STEP_GRAD_TOL}; top {top})")
+        f"{err:.3e} (tol {STEP_GRAD_TOL}; top {r['top']})")
     log(f"train step B=2, planted fault (plain dK/dV one query row short) "
         f"vs plain: worst per-parameter gradient error {ferr:.3e}, loss "
-        f"|diff| {abs(f_loss - p_loss):.2e}")
+        f"|diff| {abs(r['check_planted_fault_loss'] - p_loss):.2e}")
     if abs(k_loss - p_loss) > STEP_LOSS_TOL or err > STEP_GRAD_TOL:
         raise AssertionError(f"train step through the kernels differs: "
                              f"loss {k_loss} vs {p_loss}, grad err {err}")
     if ferr <= STEP_GRAD_TOL:
         raise AssertionError(f"the train-step check does not see a dK/dV "
                              f"one query row short ({ferr})")
-    return dict(check_loss=k_loss, check_plain_loss=p_loss,
-                check_grad_err=err, check_planted_fault_grad_err=ferr)
+    return {k: v for k, v in r.items()
+            if k not in ("top", "check_planted_fault_loss")}
 
 
 def teacher_forced_logits(model, prompt, forced, n_ticks):
@@ -3912,6 +4015,453 @@ def run_hf(tfa, tpa, dev):
     return dict(coverage=coverage, models=models, seconds=time.time() - t0)
 
 
+# -- phase 12: Gemma-2B training, resumably ---------------------------------
+
+# 12b trains Gemma-2B at B = GEMMA_TRAIN_BATCH x 2048; 12a checks and
+# times the backward kernels at that shape.
+GEMMA_TRAIN_BATCH = 2
+
+# 12a: the backward kernels at head_dim 256 (Gemma-1's heads over one kv
+# head) against the plain backward, at phase 2c's GRAD_TOL, in the same
+# form as phase 2c's cases. The path case is 12b's training attention
+# and carries the planted faults.
+BWD256_CASES = [
+    (f"path [{GEMMA_TRAIN_BATCH},2048,8,256] Hkv 1 causal",
+     (GEMMA_TRAIN_BATCH, 2048, 2048, 8, 1, 256), dict(causal=True), False,
+     False),
+    ("window 512 [1,2048,8,256] Hkv 1", (1, 2048, 2048, 8, 1, 256),
+     dict(causal=True, window=512), False, False),
+    ("Hkv = H [1,1024,8,256] causal", (1, 1024, 1024, 8, 8, 256),
+     dict(causal=True), False, False),
+    ("ragged Sq=Sk=1000 Hkv 2, dlse", (2, 1000, 1000, 8, 2, 256),
+     dict(causal=True), True, False),
+    ("fused qkv views [1,1024,8,256]", (1, 1024, 1024, 8, 8, 256),
+     dict(causal=True), False, True),
+]
+BWD256_NAMES = ("flash_bwd_dq@gemma-2b", "flash_bwd_dkv@gemma-2b")
+
+
+def run_bwd256(tfa, dev, batch):
+    """12a: the D = 256 checks, then both kernels timed at the Gemma-2B
+    training step's attention, [batch, 2048, 8, 256] over one kv head,
+    beside the plain backward, SDPA's backward and the bound."""
+    import torch
+    t0 = time.time()
+    errs = check_backward(tfa, dev, cases=BWD256_CASES, names=BWD256_NAMES,
+                          seed=1357)
+    g = torch.Generator(device=dev).manual_seed(4321)
+    timing = time_backward(tfa, dev, g, batch, 2048, 8, 1, 256,
+                           tag="@gemma-2b")
+    for name in BWD256_NAMES:
+        t = timing[name]
+        log(f"12a {name}: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms "
+            f"plain, {t['library_ms']:.4f} ms SDPA backward, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']} "
+            f"Hkv 1, max_abs_err {t['max_abs_err']:.3e} on these inputs, "
+            f"{errs[name]['max_abs_err']:.3e} in the bf16 path case")
+    t = timing["flash_backward@gemma-2b"]
+    log(f"12a whole backward (dvec pass + dQ + dK/dV) at {t['shape']} Hkv "
+        f"1: {t['ms']:.4f} ms, SDPA backward {t['library_ms']:.4f} ms")
+    return dict(errs=errs, timing=timing, seconds=time.time() - t0)
+
+
+# 12b: Gemma-2B (phase 11's config, full width and depth) training from
+# random HF-layout weights, f32 params and bf16 compute as phase 5, fed
+# by the port's data pipeline. B = 2 x 2048 fits without remat: ~40 GB
+# of f32 params, grads and AdamW moments, the rest activations.
+GEMMA_TRAIN_STEPS = 8
+GEMMA_TRAIN_SEED = 5
+# AdamW's rate, ramped linearly over the first GEMMA_WARMUP steps (1:
+# no ramp). From random weights 3e-4 overshoots (losses 12.20, 9.65,
+# 18.14, 11.15, 10.46, 10.44), and so do 3e-4 and 1e-4 ramped over 3
+# steps; 5e-5 falls at every step, 12.20 to 6.77 in 8, and 3e-5 and
+# 1e-5 do too, more slowly (`chip_probe.py lr12`, an H100 80GB HBM3 at
+# 700 W). The loss must fall for real: no step above the first, and the
+# median of the last half at least GEMMA_LOSS_DROP nats below the
+# first (5e-5 reads 4.97).
+GEMMA_LR = 5e-5
+GEMMA_WARMUP = 1
+GEMMA_LOSS_DROP = 2.0
+# The packed corpus: documents of Zipf-distributed ids over the first
+# GEMMA_DOC_VOCAB ids (a learnable unigram, so a few steps lower the
+# loss), DOCS documents of 300..1500 tokens, packed into 2048-token rows
+# over 3 shards; at B = 2 the rows repeat within the run.
+GEMMA_DOC_VOCAB = 4096
+GEMMA_DOCS = 24
+# 12b's f32 twin: the same weights computing in f32, kernels vs plain
+# versions, worst per-parameter gradient error. In bf16 the planted
+# fault (dK/dV one query row short) moved Gemma-2B's gradients by
+# 6.8e-3 against the kernels' own 7.1e-3, so bf16 cannot see it; in f32
+# the kernels read 9.3e-7 and the fault 4.0e-3 (`chip_probe.py
+# train12`, an H100 80GB HBM3 at 700 W). The limit sits between them,
+# two orders of magnitude from each. An f32 model runs the f32
+# CUDA-core backward kernels, so the twin holds those; the bf16 wgmma
+# kernels that 12b trains with are held by 12a at 12b's shape.
+GEMMA_F32_GRAD_TOL = 1e-4
+
+
+def packed_corpus(workdir, vocab, seq, docs, seed, *, doc_vocab=None):
+    """`write_token_shards` of ``docs`` seeded documents (Zipf ids below
+    ``doc_vocab``, eos 1) into ``workdir``: (paths, rows)."""
+    import numpy as np
+    from horovod_tpu_torch import data as hd
+    rs = np.random.RandomState(seed)
+    top = min(doc_vocab or vocab, vocab)
+    documents = [np.minimum(rs.zipf(1.2, rs.randint(300, 1500)) + 1,
+                            top - 1) for _ in range(docs)]
+    paths = hd.write_token_shards(workdir, "corpus", documents, seq, 3,
+                                  eos_id=1)
+    rows = len(hd.pack_tokens(documents, seq, eos_id=1))
+    return paths, rows
+
+
+def batches(ds, start=(0, 0)):
+    """The dataset's batches from cursor ``start`` on, across epochs, as
+    (cursor after the batch, tokens [B, S] numpy)."""
+    e, b = start
+    while True:
+        for batch in ds.epoch(e, start_batch=b):
+            yield ds.cursor, batch["tokens"]
+        e, b = e + 1, 0
+
+
+def run_gemma_training(tfa, dev, workdir):
+    """12b: Gemma-2B at full width and depth trains GEMMA_TRAIN_STEPS
+    AdamW steps on batches of the port's `ShardedDataset` (the native
+    loader) through the forward, dQ and dK/dV kernels at D = 256; the
+    loss must be finite and fall (see GEMMA_LOSS_DROP), each kernel
+    launch >= 18 x steps. Then one B = 1 step through the kernels
+    against the same step on the plain forward and backward (phase 5's
+    STEP_LOSS_TOL and STEP_GRAD_TOL), and its f32 twin (the same
+    weights computing in f32, through the f32 kernels) within
+    GEMMA_F32_GRAD_TOL, where the planted fault must fail."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch import data as hd
+    from horovod_tpu_torch.compat.hf import from_hf_state_dict
+    from horovod_tpu_torch.models.transformer import make_lm_train_step
+    t0 = time.time()
+    cfg = GEMMA_2B
+    S, B = 2048, GEMMA_TRAIN_BATCH
+    paths, rows = packed_corpus(workdir, cfg["vocab_size"], S, GEMMA_DOCS,
+                                GEMMA_TRAIN_SEED,
+                                doc_vocab=GEMMA_DOC_VOCAB)
+    ds = hd.ShardedDataset(paths, hd.lm_spec(S), B, shuffle=True,
+                           seed=GEMMA_TRAIN_SEED, rank=0, world=1,
+                           drop_remainder=True)
+    if not ds.native:
+        raise AssertionError("12b: the native data loader did not load")
+    sd = hf_state_dict("gemma", cfg, dev, GEMMA_TRAIN_SEED)
+    model = from_hf_state_dict("gemma", cfg, sd, dtype=torch.bfloat16,
+                               attn_impl="flash", device=dev)
+    del sd
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = torch.optim.AdamW(model.parameters(), lr=GEMMA_LR,
+                            weight_decay=1e-4)
+    step = make_lm_train_step(model, opt, loss_chunk=512)
+    build_s = time.time() - t0
+    wrappers = {"flash_fwd": tfa.flash_fwd_cuda,
+                "flash_bwd_dq": tfa.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": tfa.flash_bwd_dkv_cuda}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, times = [], []
+    feed = batches(ds)
+    for i in range(GEMMA_TRAIN_STEPS):
+        for group in opt.param_groups:
+            group["lr"] = GEMMA_LR * min(1.0, (i + 1) / GEMMA_WARMUP)
+        t1 = time.time()
+        _, tokens = next(feed)
+        loss = step(torch.from_numpy(tokens).to(dev, non_blocking=True))
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+        losses.append(float(loss))
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    L = cfg["num_hidden_layers"]
+    # 6 N a token for the matmuls plus the causal attention term
+    # 6 L S d (as phase 5), d the attention width H x head_dim.
+    flops_per_token = 6 * n_params + 6 * L * S * 8 * 256 / 2
+    mfu = flops_per_token * B * S / steady / PEAK_BF16_FLOPS
+    ds.close()
+    info = dict(params=n_params, batch=B, seq=S, corpus_rows=rows,
+                steps=GEMMA_TRAIN_STEPS, lr=GEMMA_LR, warmup=GEMMA_WARMUP,
+                losses=losses, step_s=times,
+                step_ms_median_after_first=steady * 1e3,
+                tokens_per_s=B * S / steady, mfu=mfu,
+                max_memory_allocated=peak, launches=launches,
+                build_s=build_s, native_loader=True)
+    log(f"12b Gemma-2B training ({n_params / 1e9:.3f} B params, f32 params"
+        f" + bf16 compute, AdamW), B = {B} x {S} from {rows} packed rows "
+        f"(native loader): losses {[round(x, 4) for x in losses]}, step s "
+        f"{[round(t, 3) for t in times]}, median after the first "
+        f"{steady * 1e3:.1f} ms = {B * S / steady:.0f} tokens/s, MFU "
+        f"{mfu:.4f} of 989 TFLOP/s, peak memory {peak / 1e9:.2f} GB, "
+        f"launches {launches}")
+    late = float(np.median(losses[len(losses) // 2:]))
+    if (not all(np.isfinite(losses)) or max(losses[1:]) >= losses[0]
+            or late > losses[0] - GEMMA_LOSS_DROP):
+        raise AssertionError(f"12b loss not finite and falling (every "
+                             f"step below the first, the last half's "
+                             f"median {late:.4f} at least "
+                             f"{GEMMA_LOSS_DROP} below it): {losses}")
+    for k, n in launches.items():
+        if n < L * GEMMA_TRAIN_STEPS:
+            raise AssertionError(f"12b {k} launched {n} < {L} x "
+                                 f"{GEMMA_TRAIN_STEPS}")
+    del opt, step
+    torch.cuda.empty_cache()
+    _, tokens = next(batches(hd.ShardedDataset(
+        paths, hd.lm_spec(S), 1, rank=0, world=1)))
+    tokens = torch.from_numpy(tokens).to(dev)
+    chk = train_step_errors(model, tfa, tokens)
+    info["check_bf16"] = chk
+    log(f"12b train step B=1, kernels vs plain: loss {chk['check_loss']:.6f}"
+        f" vs {chk['check_plain_loss']:.6f} (tol {STEP_LOSS_TOL}), worst "
+        f"per-parameter gradient error {chk['check_grad_err']:.3e} (tol "
+        f"{STEP_GRAD_TOL}); the planted fault (plain dK/dV one query row "
+        f"short) {chk['check_planted_fault_grad_err']:.3e}, under the bf16"
+        f" noise: the bf16 kernels are held by 12a at this shape")
+    if (abs(chk["check_loss"] - chk["check_plain_loss"]) > STEP_LOSS_TOL
+            or chk["check_grad_err"] > STEP_GRAD_TOL):
+        raise AssertionError(f"12b train step through the kernels differs: "
+                             f"{chk}")
+    f32 = model.clone(dtype=torch.float32)
+    f32.load_state_dict(model.state_dict(), assign=True)
+    del model
+    torch.cuda.empty_cache()
+    chk = train_step_errors(f32, tfa, tokens)
+    info["check_f32"] = chk
+    log(f"12b f32 twin (the f32 kernels), kernels vs plain: loss "
+        f"{chk['check_loss']:.6f} vs "
+        f"{chk['check_plain_loss']:.6f}, worst per-parameter gradient error"
+        f" {chk['check_grad_err']:.3e} (tol {GEMMA_F32_GRAD_TOL}); planted "
+        f"fault {chk['check_planted_fault_grad_err']:.3e}, caught "
+        f"{chk['check_planted_fault_grad_err'] > GEMMA_F32_GRAD_TOL}")
+    if (abs(chk["check_loss"] - chk["check_plain_loss"]) > STEP_LOSS_TOL
+            or chk["check_grad_err"] > GEMMA_F32_GRAD_TOL):
+        raise AssertionError(f"12b f32 train step through the kernels "
+                             f"differs: {chk}")
+    if chk["check_planted_fault_grad_err"] <= GEMMA_F32_GRAD_TOL:
+        raise AssertionError("12b: the f32 train-step check does not see "
+                             "a dK/dV one query row short")
+    del f32
+    torch.cuda.empty_cache()
+    info["seconds"] = time.time() - t0
+    return info
+
+
+# 12c: the resumable loop on phase 5's model (its checkpoint with AdamW
+# is ~2.2 GB): periodic async saves every RESUME_SAVE_EVERY steps, the
+# process's own SIGTERM after step RESUME_KILL_AT (the emergency save),
+# then a fresh model, optimizer, dataset and trainer resume and run to
+# RESUME_STEPS; against one uninterrupted run, bitwise.
+RESUME_STEPS = 7
+RESUME_SAVE_EVERY = 3
+RESUME_KILL_AT = 5
+RESUME_BATCH = 2
+
+
+def resume_model(dev, seed):
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    model = TransformerLM(32768, 12, 8, 128, max_len=2048,
+                          dtype=torch.bfloat16, attn_impl="flash",
+                          device=dev).init_weights(seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    return model, opt
+
+
+def train_state(model, opt):
+    return {"model": model.state_dict(), "opt": opt.state_dict()}
+
+
+def clone_tree(tree):
+    """A deep copy of a checkpoint tree (tensors cloned)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def trees_equal(a, b, where=""):
+    """None when the trees are bitwise equal, else the first leaf that
+    differs."""
+    import torch
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return f"{where}: keys differ"
+        for k in a:
+            bad = trees_equal(a[k], b[k], f"{where}/{k}")
+            if bad:
+                return bad
+        return None
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return f"{where}: lengths differ"
+        for i, (x, y) in enumerate(zip(a, b)):
+            bad = trees_equal(x, y, f"{where}/{i}")
+            if bad:
+                return bad
+        return None
+    if isinstance(a, torch.Tensor):
+        ok = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+              and a.shape == b.shape
+              and torch.equal(a.cpu(), b.cpu()))
+        return None if ok else f"{where}: tensors differ"
+    return None if a == b else f"{where}: {a!r} != {b!r}"
+
+
+def resume_leg(tfa, dev, paths, ckpt_dir, *, kill_at=None, resume=False,
+               init_seed=0):
+    """One process lifetime of 12c: a fresh model, optimizer, dataset,
+    host RNG and `ElasticTrainer`; `resume()` when asked, then steps to
+    RESUME_STEPS (or until the process's own SIGTERM after step
+    ``kill_at`` has cut the emergency save). Returns the losses by step,
+    the final state, and the trainer's readings."""
+    import signal
+    import torch
+    from horovod_tpu_torch import data as hd
+    from horovod_tpu_torch.models.transformer import make_lm_train_step
+    from horovod_tpu_torch.resilience import ElasticTrainer
+    model, opt = resume_model(dev, init_seed)
+    step_fn = make_lm_train_step(model, opt, loss_chunk=512)
+    ds = hd.ShardedDataset(paths, hd.lm_spec(2048), RESUME_BATCH,
+                           shuffle=True, seed=7, rank=0, world=1)
+    rng = torch.Generator().manual_seed(11)
+    trainer = ElasticTrainer(ckpt_dir, save_every=RESUME_SAVE_EVERY,
+                             keep=2, dataset=ds, rng=rng)
+    out = dict(losses={}, native=ds.native)
+    try:
+        start, restored = 0, None
+        t0 = time.time()
+        if resume:
+            restored, start = trainer.resume(like=train_state(model, opt))
+            # Held before loading: the optimizer keeps (and later steps
+            # update) the restored step counts in place.
+            out["restored"] = clone_tree(restored)
+            model.load_state_dict(restored["model"])
+            opt.load_state_dict(restored["opt"])
+            torch.cuda.synchronize()
+            out.update(resume_s=time.time() - t0, start=start,
+                       data_start=list(trainer.data_start),
+                       gap=trainer.resume_gap_batches,
+                       exact=trainer.snapshot.exact,
+                       fallbacks=trainer.cursor_fallbacks)
+        feed = batches(ds, trainer.data_start)
+        save_s = []
+        for i in range(start, RESUME_STEPS):
+            _, tokens = next(feed)
+            shift = int(torch.randint(0, 2048, (1,), generator=rng))
+            tokens = torch.from_numpy(tokens).to(dev).roll(shift, 1)
+            out["losses"][i + 1] = float(step_fn(tokens))
+            if kill_at is not None and i + 1 == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            t1 = time.time()
+            trainer.after_step(i + 1, train_state(model, opt),
+                               out["losses"][i + 1])
+            save_s.append(time.time() - t1)
+            if trainer.should_stop:
+                out["saved"] = clone_tree(train_state(model, opt))
+                out["emergency_save_s"] = save_s[-1]
+                break
+        from horovod_tpu_torch.utils import checkpoint as ckpt
+        ckpt.wait_pending()
+        out["periodic_save_s"] = [t for j, t in enumerate(save_s)
+                                  if (start + j + 1) % RESUME_SAVE_EVERY
+                                  == 0 and start + j + 1 != kill_at]
+        out["final"] = clone_tree(train_state(model, opt))
+        out["should_stop"] = trainer.should_stop
+    finally:
+        trainer.close()
+        ds.close()
+    return out
+
+
+def run_resume(tfa, dev, workdir):
+    """12c: an uninterrupted run, then the same run killed by its own
+    SIGTERM after step RESUME_KILL_AT and resumed in a fresh trainer:
+    the restored state equals the emergency save's bitwise, the resumed
+    losses and final parameters equal the uninterrupted run's bitwise,
+    and `resume_gap_batches == 0`. The step is deterministic on the
+    card as it is (the kernels use no atomics; `chip_probe.py train12`
+    read the embedding's backward bitwise from run to run too)."""
+    import torch
+    t0 = time.time()
+    paths, rows = packed_corpus(os.path.join(workdir, "data"), 32768, 2048,
+                                8, 13)
+    ref = resume_leg(tfa, dev, paths, os.path.join(workdir, "ref"))
+    killed = resume_leg(tfa, dev, paths, os.path.join(workdir, "run"),
+                        kill_at=RESUME_KILL_AT)
+    if not killed["should_stop"] or "saved" not in killed:
+        raise AssertionError("12c: the SIGTERM did not stop the loop")
+    resumed = resume_leg(tfa, dev, paths, os.path.join(workdir, "run"),
+                         resume=True, init_seed=99)
+    bad_restore = trees_equal(resumed.pop("restored"), killed["saved"])
+    losses = {**killed["losses"], **resumed["losses"]}
+    bad_final = trees_equal(resumed["final"], ref["final"])
+    info = dict(
+        rows=rows, steps=RESUME_STEPS, kill_at=RESUME_KILL_AT,
+        save_every=RESUME_SAVE_EVERY, native=ref["native"],
+        ref_losses=ref["losses"], losses=losses, start=resumed["start"],
+        data_start=resumed["data_start"], gap=resumed["gap"],
+        exact=resumed["exact"], fallbacks=resumed["fallbacks"],
+        resume_s=resumed["resume_s"],
+        emergency_save_s=killed["emergency_save_s"],
+        periodic_save_s=ref["periodic_save_s"],
+        restore_bitwise=bad_restore is None,
+        losses_bitwise=losses == ref["losses"],
+        final_bitwise=bad_final is None)
+    log(f"12c resume on phase 5's model (B = {RESUME_BATCH} x 2048, AdamW):"
+        f" SIGTERM after step {RESUME_KILL_AT}, emergency save "
+        f"{killed['emergency_save_s']:.2f} s, periodic async saves "
+        f"{[round(t, 3) for t in ref['periodic_save_s']]} s (the step's "
+        f"share), resume() {resumed['resume_s']:.2f} s to step "
+        f"{resumed['start']} at cursor {resumed['data_start']}, gap "
+        f"{resumed['gap']} batches, exact {resumed['exact']}; restored == "
+        f"saved bitwise: {bad_restore is None} ({bad_restore}); losses "
+        f"{losses} vs {ref['losses']}: bitwise {losses == ref['losses']}; "
+        f"final params and AdamW state bitwise: {bad_final is None} "
+        f"({bad_final})")
+    if not (ref["native"] and killed["native"] and resumed["native"]):
+        raise AssertionError("12c: the native data loader did not load")
+    if resumed["start"] != RESUME_KILL_AT or resumed["gap"] != 0 \
+            or not resumed["exact"] or resumed["fallbacks"]:
+        raise AssertionError(f"12c: not an exact resume at step "
+                             f"{RESUME_KILL_AT}: {info}")
+    if bad_restore or bad_final or losses != ref["losses"]:
+        raise AssertionError(f"12c: resumed run differs: restore "
+                             f"{bad_restore}, final {bad_final}")
+    del ref, killed, resumed
+    torch.cuda.empty_cache()
+    info["seconds"] = time.time() - t0
+    return info
+
+
+def run_phase12(tfa, dev):
+    """Phase 12 (12a, 12b, 12c) in a temporary directory that is removed
+    after it, whatever the outcome."""
+    import shutil
+    import tempfile
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="hvd_phase12_")
+    try:
+        bwd = run_bwd256(tfa, dev, GEMMA_TRAIN_BATCH)
+        gemma = run_gemma_training(tfa, dev, os.path.join(workdir, "gemma"))
+        resume = run_resume(tfa, dev, os.path.join(workdir, "resume"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return dict(bwd256=bwd, gemma=gemma, resume=resume,
+                seconds=time.time() - t0,
+                runs={"gemma": gemma})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", metavar="PATH",
@@ -4026,6 +4576,14 @@ def main() -> int:
     hf = run_hf(tfa, tpa, dev)
     log(f"HF families, coverage and traces (phase 11) in "
         f"{hf['seconds']:.1f} s {label}")
+    p12 = run_phase12(tfa, dev)
+    gt, rs = p12["gemma"], p12["resume"]
+    log(f"Gemma-2B training, resumably (phase 12) in {p12['seconds']:.1f} "
+        f"s: {gt['step_ms_median_after_first']:.1f} ms per step at B = "
+        f"{gt['batch']} x {gt['seq']}, {gt['tokens_per_s']:.0f} tokens/s, "
+        f"peak memory {gt['max_memory_allocated'] / 1e9:.2f} GB; resume: "
+        f"emergency save {rs['emergency_save_s']:.2f} s, resume() "
+        f"{rs['resume_s']:.2f} s, gap {rs['gap']} {label}")
 
     timing = time_kernels(tfa, dev)
     main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values(),
@@ -4053,11 +4611,13 @@ def main() -> int:
             f"{label}")
     for _, tag, *_ in HF_MODELS:
         m = hf["models"][tag]
+        runs = list(m["runs"].values())
+        if tag == "gemma-2b":
+            runs += list(p12["runs"].values())   # 12b's training forward
         for kern in ("flash_fwd", "flash_decode", "paged_decode"):
             t = m["timing"][kern]
             name = f"{kern}@{tag}"
-            launches = sum(run["launches"].get(kern, 0)
-                           for run in m["runs"].values())
+            launches = sum(run["launches"].get(kern, 0) for run in runs)
             if launches <= 0:
                 raise AssertionError(f"{name} never launched on the main "
                                      f"path")
@@ -4076,6 +4636,29 @@ def main() -> int:
                 f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']}"
                 f", max_abs_err {t['max_abs_err']:.3e} on these inputs, "
                 f"launches {launches} {label}")
+    # 12a/12b: the backward kernels at D = 256, timed at Gemma-2B's
+    # training attention, launched on 12b's path.
+    for kern, name in zip(("flash_bwd_dq", "flash_bwd_dkv"), BWD256_NAMES):
+        t = p12["bwd256"]["timing"][name]
+        e = p12["bwd256"]["errs"][name]
+        launches = gt["launches"][kern]
+        if launches <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"horovod_tpu_torch/csrc/{kern}.cu",
+            "replaces": REPLACES[kern], "launches": launches,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"], "hkv": t["hkv"],
+            "max_abs_err_path_case": e["max_abs_err"],
+            **{k: v for k, v in e.items() if k != "max_abs_err"},
+            "resources": wgmma_report[f"{kern} bf16 D=256"]})
+        log(f"{name}: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms "
+            f"plain, {t['library_ms']:.4f} ms library, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']} Hkv "
+            f"1, launches {launches} {label}")
     for at in ("at_1x2048", "at_8x2048"):
         t = timing["flash_fwd"][at]
         log(f"flash_fwd {at}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} "
@@ -4112,6 +4695,7 @@ def main() -> int:
                   speculative=spec, variants=variants, fleet=fleet,
                   training=train, data_parallel_surface=surface,
                   hf=hf, trace_paged_tick=trace_tick,
+                  phase12={k: v for k, v in p12.items() if k != "runs"},
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)
     if args.json:

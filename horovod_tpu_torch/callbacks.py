@@ -10,10 +10,10 @@ callbacks, `horovod/keras/callbacks.py`):
 * `MetricAverager` — averages a metrics dict over the ranks at epoch
   end in one fused collective, in sorted key order;
 * `broadcast_on_train_begin` — the BroadcastGlobalVariablesCallback
-  contract.
-
-`ResilientCheckpointCallback` waits for the checkpoint and elastic
-slice of the port (ROADMAP Queue A 9).
+  contract;
+* `ResilientCheckpointCallback` — periodic atomic checkpoints, the
+  emergency save on a preemption signal and NaN/loss-spike rollback,
+  over `resilience.ElasticTrainer`.
 """
 
 from __future__ import annotations
@@ -80,12 +80,47 @@ def broadcast_on_train_begin(params, root_rank: int = 0) -> None:
 
 
 class ResilientCheckpointCallback:
-    """Not ported yet: it runs over the JAX package's `ElasticTrainer`
-    (checkpoints, signal-driven emergency saves, rollback), which is
-    the port's checkpoint and elastic slice (ROADMAP Queue A 9)."""
+    """Keras-style step/epoch-end callback over
+    `resilience.ElasticTrainer`: periodic atomic checkpoints, an
+    emergency save the moment SIGTERM/SIGINT lands, and NaN/loss-spike
+    rollback to the last good checkpoint. ``state`` is the checkpoint
+    tree (e.g. ``{"model": model.state_dict(), "opt":
+    opt.state_dict()}``); after a rollback the call returns the
+    restored tree, which the loop loads back into its modules.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ResilientCheckpointCallback needs checkpoints and elastic "
-            "training, a later slice of the PyTorch port (ROADMAP "
-            "Queue A 9)")
+    ::
+
+        cb = ResilientCheckpointCallback("/ckpts", save_every=50)
+        state, start = cb.resume(like=state)
+        for i in range(start, steps):
+            loss = step(batch())
+            state = cb(i + 1, state, loss)
+            if cb.should_stop:
+                break
+    """
+
+    def __init__(self, directory: str, *, save_every: int = 50,
+                 keep: int = 3, block: bool = False,
+                 install_signals: bool = True):
+        from horovod_tpu_torch.resilience import ElasticTrainer
+        self._trainer = ElasticTrainer(
+            directory, save_every=save_every, keep=keep, block=block,
+            install_signals=install_signals)
+
+    def resume(self, *, like=None, broadcast: bool = False):
+        return self._trainer.resume(like=like, broadcast=broadcast)
+
+    def __call__(self, step: int, state, loss):
+        return self._trainer.after_step(step, state, loss)
+
+    @property
+    def should_stop(self) -> bool:
+        return self._trainer.should_stop
+
+    @property
+    def rollbacks(self) -> int:
+        return self._trainer.rollbacks
+
+    def close(self):
+        """Uninstall the signal handlers (see ElasticTrainer.close)."""
+        self._trainer.close()

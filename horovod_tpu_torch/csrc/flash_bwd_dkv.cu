@@ -26,6 +26,16 @@
 //    inner grid axis); q and dO come through a 2-stage ring of TMA loads
 //    completed on mbarriers, the next tile's load in flight while this
 //    one computes. ~99 KB of shared memory at D = 128: two blocks an SM.
+//  * At D = 256 (Gemma's heads) dk and dv would be two [64, 256] f32
+//    accumulators, 256 registers a thread in one warpgroup, over the
+//    limit of 255. Two warpgroups (256 threads) split D instead: each
+//    owns 128 columns of dk and dv (the same 128 accumulator floats a
+//    thread as D = 128) and computes the full s^T and dp^T itself, from
+//    the shared K/V and q/dO tiles. That costs 1.5x the tensor-core work
+//    (s^T and dp^T twice, the two gradient products once), but needs no
+//    exchange of partial products through shared memory and no named
+//    barrier: a right, simple kernel first. Six 32 KB tiles (K, V and a
+//    2-stage q/dO ring), ~194 KB of shared memory, one block an SM.
 //  * s^T = k q^T and dp^T = v dO^T are SS wgmmas with the keys as M, so
 //    p^T and ds^T come out in the accumulator layout, which is the
 //    register A operand of dv += p^T dO and dk += ds^T q (dO and q read
@@ -47,7 +57,10 @@
 // f32: the CUDA-core kernel below (`flash_bwd_dkv_kernel`), f32 FMA with
 // q pre-scaled: wgmma has no f32 input, and tf32 would not hold the
 // plain backward to 1e-5. It is the anchor that matches the plain
-// version at the path shape.
+// version at the path shape: each query head's sums are folded into
+// the dK/dV rows in turn, the plain version's order. At D = 256 its
+// q/dO tiles hold 32 rows (`F32Tile`): with 64 the tiles would not fit
+// the 227 KB a block may use; with 32 they take 223,488 bytes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,11 +71,14 @@
 
 namespace {
 
-constexpr int BQ = 64;    // q rows per tile
 constexpr int BK = 64;    // keys per block
 constexpr int NT = 256;   // threads per block
 constexpr int PAD = 4;    // row padding (floats) of the shared tiles
 constexpr int LK = BK + PAD;
+
+// q rows per tile of the f32 kernel (see the note above).
+template <int D>
+struct F32Tile { static constexpr int BQ = D == 256 ? 32 : 64; };
 
 template <typename T> struct VecN;
 template <> struct VecN<float> { static constexpr int N = 4; };
@@ -78,6 +94,7 @@ __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 template <int D>
 constexpr int smem_floats() {
   // Kt, Vt [D][LK]; Qs, dOs [BQ][D+PAD]; Ps, dSs [BQ][LK]; lse, dvec [BQ]
+  constexpr int BQ = F32Tile<D>::BQ;
   return 2 * D * LK + 2 * BQ * (D + PAD) + 2 * BQ * LK + 2 * BQ;
 }
 
@@ -96,6 +113,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     long long dvsb, long long dvss, long long dvsh,
     int causal, int window, int q_offset, int k_offset, float scale) {
   constexpr int LD = D + PAD;
+  constexpr int BQ = F32Tile<D>::BQ;   // q rows per tile
+  constexpr int IQ = BQ / 16;       // queries a thread takes in s and dp
   extern __shared__ float smem[];
   float* Kt = smem;                 // [D][LK]
   float* Vt = Kt + D * LK;          // [D][LK]
@@ -136,17 +155,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   }
 
   // Thread layout: keys j0..j0+3 of the tile; for s/dp the queries
-  // cg + 16 * ii of the q-tile, for dk/dv the columns g * 64 + c0 + e.
+  // cg + 16 * ii (ii < IQ) of the q-tile, for dk/dv the columns
+  // g * 64 + c0 + e.
   const int rg = tid >> 4;
   const int cg = tid & 15;
   const int j0 = rg * 4;
   const int c0 = cg * 4;
 
   float dk_acc[4][OG * 4], dv_acc[4][OG * 4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int c = 0; c < OG * 4; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
 
   // Query range of this k-tile's band (local query indices): causal
   // rows start at the tile's first key, windowed rows end window - 1
@@ -164,6 +180,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
     const T* qb = q + b * qsb + hq * qsh;
     const T* gb = dout + b * gsb + hq * gsh;
     const long long lrow = ((long long)b * H + hq) * Sq;
+    // This head's sums over its queries; folded into the dK/dV rows
+    // after its last q-tile (below).
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < OG * 4; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
     for (int t0 = (i_lo / BQ) * BQ; t0 <= i_hi; t0 += BQ) {
       __syncthreads();   // the previous tile's Qs/dOs/Ps/dSs reads are done
       for (int id = tid; id < BQ * CH; id += NT) {   // q, dO row-major
@@ -195,27 +217,27 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
 
       // s^T = k (scale q)^T and dp^T = v dO^T: keys j0+jj, queries
       // cg + 16 ii.
-      float s[4][4], dp[4][4];
+      float s[4][IQ], dp[4][IQ];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+        for (int i = 0; i < IQ; ++i) s[j][i] = dp[j][i] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
         const float4 a = *reinterpret_cast<const float4*>(&Kt[d * LK + j0]);
         const float4 w = *reinterpret_cast<const float4*>(&Vt[d * LK + j0]);
         const float kv[4] = {a.x, a.y, a.z, a.w};
         const float vv[4] = {w.x, w.y, w.z, w.w};
-        float qv[4], gv[4];
+        float qv[IQ], gv[IQ];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < IQ; ++i) {
           qv[i] = Qs[(cg + 16 * i) * LD + d];
           gv[i] = dOs[(cg + 16 * i) * LD + d];
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < IQ; ++i) {
             s[j][i] = fmaf(kv[j], qv[i], s[j][i]);
             dp[j][i] = fmaf(vv[j], gv[i], dp[j][i]);
           }
@@ -224,7 +246,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
       // p = exp(s - lse) where the mask keeps the pair and lse is
       // finite, else 0; ds = p * (dp - dvec). Stored [query][key].
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < IQ; ++i) {
         const int ql = cg + 16 * i;
         const int qp = q_offset + t0 + ql;
         const float l = lse_s[ql];
@@ -276,22 +298,31 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
         }
       }
     }
-  }
 
-  // Each dK/dV row written once, at kv width (q already carried scale).
+    // Fold this head into the dK/dV rows at kv width (q already carried
+    // scale): the first head stores, the others add in turn — the plain
+    // version's order (a per-head sum over the queries, then the
+    // group's heads one by one), so that f32 sums over a large group
+    // (Gemma's 8 heads x 2048 queries) do not drift from it. Each
+    // thread owns its elements: no atomics.
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int kj = k0 + j0 + j;
-    if (kj >= Sk) continue;
-    T* krow = dk + b * dksb + (long long)kj * dkss + hk * dksh;
-    T* vrow = dv + b * dvsb + (long long)kj * dvss + hk * dvsh;
+    for (int j = 0; j < 4; ++j) {
+      const int kj = k0 + j0 + j;
+      if (kj >= Sk) continue;
+      T* krow = dk + b * dksb + (long long)kj * dkss + hk * dksh;
+      T* vrow = dv + b * dvsb + (long long)kj * dvss + hk * dvsh;
 #pragma unroll
-    for (int g = 0; g < OG; ++g)
+      for (int g = 0; g < OG; ++g)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        store1(krow + g * 64 + c0 + e, dk_acc[j][g * 4 + e]);
-        store1(vrow + g * 64 + c0 + e, dv_acc[j][g * 4 + e]);
-      }
+        for (int e = 0; e < 4; ++e) {
+          T* kp = krow + g * 64 + c0 + e;
+          T* vp = vrow + g * 64 + c0 + e;
+          const bool first = hq == hk * group;
+          const float ka = dk_acc[j][g * 4 + e], va = dv_acc[j][g * 4 + e];
+          store1(kp, first ? ka : *kp + ka);
+          store1(vp, first ? va : *vp + va);
+        }
+    }
   }
 }
 
@@ -320,7 +351,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // ---- bf16: wgmma + TMA ----------------------------------------------------
 
-constexpr int WG = 128;   // one warpgroup per block
+constexpr int WG = 128;   // threads of one warpgroup
+
+// Warpgroups that split dk/dv's columns: two at D = 256 (see the note
+// above), else one.
+template <int D>
+constexpr int dkv_warpgroups() { return D == 256 ? 2 : 1; }
 
 template <int D>
 struct DkvLayout {                      // byte offsets from the aligned base
@@ -331,8 +367,9 @@ struct DkvLayout {                      // byte offsets from the aligned base
   static constexpr int BYTES = BARS + 64 + 1024;            // + alignment
 };
 
-template <int D>
-__global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * WG, D <= 128 ? 2 : 1)
+flash_bwd_dkv_wgmma(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv,
@@ -343,7 +380,8 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
     long long dksh, long long dvsb, long long dvss, long long dvsh,
     int causal, int window, int q_offset, int k_offset, float scale) {
   using L = DkvLayout<D>;
-  constexpr int NA = D / 2;             // floats a thread, each of dk, dv
+  constexpr int DC = D / NWG;           // dk/dv columns a warpgroup owns
+  constexpr int NA = DC / 2;            // floats a thread, each of dk, dv
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -353,7 +391,8 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
   float* vec = reinterpret_cast<float*>(sm + L::VEC);
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = tid / WG;              // this warpgroup's column block
+  const int warp = (tid % WG) >> 5, lane = tid & 31;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int k0 = blockIdx.z * 64;       // k-tile 0, the longest band, first
   // This thread's accumulator rows (keys; and +8) and first column pair.
@@ -382,8 +421,10 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
     const CUtensorMap* mq = &tq;
     const CUtensorMap* mg = &tg;
     // Item `it` = (query head, q-tile); its rows' lse (as log2, +inf
-    // where p must be 0) and dvec go to stage `st` of `vec`.
+    // where p must be 0) and dvec go to stage `st` of `vec`, written by
+    // the first 128 threads.
     auto fill_vec = [&](int it, int st) {
+      if (tid >= 128) return;
       const int hq = hk * group + it / nt;
       const int qi = t_first + 64 * (it % nt) + (tid & 63);
       const long long at = ((long long)b * H + hq) * Sq + qi;
@@ -486,8 +527,9 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
           dp[e] = s[e] * (dp[e] - ((e & 1) ? d2.y : d2.x));
       }
 
-      // dv += p^T dO and dk += ds^T q, p and ds as hi + lo; dO and q read
-      // N-major from this stage.
+      // dv += p^T dO and dk += ds^T q over this warpgroup's columns, p
+      // and ds as hi + lo; dO and q read N-major from this stage.
+      const uint32_t col = wg * (DC / 64) * sm90::BOX_BYTES;
       uint32_t ph[16], pl[16], dh[16], dl[16];
       sm90::split_hi_lo(s, ph, pl);
       sm90::fence_regs<NA>(acc_v);
@@ -496,9 +538,9 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dg = sm90::desc_nmajor(sG, kk);
-        sm90::wgmma_rs<D>(acc_v, ph + 4 * kk, dg);
-        sm90::wgmma_rs<D>(acc_v, pl + 4 * kk, dg);
+        const uint64_t dg = sm90::desc_nmajor(sG + col, kk);
+        sm90::wgmma_rs<DC>(acc_v, ph + 4 * kk, dg);
+        sm90::wgmma_rs<DC>(acc_v, pl + 4 * kk, dg);
       }
       sm90::wgmma_commit();
       sm90::split_hi_lo(dp, dh, dl);
@@ -508,9 +550,9 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dq_ = sm90::desc_nmajor(sQ, kk);
-        sm90::wgmma_rs<D>(acc_k, dh + 4 * kk, dq_);
-        sm90::wgmma_rs<D>(acc_k, dl + 4 * kk, dq_);
+        const uint64_t dq_ = sm90::desc_nmajor(sQ + col, kk);
+        sm90::wgmma_rs<DC>(acc_k, dh + 4 * kk, dq_);
+        sm90::wgmma_rs<DC>(acc_k, dl + 4 * kk, dq_);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -534,10 +576,12 @@ __global__ void __launch_bounds__(WG, 2) flash_bwd_dkv_wgmma(
   for (int u = 0; u < 2; ++u) {
     const int kj = k0 + ra + 8 * u;
     if (kj >= Sk) continue;
-    __nv_bfloat16* krow = dk + b * dksb + (long long)kj * dkss + hk * dksh;
-    __nv_bfloat16* vrow = dv + b * dvsb + (long long)kj * dvss + hk * dvsh;
+    __nv_bfloat16* krow =
+        dk + b * dksb + (long long)kj * dkss + hk * dksh + wg * DC;
+    __nv_bfloat16* vrow =
+        dv + b * dvsb + (long long)kj * dvss + hk * dvsh + wg * DC;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DC / 8; ++i) {
       *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i + c2) =
           __floats2bfloat162_rn(acc_k[4 * i + 2 * u] * scale,
                                 acc_k[4 * i + 2 * u + 1] * scale);
@@ -562,12 +606,13 @@ int launch_wgmma(const void* q, const void* k, const void* v,
       (err = sm90::bshd_map(&tg, dout, B, Sq, H, D, st[9], st[10], st[11])))
     return err;
   const int smem = DkvLayout<D>::BYTES;
-  auto kern = flash_bwd_dkv_wgmma<D>;
+  constexpr int NWG = dkv_warpgroups<D>();
+  auto kern = flash_bwd_dkv_wgmma<D, NWG>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(Hkv, B, (Sk + 63) / 64);
-  kern<<<grid, WG, smem, stream>>>(
+  kern<<<grid, NWG * WG, smem, stream>>>(
       tq, tk, tv, tg, lse, dvec, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, H / Hkv, st[12], st[13],
       st[14], st[15], st[16], st[17], causal, window, q_offset, k_offset,
@@ -613,8 +658,16 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
     return launch_wgmma<64>(q, k, v, dout, l, dvp, dk, dv, B, Sq, Sk, H,
                             Hkv, st, causal, window, q_offset, k_offset,
                             scale, s);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, dout, l, dvp, dk, dv, B, Sq, Sk, H,
+                              Hkv, st, causal, window, q_offset, k_offset,
+                              scale, s);
   if (dtype == 1 && D == 128)
     return launch_wgmma<128>(q, k, v, dout, l, dvp, dk, dv, B, Sq, Sk, H,
+                             Hkv, st, causal, window, q_offset, k_offset,
+                             scale, s);
+  if (dtype == 1 && D == 256)
+    return launch_wgmma<256>(q, k, v, dout, l, dvp, dk, dv, B, Sq, Sk, H,
                              Hkv, st, causal, window, q_offset, k_offset,
                              scale, s);
   return (int)cudaErrorInvalidValue;
@@ -623,7 +676,10 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
 // Dynamic shared memory of the bf16 (wgmma) kernel at head dim D, in
 // bytes; 0 for a head dim it does not take.
 int flash_bwd_dkv_smem_bytes(int D) {
-  return D == 64 ? DkvLayout<64>::BYTES : D == 128 ? DkvLayout<128>::BYTES : 0;
+  return D == 64    ? DkvLayout<64>::BYTES
+         : D == 128 ? DkvLayout<128>::BYTES
+         : D == 256 ? DkvLayout<256>::BYTES
+                    : 0;
 }
 
 const char* flash_bwd_dkv_error_string(int err) {

@@ -23,7 +23,13 @@
 //    The q and dO tiles stay in shared memory; K and V come through a
 //    2-stage ring of TMA loads completed on mbarriers, the next tile's
 //    load in flight while this one computes. ~97 KB of shared memory at
-//    D = 128, so two blocks share an SM.
+//    D = 128, so two blocks share an SM; at D = 256 (Gemma's heads) six
+//    32 KB tiles, ~193 KB, one block an SM.
+//  * At D = 256 the dq accumulator is [64, 256] f32, 128 floats a
+//    thread beside the s and dp tiles (64) and ds's hi/lo split (32):
+//    one warpgroup still holds it (221 registers, no spill; checked on
+//    the card each run), and dq += ds k is two n128 wgmmas per k-step
+//    (`sm90::wgmma_rs<256>`).
 //  * s = q k^T and dp = dO v^T are two SS wgmmas (K-major descriptors
 //    into the 128-byte swizzle TMA writes); p and ds are formed in the
 //    accumulator registers, whose layout is the register A operand of
@@ -44,7 +50,9 @@
 // f32: the CUDA-core kernel below (`flash_bwd_dq_kernel`), f32 FMA with
 // q pre-scaled: wgmma has no f32 input, and tf32 would not hold the
 // plain backward to 1e-5. It is the anchor that matches the plain
-// version bit for bit at the path shape.
+// version bit for bit at the path shape. At D = 256 its K/V tiles hold
+// 32 keys (`F32Tile`): four [64, 256] f32 tiles would not fit the 227 KB
+// a block may use; with 32 they take 214,528 bytes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,10 +64,13 @@
 namespace {
 
 constexpr int BQ = 64;    // q rows per block
-constexpr int BK = 64;    // keys per tile
 constexpr int NT = 256;   // threads per block
 constexpr int PAD = 4;    // row padding (floats) of the shared tiles
 constexpr int LQ = BQ + PAD;
+
+// Keys per tile of the f32 kernel (see the note above).
+template <int D>
+struct F32Tile { static constexpr int BK = D == 256 ? 32 : 64; };
 
 template <typename T> struct VecN;
 template <> struct VecN<float> { static constexpr int N = 4; };
@@ -75,7 +86,7 @@ __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 template <int D>
 constexpr int smem_floats() {
   // Qt, dOt [D][LQ]; Ks, Vs [BK][D+PAD]; DsT [BK][LQ]
-  return 2 * D * LQ + 2 * BK * (D + PAD) + BK * LQ;
+  return 2 * D * LQ + 2 * F32Tile<D>::BK * (D + PAD) + F32Tile<D>::BK * LQ;
 }
 
 template <typename T, int D>
@@ -91,6 +102,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     long long osb, long long oss, long long osh,
     int causal, int window, int q_offset, int k_offset, float scale) {
   constexpr int LD = D + PAD;
+  constexpr int BK = F32Tile<D>::BK;   // keys per tile
+  constexpr int JK = BK / 16;       // keys a thread takes in s and dp
   extern __shared__ float smem[];
   float* Qt = smem;                 // [D][LQ], q * scale
   float* dOt = Qt + D * LQ;         // [D][LQ]
@@ -131,7 +144,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
 
   // Thread layout: rows r0..r0+3 of the tile; for s/dp the keys
-  // cg + 16 * jj of the k-tile, for dq the columns g * 64 + c0 + e.
+  // cg + 16 * jj (jj < JK) of the k-tile, for dq the columns
+  // g * 64 + c0 + e.
   const int rg = tid >> 4;
   const int cg = tid & 15;
   const int r0 = rg * 4;
@@ -192,27 +206,27 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     __syncthreads();
 
     // s = (scale q) k^T and dp = dO v^T: rows r0+i, keys cg + 16 jj.
-    float s[4][4], dp[4][4];
+    float s[4][JK], dp[4][JK];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < JK; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
       const float4 a = *reinterpret_cast<const float4*>(&Qt[d * LQ + r0]);
       const float4 gg = *reinterpret_cast<const float4*>(&dOt[d * LQ + r0]);
       const float av[4] = {a.x, a.y, a.z, a.w};
       const float gv[4] = {gg.x, gg.y, gg.z, gg.w};
-      float kv[4], vv[4];
+      float kv[JK], vv[JK];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JK; ++j) {
         kv[j] = Ks[(cg + 16 * j) * LD + d];
         vv[j] = Vs[(cg + 16 * j) * LD + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JK; ++j) {
           s[i][j] = fmaf(av[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
         }
@@ -221,7 +235,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
     // ds = p * (dp - dvec), p = exp(s - lse) where the mask keeps the
     // pair and lse is finite, else 0; stored transposed.
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < JK; ++j) {
       const int kj = k0 + cg + 16 * j;
       float dsv[4];
 #pragma unroll
@@ -310,7 +324,7 @@ struct DqLayout {                       // byte offsets from the aligned base
 };
 
 template <int D>
-__global__ void __launch_bounds__(WG, 2) flash_bwd_dq_wgmma(
+__global__ void __launch_bounds__(WG, D <= 128 ? 2 : 1) flash_bwd_dq_wgmma(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv,
@@ -548,8 +562,16 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64)
     return launch_wgmma<64>(q, k, v, dout, l, dv, dq, B, Sq, Sk, H, Hkv, st,
                             causal, window, q_offset, k_offset, scale, s);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, dout, l, dv, dq, B, Sq, Sk, H, Hkv,
+                              st, causal, window, q_offset, k_offset,
+                              scale, s);
   if (dtype == 1 && D == 128)
     return launch_wgmma<128>(q, k, v, dout, l, dv, dq, B, Sq, Sk, H, Hkv,
+                             st, causal, window, q_offset, k_offset, scale,
+                             s);
+  if (dtype == 1 && D == 256)
+    return launch_wgmma<256>(q, k, v, dout, l, dv, dq, B, Sq, Sk, H, Hkv,
                              st, causal, window, q_offset, k_offset, scale,
                              s);
   return (int)cudaErrorInvalidValue;
@@ -558,7 +580,10 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
 // Dynamic shared memory of the bf16 (wgmma) kernel at head dim D, in
 // bytes; 0 for a head dim it does not take.
 int flash_bwd_dq_smem_bytes(int D) {
-  return D == 64 ? DqLayout<64>::BYTES : D == 128 ? DqLayout<128>::BYTES : 0;
+  return D == 64    ? DqLayout<64>::BYTES
+         : D == 128 ? DqLayout<128>::BYTES
+         : D == 256 ? DqLayout<256>::BYTES
+                    : 0;
 }
 
 const char* flash_bwd_dq_error_string(int err) {

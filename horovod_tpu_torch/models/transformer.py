@@ -375,16 +375,17 @@ class TransformerLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy, [B, S, V] logits vs [B, S] tokens (the
-    logits cast to f32 first, as the JAX package does)."""
+    """Next-token cross entropy, [B, S, V] logits vs [B, S] tokens of any
+    integer dtype (the data pipeline's rows are int32; the logits cast
+    to f32 first, as the JAX package does)."""
     V = logits.shape[-1]
     return F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
-                           tokens[:, 1:].reshape(-1))
+                           tokens[:, 1:].reshape(-1).long())
 
 
 def _weighted_ce_chunk(hc, w, yc, mc):
     logits = torch.einsum("bcd,vd->bcv", hc, w).float()
-    ce = F.cross_entropy(logits.flatten(0, 1), yc.reshape(-1),
+    ce = F.cross_entropy(logits.flatten(0, 1), yc.reshape(-1).long(),
                          reduction="none")
     return (ce * mc.reshape(-1)).sum()
 

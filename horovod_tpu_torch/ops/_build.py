@@ -13,6 +13,9 @@ loads a stale build. The compiler's ``-Xptxas -v``
 report is kept beside each library (``<library>.ptxas.txt``), so a
 cached build still reports its registers and shared memory.
 
+Host libraries (``csrc/*.cc``: the native data loader) are built the
+same way with the host's ``c++`` by `build_host`, into ``build/host/``.
+
 Nothing here runs at import time: the CPU tests import every module,
 and a CPU-only install has no `nvcc`.
 """
@@ -31,8 +34,10 @@ from typing import Dict
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+HOST_BUILD_DIR = _PKG.parent / "build" / "host"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -123,3 +128,30 @@ def library(name: str) -> ctypes.CDLL:
         raise KernelBuildError(f"no kernel source csrc/{name}.cu")
     return libs[name]
 
+
+def build_host(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.cc`` with the host's ``c++`` into
+    ``build/host/lib<name>-<hash of source and flags>.so`` unless that
+    library exists; returns its path. A temporary file renamed into
+    place keeps concurrent builders (one per test worker or rank) from
+    loading a half-written library. Raises `KernelBuildError` when the
+    compiler is missing or fails."""
+    src = CSRC / f"{name}.cc"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    out = HOST_BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise KernelBuildError("no host C++ compiler (c++ or g++) on PATH")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([cxx, *HOST_FLAGS, str(src), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"{src.name} failed to build (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -42,11 +42,11 @@ from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
 from horovod_tpu_torch.runtime.config import env_raw
 
 NEG_INF = float("-inf")
-# Head dims the forward and decode kernels are built for (the
-# reference's Pallas kernels tile the whole head dim as one block and
-# take any); the backward kernels take BWD_HEAD_DIMS only.
+# Head dims the kernels are built for (the reference's Pallas kernels
+# tile the whole head dim as one block and take any); the backward
+# kernels take BWD_HEAD_DIMS.
 KERNEL_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 # Query heads per kv head the decode kernels are built for: 1..8.
 DECODE_MAX_GROUP = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -276,15 +276,13 @@ def flash_backward_plain(q, k, v, o, lse, g, *, causal: bool = False,
 
 def _check_bwd_head_dim(D):
     """The backward kernels are built for `BWD_HEAD_DIMS` only: a CUDA
-    backward at another head dim (Gemma's 256) raises, it never falls
+    backward at another head dim raises before any work, it never falls
     back to the plain backward."""
     if D not in BWD_HEAD_DIMS:
         raise ValueError(
             f"the flash backward kernels take head_dim "
-            f"{' / '.join(map(str, BWD_HEAD_DIMS))}, got {D}: head_dim "
-            f"{D} training is a later slice of the PyTorch port "
-            f"(ROADMAP Queue B, the backward kernels at D = 256); use "
-            f"bwd_impl='recompute' meanwhile")
+            f"{' / '.join(map(str, BWD_HEAD_DIMS))}, got {D}; use "
+            f"bwd_impl='recompute' for another head dim")
 
 
 def _check_decode_group(kind, H, Hkv):
@@ -320,11 +318,11 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, dvec, *, causal: bool = False,
                       k_offset: int = 0):
     """Launch the dQ kernel (``csrc/flash_bwd_dq.cu``) on CUDA tensors:
     q and dO ``g`` [B, Sq, H, D], k/v [B, Sk, Hkv, D] (any strides with
-    a contiguous, 16-byte aligned head_dim row; D 64 or 128), the
+    a contiguous, 16-byte aligned head_dim row), the
     forward's ``lse`` and ``dvec = rowsum(dO * O) - dlse``, both float32
     [B, H, Sq] contiguous. bf16 runs the tensor-core kernel (wgmma, TMA
     tensor maps over the operands' own strides), f32 the CUDA-core one.
-    D 64 or 128 (`BWD_HEAD_DIMS`); another head dim raises. Returns dq
+    D 64, 128 or 256 (`BWD_HEAD_DIMS`); another head dim raises. Returns dq
     [B, Sq, H, D] at q.dtype."""
     B, Sq, Sk, H, Hkv, D = _bwd_operands(q, k, v, g, lse, dvec)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)

@@ -414,6 +414,21 @@ register_knob(
     "through host memory, 'device' keeps them on the card for the "
     "graft (one card; a cross-mesh re-commit is ROADMAP Queue A 8)")
 
+register_knob(
+    "HVD_CKPT_KEEP", "int", "0", "utils/checkpoint.py",
+    "Default step-checkpoint retention for save_step callers that "
+    "don't pass keep= (GC prunes oldest beyond N; 0 = keep all)")
+register_knob(
+    "HVD_PREEMPT_GRACE_S", "float", "30", "resilience/elastic.py",
+    "Preemption grace window in seconds: how long after a preemption "
+    "notice (SIGUSR1/SIGTERM) the host is expected to survive — "
+    "PreemptionHandler.grace_remaining() budgets the emergency "
+    "checkpoint against it")
+register_knob(
+    "HOROVOD_NO_NATIVE", "flag", "(unset)", "data/__init__.py",
+    "Non-empty makes ShardedDataset use the Python shard reader instead "
+    "of the native prefetching loader (csrc/data_loader.cc)")
+
 
 # ---------------------------------------------------------------------------
 # The resolved runtime config.
@@ -451,6 +466,9 @@ class Config:
     preempt: bool = False
     tenant_weights: str = ""
     brownout: bool = True
+    # The data pipeline: the native prefetching loader (False: the
+    # Python shard reader, HOROVOD_NO_NATIVE).
+    use_native: bool = True
 
     def refresh(self) -> "Config":
         # HOROVOD_FUSION_THRESHOLD (exact bytes, Horovod's knob) wins;
@@ -500,6 +518,7 @@ class Config:
             "HOROVOD_STALL_CHECK_TIME", DEFAULT_STALL_WARNING_TIME)
         self.timeline_path = env_str("HOROVOD_TIMELINE")
         self.platform = env_str("HOROVOD_PLATFORM")
+        self.use_native = env_str("HOROVOD_NO_NATIVE") == ""
         return self
 
 

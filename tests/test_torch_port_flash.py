@@ -380,19 +380,23 @@ def test_coverage_paged_decode_plain_matches_pallas(H, Hkv, D):
 
 def test_kernel_wrappers_name_their_limits():
     """Outside the instantiations the wrappers raise naming the limit,
-    before any launch: the backward at head_dim 256 (a non-CPU tensor)
-    names the later slice; a head_dim the kernels lack, or a decode
-    group above 8, names what they take (the checks the CUDA wrappers
-    run after the device check)."""
+    before any launch: the backward at a head dim it lacks (96, a
+    non-CPU tensor) names the ones it takes, 64 / 128 / 256; a head_dim
+    the other kernels lack, or a decode group above 8, names what they
+    take (the checks the CUDA wrappers run after the device check)."""
     meta = dict(device="meta")
-    q = torch.empty(1, 8, 2, 256, **meta)
+    q = torch.empty(1, 8, 2, 96, **meta)
     lse = torch.empty(1, 2, 8, **meta)
-    with pytest.raises(ValueError, match="later slice"):
-        tfa.flash_backward(q, q, q, q, lse, q)
-    with pytest.raises(ValueError, match="later slice"):
-        tfa.flash_bwd_dq_cuda(q, q, q, q, lse, lse)
-    with pytest.raises(ValueError, match="later slice"):
-        tfa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse)
+    for call in (lambda: tfa.flash_backward(q, q, q, q, lse, q),
+                 lambda: tfa.flash_bwd_dq_cuda(q, q, q, q, lse, lse),
+                 lambda: tfa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse)):
+        with pytest.raises(ValueError, match="64 / 128 / 256, got 96"):
+            call()
+    assert tfa.BWD_HEAD_DIMS == (64, 128, 256)
+    q256 = torch.empty(1, 8, 2, 256, **meta)
+    with pytest.raises(ValueError) as e:     # past the head-dim check
+        tfa.flash_bwd_dq_cuda(q256, q256, q256, q256, lse, lse)
+    assert "head_dim" not in str(e.value)
     for D in tfa.KERNEL_HEAD_DIMS:
         tfa._check_head_dim(D)
     with pytest.raises(ValueError, match="64 / 128 / 256, got 96"):
@@ -402,3 +406,40 @@ def test_kernel_wrappers_name_their_limits():
     with pytest.raises(ValueError, match="1 to 8 query heads per kv head, "
                                          "got 9"):
         tfa._check_decode_group("paged-decode", 9, 1)
+
+
+# -- the backward at head_dim 256 (Gemma-1's heads, one kv head) -----------
+
+BWD256 = {"causal": dict(causal=True), "window": dict(causal=True, window=24),
+          "dlse": dict(causal=True)}
+
+
+@pytest.mark.parametrize("name", sorted(BWD256))
+def test_backward_head_dim_256_matches_jax_pallas(name):
+    """dQ, dK and dV of the port's flash attention (`flash_backward`'s
+    plain version on the CPU) against ``jax.grad`` through the JAX
+    package's Pallas backward in interpret mode, at [1, 128, 2, 256]
+    over one kv head; "dlse" adds a cotangent on the logsumexp. f32 on
+    both sides: 1e-5."""
+    import jax
+    kw = BWD256[name]
+    q, k, v = _qkv(256, 1, 128, 128, 2, 1, 256)
+    rs = np.random.RandomState(257)
+    w = rs.randn(*q.shape).astype(np.float32)
+    wl = rs.randn(1, 2, 128).astype(np.float32) * (name == "dlse")
+
+    def jloss(q, k, v):
+        o, lse = jfa.flash_attention_lse(q, k, v, block_q=64, block_k=64,
+                                         interpret=True, **kw)
+        return (o * w).sum() + (lse * wl).sum()
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o, lse = tfa.flash_attention_lse(*ts, **kw)
+    ((o * torch.from_numpy(w)).sum()
+     + (lse * torch.from_numpy(wl)).sum()).backward()
+    for t, r in zip(ts, ref):
+        assert t.grad.shape == r.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   atol=TOL, rtol=TOL)

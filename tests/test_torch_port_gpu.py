@@ -376,7 +376,7 @@ def _bwd_inputs(i, dev, dt, D, c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_backward_matches_plain(dtype, D):
     """dQ and dK/dV kernels against `flash_backward_plain` on the
@@ -932,22 +932,75 @@ def test_cuda_coverage_decode_matches_plain(dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_backward_at_head_dim_256_raises_without_fallback():
-    """The backward kernels are built for head_dim 64 and 128: at 256 a
-    CUDA backward raises naming the later slice, launches nothing and
-    never takes the plain backward; the forward at 256 still runs."""
+def test_cuda_backward_at_head_dim_256_launches_both_kernels():
+    """At head_dim 256 (Gemma-1's heads, one kv head) a CUDA backward
+    launches the dQ and dK/dV kernels once each, with no plain
+    fallback, and matches the plain backward; a head dim the kernels
+    lack (96) raises before any launch."""
     dev = _card()
-    q, k, v = (_randn(400 + i, 1, 64, 2, 256).to(dev, torch.bfloat16)
-               .requires_grad_() for i in range(3))
+    q, k, v = (_randn(400 + i, 1, 300, h, 256).to(dev, torch.bfloat16)
+               .requires_grad_() for i, h in enumerate((8, 1, 1)))
+    g = _randn(403, 1, 300, 8, 256).to(dev, torch.bfloat16)
     launches = (tfa.flash_bwd_dq_cuda.launches,
                 tfa.flash_bwd_dkv_cuda.launches)
-    out = tfa.flash_attention(q, k, v, causal=True)
-    with pytest.raises(ValueError, match="later slice"):
-        out.float().sum().backward()
-    o, lse = tfa.flash_fwd_cuda(q.detach(), k.detach(), v.detach(),
-                                causal=True)
-    with pytest.raises(ValueError, match="later slice"):
-        tfa.flash_backward(q.detach(), k.detach(), v.detach(), o, lse,
-                           torch.ones_like(o))
+    got = torch.autograd.grad(tfa.flash_attention(q, k, v, causal=True),
+                              (q, k, v), g)
+    assert (tfa.flash_bwd_dq_cuda.launches,
+            tfa.flash_bwd_dkv_cuda.launches) == (launches[0] + 1,
+                                                 launches[1] + 1)
+    with torch.no_grad():
+        o, lse = tfa.flash_fwd_cuda(q, k, v, causal=True)
+        ref = tfa.flash_backward_plain(q, k, v, o, lse, g, causal=True)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-3,
+                                   rtol=1e-2)
+    x = _randn(404, 1, 64, 2, 96).to(dev, torch.bfloat16)
+    lse96 = torch.zeros(1, 2, 64, device=dev)
+    launches = (tfa.flash_bwd_dq_cuda.launches,
+                tfa.flash_bwd_dkv_cuda.launches)
+    with pytest.raises(ValueError, match="64 / 128 / 256, got 96"):
+        tfa.flash_backward(x, x, x, x, lse96, x)
     assert (tfa.flash_bwd_dq_cuda.launches,
             tfa.flash_bwd_dkv_cuda.launches) == launches
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_round_trip_bitwise(tmp_path):
+    """A CUDA model and its AdamW state through `utils.checkpoint`, sync
+    and async: restored bitwise, placed back on the card by the
+    template, and a step from the restored state equals a step from the
+    original bitwise."""
+    dev = _card()
+    from horovod_tpu_torch.models.transformer import (TransformerLM,
+                                                      make_lm_train_step)
+    from horovod_tpu_torch.utils import checkpoint as ckpt
+
+    def build():
+        m = TransformerLM(128, 2, 4, 64, max_len=64, dtype=torch.bfloat16,
+                          attn_impl="flash", device=dev).init_weights(3)
+        return m, torch.optim.AdamW(m.parameters(), lr=1e-3)
+
+    toks = torch.from_numpy(
+        np.random.RandomState(5).randint(0, 128, (2, 64))).to(dev)
+    m, opt = build()
+    step = make_lm_train_step(m, opt)
+    step(toks)
+    state = {"model": m.state_dict(), "opt": opt.state_dict()}
+    ckpt.save_step(str(tmp_path), 1, state)
+    ckpt.save_step(str(tmp_path), 2, state, block=False)
+    ckpt.wait_pending()
+    m2, opt2 = build()
+    for s in (1, 2):
+        got = ckpt.restore(str(tmp_path / f"step_0000000{s}"),
+                           like={"model": m2.state_dict(),
+                                 "opt": opt2.state_dict()})
+        for k, t in got["model"].items():
+            assert t.device.type == "cuda" and torch.equal(
+                t, state["model"][k]), k
+    m2.load_state_dict(got["model"])
+    opt2.load_state_dict(got["opt"])
+    a = float(step(toks))
+    b = float(make_lm_train_step(m2, opt2)(toks))
+    assert a == b
+    for p, q in zip(m.parameters(), m2.parameters()):
+        assert torch.equal(p, q)

@@ -368,3 +368,47 @@ def test_unknown_family_and_default_device():
         pytest.skip("a card is present; the no-card path is moot")
     with pytest.raises(RuntimeError, match="cuda"):
         thf.from_hf_gpt2(_hf("gpt2"))
+
+
+def test_gemma_adamw_step_matches_jax(models):
+    """Training at head_dim 256: the tiny Gemma config above (2 layers,
+    2 heads of 256 over 1 kv head, GeGLU, vocab 97), one HF model's
+    weights imported by both packages, one AdamW step each on the same
+    int32 token rows (the data pipeline's dtype) with the fused chunked
+    loss; the port's flash attention (its plain versions here) against
+    the JAX model's dot attention (its Pallas backward at head_dim 256
+    is held by test_torch_port_flash.py). Loss and parameters after the
+    step
+    within 1e-5. AdamW's first update is lr g / (|g| + eps), which
+    near |g| ~ eps turns the gradients' last bits into a share of lr:
+    at eps 1e-8 the two packages' summation orders moved 7 of 0.5 M
+    weights by up to 4e-4, at eps 1e-6 one embedding weight by 2.3e-5
+    (lr 1e-2). Both sides take eps 1e-3, where the update is smooth in
+    g (at most lr / eps = 10 times a gradient's difference)."""
+    import optax
+    from horovod_tpu.parallel.mesh import make_mesh
+    lr, wd, eps = 1e-2, 1e-4, 1e-3
+    hf = models["gemma"][0]
+    ours = thf.from_hf_gemma(hf, dtype=torch.float32, device="cpu")
+    jm, jp = jhf.from_hf_gemma(hf, dtype=jnp.float32, attn_impl="dot")
+    toks = np.random.RandomState(32).randint(0, VOCAB, (2, 20)).astype(
+        np.int32)
+    mesh = make_mesh(data=1, devices=jax.devices()[:1])
+    tx = optax.adamw(lr, eps=eps, weight_decay=wd)
+    step = jt.make_lm_train_step(jm, tx, mesh, donate=False, loss_chunk=8)
+    jp1, _, jloss = step(jp, tx.init(jp), jnp.asarray(toks))
+    opt = torch.optim.AdamW(ours.parameters(), lr=lr, eps=eps,
+                            weight_decay=wd)
+    tstep = tt.make_lm_train_step(ours, opt, loss_chunk=8)
+    with torch.no_grad():
+        wide = tt._lm_data_loss(ours, torch.from_numpy(toks).long(), 8)
+    tloss = tstep(torch.from_numpy(toks))
+    assert float(tloss) == float(wide)          # int32 rows as int64
+    np.testing.assert_allclose(float(tloss), float(jloss), atol=TOL,
+                               rtol=TOL)
+    want = params_from_jax(jax.tree.map(np.asarray, jp1))
+    got = ours.state_dict()
+    assert sorted(want) == sorted(got)
+    for k in got:
+        np.testing.assert_allclose(got[k].numpy(), want[k].float().numpy(),
+                                   atol=TOL, rtol=TOL, err_msg=k)

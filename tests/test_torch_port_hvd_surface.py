@@ -697,8 +697,13 @@ def test_callback_aliases_and_later_slices():
         hvd_port.callbacks.broadcast_on_train_begin(lin.state_dict())
         hvd_port.broadcast_global_variables(lin.state_dict())
         assert hvd_port.callbacks.MetricAverager()({"a": 2.0}) == {"a": 2.0}
-        with pytest.raises(NotImplementedError, match="Queue A 9"):
-            hvd_port.callbacks.ResilientCheckpointCallback("/nonexistent")
+        # Ported since: the callback over the port's ElasticTrainer
+        # (its behaviour is held in tests/test_torch_port_resume.py).
+        cb = hvd_port.callbacks.ResilientCheckpointCallback(
+            "/nonexistent", install_signals=False)
+        assert cb.resume(like={"w": torch.zeros(1)})[1] == 0
+        assert not cb.should_stop and cb.rollbacks == 0
+        cb.close()
         batch = hvd_port.make_global_batch(
             {"x": np.ones((2, 3), np.float32), "y": [np.arange(2)]})
         assert isinstance(batch["x"], torch.Tensor)

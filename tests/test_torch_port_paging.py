@@ -92,7 +92,29 @@ def _wait(cond, timeout=60.0, dt=0.005):
 
 
 def _t(*arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    """Port-side copies of numpy inputs. Copies, not views: on the CPU
+    `jnp.asarray` of a 64-byte aligned numpy array may alias its memory,
+    and the JAX call that reads it runs asynchronously, so a port
+    function writing in place into a shared buffer (the prefill chunk
+    bumps its lane's fill) could change the JAX call's input while it
+    runs."""
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def test_port_inputs_never_alias_jax_inputs():
+    """The race `_t` guards against: a JAX call dispatched on an aligned
+    numpy array that aliases it reads a value written after dispatch
+    (the port's in-place fill bump), while a `_t` copy leaves the JAX
+    input alone."""
+    buf = np.zeros(64 + 16, np.uint8)
+    off = (-buf.ctypes.data) % 64
+    fills = buf[off:off + 16].view(np.int32)
+    fills[:] = [0, 13, 40, 64]
+    jf = jnp.asarray(fills)
+    (tf,) = _t(fills)
+    tf[1] += 1
+    assert not np.shares_memory(tf.numpy(), fills)
+    assert np.asarray(jf).tolist() == [0, 13, 40, 64]
 
 
 def _pools_and_tables(rs, bs, lanes, nb=None):

@@ -269,7 +269,11 @@ def test_import_leaves_jax_out():
             "horovod_tpu_torch.resilience.retry, "
             "horovod_tpu_torch.runner, horovod_tpu_torch.compat.hf, "
             "horovod_tpu_torch.obs.profiling, "
-            "horovod_tpu_torch.utils.profile_analysis; "
+            "horovod_tpu_torch.utils.profile_analysis, "
+            "horovod_tpu_torch.data, horovod_tpu_torch.utils.checkpoint, "
+            "horovod_tpu_torch.resilience, "
+            "horovod_tpu_torch.resilience.elastic, "
+            "horovod_tpu_torch.resilience.equivalence; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'optax')) or m == 'horovod_tpu' "
             "or m.startswith('horovod_tpu.') or m == 'horovod' "
