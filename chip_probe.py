@@ -4,10 +4,11 @@ short call that builds, checks and times them without the model phases
 of `chip_smoke.py`.
 
     python3 chip_probe.py [fwd] [decode] [paged] [sweep] [spec] [hf]
-                          [bwd256] [train12] [lr12] [loader]
-                          # default: all but spec, hf, bwd256, train12
-                          # and loader; one card, ~1 min each (hf: ~5
-                          # min); loader alone builds no kernel
+                          [bwd256] [train12] [lr12] [loader] [elastic13]
+                          # default: all but spec, hf, bwd256, train12,
+                          # loader and elastic13; one card,
+                          # ~1 min each
+                          # (hf: ~5 min); loader alone builds no kernel
 
 Builds every kernel (printing the ptxas lines of the forward and decode
 sources) and then, per part asked for:
@@ -50,6 +51,12 @@ sources) and then, per part asked for:
 * loader: both readers of `horovod_tpu_torch.data` (the native one and
   the Python one) on 12b's feed over a 1 GiB corpus (`probe_loader`);
   host only.
+* elastic13: `chip_smoke.py` phase 13 alone (13a's elastic world of 4
+  LMs and its planted fault, 13b's multi-process drill), then 13a's
+  control leg at each lease of ELASTIC13_LEASES: the resizes an
+  uninterrupted world makes when the lease is too short for its
+  members' heartbeat threads (how `chip_smoke.ELASTIC_LEASE_S` was
+  chosen).
 
 A failing case is printed and the probe goes on to the next. With
 decode or paged it then times both decode ticks as `chip_smoke.py`
@@ -432,6 +439,56 @@ def probe_loader(cs):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Leases for 13a's uninterrupted control leg (seconds).
+ELASTIC13_LEASES = (0.1, 0.25, 0.5, 1.0)
+
+
+def probe_elastic13(cs, tfa, dev):
+    """Phase 13 of `chip_smoke.py` alone, then the control leg of 13a
+    at each lease of ELASTIC13_LEASES (a resize there is a false
+    death)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.resilience import membership
+    t = time.time()
+    try:
+        cs.run_phase13(tfa, dev)
+    except Exception:
+        traceback.print_exc()
+    print(f"phase 13: {time.time() - t:.1f} s", flush=True)
+    work = tempfile.mkdtemp(prefix="hvd_probe13_")
+    try:
+        paths = cs.elastic_corpus(f"{work}/data")
+        models = cs.member_models(dev, cs.ELASTIC_WORLD + 1)
+        lm = cs.elastic_lm(models, dev)
+        state0 = {n: p.detach().clone()
+                  for n, p in models.all[0].named_parameters()}
+        default = cs.ELASTIC_LEASE_S
+        for lease in ELASTIC13_LEASES:
+            cs.ELASTIC_LEASE_S = lease
+            try:
+                rep, s = cs.elastic_leg(membership.SimulatedWorld, lm, paths,
+                                        f"{work}/l{lease}", state0)
+                walls = np.diff(lm.applied.get("hvd-sim-rank0", [0.0]))
+                lm.applied = {}
+                print(f"control leg at lease {lease} s: {s:.1f} s, "
+                      f"completed {rep.completed}, resizes "
+                      f"{[(r['generation'], r['died']) for r in rep.resizes]},"
+                      f" step wall median "
+                      f"{float(np.median(walls)) * 1e3:.1f} ms, max "
+                      f"{float(walls.max()) * 1e3:.1f} ms, error "
+                      f"{rep.error}", flush=True)
+            except Exception:
+                traceback.print_exc()
+            finally:
+                cs.ELASTIC_LEASE_S = default
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -440,7 +497,7 @@ def main() -> int:
     every = {"fwd", "decode", "paged", "sweep"}
     parts = set(sys.argv[1:]) or every
     if not parts <= every | {"spec", "hf", "bwd256", "train12", "lr12",
-                             "loader"}:
+                             "loader", "elastic13"}:
         print(f"chip_probe: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -502,6 +559,8 @@ def main() -> int:
         probe_train12(cs, tfa, dev)
     if "lr12" in parts:
         probe_lr12(cs, tfa, dev)
+    if "elastic13" in parts:
+        probe_elastic13(cs, tfa, dev)
     print(f"nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     return 0
 

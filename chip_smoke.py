@@ -3,7 +3,7 @@
 NVIDIA H100: the quickest proof that the port builds, is right and
 serves on the card.
 
-    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~9 minutes
+    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~11 minutes
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
@@ -269,15 +269,43 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    ``flash_bwd_dq@gemma-2b`` and ``flash_bwd_dkv@gemma-2b`` (12a's
    readings, 12b's launches).
 
+13. Elastic membership on the card (after phase 12). (a) The forward,
+   dQ and dK/dV kernels against their plain versions at the world's
+   attention, [2, 513, 8, 128] causal as views of one fused projection,
+   f32 and bf16; then `resilience.membership.SimulatedWorld` of 4
+   members, each a thread owning the repo's LM at full width (vocab
+   32768, 8 heads x 128, max_len 2048, gpt preset, bf16 compute over
+   f32 params, ``attn_impl="flash"``) cut to 2 layers, built on the card
+   from one seed; `grad_fn` the LM loss and autograd through the three
+   kernels, the world's float64 average on the card, `apply_fn` plain
+   SGD cast back to f32; fed by `ShardedDataset` over 4 shards of 128
+   seeded 513-token rows, batch 2 a member, 2 epochs, the leader's
+   `ElasticTrainer(migrate_world=True)` saving every 4 steps into a
+   temporary directory. An uninterrupted control leg (no resize), then
+   the chaos leg under ``rank_death:1,rank_join:1``: 1 death, 1 join,
+   2 resizes, world 4 at generation 2, the union stream equal to the
+   control's as a multiset, every state leaf finite; then the chaos leg
+   with the trainer's migration off (a planted fault) must run to its
+   end (no error, the same deaths, joins and resizes) and fail the
+   union check. The kernels launch >= 2 x the members' steps; detect_s
+   and time_to_resume_s, records reassigned, the lease, a lockstep
+   step's wall and its parts on one thread (a member's grad_fn, the
+   float64 average, an apply, a checkpoint save) and peak memory are
+   printed.
+   (b) ``python -m horovod_tpu_torch.resilience.drill --world 3
+   --kill-rank 2`` (worker processes over the launcher's store, no
+   CUDA) within HVD_ELASTIC_DRILL_TIMEOUT_S: its OK line, detect_s and
+   time_to_resume_s.
+
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
 engine, training, training under PowerSGD, each speculative run, each
 phase-9 generate and engine run, each phase-10 generate, engine,
 router and disagg run, each phase-11 generate and engine run, 12b's
-training steps) and read just after. Each HF model's runs count into
-its own rows of the kernels line (12b into Gemma-2B's). Launches made
-to compare or time a kernel, and the traced step and tick, do not
-count.
+training steps, 13a's control and chaos legs) and read just after.
+Each HF model's runs count into its own rows of the kernels line (12b
+into Gemma-2B's). Launches made to compare or time a kernel, and the
+traced step and tick, do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
 
@@ -4462,6 +4490,409 @@ def run_phase12(tfa, dev):
                 runs={"gemma": gemma})
 
 
+# Phase 13: elastic membership on the card. 13a: `SimulatedWorld` of
+# ELASTIC_WORLD members, each a thread owning a full-width LM of the
+# repo's config cut to ELASTIC_MODEL's 2 layers (the four f32 states and
+# every committed checkpoint stay under 0.5 GB; the resize path does
+# not depend on depth), fed by `ShardedDataset` over seeded token
+# shards, averaging its gradients in float64 on the card.
+ELASTIC_MODEL = dict(vocab=32768, layers=2, heads=8, head_dim=128,
+                     max_len=2048)
+ELASTIC_WORLD = 4
+ELASTIC_RECORDS = 128
+ELASTIC_SEQ = 513               # tokens a record: 512 next-token targets
+ELASTIC_SHARDS = 4
+ELASTIC_BATCH = 2
+ELASTIC_EPOCHS = 2
+ELASTIC_SAVE_EVERY = 4
+ELASTIC_LR = 0.05               # plain SGD on the float64 average
+ELASTIC_SEED = 13
+# The heartbeat lease of 13a's worlds: HVD_LEASE_S's default. The
+# members' heartbeat threads share the interpreter lock with four
+# training threads; the control leg must see no death under it.
+ELASTIC_LEASE_S = 2.0
+ELASTIC_CHAOS = "rank_death:1,rank_join:1"
+# 13b: the multi-process drill's wall-clock budget
+# (HVD_ELASTIC_DRILL_TIMEOUT_S in its environment).
+DRILL_TIMEOUT_S = 180.0
+
+
+def elastic_corpus(workdir):
+    """ELASTIC_RECORDS rows of ELASTIC_SEQ tokens packed
+    (`write_token_shards`) from seeded Zipf documents, the last one cut
+    so that the rows come out whole: the shard paths."""
+    import numpy as np
+    from horovod_tpu_torch import data as hd
+    rs = np.random.RandomState(ELASTIC_SEED)
+    need, docs = ELASTIC_RECORDS * ELASTIC_SEQ, []
+    while need > 0:
+        doc = np.minimum(rs.zipf(1.2, rs.randint(300, 1500)) + 1,
+                         ELASTIC_MODEL["vocab"] - 1)[:need - 1]
+        docs.append(doc)
+        need -= len(doc) + 1
+    paths = hd.write_token_shards(workdir, "elastic", docs, ELASTIC_SEQ,
+                                  ELASTIC_SHARDS, eos_id=1)
+    rows = len(hd.pack_tokens(docs, ELASTIC_SEQ, eos_id=1))
+    if rows != ELASTIC_RECORDS:
+        raise AssertionError(f"13a corpus packed {rows} rows")
+    return paths
+
+
+class member_models:
+    """One `TransformerLM` a member thread, built on the card from the
+    same seed before the world starts and handed out on a member's first
+    step (`torch.func.functional_call` over one shared module would
+    patch its attributes from four threads at once)."""
+
+    def __init__(self, dev, n):
+        import threading
+        import torch
+        from horovod_tpu_torch.models.transformer import TransformerLM
+        c = ELASTIC_MODEL
+        self.all = [TransformerLM(c["vocab"], c["layers"], c["heads"],
+                                  c["head_dim"], max_len=c["max_len"],
+                                  dtype=torch.bfloat16, attn_impl="flash",
+                                  device=dev).init_weights(ELASTIC_SEED)
+                    for _ in range(n)]
+        self.lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        import threading
+        self.free = list(self.all)
+        self.local = threading.local()
+
+    def get(self):
+        model = getattr(self.local, "model", None)
+        if model is None:
+            with self.lock:
+                model = self.local.model = self.free.pop()
+        return model
+
+
+class elastic_lm:
+    """13a's `grad_fn` / `apply_fn`: the port's LM loss and autograd
+    through the flash forward and both backward kernels on the member's
+    own model, and plain SGD on the float64 average, cast back to f32.
+    Counts the members' steps and stamps each member's applies."""
+
+    def __init__(self, models, dev):
+        import threading
+        self.models, self.dev = models, dev
+        self.lock = threading.Lock()
+        self.steps = 0
+        self.applied = {}
+
+    def grad_fn(self, state, batch):
+        import torch
+        from horovod_tpu_torch.models.transformer import _lm_data_loss
+        model = self.models.get()
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(state[n])
+        model.zero_grad(set_to_none=True)
+        tokens = torch.from_numpy(batch["tokens"]).to(self.dev)
+        loss = _lm_data_loss(model, tokens, 512)
+        loss.backward()
+        with self.lock:
+            self.steps += 1
+        return ({n: p.grad for n, p in model.named_parameters()},
+                float(loss.detach()))
+
+    def apply_fn(self, state, avg):
+        import threading
+        out = {n: (state[n].double() - ELASTIC_LR * avg[n]).float()
+               for n in state}
+        with self.lock:
+            self.applied.setdefault(threading.current_thread().name,
+                                    []).append(time.perf_counter())
+        return out
+
+
+def check_elastic_kernels(tfa, dev):
+    """The forward and both backward kernels against their plain
+    versions at 13a's attention, [2, 513, 8, 128] causal (a ragged
+    length), q/k/v as views of one fused projection, f32 and bf16."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(ELASTIC_SEED)
+    H, D = ELASTIC_MODEL["heads"], ELASTIC_MODEL["head_dim"]
+    shape = (ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_SEQ, H, H, D)
+    name = f"13a [{ELASTIC_BATCH},{ELASTIC_SEQ},{H},{D}] fused causal"
+    errs = {"flash_fwd": {"max_abs_err_f32": 0.0, "lse_max_abs_err": 0.0}}
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = fused_qkv(ELASTIC_BATCH, ELASTIC_SEQ, H, D, dev,
+                            getattr(torch, dtype), g)
+        check_forward_case(tfa, q, k, v, dict(causal=True), dtype, name,
+                           errs)
+    errs.update(check_backward(
+        tfa, dev, cases=[(name, shape, dict(causal=True), False, True)],
+        seed=ELASTIC_SEED))
+    return {k: {"max_abs_err": e["max_abs_err_other_cases"],
+                "max_abs_err_f32": e["max_abs_err_f32"]}
+            for k, e in errs.items()}
+
+
+def elastic_leg(cls, lm, paths, ckpt_dir, state0, chaos_spec=None):
+    """One run of a world of class ``cls`` (a `SimulatedWorld`) under
+    ``chaos_spec`` when given: its report and wall time. Each world
+    starts at generation 0: the process's generation, which
+    `bootstrap.apply_resize` holds monotonic, is reset before it (an
+    earlier leg's generation 2 would refuse this world's generation 1)."""
+    from horovod_tpu_torch import data as hd
+    from horovod_tpu_torch.resilience import chaos
+    from horovod_tpu_torch.runtime import state as rt_state
+    lm.models.reset()
+    rt_state.global_state().world_generation = 0
+
+    def make_ds(rank, world):
+        return hd.ShardedDataset(paths, hd.lm_spec(ELASTIC_SEQ),
+                                 ELASTIC_BATCH, shuffle=True,
+                                 seed=ELASTIC_SEED, rank=rank, world=world)
+    world = cls(world=ELASTIC_WORLD, make_dataset=make_ds, state0=state0,
+                grad_fn=lm.grad_fn, apply_fn=lm.apply_fn,
+                ckpt_dir=ckpt_dir, epochs=ELASTIC_EPOCHS,
+                save_every=ELASTIC_SAVE_EVERY, lease_s=ELASTIC_LEASE_S)
+    t0 = time.time()
+    if chaos_spec:
+        with chaos.armed(chaos_spec):
+            report = world.run(timeout_s=600)
+    else:
+        report = world.run(timeout_s=600)
+    return report, time.time() - t0
+
+
+def wall_ms(fn, n=5):
+    """The median wall of ``n`` calls of ``fn`` after one warm-up, each
+    synchronized with the card (ms)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return sorted(out)[len(out) // 2]
+
+
+def run_elastic_world(tfa, dev, workdir):
+    """13a: an uninterrupted control leg, then the chaos leg under
+    ELASTIC_CHAOS (one death, one join: a shrink to 3 and a grow back to
+    4 at generation 2) whose union stream must equal the control's, then
+    the chaos leg once more with the trainer's migration turned off (a
+    planted fault: each resumed member falls back to an epoch boundary
+    derived from the step count, replaying or skipping records of the
+    interrupted epoch) which must run to its end and whose union must
+    not. The flash forward, dQ and dK/dV kernels must each
+    launch >= layers x the members' steps over the control and chaos
+    legs."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.resilience import membership
+    from horovod_tpu_torch.resilience.elastic import ElasticTrainer
+    from horovod_tpu_torch.utils import checkpoint
+
+    class unmigrated_world(membership.SimulatedWorld):
+        """The planted fault: members resume without the trainer's
+        world migration."""
+
+        def _build_trainer(self, dec_rank, dec_world):
+            ds = self.make_dataset(dec_rank, dec_world)
+            trainer = ElasticTrainer(
+                self.ckpt_dir,
+                save_every=self.save_every if dec_rank == 0 else 0,
+                keep=0, block=True, install_signals=False, dataset=ds,
+                migrate_world=False)
+            state, step = trainer.resume(like=self.state0)
+            return ds, trainer, state, step
+
+    t0 = time.time()
+    paths = elastic_corpus(os.path.join(workdir, "data"))
+    errs = check_elastic_kernels(tfa, dev)
+    models = member_models(dev, ELASTIC_WORLD + 1)
+    lm = elastic_lm(models, dev)
+    state0 = {n: p.detach().clone()
+              for n, p in models.all[0].named_parameters()}
+    n_params = sum(t.numel() for t in state0.values())
+    wrappers = {"flash_fwd": tfa.flash_fwd_cuda,
+                "flash_bwd_dq": tfa.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": tfa.flash_bwd_dkv_cuda}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counting(wrappers) as counted:
+        control, control_s = elastic_leg(
+            membership.SimulatedWorld, lm, paths,
+            os.path.join(workdir, "control"), state0)
+        step_walls = np.diff(lm.applied.get("hvd-sim-rank0", [0.0]))
+        lm.applied = {}
+        chaos_run, chaos_s = elastic_leg(
+            membership.SimulatedWorld, lm, paths,
+            os.path.join(workdir, "chaos"), state0, ELASTIC_CHAOS)
+    launches, steps = counted.launches, lm.steps
+    peak = torch.cuda.max_memory_allocated()
+    planted, planted_s = elastic_leg(
+        unmigrated_world, lm, paths, os.path.join(workdir, "planted"),
+        state0, ELASTIC_CHAOS)
+    # The parts of a lockstep step on one thread: the float64 average of
+    # four members' gradients (CUDA events), and the walls of a member's
+    # `grad_fn`, an apply and the leader's checkpoint save.
+    models.reset()
+    batch = {"tokens": np.zeros((ELASTIC_BATCH, ELASTIC_SEQ), np.int32)}
+    grads, _ = lm.grad_fn(state0, batch)
+    avg_ms = cuda_time_ms(lambda: membership.average([grads] * 4), iters=5)
+    avg = membership.average([grads] * 4)
+    parts = {"grad_fn": wall_ms(lambda: lm.grad_fn(state0, batch)),
+             "apply": wall_ms(lambda: lm.apply_fn(state0, avg)),
+             "save_step": wall_ms(lambda: checkpoint.save_step(
+                 os.path.join(workdir, "parts"), 1, state0, keep=1), n=2)}
+    del grads, avg
+    cs, ps, pl = control.summary(), chaos_run.summary(), planted.summary()
+    union = chaos_run.union_keys() == control.union_keys()
+    planted_union = planted.union_keys() == control.union_keys()
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in chaos_run.final_state.values())
+    info = dict(
+        params=n_params, layers=ELASTIC_MODEL["layers"],
+        records=ELASTIC_RECORDS, seq=ELASTIC_SEQ, batch=ELASTIC_BATCH,
+        epochs=ELASTIC_EPOCHS, save_every=ELASTIC_SAVE_EVERY,
+        lease_s=ELASTIC_LEASE_S, chaos=ELASTIC_CHAOS, errs=errs,
+        control=cs, chaos_leg=ps, planted=pl,
+        control_s=control_s, chaos_s=chaos_s, planted_s=planted_s,
+        union_match=union, planted_union_match=planted_union,
+        planted_records=len(planted.union_keys()),
+        control_records=len(control.union_keys()), finite=finite,
+        member_steps=steps, launches=launches,
+        step_wall_ms_median=float(np.median(step_walls)) * 1e3
+        if len(step_walls) else None,
+        average_ms=avg_ms, parts_ms=parts, max_memory_allocated=peak,
+        resizes=chaos_run.resizes)
+    log(f"13a elastic world of {ELASTIC_WORLD} ({n_params / 1e6:.1f} M "
+        f"params a member, {ELASTIC_MODEL['layers']} layers at full width, "
+        f"B = {ELASTIC_BATCH} x {ELASTIC_SEQ} a member, lease "
+        f"{ELASTIC_LEASE_S} s): control {control_s:.1f} s, {cs['steps']} "
+        f"steps, resizes {cs['resizes']}; chaos ({ELASTIC_CHAOS}) "
+        f"{chaos_s:.1f} s: deaths {ps['deaths']}, joins {ps['joins']}, "
+        f"resizes {[(r['generation'], r['world'], r['kind'],
+                     r['committed_step']) for r in chaos_run.resizes]}, "
+        f"final world {ps['final_world']} at generation "
+        f"{ps['final_generation']}, detect_s {ps['detect_s']}, "
+        f"time_to_resume_s {ps['time_to_resume_s']}, records reassigned "
+        f"{ps['records_reassigned']}; union == control's "
+        f"({len(control.union_keys())} records): {union}; every state "
+        f"leaf finite: {finite}")
+    log(f"13a lockstep step (rank0's apply to apply, control leg) median "
+        f"{info['step_wall_ms_median']:.1f} ms; float64 average of 4 "
+        f"members' gradients {avg_ms:.3f} ms (CUDA events); peak memory "
+        f"{peak / 1e9:.2f} GB; member steps {steps}, launches {launches}")
+    log(f"13a parts on one thread (median wall ms): grad_fn "
+        f"{parts['grad_fn']:.2f}, apply {parts['apply']:.2f}, save_step "
+        f"{parts['save_step']:.1f}; four members in turn "
+        f"{4 * (parts['grad_fn'] + avg_ms + parts['apply']):.1f} ms + a "
+        f"save every {ELASTIC_SAVE_EVERY} steps")
+    log(f"13a planted fault (no migration) {planted_s:.1f} s: "
+        f"{json.dumps(info['planted'])}; resizes "
+        f"{[(r['generation'], r['world'], r['kind'], r['committed_step'])
+            for r in planted.resizes]}; union "
+        f"{len(planted.union_keys())} records, == control's: "
+        f"{planted_union}")
+    if not control.completed or control.resizes or cs["final_generation"]:
+        raise AssertionError(f"13a control leg: {cs}")
+    if not (chaos_run.completed and ps["deaths"] == 1 and ps["joins"] == 1
+            and len(chaos_run.resizes) == 2 and ps["final_world"] == 4
+            and ps["final_generation"] == 2):
+        raise AssertionError(f"13a chaos leg: {ps}")
+    if not union:
+        raise AssertionError("13a: the chaos leg's union stream differs "
+                             "from the control's")
+    if not finite:
+        raise AssertionError("13a: a state leaf is not finite")
+    # The planted leg must run the whole chaos history to its end, so
+    # that the union check is shown to catch a run that finished with
+    # the wrong records (not one that stopped early).
+    if not (planted.completed and pl["error"] is None
+            and pl["deaths"] == 1 and pl["joins"] == 1
+            and pl["resizes"] == 2 and pl["final_world"] == 4
+            and pl["final_generation"] == 2):
+        raise AssertionError(f"13a planted leg did not run to its end: "
+                             f"{pl}")
+    if planted_union:
+        raise AssertionError("13a: the union check does not see the "
+                             "trainer's migration turned off")
+    for k, n in launches.items():
+        if n < ELASTIC_MODEL["layers"] * steps:
+            raise AssertionError(f"13a {k} launched {n} < "
+                                 f"{ELASTIC_MODEL['layers']} x {steps}")
+    info["seconds"] = time.time() - t0
+    info["run"] = {"launches": launches}
+    del models, lm, state0, control, chaos_run, planted
+    torch.cuda.empty_cache()
+    return info
+
+
+def run_drill():
+    """13b: ``python -m horovod_tpu_torch.resilience.drill --world 3
+    --kill-rank 2`` (worker processes under ``hvdrun-torch --elastic``
+    over the launcher's store, one SIGKILLed mid-epoch) in its own
+    session, bounded by HVD_ELASTIC_DRILL_TIMEOUT_S; it must print its
+    OK line: one death, one resize to world 2 at generation 1, every
+    record once per epoch."""
+    import signal
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="hvd_phase13b_")
+    env = dict(os.environ, HVD_ELASTIC_DRILL_TIMEOUT_S=str(DRILL_TIMEOUT_S))
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.resilience.drill",
+           "--workdir", os.path.join(workdir, "mc"), "--world", "3",
+           "--kill-rank", "2"]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DRILL_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("13b: the drill outlived its budget")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    seconds = time.time() - t0
+    lines = out.splitlines()
+    summary = next((json.loads(ln) for ln in lines if ln.startswith("{")),
+                   None)
+    ok_line = next((ln for ln in lines
+                    if ln.startswith("resize equivalence OK")), None)
+    log(f"13b drill (3 processes, rank 2 SIGKILLed): exit "
+        f"{proc.returncode} in {seconds:.1f} s; {ok_line or lines[-3:]}")
+    want = ("1 SIGKILL(s), 1 resize(s) to world 2 (generation 1)")
+    if proc.returncode != 0 or not ok_line or want not in ok_line \
+            or not summary or not summary["union_match"]:
+        raise AssertionError(f"13b drill failed: exit {proc.returncode}; "
+                             f"{out[-4000:]}")
+    return dict(seconds=seconds, detect_s=summary["detect_s"],
+                time_to_resume_s=summary["time_to_resume_s"],
+                records=summary["records"],
+                records_reassigned=summary["records_reassigned"],
+                summary=summary)
+
+
+def run_phase13(tfa, dev):
+    """Phase 13 (13a in a temporary directory removed after it,
+    whatever the outcome, then 13b)."""
+    import shutil
+    import tempfile
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="hvd_phase13_")
+    try:
+        world = run_elastic_world(tfa, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    drill = run_drill()
+    return dict(world=world, drill=drill, seconds=time.time() - t0,
+                runs={"elastic": world["run"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", metavar="PATH",
@@ -4584,10 +5015,23 @@ def main() -> int:
         f"peak memory {gt['max_memory_allocated'] / 1e9:.2f} GB; resume: "
         f"emergency save {rs['emergency_save_s']:.2f} s, resume() "
         f"{rs['resume_s']:.2f} s, gap {rs['gap']} {label}")
+    p13 = run_phase13(tfa, dev)
+    ew, dr = p13["world"], p13["drill"]
+    log(f"elastic membership (phase 13) in {p13['seconds']:.1f} s: 13a "
+        f"world of {ELASTIC_WORLD}, lease {ew['lease_s']} s, detect_s "
+        f"{ew['chaos_leg']['detect_s']}, time_to_resume_s "
+        f"{ew['chaos_leg']['time_to_resume_s']}, records reassigned "
+        f"{ew['chaos_leg']['records_reassigned']}, lockstep step "
+        f"{ew['step_wall_ms_median']:.1f} ms, float64 average "
+        f"{ew['average_ms']:.3f} ms, peak memory "
+        f"{ew['max_memory_allocated'] / 1e9:.2f} GB; 13b drill "
+        f"{dr['seconds']:.1f} s, detect_s {dr['detect_s']}, "
+        f"time_to_resume_s {dr['time_to_resume_s']} {label}")
 
     timing = time_kernels(tfa, dev)
     main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values(),
-                 *variants["runs"].values(), *fleet["runs"].values())
+                 *variants["runs"].values(), *fleet["runs"].values(),
+                 *p13["runs"].values())
     main_launches = {k: sum(run["launches"].get(k, 0) for run in main_runs)
                      for k in REPLACES}
     kernels = []
@@ -4696,6 +5140,7 @@ def main() -> int:
                   training=train, data_parallel_surface=surface,
                   hf=hf, trace_paged_tick=trace_tick,
                   phase12={k: v for k, v in p12.items() if k != "runs"},
+                  phase13={k: v for k, v in p13.items() if k != "runs"},
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)
     if args.json:

@@ -25,13 +25,15 @@ PyTorch).
 Dispatch rule, per call: a tensor on the CPU goes to the plain version
 (the CPU tests, and the toy widths they use); a CUDA tensor launches
 the kernel or raises — there is no fallback. Each kernel wrapper
-counts its launches in a plain integer attribute (``.launches``), so a
-run can show that its main path went through the kernel.
+counts its launches in a plain integer attribute (``.launches``,
+bumped under a lock by `count_launch`), so a run can show that its
+main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -50,6 +52,16 @@ BWD_HEAD_DIMS = (64, 128, 256)
 # Query heads per kv head the decode kernels are built for: 1..8.
 DECODE_MAX_GROUP = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel, atomically: an elastic
+    world's members launch from threads of their own."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 def _gqa_group(q, k, v) -> int:
@@ -212,7 +224,7 @@ def flash_fwd_cuda(q, k, v, *, causal: bool = False,
             *out.stride()[:3], int(bool(causal)),
             0 if window is None else int(window), int(q_offset),
             int(k_offset), D ** -0.5, stream)
-    flash_fwd_cuda.launches += 1
+    count_launch(flash_fwd_cuda)
     return out, lse
 
 
@@ -341,7 +353,7 @@ def flash_bwd_dq_cuda(q, k, v, g, lse, dvec, *, causal: bool = False,
             *g.stride()[:3], *dq.stride()[:3], int(bool(causal)),
             0 if window is None else int(window), int(q_offset),
             int(k_offset), D ** -0.5, stream)
-    flash_bwd_dq_cuda.launches += 1
+    count_launch(flash_bwd_dq_cuda)
     return dq
 
 
@@ -373,7 +385,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, dvec, *, causal: bool = False,
             *g.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
             int(bool(causal)), 0 if window is None else int(window),
             int(q_offset), int(k_offset), D ** -0.5, stream)
-    flash_bwd_dkv_cuda.launches += 1
+    count_launch(flash_bwd_dkv_cuda)
     return dk, dv
 
 
@@ -693,7 +705,7 @@ def flash_decode_cuda(q, k_cache, v_cache, length, *,
             length.data_ptr(), out.data_ptr(), ws.data_ptr(),
             _DTYPE_CODE[q.dtype], B, W, H, Hkv, D, splits, q.stride(0),
             q.stride(2), D ** -0.5, stream)
-    flash_decode_cuda.launches += 1
+    count_launch(flash_decode_cuda)
     return out
 
 

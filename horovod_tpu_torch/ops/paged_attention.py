@@ -43,7 +43,7 @@ import torch
 from horovod_tpu_torch.ops.flash_attention import (
     NEG_INF, _DTYPE_CODE, _F, _I, _L, _P, _check_decode_group,
     _check_head_dim, _check_kernel_operand, _lib_call, _sm_count,
-    decode_splits,
+    count_launch, decode_splits,
 )
 from horovod_tpu_torch.ops.quantization import dequantize_int8
 
@@ -313,7 +313,7 @@ def paged_decode_cuda(q, k_new, v_new, table, fill, k_pool, v_pool, *,
             _DTYPE_CODE[q.dtype], L, H, Hkv, D, bs, T, splits, q.stride(0),
             q.stride(1), k_new.stride(0), k_new.stride(1), v_new.stride(0),
             v_new.stride(1), scale, stream)
-    paged_decode_cuda.launches += 1
+    count_launch(paged_decode_cuda)
     paged_decode_cuda.splits_last = splits
     return out
 

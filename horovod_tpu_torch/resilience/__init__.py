@@ -15,11 +15,19 @@ detection and preemption-safe training (counterpart of
   checkpointing, rollback, and the exactly-once `TrainSnapshot`
   (model + optimizer + data cursor + host RNG + guard history) into
   one loop-side helper.
+* `membership` — elastic world membership: `WorldMonitor` heartbeat
+  leases + rank-death/join detection over a pluggable KV transport
+  (`BootstrapKV` over the launcher's `TCPStore`), the barrier'd
+  propose/ack/commit resize protocol (monotonic world generation), and
+  `SimulatedWorld`, the in-process N-thread elastic training world.
 * `equivalence` — the crash-restart equivalence harness (``python -m
-  horovod_tpu_torch.resilience.equivalence --workdir DIR``).
-
-Membership, the multi-process drill and the resize half of the
-equivalence harness are a later slice of the port.
+  horovod_tpu_torch.resilience.equivalence --workdir DIR``), and with
+  ``--resize`` its elastic twin: a simulated world under ``rank_death``
+  must shrink, rebalance, and keep the per-record union stream.
+* `drill` — the multi-process elastic drill: ``hvdrun-torch
+  --elastic`` workers over the launcher's store, a real SIGKILL, and
+  the survivors' exact resume (``python -m
+  horovod_tpu_torch.resilience.drill --workdir DIR``).
 """
 
 from horovod_tpu_torch.resilience.chaos import (
@@ -39,6 +47,18 @@ from horovod_tpu_torch.resilience.elastic import (
     PreemptionHandler,
     TrainSnapshot,
 )
+from horovod_tpu_torch.resilience.membership import (
+    BootstrapKV,
+    ChaosKV,
+    ElasticBarrier,
+    InProcessKV,
+    KVTransportError,
+    MembershipError,
+    ResizeDecision,
+    SimulatedWorld,
+    WorldMonitor,
+    install_kv,
+)
 from horovod_tpu_torch.resilience.retry import (
     RetryError,
     RetryPolicy,
@@ -50,4 +70,7 @@ __all__ = [
     "FailureDetector", "install_detector", "shared_detector",
     "ElasticTrainer", "NaNGuard", "PreemptionHandler", "TrainSnapshot",
     "RetryError", "RetryPolicy", "default_io_policy",
+    "BootstrapKV", "ChaosKV", "ElasticBarrier", "InProcessKV",
+    "KVTransportError", "MembershipError", "ResizeDecision",
+    "SimulatedWorld", "WorldMonitor", "install_kv",
 ]

@@ -4,9 +4,9 @@ Counterpart of `horovod_tpu.resilience.elastic`, ported by copy with
 its imports re-pointed; the state is the port's checkpoint tree (a
 nested dict of tensors: ``model.state_dict()``,
 ``optimizer.state_dict()``), and the host-RNG leg also covers
-`torch.Generator`. The elastic-resize path (``migrate_world=True``,
-rebalancing a cursor from another world) waits for the membership
-slice of the port.
+`torch.Generator`. The elastic-resize path (``migrate_world=True``)
+rebalances a cursor saved under another world across the current one
+(`resilience.membership` drives it).
 
 Accelerator fleets are preempted on schedule (maintenance events, spot
 reclaims): the runtime gets SIGTERM and a grace window. MLPerf-scale
@@ -346,9 +346,10 @@ class ElasticTrainer:
     synchronous save the moment the preemption handler has triggered.
     Saves go through `utils.checkpoint.save_step` — rank-0-only,
     atomic (temp + rename), retried under the shared `RetryPolicy`.
-    ``migrate_world=True`` (resuming a cursor saved under another world
-    size, the elastic-resize path) raises `NotImplementedError`: it
-    waits for the membership slice of the port.
+    ``migrate_world=True`` is the elastic-resize path: a snapshot
+    cursor saved under another (rank, world) is migrated, the dataset
+    rebalancing the interrupted epoch's untrained remainder across the
+    current world, and `resize_report` keeps the evidence.
     """
 
     def __init__(self, directory: str, *, save_every: int = 50,
@@ -382,18 +383,13 @@ class ElasticTrainer:
         self.rng = rng
         if rng is not None:
             _rng_state(rng)  # validate the type NOW, not at save time
-        # Elastic resize: with migrate_world on, the reference migrates
-        # a snapshot cursor from a DIFFERENT (rank, world) — the
-        # dataset rebalances the interrupted epoch's untrained
-        # remainder across the new world. That path needs the
-        # membership slice; a cursor from another world degrades to
-        # the loud epoch-boundary fallback meanwhile.
-        if migrate_world:
-            raise NotImplementedError(
-                "ElasticTrainer(migrate_world=True), the elastic-resize "
-                "path, is a later slice of the PyTorch port (membership "
-                "and the drill, ROADMAP Queue A 4)")
-        self.migrate_world = False
+        # Elastic resize: with migrate_world on, a snapshot cursor from
+        # a DIFFERENT (rank, world) is migrated — the dataset
+        # rebalances the interrupted epoch's untrained remainder across
+        # the new world — instead of degrading to the epoch-boundary
+        # fallback. `resize_report` keeps the newest migration's
+        # evidence (old/new world, records reassigned).
+        self.migrate_world = bool(migrate_world)
         self.resize_report: Optional[Dict] = None
         self.data_start: Tuple[int, int] = (0, 0)
         self.resume_gap_batches = 0
@@ -544,12 +540,63 @@ class ElasticTrainer:
         return restored, step
 
     def _restore_data(self, step: int, data_state: Dict) -> None:
-        """The dataset leg of an exact resume: the cursor is restored
-        as saved. A cursor from another (rank, world) raises
-        `DataStateError` into the loud epoch-boundary fallback (the
-        reference's ``migrate_world`` rebalance waits for the
-        membership slice)."""
-        self.dataset.restore(data_state)
+        """The dataset leg of an exact resume. Plain restore first;
+        with `migrate_world` on, a cursor whose ONLY incompatibility
+        is its (rank, world) identity is migrated instead — the
+        elastic-resize path: the dataset rebalances the interrupted
+        epoch's untrained remainder across the current world
+        (`ShardedDataset.restore(migrate=True)`), which is still an
+        EXACT resume (gap 0 — nothing replayed, nothing skipped; the
+        union over ranks is pinned by the resize equivalence
+        harness). Any other mismatch re-raises into the loud
+        epoch-boundary fallback as before."""
+        from horovod_tpu_torch.data import DataStateError
+        try:
+            self.dataset.restore(data_state)
+            return
+        except DataStateError:
+            if not self.migrate_world:
+                raise
+        t0 = time.time()
+        # Raises DataStateError itself when more than the world
+        # identity mismatches — the caller's fallback handles it.
+        self.dataset.restore(data_state, migrate=True)
+        rebalance = getattr(self.dataset, "last_rebalance", None)
+        if rebalance is None:
+            # Same-world rank relabel (streams are slot-indexed —
+            # rank k's suffix continues unchanged): an exact resume,
+            # not a resize. No rebalance happened, so no resize
+            # event/metrics — they would read as phantom resizes.
+            return
+        report = dict(rebalance)
+        report["step"] = int(step)
+        report["rebalance_s"] = round(time.time() - t0, 6)
+        self.resize_report = report
+        from horovod_tpu_torch.obs import catalog as _obs_catalog
+        from horovod_tpu_torch.obs import events as _events
+        from horovod_tpu_torch.obs import flightrec as _flightrec
+        m = _obs_catalog.elastic_metrics()
+        m["rebalance"].observe(report["rebalance_s"])
+        m["records_reassigned"].inc(
+            int(report.get("records_reassigned", 0)))
+        _events.emit(
+            "training.resize", step=int(step),
+            old_world=report.get("old_world"),
+            new_world=report.get("new_world"),
+            rank=int(getattr(self.dataset, "rank", -1)),
+            epoch=report.get("epoch"),
+            from_batch=report.get("from_batch"),
+            records_reassigned=report.get("records_reassigned"),
+            rebalance_ms=round(report["rebalance_s"] * 1e3, 3))
+        _flightrec.trigger(
+            "training.resize", step=int(step),
+            old_world=report.get("old_world"),
+            new_world=report.get("new_world"))
+        sys.stderr.write(
+            f"horovod_tpu_torch: elastic resize at step {step} — world "
+            f"{report.get('old_world')} -> {report.get('new_world')}, "
+            f"{report.get('records_reassigned')} record(s) of epoch "
+            f"{report.get('epoch')} rebalanced\n")
 
     # -- the per-step hook --------------------------------------------
 

@@ -1,9 +1,9 @@
 """Crash-restart equivalence: prove exactly-once resumable training.
 
-Counterpart of the crash-restart half of
-`horovod_tpu.resilience.equivalence`, ported by copy. A checkpointing
-story is only as good as its proof. This harness runs the same small
-training workload twice over a sharded, shuffled `ShardedDataset`:
+Counterpart of `horovod_tpu.resilience.equivalence`, ported by copy. A
+checkpointing story is only as good as its proof. This harness runs
+the same small training workload twice over a sharded, shuffled
+`ShardedDataset`:
 
 * **control** — N epochs uninterrupted, recording a content hash of
   every consumed batch plus the final params/loss;
@@ -33,9 +33,14 @@ Smoke entry::
     HVD_CHAOS=train_crash:2,ckpt_kill:1 \\
         python -m horovod_tpu_torch.resilience.equivalence --workdir DIR
 
-The resize half (``--resize``: a simulated elastic world under
-``rank_death``) needs the membership slice of the port and raises
-`NotImplementedError` meanwhile.
+With ``--resize`` it runs the elastic twin instead: a simulated world
+(`resilience.membership.SimulatedWorld`) of ``--world`` members under
+``rank_death`` must shrink, roll back, rebalance and finish with the
+per-record union stream bitwise-equal (as a multiset) to an
+uninterrupted run's::
+
+    python -m horovod_tpu_torch.resilience.equivalence --resize \\
+        --workdir DIR
 """
 
 from __future__ import annotations
@@ -298,14 +303,167 @@ def run_crash_restart_equivalence(
         config.use_native = prev_native
 
 
-def run_resize_equivalence(workdir: str, **kwargs):
-    """The elastic twin of the harness (a simulated world that must
-    shrink, rebalance and keep the per-record union stream): it runs on
-    the membership layer, a later slice of the port."""
-    raise NotImplementedError(
-        "resize equivalence needs resilience.membership, a later slice "
-        "of the PyTorch port (membership, the drill and the resize half "
-        "of the equivalence harness, ROADMAP Queue A 4)")
+# ---------------------------------------------------------------------------
+# Resize equivalence (elastic membership).
+# ---------------------------------------------------------------------------
+
+DEFAULT_RESIZE_KILL_SPEC = "rank_death:1"
+
+
+@dataclasses.dataclass
+class ResizeEquivalenceReport:
+    """What one elastic shrink(/grow) equivalence run proved."""
+
+    union_match: bool
+    completed: bool              # both legs finished every epoch
+    deaths: int
+    joins: int
+    resizes: int
+    final_world: int
+    final_generation: int
+    control_records: int
+    resized_records: int         # effective union size, chaos leg
+    records_reassigned: int
+    detect_s: Dict               # p50/max: member death -> resumed
+    time_to_resume_s: Dict       # p50/max: detection -> resumed
+    loader: str
+    error: Optional[str] = None
+
+    @property
+    def ok(self) -> bool:
+        return (self.union_match and self.completed
+                and self.resizes >= 1 and self.deaths >= 1)
+
+    def summary(self) -> Dict:
+        return {
+            "ok": self.ok,
+            "union_match": self.union_match,
+            "completed": self.completed,
+            "deaths": self.deaths,
+            "joins": self.joins,
+            "resizes": self.resizes,
+            "final_world": self.final_world,
+            "final_generation": self.final_generation,
+            "records": self.resized_records,
+            "records_reassigned": self.records_reassigned,
+            "detect_s": self.detect_s,
+            "time_to_resume_s": self.time_to_resume_s,
+            "loader": self.loader,
+            "error": self.error,
+        }
+
+
+def _elastic_grad(state: Dict[str, np.ndarray],
+                  batch: Dict[str, np.ndarray]):
+    """Gradient leg of the pure-numpy SGD step (`_default_step`'s
+    math split so the simulated world can average across members)."""
+    x = batch["x"].astype(np.float64)
+    y = batch["y"].astype(np.float64)
+    err = x @ state["w"] + state["b"] - y
+    return ({"w": x.T @ err / len(y), "b": np.float64(err.mean())},
+            float((err ** 2).mean()))
+
+
+def _elastic_apply(state: Dict[str, np.ndarray], grads: Dict,
+                   lr: float = 0.05) -> Dict[str, np.ndarray]:
+    return {"w": state["w"] - lr * grads["w"],
+            "b": state["b"] - lr * np.float64(grads["b"])}
+
+
+def run_resize_equivalence(
+        workdir: str, *,
+        world: int = 4,
+        epochs: int = 2,
+        records: int = 64,
+        batch_size: int = 4,
+        dim: int = 3,
+        num_shards: int = 4,
+        save_every: int = 2,
+        seed: int = 11,
+        kill_spec: str = DEFAULT_RESIZE_KILL_SPEC,
+        lease_s: float = 0.35,
+        use_native: Optional[bool] = None,
+        timeout_s: float = 180.0,
+        log: Optional[Callable[[str], None]] = None,
+) -> ResizeEquivalenceReport:
+    """Train the elastic world twice — uninterrupted control vs a
+    chaos leg under ``kill_spec`` (an ALREADY-installed monkey, e.g.
+    the CI smoke's ``HVD_CHAOS`` env arming, takes precedence; the
+    control leg always runs disarmed) — and assert the effective
+    per-record union streams are bitwise identical multisets."""
+    from horovod_tpu_torch import data as hd
+    from horovod_tpu_torch.resilience.membership import SimulatedWorld
+    from horovod_tpu_torch.runtime.config import config
+
+    def say(msg):
+        if log is not None:
+            log(msg)
+
+    os.makedirs(workdir, exist_ok=True)
+    paths, spec = _write_dataset(workdir, records=records, dim=dim,
+                                 num_shards=num_shards, seed=seed)
+    state0 = {"w": np.zeros(dim, np.float64), "b": np.float64(0.0)}
+    used_native = [False]
+
+    prev_native = config.use_native
+    if use_native is not None:
+        config.use_native = use_native
+
+    def make_ds(rank, w):
+        ds = hd.ShardedDataset(paths, spec, batch_size, shuffle=True,
+                               seed=seed, rank=rank, world=w)
+        used_native[0] = bool(ds.native)
+        return ds
+
+    def run_leg(ckpt_sub):
+        return SimulatedWorld(
+            world=world, make_dataset=make_ds, state0=state0,
+            grad_fn=_elastic_grad, apply_fn=_elastic_apply,
+            ckpt_dir=os.path.join(workdir, ckpt_sub), epochs=epochs,
+            save_every=save_every, lease_s=lease_s,
+        ).run(timeout_s=timeout_s)
+
+    try:
+        prev_monkey = chaos.active()   # NOT install(None)'s return —
+        chaos.install(None)            # install returns the NEW value
+        try:
+            control = run_leg("ckpt_control")
+        finally:
+            chaos.install(prev_monkey)
+        say(f"control: {control.summary()}")
+
+        monkey = (prev_monkey if prev_monkey is not None
+                  else chaos.ChaosMonkey(kill_spec, seed=seed))
+        chaos.install(monkey)
+        try:
+            resized = run_leg("ckpt_chaos")
+        finally:
+            chaos.install(prev_monkey)
+        say(f"chaos: {resized.summary()}")
+
+        control_union = control.union_keys()
+        resized_union = resized.union_keys()
+        errors = [e for e in (control.error, resized.error) if e]
+        return ResizeEquivalenceReport(
+            union_match=(control_union == resized_union),
+            completed=(control.completed and resized.completed),
+            deaths=len(resized.deaths),
+            joins=len(resized.joins),
+            resizes=len(resized.resizes),
+            final_world=resized.final_world,
+            final_generation=resized.final_generation,
+            control_records=len(control_union),
+            resized_records=len(resized_union),
+            records_reassigned=sum(
+                r.get("records_reassigned", 0)
+                for r in resized.resizes),
+            detect_s=resized.summary()["detect_s"],
+            time_to_resume_s=resized.summary()["time_to_resume_s"],
+            loader="native" if used_native[0] else "python",
+            error="; ".join(errors) if errors else None,
+        )
+    finally:
+        config.use_native = prev_native
 
 
 def main(argv=None) -> int:
@@ -320,17 +478,26 @@ def main(argv=None) -> int:
         description="chaos-driven crash-restart equivalence check")
     ap.add_argument("--workdir", required=True)
     ap.add_argument("--resize", action="store_true",
-                    help="the elastic resize equivalence (a later slice "
-                         "of the port: raises NotImplementedError)")
+                    help="run the ELASTIC resize equivalence instead: "
+                         "a 4-member simulated world under rank_death "
+                         "must shrink, rebalance, and finish with the "
+                         "untrained-remainder union bitwise-equal to "
+                         "an uninterrupted run's")
+    ap.add_argument("--world", type=int, default=4,
+                    help="--resize: launch world size")
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--records", type=int, default=48)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--save-every", type=int, default=2)
     ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--lease-s", type=float, default=0.35,
+                    help="--resize: heartbeat lease for the simulated "
+                         "world")
     ap.add_argument("--kill-spec", default=None,
                     help="chaos sites for the kill leg (an installed "
                          "HVD_CHAOS monkey takes precedence; default "
-                         f"'{DEFAULT_KILL_SPEC}')")
+                         f"'{DEFAULT_KILL_SPEC}', or "
+                         f"'{DEFAULT_RESIZE_KILL_SPEC}' with --resize)")
     ap.add_argument("--loader", default="auto",
                     choices=["auto", "native", "python"],
                     help="pin the ShardedDataset implementation")
@@ -339,7 +506,25 @@ def main(argv=None) -> int:
     use_native = {"auto": None, "native": True,
                   "python": False}[args.loader]
     if args.resize:
-        run_resize_equivalence(args.workdir)
+        rreport = run_resize_equivalence(
+            args.workdir, world=args.world,
+            epochs=max(2, args.epochs - 1), records=args.records + 16,
+            batch_size=args.batch_size, save_every=args.save_every,
+            seed=args.seed,
+            kill_spec=args.kill_spec or DEFAULT_RESIZE_KILL_SPEC,
+            lease_s=args.lease_s, use_native=use_native, log=print)
+        print(json.dumps(rreport.summary()))
+        if rreport.ok:
+            print(f"resize equivalence OK: {rreport.deaths} death(s),"
+                  f" {rreport.joins} join(s), {rreport.resizes} "
+                  f"resize(s) to world {rreport.final_world} "
+                  f"(generation {rreport.final_generation}), "
+                  f"{rreport.resized_records} records union-bitwise-"
+                  f"identical, {rreport.records_reassigned} "
+                  f"reassigned")
+            return 0
+        print(f"resize equivalence FAILED: {rreport.summary()}")
+        return 1
     report = run_crash_restart_equivalence(
         args.workdir, epochs=args.epochs, records=args.records,
         batch_size=args.batch_size, save_every=args.save_every,

@@ -15,8 +15,10 @@ at its rendezvous store (``HOROVOD_KV=host:port``, a
 ``cpu``) picks the default device. As in the JAX package
 (`bootstrap.py:169-175`), `init` opens the timeline when
 ``HOROVOD_TIMELINE`` names a file and starts a `StallMonitor` for the
-eager collectives; `shutdown` closes both. Elastic membership is a
-later slice.
+eager collectives; `shutdown` closes both. `connect_kv` attaches a
+process to the launcher's store without `init` (the elastic drill's
+workers), and `apply_resize` re-keys the membership after a committed
+elastic resize (`resilience.membership`).
 """
 
 from __future__ import annotations
@@ -178,3 +180,76 @@ def local_rank() -> int:
 
 def local_size() -> int:
     return _state.check_initialized().local_size
+
+
+def connect_kv(addr: Optional[str] = None, *, timeout_s: float = 60.0):
+    """Attach this process to the launcher's rendezvous store WITHOUT
+    `init()`: no process group, no CUDA, no init barrier. Returns a
+    `torch.distributed.TCPStore` client of the store at ``addr``
+    (default: the launcher-set ``HOROVOD_KV``).
+
+    This is the multi-process elastic drill's bootstrap
+    (`resilience/drill.py`): its workers coordinate membership,
+    heartbeats and lockstep training entirely through the store
+    (``membership.install_kv(BootstrapKV(connect_kv()))``), and the
+    launcher, not a worker, serves it, so a SIGKILLed worker does not
+    take it down."""
+    if addr is None:
+        addr = env_str("HOROVOD_KV")
+    if not addr or ":" not in addr:
+        raise RuntimeError(
+            "connect_kv needs a rendezvous address (host:port); launch "
+            "under hvdrun-torch or pass addr= explicitly")
+    host, _, port = addr.rpartition(":")
+    try:
+        return dist.TCPStore(host, int(port), is_master=False,
+                             timeout=datetime.timedelta(seconds=timeout_s))
+    except (RuntimeError, ValueError) as e:
+        raise RuntimeError(
+            f"could not reach the rendezvous store at {addr}: {e}") from e
+
+
+def world_generation() -> int:
+    """Monotonic elastic-world generation: 0 at launch, +1 per committed
+    resize (resilience/membership.py). Readable before `init()`: an
+    uninitialized runtime is generation 0."""
+    return _state.global_state().world_generation
+
+
+def apply_resize(new_rank: int, new_world: int, generation: int, *,
+                 rekey_runtime: bool = True) -> None:
+    """Re-key the runtime's membership after a committed elastic resize.
+
+    Updates rank/size and the monotonic world generation in place: the
+    process survives the resize, so the runtime is re-keyed, not
+    re-initialized. Safe on an uninitialized runtime: only the
+    generation and the `hvd_elastic_generation` gauge move.
+
+    The `torch.distributed` process group is NOT rebuilt here. A real
+    multi-process deployment re-forms its group over the survivors
+    before the next collective; that device-plane re-key is the caller's
+    hook, as in the JAX package, whose mesh cannot be rebuilt here for
+    ranks whose devices are gone.
+
+    ``rekey_runtime=False`` records the generation WITHOUT touching the
+    membership fields: the in-process simulated worlds
+    (`resilience.membership.SimulatedWorld`), where many fake ranks
+    share one process, must never rewrite the real runtime's rank/size
+    out from under coexisting code."""
+    st = _state.global_state()
+    with st.lock:
+        if generation < st.world_generation:
+            raise ValueError(
+                f"resize generation {generation} is not monotonic "
+                f"(current {st.world_generation})")
+        st.world_generation = int(generation)
+        if rekey_runtime and st.initialized:
+            st.rank = int(new_rank)
+            st.size = int(new_world)
+            # Cached collectives are keyed on the old world; drop them
+            # so nothing re-dispatches against a world that no longer
+            # exists.
+            st.op_cache = {}
+            st.mc_mesh2 = None
+    from horovod_tpu_torch.obs import catalog as _obs_catalog
+    _obs_catalog.elastic_metrics()["generation"].set(float(generation))

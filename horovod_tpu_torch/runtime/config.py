@@ -425,6 +425,21 @@ register_knob(
     "PreemptionHandler.grace_remaining() budgets the emergency "
     "checkpoint against it")
 register_knob(
+    "HVD_LEASE_S", "float", "2.0", "resilience/membership.py",
+    "Elastic membership: heartbeat lease in seconds — a rank whose "
+    "newest heartbeat is older than this is declared dead and the "
+    "world resizes")
+register_knob(
+    "HVD_HEARTBEAT_S", "float", "(lease/4)",
+    "resilience/membership.py",
+    "Elastic membership: heartbeat write cadence in seconds "
+    "(default lease/4 — the lease tolerates isolated dropped beats)")
+register_knob(
+    "HVD_ELASTIC_DRILL_TIMEOUT_S", "float", "300",
+    "resilience/drill.py",
+    "Multi-process elastic drill: wall-clock budget for the whole "
+    "hvdrun-torch-launched worker world (the job is killed past it)")
+register_knob(
     "HOROVOD_NO_NATIVE", "flag", "(unset)", "data/__init__.py",
     "Non-empty makes ShardedDataset use the Python shard reader instead "
     "of the native prefetching loader (csrc/data_loader.cc)")

@@ -1004,3 +1004,19 @@ def test_cuda_checkpoint_round_trip_bitwise(tmp_path):
     assert a == b
     for p, q in zip(m.parameters(), m2.parameters()):
         assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+def test_cuda_elastic_average_stays_on_card_and_equals_cpu():
+    """The elastic world's float64 rank-order average of gradients on the
+    card: it stays there, and equals the same average of the same
+    tensors on the CPU bit for bit (IEEE adds and divides, one order)."""
+    from horovod_tpu_torch.resilience.membership import average
+    dev = _card()
+    grads = [{"w": _randn(i, 300, 7), "b": _randn(10 + i, 1)}
+             for i in range(4)]
+    got = average([{k: v.to(dev) for k, v in g.items()} for g in grads])
+    ref = average(grads)
+    for k in ref:
+        assert got[k].device.type == "cuda" and got[k].dtype == torch.float64
+        assert torch.equal(got[k].cpu(), ref[k])

@@ -229,12 +229,16 @@ def test_torch_generator_rides_the_snapshot():
         t_elastic._rng_restore(np.random.default_rng(0), snap)
 
 
-def test_resize_paths_name_the_later_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="membership"):
-        t_elastic.ElasticTrainer(str(tmp_path), migrate_world=True,
-                                 install_signals=False)
-    with pytest.raises(NotImplementedError, match="membership"):
-        t_eq.main(["--workdir", str(tmp_path), "--resize"])
+def test_resize_paths_work(tmp_path, capsys):
+    """The elastic-resize paths exist: `ElasticTrainer(migrate_world=
+    True)` is built with the migration on, and the harness's ``--resize``
+    runs a simulated world through a death and prints its OK line."""
+    trainer = t_elastic.ElasticTrainer(str(tmp_path / "ck"),
+                                       migrate_world=True,
+                                       install_signals=False)
+    assert trainer.migrate_world and trainer.resize_report is None
+    assert t_eq.main(["--workdir", str(tmp_path / "eq"), "--resize"]) == 0
+    assert "resize equivalence OK: 1 death(s)" in capsys.readouterr().out
 
 
 def test_preemption_notice_absorbs_one_hard_signal():

@@ -273,7 +273,9 @@ def test_import_leaves_jax_out():
             "horovod_tpu_torch.data, horovod_tpu_torch.utils.checkpoint, "
             "horovod_tpu_torch.resilience, "
             "horovod_tpu_torch.resilience.elastic, "
-            "horovod_tpu_torch.resilience.equivalence; "
+            "horovod_tpu_torch.resilience.equivalence, "
+            "horovod_tpu_torch.resilience.membership, "
+            "horovod_tpu_torch.resilience.drill; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'optax')) or m == 'horovod_tpu' "
             "or m.startswith('horovod_tpu.') or m == 'horovod' "
