@@ -5,8 +5,9 @@ of `chip_smoke.py`.
 
     python3 chip_probe.py [fwd] [decode] [paged] [sweep] [spec] [hf]
                           [bwd256] [train12] [lr12] [loader] [elastic13]
+                          [sp14]
                           # default: all but spec, hf, bwd256, train12,
-                          # loader and elastic13; one card,
+                          # loader, elastic13 and sp14; one card,
                           # ~1 min each
                           # (hf: ~5 min); loader alone builds no kernel
 
@@ -57,6 +58,14 @@ sources) and then, per part asked for:
   uninterrupted world makes when the lease is too short for its
   members' heartbeat threads (how `chip_smoke.ELASTIC_LEASE_S` was
   chosen).
+* sp14: two processes on ``cuda:0`` in one gloo world: which
+  collectives gloo takes on CUDA tensors (all_reduce, broadcast,
+  all_gather, all_gather_into_tensor, all_to_all_single,
+  reduce_scatter_tensor), the port's seq mesh, `ppermute` and
+  `alltoall` over it (values and staged bytes printed), and last a
+  gloo `batch_isend_irecv` of CUDA tensors (it kills the process:
+  gloo has no CUDA point-to-point path); then `chip_smoke.py` phase 14
+  alone (its step walls at 2 x 2048 a rank).
 
 A failing case is printed and the probe goes on to the next. With
 decode or paged it then times both decode ticks as `chip_smoke.py`
@@ -489,6 +498,82 @@ def probe_elastic13(cs, tfa, dev):
         torch.cuda.empty_cache()
 
 
+GLOO_CUDA_PROBE = r"""
+import sys, torch, torch.distributed as dist
+r, store = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + store, rank=r,
+                        world_size=2)
+x = torch.full((4,), float(r + 1), device="cuda")
+ops = {
+    "all_reduce": lambda: dist.all_reduce(x.clone()),
+    "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+    "all_gather": lambda: dist.all_gather(
+        [torch.empty_like(x) for _ in range(2)], x),
+    "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+        torch.empty(8, device="cuda"), x),
+    "all_to_all_single": lambda: dist.all_to_all_single(
+        torch.empty_like(x), x),
+    "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+        torch.empty(2, device="cuda"), x),
+}
+for name, fn in ops.items():
+    try:
+        fn()
+        torch.cuda.synchronize()
+        print(f"rank {r} gloo {name} on CUDA: ok", flush=True)
+    except Exception as e:
+        print(f"rank {r} gloo {name} on CUDA: {type(e).__name__} "
+              f"{str(e).splitlines()[0][:160]}", flush=True)
+    dist.barrier()
+from horovod_tpu_torch.parallel import mesh as M
+from horovod_tpu_torch.ops import collectives as C
+m = M.make_mesh(seq=2, device_type="cuda")
+with M.use(m):
+    y = C.ppermute(x, "seq", M.ring_perms("seq")[0])
+    z = C.alltoall(torch.arange(4.0, device="cuda") + 10 * r,
+                   axis_name="seq")
+    print(f"rank {r} mesh {M.mesh_shape(m)} ppermute {y.tolist()} "
+          f"alltoall {z.tolist()} staged {C.staged_bytes()} B", flush=True)
+# Last: gloo has no CUDA path for point-to-point, and this kills the
+# process (gloo::IoException, writev: Bad address).
+print(f"rank {r} gloo batch_isend_irecv on CUDA: trying", flush=True)
+for q in dist.batch_isend_irecv(
+        [dist.P2POp(dist.isend, x, 1 - r),
+         dist.P2POp(dist.irecv, torch.empty_like(x), 1 - r)]):
+    q.wait()
+print(f"rank {r} gloo batch_isend_irecv on CUDA: ok", flush=True)
+dist.destroy_process_group()
+"""
+
+
+def probe_sp14(cs, tfa, dev):
+    """Two processes on ``cuda:0`` in one gloo world: which collectives
+    take CUDA tensors there, and the port's mesh, ppermute and alltoall
+    over it; then `chip_smoke.py` phase 14 alone."""
+    import os
+    import subprocess
+    import tempfile
+    work = tempfile.mkdtemp(prefix="hvd_probe14_")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_CUDA_PROBE, str(r), f"{work}/store"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=os.getcwd()))
+        for r in range(2)]
+    for p in procs:
+        try:
+            print(p.communicate(timeout=180)[0], flush=True)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            print("gloo probe timed out", flush=True)
+    t = time.time()
+    try:
+        cs.run_phase14(tfa, dev)
+    except Exception:
+        traceback.print_exc()
+    print(f"phase 14: {time.time() - t:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -497,7 +582,7 @@ def main() -> int:
     every = {"fwd", "decode", "paged", "sweep"}
     parts = set(sys.argv[1:]) or every
     if not parts <= every | {"spec", "hf", "bwd256", "train12", "lr12",
-                             "loader", "elastic13"}:
+                             "loader", "elastic13", "sp14"}:
         print(f"chip_probe: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -561,6 +646,8 @@ def main() -> int:
         probe_lr12(cs, tfa, dev)
     if "elastic13" in parts:
         probe_elastic13(cs, tfa, dev)
+    if "sp14" in parts:
+        probe_sp14(cs, tfa, dev)
     print(f"nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     return 0
 

@@ -3,7 +3,7 @@
 NVIDIA H100: the quickest proof that the port builds, is right and
 serves on the card.
 
-    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~11 minutes
+    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~13 minutes
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
@@ -297,12 +297,46 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    CUDA) within HVD_ELASTIC_DRILL_TIMEOUT_S: its OK line, detect_s and
    time_to_resume_s.
 
+14. Sequence parallelism on the card (after phase 13). (a) The kernels
+   at the ring's rotations: a [2, 4096, 8, 128] causal attention cut
+   into 4 blocks of 1024; the last block's queries against the K/V
+   block of each rotation d = 0..3 at q_offset = d x 1024, f32 and
+   bf16: the forward's (out, lse) and the backward under a cotangent on
+   lse against their plain versions; again under window 1536, where
+   rotation 2 holds fully masked rows and rotation 3 is masked whole
+   (out 0, lse -inf, zero and finite gradients). The logsumexp merge of
+   the four kernel partials (`parallel.sequence._merge_partials`)
+   against one forward launch at the full length, within TOL; the merge
+   without its -inf guard (taking the masked rotation first) and
+   rotation 3 without its window (planted faults) must fail it. The
+   bf16 forward of a live and of the masked rotation are timed.
+   (b) SP14_SP rank processes sharing ``cuda:0`` in a gloo world
+   (``hvd.init(device="cpu")``: NCCL refuses two ranks on one device),
+   a ``seq`` mesh (`parallel.mesh.make_mesh(seq=2)`) over them: the
+   repo's LM at full width (vocab 32768, 8 heads x 128, gpt preset, bf16
+   compute over f32 params) with max_len 4096 cut to 2 layers, from one
+   seed, each rank on its 2048 columns of a seeded [2, 4096] batch
+   through `make_lm_train_step(model, opt, mesh)` under
+   `DistributedOptimizer(AdamW)`, ``loss_chunk=512``, for
+   ``attn_impl="ring_flash"`` and then ``"ulysses_flash"``: the first
+   step's loss and averaged gradients against the single-process flash
+   step on the global batch from the same weights (bf16 at phase 5's
+   STEP_LOSS_TOL / STEP_GRAD_TOL; the f32 twin at SP14_F32_LOSS_TOL /
+   SP14_F32_GRAD_TOL), then 4 more AdamW steps with the loss finite and
+   falling; each rank's forward, dQ and dK/dV launches >= its live
+   rotations (ring: its seq coordinate + 1; Ulysses: 1) x layers x
+   steps; the bytes its transfers staged through the host and its step
+   walls are printed. The causal ring with the wrapped-rank skip removed
+   (a planted fault: rank 0 attends rank 1's future block) must fail
+   the comparison, in bf16 and f32.
+
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
 engine, training, training under PowerSGD, each speculative run, each
 phase-9 generate and engine run, each phase-10 generate, engine,
 router and disagg run, each phase-11 generate and engine run, 12b's
-training steps, 13a's control and chaos legs) and read just after.
+training steps, 13a's control and chaos legs, each run of 14b in each
+rank) and read just after.
 Each HF model's runs count into its own rows of the kernels line (12b
 into Gemma-2B's). Launches made to compare or time a kernel, and the
 traced step and tick, do not count.
@@ -4893,16 +4927,404 @@ def run_phase13(tfa, dev):
                 runs={"elastic": world["run"]})
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: sequence parallelism on the card.
+# ---------------------------------------------------------------------------
+
+# 14a: a [2, 4096, 8, 128] causal attention cut into RING14_SP blocks;
+# the last block's queries meet every rotation.
+RING14 = dict(B=2, S=4096, H=8, D=128, sp=4, window=1536)
+RING14_SEED = 14
+# 14b: the repo's LM at full width (phase 13's member) with max_len 4096,
+# cut to 2 layers; a seeded global [2, 4096] batch over a seq=2 mesh of
+# two ranks sharing the card over gloo.
+SP14_MODEL = dict(vocab=32768, layers=2, heads=8, head_dim=128,
+                  max_len=4096)
+SP14_BATCH, SP14_SEQ, SP14_SP = 2, 4096, 2
+SP14_SEED = 14
+SP14_LR = 3e-4
+SP14_STEPS = 5          # the checked first step, then 4 more AdamW steps
+SP14_CHUNK = 512
+# The f32 twin's step against the single-process f32 step: the same
+# arithmetic in another order (the ring's logsumexp merge or the
+# all-to-alls' head split, the two ranks' halves summed by the
+# allreduce) and the f32 kernels' own summation orders.
+SP14_F32_GRAD_TOL = 1e-3
+SP14_F32_LOSS_TOL = 1e-5
+SP14_TIMEOUT_S = 420.0
+SP14_TOL = {"bfloat16": (STEP_LOSS_TOL, STEP_GRAD_TOL),
+            "float32": (SP14_F32_LOSS_TOL, SP14_F32_GRAD_TOL)}
+
+
+def _ring_block(t, j, n):
+    return t[:, j * n:(j + 1) * n]
+
+
+def check_ring_rotations(tfa, dev):
+    """14a: the forward (out, lse) and the backward (with a cotangent on
+    lse) of every rotation the last of RING14's blocks meets, against
+    their plain versions, f32 and bf16, causal and under the window;
+    the masked-whole rotation out 0, lse -inf and zero, finite
+    gradients; the logsumexp merge of the four kernel partials against
+    one forward launch at the full length; and the planted faults (the
+    merge without its -inf guard; the last rotation without its window)
+    caught."""
+    import torch
+    from horovod_tpu_torch.parallel import sequence as sq
+    c = RING14
+    n, last = c["S"] // c["sp"], c["sp"] - 1
+    g = torch.Generator(device=dev).manual_seed(RING14_SEED)
+    out = {"flash_fwd": {"max_abs_err_f32": 0.0, "max_abs_err": 0.0},
+           "flash_bwd_dq": {"max_abs_err_f32": 0.0, "max_abs_err": 0.0},
+           "flash_bwd_dkv": {"max_abs_err_f32": 0.0, "max_abs_err": 0.0},
+           "merge": {}, "faults": {}, "timing": {}}
+
+    def note(kern, dtype, err):
+        key = "max_abs_err_f32" if dtype == "float32" else "max_abs_err"
+        out[kern][key] = max(out[kern][key], err)
+
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        shape = (c["B"], c["S"], c["H"], c["D"])
+        q, k, v, go = (torch.randn(shape, device=dev, generator=g).to(dt)
+                       for _ in range(4))
+        qb, gob = _ring_block(q, last, n), _ring_block(go, last, n)
+        for window in (None, c["window"]):
+            parts = []
+            for d in range(c["sp"]):
+                kb = _ring_block(k, last - d, n)
+                vb = _ring_block(v, last - d, n)
+                kw = dict(causal=True, window=window, q_offset=d * n)
+                name = f"rotation {d} window {window}"
+                o, lse = tfa.flash_fwd_cuda(qb, kb, vb, **kw)
+                ref, rlse = tfa.flash_attention_plain(qb, kb, vb, **kw)
+                dlse = torch.randn(lse.shape, device=dev, generator=g)
+                got = tfa.flash_backward(qb, kb, vb, o, lse, gob, dlse=dlse,
+                                         **kw)
+                want = tfa.flash_backward_plain(qb, kb, vb, o, lse, gob,
+                                                dlse=dlse, **kw)
+                torch.cuda.synchronize()
+                err, ok = max_err(o, ref, TOL[dtype])
+                lerr, lok = max_err(lse, rlse, (LSE_TOL, 0.0))
+                res = [max_err(a, b, GRAD_TOL[dtype])
+                       for a, b in zip(got, want)]
+                masked = torch.isneginf(rlse)
+                log(f"14a {dtype:8s} {name:24s} out {err:.3e} lse "
+                    f"{lerr:.3e} dq {res[0][0]:.3e} dk {res[1][0]:.3e} dv "
+                    f"{res[2][0]:.3e}; fully masked rows "
+                    f"{int(masked.sum())} of {masked.numel()}")
+                if not (ok and lok and all(r[1] for r in res)):
+                    raise AssertionError(f"14a {dtype} {name}: out {err}, "
+                                         f"lse {lerr}, grads {res}")
+                if masked.any() and o[masked.transpose(1, 2)].any():
+                    raise AssertionError(f"14a {dtype} {name}: a fully "
+                                         f"masked row is not zero")
+                if window is not None and d == last:
+                    whole = (masked.all() and not o.any() and all(
+                        bool(torch.isfinite(t).all()) and not t.any()
+                        for t in got))
+                    if not whole:
+                        raise AssertionError(f"14a {dtype} {name}: the "
+                                             f"rotation masked whole is not "
+                                             f"out 0, lse -inf, gradients 0")
+                if window is not None and d == 2 and not (
+                        masked.any() and not masked.all()):
+                    raise AssertionError(f"14a {name}: expected some fully "
+                                         f"masked rows")
+                note("flash_fwd", dtype, err)
+                note("flash_bwd_dq", dtype, res[0][0])
+                note("flash_bwd_dkv", dtype, max(res[1][0], res[2][0]))
+                parts.append((o.float(), lse))
+                del got, want, ref
+            full, flse = tfa.flash_fwd_cuda(q, k, v, causal=True,
+                                            window=window)
+            full = _ring_block(full, last, n)
+            flse = flse[..., last * n:]
+
+            def merged(parts, merge=sq._merge_partials):
+                acc = sq._empty_partial(qb)
+                for o, lse in parts:
+                    acc = merge(*acc, o, lse)
+                return acc[0].to(dt), acc[1]
+            mo, ml = merged(parts)
+            err, ok = max_err(mo, full, TOL[dtype])
+            lerr, lok = max_err(ml, flse, (LSE_TOL * 10, 0.0))
+            log(f"14a {dtype} window {window}: merge of {c['sp']} partials "
+                f"vs one forward at [{c['B']},{c['S']}]: out {err:.3e} "
+                f"(tol {TOL[dtype]}), lse {lerr:.3e}")
+            if not (ok and lok):
+                raise AssertionError(f"14a {dtype} window {window}: the "
+                                     f"merge differs ({err}, {lerr})")
+            out["merge"][f"{dtype}_window_{window}"] = [err, lerr]
+            if window is None:
+                continue
+            # Planted faults: the merge without its -inf guard, taking the
+            # masked-whole rotation first; the last rotation without its
+            # window.
+            def unguarded(o1, l1, o2, l2):
+                m = torch.maximum(l1, l2)
+                w1, w2 = torch.exp(l1 - m), torch.exp(l2 - m)
+                den = w1 + w2
+                return ((o1 * (w1 / den).transpose(1, 2)[..., None]
+                         + o2 * (w2 / den).transpose(1, 2)[..., None]),
+                        m + torch.log(den))
+            fo, _ = merged(parts[::-1], unguarded)
+            ferr, fok = max_err(fo, full, TOL[dtype])
+            kb, vb = _ring_block(k, 0, n), _ring_block(v, 0, n)
+            lo, ll = tfa.flash_fwd_cuda(qb, kb, vb, causal=True,
+                                        q_offset=last * n)
+            go2, _ = merged(parts[:-1] + [(lo.float(), ll)])
+            gerr, gok = max_err(go2, full, TOL[dtype])
+            log(f"14a {dtype} planted faults: unguarded merge "
+                f"{ferr:.3e} (caught {not fok}), rotation {last} without "
+                f"its window {gerr:.3e} (caught {not gok})")
+            if fok or gok:
+                raise AssertionError("14a: a planted fault was not caught")
+            out["faults"][dtype] = dict(unguarded_merge=ferr,
+                                        unmasked_rotation=gerr)
+            if dtype == "bfloat16":
+                for d in (0, last):
+                    kb = _ring_block(k, last - d, n)
+                    vb = _ring_block(v, last - d, n)
+                    out["timing"][f"rotation_{d}_fwd_ms"] = cuda_time_ms(
+                        lambda: tfa.flash_fwd_cuda(
+                            qb, kb, vb, causal=True, window=window,
+                            q_offset=d * n))
+                log(f"14a bf16 forward at [{c['B']},{n},{c['H']},"
+                    f"{c['D']}] window {window}: live rotation 0 "
+                    f"{out['timing']['rotation_0_fwd_ms']:.4f} ms, masked "
+                    f"rotation {last} "
+                    f"{out['timing'][f'rotation_{last}_fwd_ms']:.4f} ms")
+        del q, k, v, go
+    return out
+
+
+def sp14_model(dev, dtype, attn_impl="flash"):
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    c = SP14_MODEL
+    return TransformerLM(c["vocab"], c["layers"], c["heads"], c["head_dim"],
+                         max_len=c["max_len"], dtype=getattr(torch, dtype),
+                         attn_impl=attn_impl, device=dev)
+
+
+def sp14_tokens():
+    import numpy as np
+    return np.random.RandomState(SP14_SEED).randint(
+        0, SP14_MODEL["vocab"], (SP14_BATCH, SP14_SEQ))
+
+
+def sp14_reference(dev, dtype, path):
+    """The single-process flash step on the global [2, 4096] batch from
+    the ranks' weights: its loss and every parameter's gradient, saved
+    to ``path`` (float32, on the host)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import _lm_data_loss
+    model = sp14_model(dev, dtype).init_weights(SP14_SEED)
+    tokens = torch.from_numpy(sp14_tokens()).to(dev)
+    loss = _lm_data_loss(model, tokens, SP14_CHUNK)
+    loss.backward()
+    torch.save({"loss": float(loss.detach()),
+                "grads": {n: p.grad.float().cpu()
+                          for n, p in model.named_parameters()}}, path)
+    del model
+    torch.cuda.empty_cache()
+
+
+def sp14_rank(rank, work):
+    """One rank of 14b (a process of its own, ``chip_smoke.py --sp-rank
+    R WORKDIR``): a gloo world of SP14_SP ranks on ``cuda:0``, a seq
+    mesh, and per (attention, dtype) run the model from SP14_SEED on its
+    block of the global batch through `make_lm_train_step(..., mesh)`;
+    the first step's loss and averaged gradients held to the
+    single-process step, then (bf16) the further AdamW steps; launch
+    counts, host-staged bytes and step walls written to
+    ``WORKDIR/rank<R>.json``."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import make_lm_train_step
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.ops import flash_attention as tfa
+    from horovod_tpu_torch.parallel import mesh as pmesh
+    from horovod_tpu_torch.parallel import sequence as sq
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all()
+    hvd.init(device="cpu", rank=rank, size=SP14_SP,
+             init_method=f"file://{work}/store")
+    mesh = pmesh.make_mesh(seq=SP14_SP, device_type="cuda")
+    idx = pmesh.axis_index("seq", mesh)
+    tokens = pmesh.shard_batch(mesh, torch.from_numpy(sp14_tokens()))
+    tokens = tokens.to(dev)
+    wrappers = {"flash_fwd": tfa.flash_fwd_cuda,
+                "flash_bwd_dq": tfa.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": tfa.flash_bwd_dkv_cuda}
+    refs = {d: torch.load(f"{work}/ref_{d}.pt") for d in SP14_TOL}
+    runs = []
+    live_ring = sq._ring_rotation_live
+    for impl, dtype, fault in (("ring_flash", "bfloat16", False),
+                               ("ring_flash", "float32", False),
+                               ("ulysses_flash", "bfloat16", False),
+                               ("ulysses_flash", "float32", False),
+                               ("ring_flash", "bfloat16", True),
+                               ("ring_flash", "float32", True)):
+        model = sp14_model(dev, dtype, impl).init_weights(SP14_SEED)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=SP14_LR))
+        step = make_lm_train_step(model, opt, mesh, loss_chunk=SP14_CHUNK)
+        steps = SP14_STEPS if dtype == "bfloat16" and not fault else 1
+        if fault:     # the wrapped-rank skip removed
+            sq._ring_rotation_live = lambda idx, d, causal: True
+        try:
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            collectives.reset_staged_bytes()
+            losses, walls, check = [], [], None
+            for i in range(steps):
+                t0 = time.perf_counter()
+                loss = float(step(tokens))
+                walls.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss)
+                if i == 0:
+                    ref = refs[dtype]
+                    per = {n: float((p.grad.float().cpu() - ref["grads"][n])
+                                    .abs().max() / ref["grads"][n].abs()
+                                    .max().clamp_min(1e-30))
+                           for n, p in model.named_parameters()}
+                    check = dict(loss_err=abs(loss - ref["loss"]),
+                                 grad_err=max(per.values()),
+                                 top=sorted(per.items(),
+                                            key=lambda kv: -kv[1])[:3])
+                    staged_first = collectives.staged_bytes()
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+        finally:
+            sq._ring_rotation_live = live_ring
+        live = (idx + 1) if impl == "ring_flash" else 1
+        runs.append(dict(impl=impl, dtype=dtype, fault=fault, rank=rank,
+                         losses=losses, walls_ms=walls, check=check,
+                         launches=launches, steps=steps,
+                         need=live * model.num_layers * steps,
+                         staged_bytes=collectives.staged_bytes(),
+                         staged_bytes_first_step=staged_first,
+                         peak=torch.cuda.max_memory_allocated()))
+        del model, opt, step
+        torch.cuda.empty_cache()
+    with open(f"{work}/rank{rank}.json", "w") as f:
+        json.dump(runs, f)
+    hvd.shutdown()
+    return 0
+
+
+def run_sp_world(tfa, dev, work):
+    """14b: the single-process references (bf16, f32), then SP14_SP
+    rank processes sharing the card over gloo (`sp14_rank`); every
+    checked step within SP14_TOL of its reference, the planted fault
+    outside it, the bf16 losses finite and falling, each rank's launch
+    counts at least its live rotations x layers x steps."""
+    import signal
+    import numpy as np
+    for dtype in SP14_TOL:
+        sp14_reference(dev, dtype, f"{work}/ref_{dtype}.pt")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sp-rank", str(r),
+         work], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for r in range(SP14_SP)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, SP14_TIMEOUT_S - (time.time() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError("14b: the ranks outlived their budget")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    seconds = time.time() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"14b rank {r} exit {p.returncode}: "
+                                 f"{text[-4000:]}")
+    runs = [run for r in range(SP14_SP)
+            for run in json.load(open(f"{work}/rank{r}.json"))]
+    label = f"[{nvidia_smi_line()}]"
+    main_runs = []
+    for run in runs:
+        ltol, gtol = SP14_TOL[run["dtype"]]
+        chk = run["check"]
+        ok = chk["loss_err"] <= ltol and chk["grad_err"] <= gtol
+        what = (f"14b rank {run['rank']} {run['impl']} {run['dtype']}"
+                + (" planted fault (wrapped-rank skip removed)"
+                   if run["fault"] else ""))
+        log(f"{what}: first step loss {run['losses'][0]:.6f} (|diff| "
+            f"{chk['loss_err']:.2e}, tol {ltol}), worst per-parameter "
+            f"gradient error {chk['grad_err']:.3e} (tol {gtol}; top "
+            f"{chk['top']}); losses {[round(x, 4) for x in run['losses']]}, "
+            f"step walls ms {[round(x, 1) for x in run['walls_ms']]}, "
+            f"launches {run['launches']} (need >= {run['need']}), staged "
+            f"{run['staged_bytes_first_step'] / 1e6:.1f} MB in the first "
+            f"step, peak {run['peak'] / 1e9:.2f} GB {label}")
+        if run["fault"]:
+            if ok:
+                raise AssertionError(f"{what}: not caught")
+            continue
+        if not ok:
+            raise AssertionError(f"{what}: the step differs from the "
+                                 f"single-process step")
+        if min(run["launches"].values()) < run["need"]:
+            raise AssertionError(f"{what}: launches {run['launches']} < "
+                                 f"{run['need']}")
+        losses = run["losses"]
+        if not all(np.isfinite(losses)) or (
+                len(losses) > 1 and not losses[-1] < losses[0]):
+            raise AssertionError(f"{what}: losses not finite and falling: "
+                                 f"{losses}")
+        main_runs.append({"launches": run["launches"]})
+    return dict(runs=runs, seconds=seconds, main_runs=main_runs)
+
+
+def run_phase14(tfa, dev):
+    """Phase 14 (14a, then 14b in a temporary directory removed after
+    it, whatever the outcome)."""
+    import shutil
+    import tempfile
+    t0 = time.time()
+    rot = check_ring_rotations(tfa, dev)
+    work = tempfile.mkdtemp(prefix="hvd_phase14_")
+    try:
+        world = run_sp_world(tfa, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(rotations=rot, world={k: v for k, v in world.items()
+                                      if k != "main_runs"},
+                seconds=time.time() - t0,
+                runs={f"sp{i}": r for i, r in enumerate(world["main_runs"])})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", metavar="PATH",
                     help="also write every number to this JSON file")
+    ap.add_argument("--sp-rank", nargs=2, metavar=("RANK", "WORKDIR"),
+                    help=argparse.SUPPRESS)   # phase 14b's rank processes
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False); this script runs on the card only", file=sys.stderr)
         return 2
+    if args.sp_rank:
+        return sp14_rank(int(args.sp_rank[0]), args.sp_rank[1])
     # Imported before anything is printed: a checkout without the
     # package fails here with no result.
     from horovod_tpu_torch.models.transformer import (TransformerLM,
@@ -5028,10 +5450,25 @@ def main() -> int:
         f"{dr['seconds']:.1f} s, detect_s {dr['detect_s']}, "
         f"time_to_resume_s {dr['time_to_resume_s']} {label}")
 
+    p14 = run_phase14(tfa, dev)
+    rot = p14["rotations"]
+    walls = {(r["impl"], r["rank"]): r for r in p14["world"]["runs"]
+             if r["dtype"] == "bfloat16" and not r["fault"]}
+    log(f"sequence parallelism (phase 14) in {p14['seconds']:.1f} s: 14a "
+        f"merges {rot['merge']}, forward of a live / masked rotation "
+        f"{rot['timing']}; 14b two ranks over gloo on one card in "
+        f"{p14['world']['seconds']:.1f} s, bf16 step walls (median of "
+        f"steps 2-{SP14_STEPS}) "
+        + ", ".join(f"{impl} rank {r}: "
+                    f"{sorted(w['walls_ms'][1:])[len(w['walls_ms'][1:]) // 2]:.1f}"
+                    f" ms, staged {w['staged_bytes_first_step'] / 1e6:.1f} "
+                    f"MB a step" for (impl, r), w in sorted(walls.items()))
+        + f" {label}")
+
     timing = time_kernels(tfa, dev)
     main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values(),
                  *variants["runs"].values(), *fleet["runs"].values(),
-                 *p13["runs"].values())
+                 *p13["runs"].values(), *p14["runs"].values())
     main_launches = {k: sum(run["launches"].get(k, 0) for run in main_runs)
                      for k in REPLACES}
     kernels = []
@@ -5141,6 +5578,7 @@ def main() -> int:
                   hf=hf, trace_paged_tick=trace_tick,
                   phase12={k: v for k, v in p12.items() if k != "runs"},
                   phase13={k: v for k, v in p13.items() if k != "runs"},
+                  phase14={k: v for k, v in p14.items() if k != "runs"},
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)
     if args.json:

@@ -22,12 +22,16 @@ launched one process per card by ``hvdrun-torch -np N python train.py``
 (`runner`; ``--platform cpu`` for gloo), with sparse embedding
 gradients, PowerSGD (``compression="powersgd"``), the callbacks and
 the Horovod Timeline (``HOROVOD_TIMELINE`` / `start_timeline`).
+``hvd.spmd`` holds the collectives over a named axis of a
+`parallel.mesh` (`ops.collectives`: allreduce, allgather, broadcast,
+alltoall, ppermute, ...), which ring and Ulysses attention run on.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper uses its plain PyTorch version.
 """
 
 from horovod_tpu_torch import callbacks
+from horovod_tpu_torch.ops import collectives as spmd
 from horovod_tpu_torch.ops.eager import (CollectiveMismatchError, allgather,
                                          allreduce, allreduce_, alltoall,
                                          broadcast, broadcast_,

@@ -17,14 +17,18 @@ max_len.
 
 Attention kernels: ``dot`` (materialized softmax), ``blockwise``
 (online-softmax loop) and ``flash`` (the CUDA flash-forward and
-flash-backward kernels, their plain versions on the CPU). The
+flash-backward kernels, their plain versions on the CPU); sequence
+parallel over a mesh's ``seq`` axis, ``ring`` / ``ring_flash`` (K/V
+rotating, the flash kernels on every rotation) and ``ulysses`` /
+``ulysses_flash`` (all-to-all head swap). The
 ``paged_*`` functions are the device surface of
 `serving.paging.PagedSlotPool` (block pools read through block
 tables). Training: `lm_loss`, `chunked_lm_loss` (the fused head + CE
 over sequence chunks), `make_lm_train_step`, `make_lm_eval_step` and
 `init_lm_state`, data-parallel over `torch.distributed` through
-`horovod_tpu_torch.optim`. Sequence-parallel attention, MoE and LoRA
-are later slices; int8 weights come from `ops.quantization.quantize_lm`.
+`horovod_tpu_torch.optim`, or over a ``(data, seq)`` mesh
+(`parallel.mesh`). MoE and LoRA are later slices; int8 weights come
+from `ops.quantization.quantize_lm`.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from horovod_tpu_torch import optim
 from horovod_tpu_torch.ops import threefry
 from horovod_tpu_torch.ops.quantization import check_quant
+from horovod_tpu_torch.parallel.mesh import seq_degree, seq_offset
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  blockwise_attention,
                                                  check_window)
@@ -49,7 +54,8 @@ from horovod_tpu_torch.parallel.tensor import (LayerCache,
                                                ParallelSelfAttention,
                                                ParallelSwiGLU)
 
-ATTN_IMPLS = ("dot", "blockwise", "flash")
+SEQ_PARALLEL_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
+ATTN_IMPLS = ("dot", "blockwise", "flash") + SEQ_PARALLEL_IMPLS
 
 # The LLaMA-family knob set (same keys as the JAX package's).
 LLAMA_ARCH_KW = dict(norm="rmsnorm", mlp_impl="swiglu", tied_head=False)
@@ -68,10 +74,25 @@ def resolve_device(device=None) -> torch.device:
 
 
 def make_attn_fn(impl: str, *, causal: bool = True, block_size: int = 512,
-                 window: Optional[int] = None) -> Optional[Callable]:
+                 window: Optional[int] = None, flash_block_q: int = 128,
+                 flash_block_k: int = 128) -> Optional[Callable]:
     """attn_fn for `ParallelSelfAttention` (None = the dot baseline,
-    which takes the explicit mask instead)."""
+    which takes the explicit mask instead). ``ring``/``ring_flash``/
+    ``ulysses``/``ulysses_flash`` run sequence parallel over the ``seq``
+    axis of the ambient mesh (`parallel.mesh.use`) on this rank's
+    block; off-mesh they are the blockwise attention on the whole
+    sequence, the same math on one device. ``flash_block_q/k`` (the
+    Pallas tile sizes of the JAX package) are accepted at their
+    defaults only, and for ``impl="flash"`` only: the CUDA kernels pick
+    their own tiles."""
     check_window(window)
+    if (flash_block_q, flash_block_k) != (128, 128):
+        if impl != "flash":
+            raise ValueError(
+                f"flash_block_q/flash_block_k apply to attn_impl='flash' "
+                f"only (got impl={impl!r})")
+        raise ValueError("the CUDA flash kernels choose their own tiles; "
+                         "flash_block_q/flash_block_k must stay 128")
     if impl == "dot":
         return None
 
@@ -96,9 +117,37 @@ def make_attn_fn(impl: str, *, causal: bool = True, block_size: int = 512,
         attn.native_gqa = True
         return attn
     if impl in ("ring", "ring_flash", "ulysses", "ulysses_flash"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} (sequence parallelism) is a later slice "
-            f"of the PyTorch port")
+        from horovod_tpu_torch.parallel import sequence as sq
+        if impl == "ulysses":
+            sp_fn = sq.ulysses_attention_gspmd
+        elif impl == "ulysses_flash":
+            from horovod_tpu_torch.ops.flash_attention import \
+                flash_attention
+            sp_fn = functools.partial(sq.ulysses_attention_gspmd,
+                                      attn_impl=flash_attention)
+        elif impl == "ring_flash":
+            sp_fn = functools.partial(sq.ring_attention_gspmd,
+                                      block_impl="flash")
+        else:
+            sp_fn = sq.ring_attention_gspmd
+        native_gqa = impl in ("ring_flash", "ulysses_flash")
+
+        def attn(q, k, v, m):
+            _no_mask(m)
+            from horovod_tpu_torch.parallel.mesh import abstract_mesh
+            if abstract_mesh() is None:
+                # Off-mesh (one device): blockwise is the same math.
+                if native_gqa and k.shape[2] != q.shape[2]:
+                    g = q.shape[2] // k.shape[2]
+                    k = k.repeat_interleave(g, dim=2)
+                    v = v.repeat_interleave(g, dim=2)
+                return blockwise_attention(q, k, v, causal=causal,
+                                           window=window,
+                                           block_size=block_size)
+            return sp_fn(None, q, k, v, causal=causal, window=window)
+        # K/V stay at kv-head width through the hops and all-to-alls.
+        attn.native_gqa = native_gqa
+        return attn
     raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {impl!r}")
 
 
@@ -343,6 +392,15 @@ class TransformerLM(nn.Module):
         ``return_hidden`` returns ``(hidden [B, S, d], head [V, d])``
         instead of logits."""
         B, S = tokens.shape
+        offset = 0
+        if cache is None:
+            offset = seq_offset(S)
+            if (seq_degree() > 1
+                    and self.attn_impl not in SEQ_PARALLEL_IMPLS):
+                raise ValueError(
+                    f"attn_impl={self.attn_impl!r} attends within this "
+                    f"rank's block only; a mesh with seq > 1 needs one of "
+                    f"{SEQ_PARALLEL_IMPLS}")
         x = self.embed[tokens]
         if self.embed_scale is not None:
             x = x * torch.tensor(self.embed_scale, dtype=x.dtype)
@@ -354,7 +412,9 @@ class TransformerLM(nn.Module):
                 x = x + self.pos[start[:, None]
                                  + torch.arange(S, device=x.device)]
             else:
-                x = x + self.pos[:S]
+                # Under a mesh with seq > 1, this rank's block of the
+                # global positions.
+                x = x + self.pos[offset:offset + S]
         x = x.to(self.dtype)
         for i, blk in enumerate(self.blocks):
             if cache is None and self.remat:
@@ -371,7 +431,8 @@ class TransformerLM(nn.Module):
 
 # ---------------------------------------------------------------------------
 # Train step: data parallel over torch.distributed (one process per
-# card); the gradient allreduce is `optim.DistributedOptimizer`'s.
+# card), or over a (data, seq) mesh; the gradient allreduce is
+# `optim.DistributedOptimizer`'s.
 # ---------------------------------------------------------------------------
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -437,27 +498,101 @@ def _lm_data_loss(model: TransformerLM, tokens: torch.Tensor,
     return lm_loss(model(tokens), tokens)
 
 
+def _shard_targets(tokens: torch.Tensor):
+    """(targets, weights) [B, S_l] of this rank's token block under the
+    ambient mesh: each position's next token, the last position's from
+    the first column of the next ``seq`` rank (a `ppermute`), weight 0
+    on the global sequence's last position (it has no label)."""
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.parallel.mesh import (AXIS_SEQ, axis_index,
+                                                 axis_size, ring_perms)
+    sp, idx = axis_size(AXIS_SEQ), axis_index(AXIS_SEQ)
+    nxt = tokens[:, :1]
+    if sp > 1:
+        _, from_next = ring_perms(AXIS_SEQ)
+        nxt = collectives.ppermute(tokens[:, :1].contiguous(), AXIS_SEQ,
+                                   from_next)
+    targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+    weights = torch.ones(tokens.shape, dtype=torch.float32,
+                         device=tokens.device)
+    if idx == sp - 1:
+        weights[:, -1] = 0.0
+    return targets, weights
+
+
+def _lm_shard_loss(model: TransformerLM, tokens: torch.Tensor, mesh,
+                   loss_chunk: Optional[int]) -> torch.Tensor:
+    """This rank's share of the global next-token cross entropy under
+    ``mesh``: the SUM of its block's CE (boundary labels from the next
+    seq rank) over the global label count B * (S - 1), times the mesh's
+    rank count. Averaging the ranks' gradients (or values) then gives
+    the gradient (value) of the one global mean, as the JAX package's
+    loss over the whole [B, S] batch."""
+    from horovod_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_SEQ, axis_size
+    targets, weights = _shard_targets(tokens)
+    B, S = tokens.shape
+    count = (B * axis_size(AXIS_DATA)) * (S * axis_size(AXIS_SEQ) - 1)
+    if loss_chunk:
+        hidden, head = model(tokens, return_hidden=True)
+        total = chunked_weighted_ce(hidden, head, targets, weights,
+                                    chunk=loss_chunk)
+    else:
+        logits = model(tokens)
+        ce = F.cross_entropy(logits.float().flatten(0, 1),
+                             targets.reshape(-1).long(), reduction="none")
+        total = (ce * weights.reshape(-1)).sum()
+    return total * (mesh.size() / count)
+
+
+def _check_mesh_world(mesh, optimizer=None) -> None:
+    if mesh.size() != optim.world_size():
+        raise ValueError(
+            f"a mesh of {mesh.size()} ranks needs horovod_tpu_torch.init() "
+            f"over the same world (world size {optim.world_size()})")
+    if (optimizer is not None and mesh.size() > 1
+            and not optim.is_distributed(optimizer)):
+        raise ValueError(
+            "make_lm_train_step over a mesh needs a DistributedOptimizer "
+            "(it averages the gradients over the data and seq ranks)")
+
+
 def make_lm_train_step(model: TransformerLM,
-                       optimizer: torch.optim.Optimizer, *,
+                       optimizer: torch.optim.Optimizer, mesh=None, *,
                        loss_chunk: Optional[int] = None) -> Callable:
-    """``step(tokens [B, S]) -> loss``: one data-parallel train step of
-    ``model`` on this rank's batch — loss, gradients, then
-    ``optimizer.step()``, which averages the gradients over the ranks
-    when it is an `optim.DistributedOptimizer` (required at world size
-    > 1: a plain optimizer would let the replicas drift apart). Returns
-    the loss averaged over ranks as a 0-d device tensor (the JAX step's
-    ``lax.pmean``): no ``.item()`` and no host sync inside the step.
-    ``loss_chunk`` runs the fused head + CE in chunks of that many
-    positions. Each call is a ``train_step`` span on the timeline
-    (`utils.timeline.step_bracket`), as in the JAX package."""
+    """``step(tokens) -> loss``: one train step of ``model`` -- loss,
+    gradients, then ``optimizer.step()``, which averages the gradients
+    over the ranks when it is an `optim.DistributedOptimizer` (required
+    at world size > 1: a plain optimizer would let the replicas drift
+    apart). Returns the loss averaged over ranks as a 0-d device tensor
+    (the JAX step's ``lax.pmean``): no ``.item()`` and no host sync
+    inside the step. ``loss_chunk`` runs the fused head + CE in chunks
+    of that many positions. Each call is a ``train_step`` span on the
+    timeline (`utils.timeline.step_bracket`), as in the JAX package.
+
+    Without ``mesh``: data parallel, ``tokens`` this rank's rows [B, S].
+    With a ``(data, seq)`` mesh (`parallel.mesh.make_mesh`, over the
+    world that `init` formed): ``tokens`` is this rank's block [B/dp,
+    S/sp] (`parallel.mesh.shard_batch`), the model runs under the mesh
+    (global positions; ``attn_impl`` ring or Ulysses for seq > 1), the
+    loss is the one mean over the global batch's B * (S - 1) labels,
+    and the gradients are averaged over the data and seq ranks, as the
+    parameters are replicated over both."""
     def step(tokens: torch.Tensor) -> torch.Tensor:
-        if optim.world_size() > 1 and not optim.is_distributed(optimizer):
+        if mesh is not None:
+            _check_mesh_world(mesh, optimizer)
+        elif optim.world_size() > 1 and not optim.is_distributed(optimizer):
             raise ValueError(
                 "make_lm_train_step at world size > 1 needs a "
                 "DistributedOptimizer (it averages the gradients)")
         optimizer.zero_grad(set_to_none=True)
-        loss = _lm_data_loss(model, tokens, loss_chunk)
-        loss.backward()
+        if mesh is None:
+            loss = _lm_data_loss(model, tokens, loss_chunk)
+            loss.backward()
+        else:
+            from horovod_tpu_torch.parallel.mesh import use
+            with use(mesh):
+                loss = _lm_shard_loss(model, tokens, mesh, loss_chunk)
+                loss.backward()
         optimizer.step()
         return optim.mean_over_ranks(loss.detach())
 
@@ -465,15 +600,21 @@ def make_lm_train_step(model: TransformerLM,
     return step_bracket(step)
 
 
-def make_lm_eval_step(model: TransformerLM, *,
+def make_lm_eval_step(model: TransformerLM, mesh=None, *,
                       loss_chunk: Optional[int] = None) -> Callable:
     """``eval(tokens) -> mean next-token cross entropy`` (nats), the
-    forward-only twin of `make_lm_train_step` (same loss site),
-    averaged over ranks; perplexity = exp(loss)."""
+    forward-only twin of `make_lm_train_step` (same loss sites, same
+    ``mesh`` contract), averaged over ranks; perplexity = exp(loss)."""
     @torch.no_grad()
     def ev(tokens: torch.Tensor) -> torch.Tensor:
-        return optim.mean_over_ranks(_lm_data_loss(model, tokens,
-                                                   loss_chunk))
+        if mesh is None:
+            return optim.mean_over_ranks(_lm_data_loss(model, tokens,
+                                                       loss_chunk))
+        from horovod_tpu_torch.parallel.mesh import use
+        _check_mesh_world(mesh)
+        with use(mesh):
+            return optim.mean_over_ranks(
+                _lm_shard_loss(model, tokens, mesh, loss_chunk))
 
     return ev
 
@@ -482,8 +623,10 @@ def init_lm_state(model: TransformerLM, optimizer: torch.optim.Optimizer,
                   seed: int = 0):
     """Draw the model's weights from ``seed`` and broadcast parameters
     and optimizer state from rank 0, so every rank starts identically
-    (a no-op broadcast at world size 1 or before `init()`). Returns
-    ``(model, optimizer)``."""
+    (a no-op broadcast at world size 1 or before `init()`); under a
+    (data, seq) mesh the parameters are replicated over the whole
+    world, so this is its placement too. Returns ``(model,
+    optimizer)``."""
     model.init_weights(seed)
     optim.broadcast_parameters(model.state_dict(), root_rank=0)
     optim.broadcast_optimizer_state(optimizer, root_rank=0)

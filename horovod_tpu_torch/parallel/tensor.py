@@ -42,6 +42,7 @@ from torch import nn
 from horovod_tpu_torch.ops.quantization import (check_quant,
                                                 dequantize_int8,
                                                 quantize_int8)
+from horovod_tpu_torch.parallel.mesh import seq_offset
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  check_window)
 
@@ -276,7 +277,10 @@ class ParallelSelfAttention(nn.Module):
             o = self._decode_attention(q, k, v, cache, chunked_prefill,
                                        prefix_len)
         else:
-            pos = torch.arange(q.shape[-3], device=q.device)
+            # Global positions: under a mesh with seq > 1 this rank's
+            # block starts at its seq coordinate times the block length.
+            S = q.shape[-3]
+            pos = seq_offset(S) + torch.arange(S, device=q.device)
             q, k = self._maybe_rope(q, k, pos)
             o = self._dispatch_attn(q, k, v, mask)
         return self.out(o.reshape(*lead, F_))

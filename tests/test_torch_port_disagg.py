@@ -38,8 +38,21 @@ from horovod_tpu_torch.serving import (
     DisaggRouter, ServingEngine, ServingRouter, TransferCompatError,
     TransferVerifyError, export_blocks, ingest_blocks,
 )
+from horovod_tpu_torch.resilience.detector import install_detector
 
 VOCAB, MAX_LEN, BS = 64, 64, 8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stop_port_detector():
+    """Stop the port's shared failure detector after the module: its
+    sweep thread carries the JAX package's thread name, and a later
+    module of this worker process (`tests/test_detector.py`) counts the
+    live threads of that name."""
+    yield
+    old = install_detector(None)
+    if old is not None:
+        old.stop()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -29,6 +29,7 @@ from horovod_tpu_torch.obs import aggregate, events, straggler
 from horovod_tpu_torch.obs.exporter import MetricsServer, render_prometheus
 from horovod_tpu_torch.obs.registry import MetricRegistry, registry
 from horovod_tpu_torch.runtime import config as t_config
+from horovod_tpu_torch.resilience.detector import install_detector
 
 FLEET_KNOBS = [
     "HVD_ROUTER_REPLICAS", "HVD_ROUTER_POLL", "HVD_ROUTER_REPLACEMENTS",
@@ -39,6 +40,18 @@ FLEET_KNOBS = [
     "HVD_DETECTOR_FLAP_WINDOW_S", "HVD_DETECTOR_FLAP_MAX",
     "HVD_IO_RETRIES",
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stop_port_detector():
+    """Stop the port's shared failure detector after the module: its
+    sweep thread carries the JAX package's thread name, and a later
+    module of this worker process (`tests/test_detector.py`) counts the
+    live threads of that name."""
+    yield
+    old = install_detector(None)
+    if old is not None:
+        old.stop()
 
 
 def _fill(reg):

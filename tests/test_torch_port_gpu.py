@@ -1020,3 +1020,47 @@ def test_cuda_elastic_average_stays_on_card_and_equals_cpu():
     for k in ref:
         assert got[k].device.type == "cuda" and got[k].dtype == torch.float64
         assert torch.equal(got[k].cpu(), ref[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ring_rotations_with_a_masked_rotation(dtype):
+    """The kernels at a sequence-parallel ring's rotations: the last of 4
+    blocks of 64 queries against the K/V block of each rotation d at
+    q_offset = d x 64, window 80 (GQA 4/2). Rotation 2 holds fully
+    masked rows, rotation 3 is masked whole: out 0, lse -inf, and under
+    cotangents on out and lse zero, finite gradients; every rotation's
+    forward and backward against the plain versions."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = (2e-5, 0.0) if dt == torch.float32 else (2e-3, 1e-2)
+    gatol = 1e-4 if dt == torch.float32 else 2e-3
+    n, sp, window = 64, 4, 80
+    q = _randn(40, 2, n, 4, 128).to(dev, dt)
+    k = _randn(41, 2, sp * n, 2, 128).to(dev, dt)
+    v = _randn(42, 2, sp * n, 2, 128).to(dev, dt)
+    go = _randn(43, 2, n, 4, 128).to(dev, dt)
+    dlse = _randn(44, 2, 4, n).to(dev)
+    for d in range(sp):
+        kb = k[:, (sp - 1 - d) * n:(sp - d) * n]
+        vb = v[:, (sp - 1 - d) * n:(sp - d) * n]
+        kw = dict(causal=True, window=window, q_offset=d * n)
+        out, lse = tfa.flash_fwd_cuda(q, kb, vb, **kw)
+        ref, rlse = tfa.flash_attention_plain(q, kb, vb, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        assert torch.equal(torch.isneginf(lse), torch.isneginf(rlse))
+        fin = torch.isfinite(rlse)
+        torch.testing.assert_close(lse[fin], rlse[fin], atol=1e-4, rtol=0)
+        got = tfa.flash_backward(q, kb, vb, out, lse, go, dlse=dlse, **kw)
+        want = tfa.flash_backward_plain(q, kb, vb, out, lse, go, dlse=dlse,
+                                        **kw)
+        for a, b in zip(got, want):
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a.float(), b.float(), atol=gatol,
+                                       rtol=rtol)
+        if d == 2:
+            assert torch.isneginf(rlse).any() and fin.any()
+        if d == sp - 1:
+            assert torch.isneginf(lse).all() and not out.any()
+            assert not any(t.any() for t in got)

@@ -59,8 +59,21 @@ from horovod_tpu_torch.resilience import membership as t_mem
 from horovod_tpu_torch.runtime import bootstrap as t_bootstrap
 from horovod_tpu_torch.runtime import config as t_config_mod
 from horovod_tpu_torch.runtime import state as t_state
+from horovod_tpu_torch.resilience.detector import install_detector
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stop_port_detector():
+    """Stop the port's shared failure detector after the module: its
+    sweep thread carries the JAX package's thread name, and a later
+    module of this worker process (`tests/test_detector.py`) counts the
+    live threads of that name."""
+    yield
+    old = install_detector(None)
+    if old is not None:
+        old.stop()
 
 
 def _load(name):
