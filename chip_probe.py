@@ -5,11 +5,11 @@ of `chip_smoke.py`.
 
     python3 chip_probe.py [fwd] [decode] [paged] [sweep] [spec] [hf]
                           [bwd256] [train12] [lr12] [loader] [elastic13]
-                          [sp14]
+                          [sp14] [tp15] [rowmm15]
                           # default: all but spec, hf, bwd256, train12,
-                          # loader, elastic13 and sp14; one card,
-                          # ~1 min each
-                          # (hf: ~5 min); loader alone builds no kernel
+                          # loader, elastic13, sp14, tp15 and rowmm15;
+                          # one card, ~1 min each (hf: ~5 min); loader
+                          # and rowmm15 alone build no kernel
 
 Builds every kernel (printing the ptxas lines of the forward and decode
 sources) and then, per part asked for:
@@ -66,6 +66,16 @@ sources) and then, per part asked for:
   gloo `batch_isend_irecv` of CUDA tensors (it kills the process:
   gloo has no CUDA point-to-point path); then `chip_smoke.py` phase 14
   alone (its step walls at 2 x 2048 a rank).
+* tp15: two processes on ``cuda:0`` in one gloo world: the latency of a
+  sum (all_reduce) of a [16, 2048] bf16 CUDA tensor and of its f32
+  twin, and of an all_gather of [16, 128000] f32 rows (Gemma-2B's
+  vocab half), medians of 50 after 5 warm-ups; then `chip_smoke.py`
+  phase 15 alone (each rank's peak memory with two Gemma-2B ranks
+  resident, the sharded engine's TPOT).
+* rowmm15: the row-parallel partial product at phase 15's shapes
+  (`ROWMM15_CASES`), bf16 operands, forward and forward + backward, as
+  the f32 upcast, as `parallel.tensor.f32_product` and as a bf16
+  product (`probe_rowmm15`); builds no kernel.
 
 A failing case is printed and the probe goes on to the next. With
 decode or paged it then times both decode ticks as `chip_smoke.py`
@@ -574,6 +584,122 @@ def probe_sp14(cs, tfa, dev):
     print(f"phase 14: {time.time() - t:.1f} s", flush=True)
 
 
+GLOO_TP_PROBE = r"""
+import sys, time, torch, torch.distributed as dist
+r, store = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + store, rank=r,
+                        world_size=2)
+def median_ms(fn, n=50, warm=5):
+    for _ in range(warm):
+        fn()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return sorted(walls)[n // 2]
+for name, x in (("all_reduce [16, 2048] bf16",
+                 torch.ones(16, 2048, device="cuda", dtype=torch.bfloat16)),
+                ("all_reduce [16, 2048] f32",
+                 torch.ones(16, 2048, device="cuda"))):
+    try:
+        ms = median_ms(lambda: dist.all_reduce(x))
+        print(f"rank {r} gloo {name} on CUDA: {ms:.3f} ms", flush=True)
+    except Exception as e:
+        print(f"rank {r} gloo {name}: {type(e).__name__} "
+              f"{str(e).splitlines()[0][:160]}", flush=True)
+y = torch.ones(16, 128000, device="cuda")
+parts = [torch.empty_like(y) for _ in range(2)]
+ms = median_ms(lambda: dist.all_gather(parts, y), n=20)
+print(f"rank {r} gloo all_gather [16, 128000] f32 on CUDA: {ms:.3f} ms",
+      flush=True)
+dist.destroy_process_group()
+"""
+
+
+def probe_tp15(cs, tfa, dev):
+    """Two processes on ``cuda:0``: gloo's latency for the sums and the
+    logits gather a tensor-parallel tick makes; then `chip_smoke.py`
+    phase 15 alone."""
+    import os
+    import subprocess
+    import tempfile
+    work = tempfile.mkdtemp(prefix="hvd_probe15_")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_TP_PROBE, str(r), f"{work}/store"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=os.getcwd()))
+        for r in range(2)]
+    for p in procs:
+        try:
+            print(p.communicate(timeout=180)[0], flush=True)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            print("gloo probe timed out", flush=True)
+    t = time.time()
+    try:
+        cs.run_phase15(tfa, dev)
+    except Exception:
+        traceback.print_exc()
+    print(f"phase 15: {time.time() - t:.1f} s", flush=True)
+
+
+# The row-parallel products of phase 15, (rows, in/tp, out): 15a's
+# attention out and MLP down at [2, 2048] tokens a rank, and Gemma-2B's
+# (15b) at a 256-token prefill and an 8-lane tick.
+ROWMM15_CASES = {"15a attn out": (4096, 512, 1024),
+                 "15a mlp down": (4096, 2048, 1024),
+                 "15b mlp down prefill": (256, 8192, 2048),
+                 "15b mlp down tick": (8, 8192, 2048)}
+
+
+def probe_rowmm15(cs):
+    """The row-parallel partial product at phase 15's shapes, bf16
+    operands, forward and backward, timed three ways in one process:
+    the f32 upcast (both operands cast, an f32 GEMM on the CUDA cores
+    with TF32 off), `parallel.tensor.f32_product` (one bf16 GEMM on the
+    tensor cores with an f32 output) and the plain bf16 product (bf16
+    partials); the largest difference of f32_product's output from the
+    upcast's. Means of 50 calls after 5 warm-ups
+    (`chip_smoke.cuda_time_ms`)."""
+    import torch
+    from horovod_tpu_torch.parallel.tensor import f32_product
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    ways = {"f32 upcast": lambda x, w: x.float() @ w.float(),
+            "f32_product": f32_product,
+            "bf16 product": lambda x, w: x @ w}
+    for name, (rows, k, n) in ROWMM15_CASES.items():
+        x = torch.randn(rows, k, device=dev, generator=g,
+                        dtype=torch.bfloat16).requires_grad_()
+        w = (torch.randn(k, n, device=dev, generator=g) * k ** -0.5).to(
+            torch.bfloat16).requires_grad_()
+        cot = torch.randn(rows, n, device=dev, generator=g,
+                          dtype=torch.bfloat16)
+        outs = {}
+        for way, fn in ways.items():
+            def fwd():
+                return fn(x, w)
+
+            def fwd_bwd():
+                y = fn(x, w).to(torch.bfloat16)
+                y.backward(cot)
+            with torch.no_grad():
+                outs[way] = fwd().float()
+            ms = [cs.cuda_time_ms(f, iters=50, warmup=5) for f in (
+                lambda: torch.no_grad()(fwd)(), fwd_bwd)]
+            print(f"rowmm15 {name} [{rows}, {k}] @ [{k}, {n}] {way}: "
+                  f"forward {ms[0]:.4f} ms, forward+backward "
+                  f"{ms[1]:.4f} ms", flush=True)
+        err = (outs["f32_product"] - outs["f32 upcast"]).abs().max()
+        print(f"rowmm15 {name}: f32_product vs f32 upcast max abs "
+              f"{float(err):.3e} (output max "
+              f"{float(outs['f32 upcast'].abs().max()):.3f})", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -582,13 +708,22 @@ def main() -> int:
     every = {"fwd", "decode", "paged", "sweep"}
     parts = set(sys.argv[1:]) or every
     if not parts <= every | {"spec", "hf", "bwd256", "train12", "lr12",
-                             "loader", "elastic13", "sp14"}:
+                             "loader", "elastic13", "sp14", "tp15",
+                             "rowmm15"}:
         print(f"chip_probe: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     import chip_smoke as cs
     if "loader" in parts:
         probe_loader(cs)
         parts.discard("loader")
+        if not parts:
+            return 0
+    if "rowmm15" in parts:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(cs.nvidia_smi_line(), torch.__version__, torch.version.cuda,
+              flush=True)
+        probe_rowmm15(cs)
+        parts.discard("rowmm15")
         if not parts:
             return 0
     from horovod_tpu_torch.ops import _build
@@ -648,6 +783,8 @@ def main() -> int:
         probe_elastic13(cs, tfa, dev)
     if "sp14" in parts:
         probe_sp14(cs, tfa, dev)
+    if "tp15" in parts:
+        probe_tp15(cs, tfa, dev)
     print(f"nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     return 0
 

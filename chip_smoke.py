@@ -172,7 +172,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    codec whose stored scale is one a position (the largest over the
    heads) while its codes keep their per-head scales (a planted fault)
    must fail the check. (d) RoPE with a 512 window (`bench.py
-   --pos-emb rope --window 512`, seed 0): `generate` of 4 x 1024 ->
+   --pos-emb rope --window 512`, seed 0) at full width cut to
+   WINDOW_LAYERS layers: `generate` of 4 x 1024 ->
    1100 tokens, past max_len, B1 in the banded prefill; every
    generated token within WINDOW_TIE_TOL of the top of one one-pass
    forward of the whole sequence; the same model in f32, teacher-forced
@@ -316,8 +317,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    repo's LM at full width (vocab 32768, 8 heads x 128, gpt preset, bf16
    compute over f32 params) with max_len 4096 cut to 2 layers, from one
    seed, each rank on its 2048 columns of a seeded [2, 4096] batch
-   through `make_lm_train_step(model, opt, mesh)` under
-   `DistributedOptimizer(AdamW)`, ``loss_chunk=512``, for
+   through `make_lm_train_step(model, opt, mesh)` under AdamW (the
+   step averages the gradients over the seq ranks), ``loss_chunk=512``, for
    ``attn_impl="ring_flash"`` and then ``"ulysses_flash"``: the first
    step's loss and averaged gradients against the single-process flash
    step on the global batch from the same weights (bf16 at phase 5's
@@ -329,6 +330,36 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    walls are printed. The causal ring with the wrapped-rank skip removed
    (a planted fault: rank 0 attends rank 1's future block) must fail
    the comparison, in bf16 and f32.
+15. Tensor parallelism on the card (after phase 14), TP15 rank
+   processes sharing ``cuda:0`` in a gloo world with a ``model`` mesh
+   (`parallel.mesh.make_mesh(model=2)`). (a) Phase 14b's LM (vocab
+   32768, 8 heads x 128, gpt preset, bf16 compute over f32 params) at
+   max_len 2048, 2 layers, ``attn_impl="flash"``, built over the mesh
+   (4 query heads and 16384 vocab rows a rank) from one seed, both ranks
+   on a seeded [2, 2048] batch through `make_lm_train_step(model, opt,
+   mesh)` (AdamW, ``loss_chunk=512``, the vocab-parallel loss): the
+   first step's loss and gathered gradients against the single-process
+   flash step from the same weights (bf16 at STEP_LOSS_TOL /
+   STEP_GRAD_TOL, the f32 twin at TP15_TOL's tighter limits), then 4
+   more AdamW steps with the loss finite and falling; each rank's
+   forward, dQ and dK/dV launches >= layers x steps. The row-parallel
+   output without g and the gradients averaged over ``model`` (planted
+   faults) must fail the comparison. (b) Phase 11's Gemma-2B and
+   Qwen2-0.5B at full width and depth, each rank building the whole
+   model from the same seed and the engine sharding it at its door
+   (Gemma-2B: 4 query heads, its one kv head and 128000 vocab rows a
+   rank; Qwen2-0.5B: 7 over 1, 75968 rows): teacher-forced logits
+   (TP15_LANES x TP15_PROMPT prefill + TP15_TICKS ticks) on the fixed
+   cache (flash decode) and on the paged pools (paged decode) against
+   the unsharded model on the card, within phase 11's HF_LOGIT_TOL and
+   its argmax agreement; each rank's decode launches >= ticks x layers.
+   Gemma-2B's greedy burst through the sharded paged engine (model
+   rank 0 leads, rank 1 follows in lockstep) beside the unsharded
+   engine: stream agreement, TPOT p50 and the model-axis collective
+   bytes printed; the f32 twin at TP15_F32_LAYERS layers must give the
+   same streams. Planted faults: Qwen2-0.5B's fused qkv cut
+   contiguously must fail the logits rule, and a follower that drops
+   one free descriptor must raise `ShardDivergence`.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
@@ -336,6 +367,7 @@ engine, training, training under PowerSGD, each speculative run, each
 phase-9 generate and engine run, each phase-10 generate, engine,
 router and disagg run, each phase-11 generate and engine run, 12b's
 training steps, 13a's control and chaos legs, each run of 14b in each
+rank, each step run of 15a and each logits and burst run of 15b in each
 rank) and read just after.
 Each HF model's runs count into its own rows of the kernels line (12b
 into Gemma-2B's). Launches made to compare or time a kernel, and the
@@ -437,6 +469,11 @@ KV_INT8_TOL = 0.08
 # lies within WINDOW_TIE_TOL of that row's top (the tie-aware rule of
 # phase 8, at its tolerance).
 WINDOW = 512
+# Its depth: the rolling cache's bookkeeping is per layer, so 4 of the
+# 12 layers keep every check (the f32 planted fault reads 0.131 at 4
+# layers against WINDOW_F32_TOL, on the CPU) at a third of the
+# phase's time (phase 15 made room).
+WINDOW_LAYERS = 4
 WINDOW_TIE_TOL = LOGIT_TOL
 # The same model in f32: its rolling decode's teacher-forced logits
 # against its one-pass forward (absolute, logit units).
@@ -1598,13 +1635,14 @@ def teacher_forced_logits(model, prompt, forced, n_ticks):
     fed the tokens ``forced`` [B, >= n_ticks]."""
     import torch
     from horovod_tpu_torch.models.transformer import init_cache
+    from horovod_tpu_torch.models.transformer import project_logits
     cache = init_cache(model, prompt.shape[0])
     outs = []
     toks = prompt
     for t in range(n_ticks + 1):
         hidden, head = model(toks, cache, return_hidden=True)
         cache.index += toks.shape[1]
-        outs.append((hidden[:, -1] @ head.to(hidden.dtype).T).float())
+        outs.append(project_logits(hidden[:, -1], head).float())
         toks = forced[:, t:t + 1]
     return torch.stack(outs, 1)
 
@@ -2512,7 +2550,8 @@ def forward_logits(model, seq, start):
 
 def run_window(dev, tfa, kernels):
     """Phase 9d: the serving model with RoPE and a 512 window (`bench.py
-    --pos-emb rope --window 512`, weights from seed 0): `generate` of 4
+    --pos-emb rope --window 512`, weights from seed 0), cut to
+    WINDOW_LAYERS layers: `generate` of 4
     x 1024 -> 1100 tokens (to position 2123 > max_len) through B1's
     banded prefill and the rolling cache, checked against one one-pass
     forward of the whole sequence (B1 with the window): every generated
@@ -2530,7 +2569,8 @@ def run_window(dev, tfa, kernels):
                                                       generate,
                                                       serving_params)
     from horovod_tpu_torch.parallel import tensor
-    wmodel = TransformerLM(32768, 12, 8, 128, max_len=2048, pos_emb="rope",
+    wmodel = TransformerLM(32768, WINDOW_LAYERS, 8, 128, max_len=2048,
+                           pos_emb="rope",
                            window=WINDOW, dtype=torch.bfloat16,
                            attn_impl="flash", decode_prefix_block=256,
                            decode_prefix_impl="pallas", device=dev)
@@ -5172,8 +5212,7 @@ def sp14_rank(rank, work):
                                ("ring_flash", "bfloat16", True),
                                ("ring_flash", "float32", True)):
         model = sp14_model(dev, dtype, impl).init_weights(SP14_SEED)
-        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-            model.parameters(), lr=SP14_LR))
+        opt = torch.optim.AdamW(model.parameters(), lr=SP14_LR)
         step = make_lm_train_step(model, opt, mesh, loss_chunk=SP14_CHUNK)
         steps = SP14_STEPS if dtype == "bfloat16" and not fault else 1
         if fault:     # the wrapped-rank skip removed
@@ -5311,12 +5350,568 @@ def run_phase14(tfa, dev):
                 runs={f"sp{i}": r for i, r in enumerate(world["main_runs"])})
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: tensor parallelism on the card.
+# ---------------------------------------------------------------------------
+
+TP15 = 2                 # model ranks sharing cuda:0 over gloo
+# 15a: the repo's LM at full width (phase 14b's member, max_len 2048),
+# cut to 2 layers, over a model=2 mesh; a seeded [2, 2048] batch that
+# both model ranks read whole.
+TP15_MODEL = dict(vocab=32768, layers=2, heads=8, head_dim=128,
+                  max_len=2048)
+TP15_BATCH, TP15_SEQ = 2, 2048
+TP15_SEED = 15
+TP15_LR = 3e-4
+TP15_STEPS = 5          # the checked first step, then 4 more AdamW steps
+TP15_CHUNK = 512
+# The f32 twin against the single-process f32 step: the same arithmetic
+# with each row-parallel product summed from two halves, the vocab
+# softmax from two halves, and the replicated kv gradients summed over
+# the ranks; phase 14b's f32 limits.
+TP15_TOL = {"bfloat16": (STEP_LOSS_TOL, STEP_GRAD_TOL),
+            "float32": (SP14_F32_LOSS_TOL, SP14_F32_GRAD_TOL)}
+# 15b: phase 11's models at full width and depth, sharded at the
+# engine's door; B lanes of a seeded prompt, teacher forced 8 ticks.
+TP15_LANES, TP15_PROMPT, TP15_TICKS = 2, 256, 8
+TP15_BURST, TP15_BURST_NEW = 8, 32   # Gemma-2B's greedy burst, 8 slots
+TP15_BURST_LENS = (64, 257)          # its prompt lengths, [lo, hi)
+TP15_F32_LAYERS = 2                  # the f32 twin's depth
+TP15_TIMEOUT_S = 600.0
+
+
+def tp15_model(dev, dtype, mesh=None):
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    c = TP15_MODEL
+    return TransformerLM(c["vocab"], c["layers"], c["heads"], c["head_dim"],
+                         max_len=c["max_len"], dtype=getattr(torch, dtype),
+                         attn_impl="flash", mesh=mesh, device=dev)
+
+
+def tp15_tokens():
+    import numpy as np
+    return np.random.RandomState(TP15_SEED).randint(
+        0, TP15_MODEL["vocab"], (TP15_BATCH, TP15_SEQ))
+
+
+def tp15_reference(dev, dtype, path):
+    """The single-process flash step of 15a's model on its batch: the
+    loss and every parameter's gradient, saved to ``path``."""
+    import torch
+    from horovod_tpu_torch.models.transformer import _lm_data_loss
+    model = tp15_model(dev, dtype).init_weights(TP15_SEED)
+    tokens = torch.from_numpy(tp15_tokens()).to(dev)
+    loss = _lm_data_loss(model, tokens, TP15_CHUNK)
+    loss.backward()
+    torch.save({"loss": float(loss.detach()),
+                "grads": {n: p.grad.float().cpu()
+                          for n, p in model.named_parameters()}}, path)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _no_g(self, x):
+    """RowParallelDense.forward without g (planted fault (i)): each
+    rank keeps its partial product."""
+    from horovod_tpu_torch.parallel.tensor import f32_product
+    dt = self.dtype or x.dtype
+    y = f32_product(x.to(dt), self._weight(dt)).to(dt)
+    if self.bias is not None:
+        y = y + self.bias.to(dt)
+    return y
+
+
+def tp15a_rank(rank, work, mesh, dev):
+    """15a in one rank: the first step of the tensor-parallel flash step
+    against the single-process step (bf16 and f32), the bf16 AdamW
+    steps after it, and the two planted faults."""
+    import torch
+    from horovod_tpu_torch.compat.from_jax import gather_state_dict
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import flash_attention as tfa
+    from horovod_tpu_torch.parallel import tensor as PT
+    from horovod_tpu_torch.parallel.mesh import shard_batch
+    tokens = shard_batch(mesh, torch.from_numpy(tp15_tokens())).to(dev)
+    wrappers = {"flash_fwd": tfa.flash_fwd_cuda,
+                "flash_bwd_dq": tfa.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": tfa.flash_bwd_dkv_cuda}
+    refs = {d: torch.load(f"{work}/ref_{d}.pt") for d in TP15_TOL}
+    runs = []
+    row_forward, axes = PT.RowParallelDense.forward, tt._GRAD_AXES
+    for dtype, fault in (("bfloat16", None), ("float32", None),
+                         ("bfloat16", "no g"), ("bfloat16", "model avg")):
+        model = tp15_model(dev, dtype, mesh).init_weights(TP15_SEED)
+        opt = torch.optim.AdamW(model.parameters(), lr=TP15_LR)
+        step = tt.make_lm_train_step(model, opt, mesh,
+                                     loss_chunk=TP15_CHUNK)
+        steps = TP15_STEPS if dtype == "bfloat16" and not fault else 1
+        if fault == "no g":
+            PT.RowParallelDense.forward = _no_g
+        elif fault == "model avg":
+            tt._GRAD_AXES = axes + ("model",)
+        try:
+            losses, walls, check = [], [], None
+            with counting(wrappers) as c:
+                for i in range(steps):
+                    t0 = time.perf_counter()
+                    loss = float(step(tokens))
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(loss)
+                    if i == 0:
+                        grads = gather_state_dict(
+                            model, {n: p.grad for n, p in
+                                    model.named_parameters()}, mesh)
+                        ref = refs[dtype]
+                        per = {n: float((g.float().cpu() - ref["grads"][n])
+                                        .abs().max() / ref["grads"][n]
+                                        .abs().max().clamp_min(1e-30))
+                               for n, g in grads.items()}
+                        check = dict(loss_err=abs(loss - ref["loss"]),
+                                     grad_err=max(per.values()),
+                                     top=sorted(per.items(),
+                                                key=lambda kv: -kv[1])[:3])
+                        del grads
+        finally:
+            PT.RowParallelDense.forward = row_forward
+            tt._GRAD_AXES = axes
+        runs.append(dict(dtype=dtype, fault=fault, rank=rank, losses=losses,
+                         walls_ms=walls, check=check, launches=c.launches,
+                         steps=steps, need=model.num_layers * steps,
+                         peak=torch.cuda.max_memory_allocated()))
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return runs
+
+
+def tp15_prompt(vocab, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(TP15_SEED)
+    prompt = torch.randint(0, vocab, (TP15_LANES, TP15_PROMPT), device=dev,
+                           generator=g)
+    forced = torch.randint(0, vocab, (TP15_LANES, TP15_TICKS), device=dev,
+                           generator=g)
+    return prompt, forced
+
+
+def paged_lane_logits(model, prompt, forced):
+    """Teacher-forced logits on the paged primitives with the paged
+    kernel ("pallas" mode): each lane's prompt prefilled into its own
+    contiguous chain of blocks of 16, then TP15_TICKS batched ticks.
+    Returns the logits and the bytes a tick gave the ``model`` axis's
+    collectives."""
+    import torch
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import collectives
+    dev = prompt.device
+    B, P = prompt.shape
+    spec = tt.paged_cache_spec(model, 16)
+    T = spec.blocks_per_seq
+    pools = tt.init_paged_pools(model, spec, B * T + 1)
+    tables = (1 + torch.arange(B * T, device=dev)).reshape(B, T).int()
+    fills = torch.zeros(B, dtype=torch.int32, device=dev)
+    outs = [torch.stack([tt.paged_prefill_chunk(
+        model, spec, pools, tables, fills, b, prompt[b],
+        paged_kernel="pallas", fill=0) for b in range(B)])]
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    collectives.reset_model_bytes()
+    for t in range(forced.shape[1]):
+        outs.append(tt.paged_decode_logits(
+            model, spec, pools, tables, fills, forced[:, t], live, done,
+            paged_kernel="pallas", prefix_len=P + t + 1))
+    tick_bytes = collectives.model_bytes() / forced.shape[1]
+    del pools
+    return torch.stack(outs, 1), tick_bytes
+
+
+def tp15_logits(model, dev):
+    """(fixed, paged) teacher-forced logits of ``model`` with the decode
+    kernels on (flash decode on the linear cache, paged decode on the
+    paged pools), the launches of each, and the model-axis bytes of a
+    paged tick."""
+    import torch
+    from horovod_tpu_torch.ops import flash_attention as tfa
+    from horovod_tpu_torch.ops import paged_attention as tpa
+    prompt, forced = tp15_prompt(model.vocab_size, dev)
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda,
+               "paged_decode": tpa.paged_decode_cuda}
+    with torch.no_grad():
+        with counting(kernels) as cf:
+            fixed = teacher_forced_logits(model, prompt, forced, TP15_TICKS)
+        with counting(kernels) as cp:
+            paged, tick_bytes = paged_lane_logits(model, prompt, forced)
+    launches = {k: cf.launches[k] + cp.launches[k] for k in kernels}
+    return fixed.cpu(), paged.cpu(), launches, tick_bytes
+
+
+def tp15_burst(model, dev, **kw):
+    """Gemma-2B's greedy burst: TP15_BURST prompts of 64..256 tokens,
+    TP15_BURST_NEW new tokens each, through the paged engine (8 slots,
+    the paged kernel); on a follower, `follow` until the leader stops.
+    Returns the leader's streams, ticks, TPOT p50 and launches."""
+    import numpy as np
+    from horovod_tpu_torch.ops import paged_attention as tpa
+    from horovod_tpu_torch.serving import ServingEngine
+    rs = np.random.RandomState(TP15_SEED)
+    prompts = [rs.randint(0, model.vocab_size, (int(n),))
+               for n in rs.randint(*TP15_BURST_LENS, TP15_BURST)]
+    kernels = {"paged_decode": tpa.paged_decode_cuda}
+    eng = ServingEngine(model, num_slots=8, max_queue=TP15_BURST,
+                        warmup=True, paged=True, paged_kernel="pallas",
+                        kv_block_size=16, **kw)
+    with counting(kernels) as c:
+        if eng.is_follower:
+            eng.follow()
+            eng.shutdown()
+            out = None
+        else:
+            t0 = time.time()
+            hs = [eng.submit(p, TP15_BURST_NEW) for p in prompts]
+            streams = [h.result(timeout=600).tokens.tolist() for h in hs]
+            seconds = time.time() - t0
+            snap = eng.metrics_snapshot()
+            eng.shutdown()
+            out = dict(streams=streams, ticks=snap["ticks"],
+                       tpot_ms_p50=snap["tpot_ms"]["p50"],
+                       ttft_ms_p50=snap["ttft_ms"]["p50"], seconds=seconds)
+    if out is not None:
+        out.update(launches=c.launches)
+    return out, eng.model, c.launches
+
+
+def tp15b_rank(rank, work, mesh, dev):
+    """15b in one rank: Gemma-2B and Qwen2-0.5B sharded at the engine's
+    door (each rank builds the whole bf16 model from the same seed);
+    Gemma's greedy burst through the sharded paged engine; each model's
+    teacher-forced logits on both pools; Qwen2 with its fused qkv cut
+    contiguously (planted fault (iii)); the f32 twin's burst; and a
+    follower that drops one free descriptor (planted fault (iv))."""
+    import torch
+    from horovod_tpu_torch.models.transformer import shard_model
+    from horovod_tpu_torch.parallel import tensor as PT
+    out = {}
+    for what, _, family, cfg, seed, _ in HF_MODELS:
+        full = build_hf(family, cfg, dev, seed, torch.bfloat16)
+        t0 = time.time()
+        if family == "gemma":
+            burst, model, launches = tp15_burst(full, dev, mesh=mesh)
+            out["gemma_burst"] = burst
+            out["gemma_burst_launches"] = launches
+        else:
+            model = shard_model(full, mesh)
+        fixed, paged, launches, tick_bytes = tp15_logits(model, dev)
+        out[family] = dict(fixed=fixed if rank == 0 else None,
+                           tick_bytes=tick_bytes,
+                           paged=paged if rank == 0 else None,
+                           launches=launches, ticks=TP15_TICKS,
+                           layers=model.num_layers,
+                           local_heads=model.blocks[0].attn.num_heads,
+                           local_kv=model.local_kv,
+                           vocab_rows=model.embed.shape[0],
+                           seconds=time.time() - t0,
+                           peak=torch.cuda.max_memory_allocated())
+        if family == "qwen2":
+            cols = PT.qkv_columns
+
+            def contiguous(r, H, Hkv, D, tp):
+                n = (H + 2 * Hkv) * D // tp
+                return torch.arange(r * n, (r + 1) * n)
+            PT.qkv_columns = contiguous
+            try:
+                bad = shard_model(full, mesh)
+            finally:
+                PT.qkv_columns = cols
+            # Every rank runs it (its collectives pair up); rank 0 keeps
+            # the logits.
+            bad_logits = tp15_logits(bad, dev)[0]
+            out["qwen2_contiguous_qkv"] = bad_logits if rank == 0 else None
+            del bad, bad_logits
+        del full, model
+        torch.cuda.empty_cache()
+    full = build_hf("gemma", dict(GEMMA_2B, num_hidden_layers=TP15_F32_LAYERS),
+                    dev, 2, torch.float32)
+    burst, _, launches = tp15_burst(full, dev, mesh=mesh)
+    out["f32_burst"] = burst
+    out["f32_burst_launches"] = launches
+    torch.save(out, f"{work}/b_rank{rank}.pt")
+    # (iv) last: the follower drops the first free descriptor; the next
+    # descriptor's digest check must raise ShardDivergence.
+    from horovod_tpu_torch.serving import ServingEngine, ShardDivergence
+    eng = ServingEngine(full, num_slots=2, paged=True, kv_block_size=16,
+                        mesh=mesh)
+    try:
+        if eng.is_follower:
+            eng.follow(drop="free")
+            got = "no error"
+        else:
+            for n in (64, 96):
+                eng.submit(list(range(1, n)), 4).result(timeout=60)
+            got = "no error"
+    except ShardDivergence as e:
+        got = f"ShardDivergence {e}"
+    except Exception as e:
+        got = f"{type(e).__name__} {str(e)[:300]}"
+    with open(f"{work}/divergence{rank}.json", "w") as f:
+        json.dump(got, f)
+    return None
+
+
+def tp15_rank(rank, work, part):
+    """One rank of phase 15 (``chip_smoke.py --tp-rank R WORKDIR PART``):
+    a gloo world of TP15 ranks on ``cuda:0`` and a model=TP15 mesh,
+    then 15a or 15b; results land in WORKDIR."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.parallel import mesh as pmesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all()
+    hvd.init(device="cpu", rank=rank, size=TP15,
+             init_method=f"file://{work}/store_{part}")
+    mesh = pmesh.make_mesh(model=TP15, device_type="cuda")
+    if part == "a":
+        runs = tp15a_rank(rank, work, mesh, dev)
+        with open(f"{work}/a_rank{rank}.json", "w") as f:
+            json.dump(runs, f)
+        hvd.shutdown()
+        return 0
+    tp15b_rank(rank, work, mesh, dev)
+    # The divergence leg leaves the world broken: no shutdown handshake.
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def tp15_world(work, part):
+    """Start the TP15 rank processes of ``part`` in their own sessions
+    and wait for them within TP15_TIMEOUT_S; every process is stopped
+    when this returns."""
+    import signal
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         work, part], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for r in range(TP15)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, TP15_TIMEOUT_S - (time.time() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"15{part}: the ranks outlived their budget")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"15{part} rank {r} exit {p.returncode}: "
+                                 f"{text[-4000:]}")
+    return time.time() - t0
+
+
+def run_tp15a(dev, work):
+    """15a: the single-process references, the rank processes, then the
+    checks: every checked step within TP15_TOL of its reference, each
+    planted fault outside it, the bf16 losses finite and falling, each
+    rank's forward, dQ and dK/dV launches >= layers x steps."""
+    import numpy as np
+    for dtype in TP15_TOL:
+        tp15_reference(dev, dtype, f"{work}/ref_{dtype}.pt")
+    seconds = tp15_world(work, "a")
+    runs = [run for r in range(TP15)
+            for run in json.load(open(f"{work}/a_rank{r}.json"))]
+    label = f"[{nvidia_smi_line()}]"
+    main_runs = []
+    for run in runs:
+        ltol, gtol = TP15_TOL[run["dtype"]]
+        chk = run["check"]
+        ok = chk["loss_err"] <= ltol and chk["grad_err"] <= gtol
+        what = (f"15a rank {run['rank']} {run['dtype']}"
+                + (f" planted fault ({run['fault']})" if run["fault"]
+                   else ""))
+        log(f"{what}: first step loss {run['losses'][0]:.6f} (|diff| "
+            f"{chk['loss_err']:.2e}, tol {ltol}), worst per-parameter "
+            f"gradient error {chk['grad_err']:.3e} (tol {gtol}; top "
+            f"{chk['top']}); losses {[round(x, 4) for x in run['losses']]}, "
+            f"step walls ms {[round(x, 1) for x in run['walls_ms']]}, "
+            f"launches {run['launches']} (need >= {run['need']}), peak "
+            f"{run['peak'] / 1e9:.2f} GB {label}")
+        if run["fault"]:
+            if ok:
+                raise AssertionError(f"{what}: not caught")
+            continue
+        if not ok:
+            raise AssertionError(f"{what}: the step differs from the "
+                                 f"single-process step")
+        if min(run["launches"].values()) < run["need"]:
+            raise AssertionError(f"{what}: launches {run['launches']} < "
+                                 f"{run['need']}")
+        losses = run["losses"]
+        if not all(np.isfinite(losses)) or (
+                len(losses) > 1 and not losses[-1] < losses[0]):
+            raise AssertionError(f"{what}: losses not finite and falling: "
+                                 f"{losses}")
+        main_runs.append({"launches": run["launches"]})
+    return dict(runs=runs, seconds=seconds, main_runs=main_runs)
+
+
+def tp15b_references(dev, work):
+    """The unsharded side of 15b on the card: each model's teacher-forced
+    logits on both pools, Gemma-2B's burst on the unsharded paged
+    engine, and the f32 twin's burst."""
+    import torch
+    refs = {}
+    for _, _, family, cfg, seed, _ in HF_MODELS:
+        model = build_hf(family, cfg, dev, seed, torch.bfloat16)
+        if family == "gemma":
+            refs["gemma_burst"] = tp15_burst(model, dev)[0]
+        fixed, paged, _, _ = tp15_logits(model, dev)
+        refs[family] = dict(fixed=fixed, paged=paged)
+        del model
+        torch.cuda.empty_cache()
+    model = build_hf("gemma", dict(GEMMA_2B,
+                                   num_hidden_layers=TP15_F32_LAYERS),
+                     dev, 2, torch.float32)
+    refs["f32_burst"] = tp15_burst(model, dev)[0]
+    del model
+    torch.cuda.empty_cache()
+    return refs
+
+
+def stream_agreement(a, b):
+    """Share of positions where two lists of streams agree, counted up
+    to each stream's first difference (later tokens follow from it)."""
+    same = total = 0
+    for x, y in zip(a, b):
+        n = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v),
+                 len(x))
+        same, total = same + n, total + len(x)
+    return same / total
+
+
+def run_tp15b(dev, work):
+    """15b: the unsharded references, the rank processes, then the
+    checks (the module docstring's phase 15b)."""
+    import torch
+    t0 = time.time()
+    refs = tp15b_references(dev, work)
+    ref_s = time.time() - t0
+    seconds = tp15_world(work, "b")
+    ranks = [torch.load(f"{work}/b_rank{r}.pt", weights_only=False)
+             for r in range(TP15)]
+    label = f"[{nvidia_smi_line()}]"
+    res = {"reference_seconds": ref_s, "seconds": seconds}
+    main_runs = []
+    for what, _, family, *_ in HF_MODELS:
+        tol = HF_LOGIT_TOL[family]
+        got, ref = ranks[0][family], refs[family]
+        for pool in ("fixed", "paged"):
+            err = float((got[pool] - ref[pool]).abs().max())
+            agree = argmax_agreement(got[pool], ref[pool])
+            log(f"15b {what} model=2 {pool} pool teacher-forced logits "
+                f"(prefill {TP15_LANES} x {TP15_PROMPT} + {TP15_TICKS} "
+                f"ticks) vs unsharded: max_abs_err {err:.4f} (tol {tol}), "
+                f"argmax agreement {agree:.3f} at a logit scale of "
+                f"{float(ref[pool].abs().max()):.3f}")
+            if not bool(torch.isfinite(got[pool]).all()) or err > tol:
+                raise AssertionError(f"15b {what} {pool}: {err} > {tol}")
+            if agree < MIN_ARGMAX_AGREEMENT:
+                raise AssertionError(f"15b {what} {pool} argmax {agree}")
+            res[f"{family}_{pool}_err"] = err
+            res[f"{family}_{pool}_argmax"] = agree
+        for r, rk in enumerate(ranks):
+            g = rk[family]
+            need = g["ticks"] * g["layers"]
+            log(f"15b {what} rank {r}: {g['local_heads']} query heads, "
+                f"{g['local_kv']} kv head(s), {g['vocab_rows']} vocab rows, "
+                f"launches {g['launches']} (decode kernels need >= {need})"
+                f", model-axis collective bytes a paged tick of "
+                f"{TP15_LANES} lanes {g['tick_bytes']:.0f}, peak "
+                f"{g['peak'] / 1e9:.2f} GB {label}")
+            res[f"{family}_tick_bytes"] = g["tick_bytes"]
+            if min(g["launches"]["flash_decode"],
+                   g["launches"]["paged_decode"]) < need:
+                raise AssertionError(f"15b {what} rank {r} launches "
+                                     f"{g['launches']} < {need}")
+            main_runs.append({"launches": g["launches"]})
+        if family == "qwen2":
+            bad = float((ranks[0]["qwen2_contiguous_qkv"]
+                         - ref["fixed"]).abs().max())
+            log(f"15b planted fault (iii) Qwen2-0.5B's fused qkv cut "
+                f"contiguously: max_abs_err {bad:.4f}, caught {bad > tol}")
+            if not bad > tol:
+                raise AssertionError("15b: a contiguous qkv cut passed")
+            res["contiguous_qkv_err"] = bad
+    for key, exact in (("gemma_burst", False), ("f32_burst", True)):
+        got, ref = ranks[0][key], refs[key]
+        agree = stream_agreement(got["streams"], ref["streams"])
+        for r, rk in enumerate(ranks):
+            launches = rk[f"{key}_launches"]
+            if launches["paged_decode"] < got["ticks"] * (
+                    GEMMA_2B["num_hidden_layers"] if key == "gemma_burst"
+                    else TP15_F32_LAYERS):
+                raise AssertionError(f"15b {key} rank {r} launches "
+                                     f"{launches} < ticks x layers")
+            main_runs.append({"launches": launches})
+        log(f"15b {key}: {TP15_BURST} req x {TP15_BURST_NEW} new, model=2 "
+            f"vs unsharded: stream agreement {agree:.4f}, TPOT p50 "
+            f"{got['tpot_ms_p50']} ms (sharded) vs {ref['tpot_ms_p50']} ms "
+            f"(unsharded), TTFT p50 {got['ttft_ms_p50']} vs "
+            f"{ref['ttft_ms_p50']} ms, {got['ticks']} ticks {label}")
+        if exact and got["streams"] != ref["streams"]:
+            raise AssertionError(f"15b {key}: f32 streams differ")
+        res[key] = dict(agreement=agree, tpot_ms_p50=got["tpot_ms_p50"],
+                        unsharded_tpot_ms_p50=ref["tpot_ms_p50"],
+                        ttft_ms_p50=got["ttft_ms_p50"],
+                        unsharded_ttft_ms_p50=ref["ttft_ms_p50"],
+                        ticks=got["ticks"], seconds=got["seconds"],
+                        unsharded_seconds=ref["seconds"])
+    div = json.load(open(f"{work}/divergence1.json"))
+    log(f"15b planted fault (iv) a follower drops one free descriptor: "
+        f"{div[:200]}")
+    if not div.startswith("ShardDivergence"):
+        raise AssertionError(f"15b: a dropped descriptor passed: {div}")
+    res["divergence"] = div
+    return dict(res, main_runs=main_runs)
+
+
+def run_phase15(tfa, dev):
+    """Phase 15 (15a, then 15b, in a temporary directory removed after
+    it, whatever the outcome)."""
+    import shutil
+    import tempfile
+    del tfa
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="hvd_phase15_")
+    try:
+        a = run_tp15a(dev, work)
+        b = run_tp15b(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(a={k: v for k, v in a.items() if k != "main_runs"},
+                b={k: v for k, v in b.items() if k != "main_runs"},
+                seconds=time.time() - t0,
+                runs={f"tp{i}": r for i, r in
+                      enumerate(a["main_runs"] + b["main_runs"])})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", metavar="PATH",
                     help="also write every number to this JSON file")
     ap.add_argument("--sp-rank", nargs=2, metavar=("RANK", "WORKDIR"),
                     help=argparse.SUPPRESS)   # phase 14b's rank processes
+    ap.add_argument("--tp-rank", nargs=3, metavar=("RANK", "WORKDIR",
+                                                   "PART"),
+                    help=argparse.SUPPRESS)   # phase 15's rank processes
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5325,6 +5920,9 @@ def main() -> int:
         return 2
     if args.sp_rank:
         return sp14_rank(int(args.sp_rank[0]), args.sp_rank[1])
+    if args.tp_rank:
+        return tp15_rank(int(args.tp_rank[0]), args.tp_rank[1],
+                         args.tp_rank[2])
     # Imported before anything is printed: a checkout without the
     # package fails here with no result.
     from horovod_tpu_torch.models.transformer import (TransformerLM,
@@ -5465,10 +6063,21 @@ def main() -> int:
                     f"MB a step" for (impl, r), w in sorted(walls.items()))
         + f" {label}")
 
+    p15 = run_phase15(tfa, dev)
+    b15 = p15["b"]
+    log(f"tensor parallelism (phase 15) in {p15['seconds']:.1f} s: 15a two "
+        f"ranks over gloo on one card in {p15['a']['seconds']:.1f} s; 15b "
+        f"references {b15['reference_seconds']:.1f} s, ranks "
+        f"{b15['seconds']:.1f} s; Gemma-2B burst TPOT p50 "
+        f"{b15['gemma_burst']['tpot_ms_p50']} ms at model=2 vs "
+        f"{b15['gemma_burst']['unsharded_tpot_ms_p50']} ms unsharded "
+        f"{label}")
+
     timing = time_kernels(tfa, dev)
     main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values(),
                  *variants["runs"].values(), *fleet["runs"].values(),
-                 *p13["runs"].values(), *p14["runs"].values())
+                 *p13["runs"].values(), *p14["runs"].values(),
+                 *p15["runs"].values())
     main_launches = {k: sum(run["launches"].get(k, 0) for run in main_runs)
                      for k in REPLACES}
     kernels = []
@@ -5579,6 +6188,7 @@ def main() -> int:
                   phase12={k: v for k, v in p12.items() if k != "runs"},
                   phase13={k: v for k, v in p13.items() if k != "runs"},
                   phase14={k: v for k, v in p14.items() if k != "runs"},
+                  phase15={k: v for k, v in p15.items() if k != "runs"},
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)
     if args.json:

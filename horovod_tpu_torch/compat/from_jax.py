@@ -30,6 +30,12 @@ packages can be fed the same cache state.
 Adam) over the port model's parameters, so a JAX run's optimizer state
 carries across with its weights.
 
+`shard_state_dict(model, sd, mesh)` cuts a full state dict (from
+`params_from_jax`, or a whole model's) into this rank's shard of a
+tensor-parallel model, and `gather_state_dict` reassembles it: the
+fused qkv leaves by `parallel.tensor.qkv_columns` (this rank's q heads,
+then its k and v heads), every other leaf by its spec.
+
 `word2vec_params_from_jax(tree)` maps a `horovod_tpu.models.word2vec.
 Word2Vec` param tree (``embeddings``, ``nce_weights``) onto the port's
 `models.word2vec.Word2Vec`.
@@ -212,3 +218,24 @@ def powersgd_state_from_jax(state, params
                   "powersgd_err": torch.from_numpy(np.array(err)).to(
                       p.device, torch.float32)}
     return out
+
+
+def shard_state_dict(model, sd: Mapping[str, torch.Tensor],
+                     mesh) -> Dict[str, torch.Tensor]:
+    """This rank's state dict of the tensor-parallel ``model`` over
+    ``mesh`` from the FULL one ``sd`` (the whole model's names and
+    shapes, e.g. `params_from_jax`'s). ``model`` gives the structure
+    (sharded or not); the leaves come back on their input device."""
+    from horovod_tpu_torch.models.transformer import lm_param_specs
+    from horovod_tpu_torch.parallel.tensor import shard_params
+    return shard_params(mesh, model, dict(sd), lm_param_specs(model))
+
+
+def gather_state_dict(model, sd: Mapping[str, torch.Tensor],
+                      mesh) -> Dict[str, torch.Tensor]:
+    """The inverse of `shard_state_dict`: the whole model's state dict
+    from every model rank's shard ``sd`` (a collective over the mesh's
+    ``model`` axis: every rank of it calls it)."""
+    from horovod_tpu_torch.models.transformer import tp_specs
+    from horovod_tpu_torch.parallel.tensor import gather_params
+    return gather_params(mesh, model, dict(sd), tp_specs(model, mesh))

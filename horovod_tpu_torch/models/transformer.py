@@ -26,9 +26,14 @@ rotating, the flash kernels on every rotation) and ``ulysses`` /
 tables). Training: `lm_loss`, `chunked_lm_loss` (the fused head + CE
 over sequence chunks), `make_lm_train_step`, `make_lm_eval_step` and
 `init_lm_state`, data-parallel over `torch.distributed` through
-`horovod_tpu_torch.optim`, or over a ``(data, seq)`` mesh
-(`parallel.mesh`). MoE and LoRA are later slices; int8 weights come
-from `ops.quantization.quantize_lm`.
+`horovod_tpu_torch.optim`, or over a mesh of ``data``, ``seq`` and
+``model`` (`parallel.mesh`). A model built with ``mesh=`` whose
+``model`` axis is > 1 is tensor parallel: each rank holds its shard of
+the blocks (`parallel.tensor`), the embedding and an untied head hold
+its vocab rows (``lm_param_specs``), the loss is a vocab-parallel cross
+entropy, and `generate` and the serving pools run on the rank's local
+heads (every rank of the axis makes the same call). MoE and LoRA are
+later slices; int8 weights come from `ops.quantization.quantize_lm`.
 """
 
 from __future__ import annotations
@@ -45,14 +50,16 @@ from torch.utils.checkpoint import checkpoint
 from horovod_tpu_torch import optim
 from horovod_tpu_torch.ops import threefry
 from horovod_tpu_torch.ops.quantization import check_quant
-from horovod_tpu_torch.parallel.mesh import seq_degree, seq_offset
+from horovod_tpu_torch.parallel.mesh import (AXIS_MODEL, abstract_mesh,
+                                             seq_degree, seq_offset)
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  blockwise_attention,
                                                  check_window)
 from horovod_tpu_torch.parallel.tensor import (LayerCache,
                                                PagedLayerCache, ParallelMLP,
                                                ParallelSelfAttention,
-                                               ParallelSwiGLU)
+                                               ParallelSwiGLU,
+                                               kv_heads_of)
 
 SEQ_PARALLEL_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 ATTN_IMPLS = ("dot", "blockwise", "flash") + SEQ_PARALLEL_IMPLS
@@ -204,18 +211,19 @@ class TransformerBlock(nn.Module):
             decode_prefix_block=cfg.decode_prefix_block,
             decode_prefix_impl=cfg.decode_prefix_impl,
             use_bias=cfg.attn_bias, out_bias=cfg.attn_out_bias,
-            weight_quant=cfg.weight_quant, device=device)
+            weight_quant=cfg.weight_quant, device=device, tp=cfg.tp,
+            tp_rank=cfg.tp_rank)
         self.ln_mlp = _make_norm(cfg.norm, d, cfg.dtype, cfg.ln_eps, device)
         hidden = cfg.mlp_hidden or cfg.mlp_ratio * d
         if cfg.mlp_impl in ("swiglu", "geglu"):
             self.mlp = ParallelSwiGLU(
                 d, hidden, d, dtype=cfg.dtype, device=device,
                 activation="gelu_tanh" if cfg.mlp_impl == "geglu"
-                else "silu", weight_quant=cfg.weight_quant)
+                else "silu", weight_quant=cfg.weight_quant, tp=cfg.tp)
         elif cfg.mlp_impl == "gelu":
             self.mlp = ParallelMLP(d, hidden, d, dtype=cfg.dtype,
                                    weight_quant=cfg.weight_quant,
-                                   device=device)
+                                   device=device, tp=cfg.tp)
         else:
             raise ValueError(f"mlp_impl must be gelu|swiglu|geglu, got "
                              f"{cfg.mlp_impl!r}")
@@ -285,8 +293,14 @@ class TransformerLM(nn.Module):
     with `ops.quantization.quantize_lm`); ``kv_quant="int8"`` stores
     the decode cache as int8 plus per-(position, head) scales.
     ``moe_every`` > 0 (mixture of experts) is a later slice and raises.
-    `clone(**changes)` builds the same configuration with some fields
-    changed (weights not copied).
+    ``mesh`` (`parallel.mesh.make_mesh`) with ``model`` > 1 builds this
+    rank's tensor-parallel shard: H/tp query heads a block and the kv
+    heads they read, column/row-parallel dense pairs, and the
+    embedding's (and an untied head's) vocab rows [r V/tp, (r+1) V/tp)
+    when tp divides the vocab (else both stay whole). Its collectives
+    run over the mesh's ``model`` axis; load a full state dict with
+    ``compat.from_jax.shard_state_dict``. `clone(**changes)` builds the
+    same configuration with some fields changed (weights not copied).
     """
 
     def __init__(self, vocab_size: int, num_layers: int, num_heads: int,
@@ -303,7 +317,7 @@ class TransformerLM(nn.Module):
                  norm: str = "layernorm", mlp_impl: str = "gelu",
                  mlp_hidden: Optional[int] = None, tied_head: bool = True,
                  embed_scale: Optional[float] = None, remat: bool = False,
-                 moe_every: int = 0, device=None):
+                 moe_every: int = 0, mesh=None, device=None):
         config = dict(locals())
         super().__init__()
         self._config = {k: v for k, v in config.items()
@@ -331,20 +345,35 @@ class TransformerLM(nn.Module):
         self.mlp_hidden, self.tied_head = mlp_hidden, tied_head
         self.embed_scale = embed_scale
         self.remat = remat
+        from horovod_tpu_torch.parallel.mesh import axis_index, model_degree
+        self.mesh = mesh
+        self.tp = model_degree(mesh) if mesh is not None else 1
+        self.tp_rank = axis_index(AXIS_MODEL, mesh) if self.tp > 1 else 0
+        # Raises before any work on a head layout tp cannot split.
+        kv_heads_of(self.tp_rank, num_heads, self.num_kv, self.tp)
+        self.vocab_parallel = self.tp > 1 and vocab_size % self.tp == 0
+        rows = vocab_size // self.tp if self.vocab_parallel else vocab_size
+        self.vocab_start = self.tp_rank * rows if self.vocab_parallel else 0
         d = num_heads * head_dim
         dev = self.device
-        self.embed = nn.Parameter(torch.empty(vocab_size, d, device=dev))
+        self.embed = nn.Parameter(torch.empty(rows, d, device=dev))
         self.pos = (nn.Parameter(torch.empty(max_len, d, device=dev))
                     if pos_emb != "rope" else None)
         self.blocks = nn.ModuleList(
             TransformerBlock(self, dev) for _ in range(num_layers))
         self.ln_f = _make_norm(norm, d, dtype, ln_eps, dev)
         self.lm_head = (None if tied_head else
-                        nn.Parameter(torch.empty(vocab_size, d, device=dev)))
+                        nn.Parameter(torch.empty(rows, d, device=dev)))
 
     @property
     def num_kv(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    @property
+    def local_kv(self) -> int:
+        """kv heads this rank's caches hold (`num_kv` at tp = 1)."""
+        return len(kv_heads_of(self.tp_rank, self.num_heads, self.num_kv,
+                               self.tp))
 
     @property
     def unbounded(self) -> bool:
@@ -363,7 +392,15 @@ class TransformerLM(nn.Module):
         """Draw every weight from ``seed`` with a `torch.Generator` on
         the model's device, with the JAX module's initializers: N(0,
         0.02) embedding / positions / untied head, lecun-normal dense
-        kernels, zero biases, unit norm scales."""
+        kernels, zero biases, unit norm scales. A tensor-parallel model
+        draws the whole model's weights and keeps its shard, so every
+        tp gives the same model."""
+        if self.tp > 1:
+            from horovod_tpu_torch.compat.from_jax import shard_state_dict
+            full = self.clone(mesh=None).init_weights(seed)
+            self.load_state_dict(shard_state_dict(self, full.state_dict(),
+                                                  self.mesh))
+            return self
         g = torch.Generator(device=self.device).manual_seed(int(seed))
         self.embed.normal_(0.0, 0.02, generator=g)
         if self.pos is not None:
@@ -378,6 +415,14 @@ class TransformerLM(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed if self.lm_head is None else self.lm_head
 
+    def logits_head(self):
+        """The LM head as the projection and the loss take it: the
+        weight [V, d], or, vocab parallel, this rank's rows wrapped in a
+        `VocabShard` with the mesh and first row the model owns."""
+        if self.vocab_parallel:
+            return VocabShard(self.head(), self.mesh, self.vocab_start)
+        return self.head()
+
     def forward(self, tokens: torch.Tensor, cache: Optional[KVCache] = None,
                 *, chunked_prefill: bool = False,
                 prefix_len: Optional[int] = None,
@@ -389,8 +434,16 @@ class TransformerLM(nn.Module):
         instead of the one-pass empty-cache prefill; ``prefix_len``, a
         host-side upper bound on every lane's fill after the call, bounds
         the plain prefix loop to the filled slices (None: all of them).
-        ``return_hidden`` returns ``(hidden [B, S, d], head [V, d])``
-        instead of logits."""
+        ``return_hidden`` returns ``(hidden [B, S, d], head)`` instead
+        of logits, ``head`` as `logits_head` gives it (the [V, d]
+        weight, or a `VocabShard`): project with `project_logits`."""
+        if self.tp > 1 and abstract_mesh() is None:
+            from horovod_tpu_torch.parallel.mesh import use
+            with use(self.mesh):
+                return self.forward(tokens, cache,
+                                    chunked_prefill=chunked_prefill,
+                                    prefix_len=prefix_len,
+                                    return_hidden=return_hidden)
         B, S = tokens.shape
         offset = 0
         if cache is None:
@@ -401,7 +454,7 @@ class TransformerLM(nn.Module):
                     f"attn_impl={self.attn_impl!r} attends within this "
                     f"rank's block only; a mesh with seq > 1 needs one of "
                     f"{SEQ_PARALLEL_IMPLS}")
-        x = self.embed[tokens]
+        x = self._lookup(tokens)
         if self.embed_scale is not None:
             x = x * torch.tensor(self.embed_scale, dtype=x.dtype)
         if self.pos is not None:
@@ -423,16 +476,85 @@ class TransformerLM(nn.Module):
                 x = blk(x, None if cache is None else cache.layer(i),
                         chunked_prefill, prefix_len)
         x = self.ln_f(x)
-        head = self.head()
+        head = self.logits_head()
         if return_hidden:
             return x, head
-        return x @ head.to(self.dtype).T
+        return project_logits(x, head)
+
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens``; vocab parallel, each rank
+        looks up the ids in its rows (zeros elsewhere) and g sums them."""
+        if not self.vocab_parallel:
+            return self.embed[tokens]
+        from horovod_tpu_torch.ops.collectives import reduce_from_model
+        rows = self.embed.shape[0]
+        local = tokens.long() - self.vocab_start
+        outside = (local < 0) | (local >= rows)
+        x = self.embed[local.clamp(0, rows - 1)]
+        x = torch.where(outside[..., None], torch.zeros((), dtype=x.dtype,
+                                                        device=x.device), x)
+        return reduce_from_model(x)
+
+
+@dataclass(frozen=True)
+class VocabShard:
+    """This rank's rows [V/tp, d] of a vocab-parallel LM head (or tied
+    embedding): vocab ids [start, start + V/tp), the other rows on the
+    ``model`` axis of ``mesh``. `TransformerLM.logits_head` builds it
+    from what the model owns, at each call."""
+
+    weight: torch.Tensor
+    mesh: object
+    start: int
+
+
+def project_logits(hidden: torch.Tensor, head) -> torch.Tensor:
+    """``hidden @ head.T`` at the hidden dtype: the LM head's logits.
+    A `VocabShard` (a tensor-parallel model's head) multiplies through
+    f and gathers the ranks' vocab blocks into whole logits."""
+    if not isinstance(head, VocabShard):
+        return hidden @ head.to(hidden.dtype).T
+    from horovod_tpu_torch.ops.collectives import (copy_to_model,
+                                                   gather_from_model)
+    local = copy_to_model(hidden, mesh=head.mesh) @ head.weight.to(
+        hidden.dtype).T
+    return gather_from_model(local, mesh=head.mesh)
+
+
+def vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor,
+                      start: int, mesh) -> torch.Tensor:
+    """Per-row cross entropy [N] of vocab-sharded f32 logits [N, V/tp]
+    (this rank's columns [start, start + V/tp)) against global target
+    ids [N], without gathering the logits: the max, the sum of
+    exponentials and the target's logit are each reduced over the
+    ``model`` axis."""
+    from horovod_tpu_torch.ops.collectives import max_over, reduce_from_model
+    rows = logits.shape[-1]
+    m = max_over(logits.detach().amax(dim=-1), mesh=mesh)
+    z = logits - m[:, None]
+    sumexp = reduce_from_model(z.exp().sum(dim=-1), mesh=mesh)
+    local = targets.long() - start
+    inside = (local >= 0) & (local < rows)
+    picked = z.gather(1, local.clamp(0, rows - 1)[:, None])[:, 0]
+    picked = torch.where(inside, picked, torch.zeros_like(picked))
+    return sumexp.log() - reduce_from_model(picked, mesh=mesh)
+
+
+def _ce_rows(logits: torch.Tensor, targets: torch.Tensor,
+             head) -> torch.Tensor:
+    """Per-row CE of f32 logits against ``targets``: plain, or vocab
+    parallel when ``head`` is a `VocabShard`."""
+    if not isinstance(head, VocabShard):
+        return F.cross_entropy(logits, targets.reshape(-1).long(),
+                               reduction="none")
+    return vocab_parallel_ce(logits, targets.reshape(-1), head.start,
+                             head.mesh)
 
 
 # ---------------------------------------------------------------------------
 # Train step: data parallel over torch.distributed (one process per
-# card), or over a (data, seq) mesh; the gradient allreduce is
-# `optim.DistributedOptimizer`'s.
+# card; the gradient allreduce is `optim.DistributedOptimizer`'s), or
+# over a (data, seq, model) mesh (the step averages over data and seq).
 # ---------------------------------------------------------------------------
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -444,14 +566,13 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                            tokens[:, 1:].reshape(-1).long())
 
 
-def _weighted_ce_chunk(hc, w, yc, mc):
+def _weighted_ce_chunk(hc, w, yc, mc, head):
     logits = torch.einsum("bcd,vd->bcv", hc, w).float()
-    ce = F.cross_entropy(logits.flatten(0, 1), yc.reshape(-1).long(),
-                         reduction="none")
+    ce = _ce_rows(logits.flatten(0, 1), yc, head)
     return (ce * mc.reshape(-1)).sum()
 
 
-def chunked_weighted_ce(hidden: torch.Tensor, head: torch.Tensor,
+def chunked_weighted_ce(hidden: torch.Tensor, head,
                         targets: torch.Tensor, weights: torch.Tensor, *,
                         chunk: int) -> torch.Tensor:
     """SUM of ``weights * CE(hidden @ head.T, targets)`` over sequence
@@ -460,13 +581,20 @@ def chunked_weighted_ce(hidden: torch.Tensor, head: torch.Tensor,
     materialize, each chunk's are recomputed in the backward. The
     einsum runs at the hidden dtype and its logits are cast to f32
     after it, as in the JAX package. A ragged last chunk is sliced, not
-    padded (the JAX package's padding rows carry weight 0)."""
-    w = head.to(hidden.dtype)
+    padded (the JAX package's padding rows carry weight 0). A
+    `VocabShard` ``head`` takes each chunk's CE vocab parallel, the
+    hidden through f once."""
+    w = head
+    if isinstance(head, VocabShard):
+        from horovod_tpu_torch.ops.collectives import copy_to_model
+        hidden = copy_to_model(hidden, mesh=head.mesh)
+        w = head.weight
+    w = w.to(hidden.dtype)
     total = hidden.new_zeros((), dtype=torch.float32)
     for o in range(0, hidden.shape[1], chunk):
         total = total + checkpoint(
             _weighted_ce_chunk, hidden[:, o:o + chunk], w,
-            targets[:, o:o + chunk], weights[:, o:o + chunk],
+            targets[:, o:o + chunk], weights[:, o:o + chunk], head,
             use_reentrant=False)
     return total
 
@@ -532,16 +660,60 @@ def _lm_shard_loss(model: TransformerLM, tokens: torch.Tensor, mesh,
     targets, weights = _shard_targets(tokens)
     B, S = tokens.shape
     count = (B * axis_size(AXIS_DATA)) * (S * axis_size(AXIS_SEQ) - 1)
+    hidden, head = model(tokens, return_hidden=True)
     if loss_chunk:
-        hidden, head = model(tokens, return_hidden=True)
         total = chunked_weighted_ce(hidden, head, targets, weights,
                                     chunk=loss_chunk)
+    elif isinstance(head, VocabShard):
+        # Vocab parallel: the [B, S, V] logits are never gathered.
+        from horovod_tpu_torch.ops.collectives import copy_to_model
+        local = copy_to_model(hidden, mesh=head.mesh) @ head.weight.to(
+            hidden.dtype).T
+        ce = _ce_rows(local.float().flatten(0, 1), targets, head)
+        total = (ce * weights.reshape(-1)).sum()
     else:
-        logits = model(tokens)
+        logits = project_logits(hidden, head)
         ce = F.cross_entropy(logits.float().flatten(0, 1),
                              targets.reshape(-1).long(), reduction="none")
         total = (ce * weights.reshape(-1)).sum()
-    return total * (mesh.size() / count)
+    # The model ranks hold one replica of the loss; the gradients are
+    # averaged over the data and seq ranks only.
+    return total * (mesh.size() / axis_size(AXIS_MODEL, mesh) / count)
+
+
+# The axes the train step averages gradients over. Never ``model``: its
+# ranks hold different shards, and their replicated leaves are equal
+# already (f and g keep them so).
+_GRAD_AXES = ("data", "seq")
+
+
+def _replica_average(model: nn.Module, mesh) -> None:
+    """Average every ``.grad`` of ``model`` over the ranks that hold the
+    same shard (each axis of `_GRAD_AXES` in turn, one flat buffer an
+    axis), in place."""
+    from torch._utils import (_flatten_dense_tensors,
+                              _unflatten_dense_tensors)
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel.mesh import axis_group, axis_size
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    for axis in _GRAD_AXES:
+        n = axis_size(axis, mesh)
+        if n == 1 or not grads:
+            continue
+        flat = _flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=axis_group(axis, mesh))
+        flat /= n
+        for g, new in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(new)
+
+
+def _check_tp_model(model: TransformerLM, mesh) -> None:
+    from horovod_tpu_torch.parallel.mesh import model_degree
+    tp_mesh = mesh is not None and model_degree(mesh) > 1
+    if (tp_mesh or model.tp > 1) and model.mesh is not mesh:
+        raise ValueError("a mesh with model > 1 needs the model built "
+                         "over it (TransformerLM(..., mesh=mesh)), and a "
+                         "tensor-parallel model runs over its own mesh")
 
 
 def _check_mesh_world(mesh, optimizer=None) -> None:
@@ -549,34 +721,43 @@ def _check_mesh_world(mesh, optimizer=None) -> None:
         raise ValueError(
             f"a mesh of {mesh.size()} ranks needs horovod_tpu_torch.init() "
             f"over the same world (world size {optim.world_size()})")
-    if (optimizer is not None and mesh.size() > 1
-            and not optim.is_distributed(optimizer)):
+    if optimizer is not None and optim.is_distributed(optimizer):
         raise ValueError(
-            "make_lm_train_step over a mesh needs a DistributedOptimizer "
-            "(it averages the gradients over the data and seq ranks)")
+            "make_lm_train_step over a mesh averages the gradients over "
+            "the data and seq ranks itself: give it the optimizer "
+            "unwrapped, not a DistributedOptimizer (whose average over "
+            "every rank would also run over the model axis)")
 
 
 def make_lm_train_step(model: TransformerLM,
                        optimizer: torch.optim.Optimizer, mesh=None, *,
                        loss_chunk: Optional[int] = None) -> Callable:
     """``step(tokens) -> loss``: one train step of ``model`` -- loss,
-    gradients, then ``optimizer.step()``, which averages the gradients
-    over the ranks when it is an `optim.DistributedOptimizer` (required
-    at world size > 1: a plain optimizer would let the replicas drift
-    apart). Returns the loss averaged over ranks as a 0-d device tensor
-    (the JAX step's ``lax.pmean``): no ``.item()`` and no host sync
-    inside the step. ``loss_chunk`` runs the fused head + CE in chunks
-    of that many positions. Each call is a ``train_step`` span on the
-    timeline (`utils.timeline.step_bracket`), as in the JAX package.
+    gradients, their average, then ``optimizer.step()``. Returns the
+    loss averaged over ranks as a 0-d device tensor (the JAX step's
+    ``lax.pmean``): no ``.item()`` and no host sync inside the step.
+    ``loss_chunk`` runs the fused head + CE in chunks of that many
+    positions. Each call is a ``train_step`` span on the timeline
+    (`utils.timeline.step_bracket`), as in the JAX package.
 
-    Without ``mesh``: data parallel, ``tokens`` this rank's rows [B, S].
-    With a ``(data, seq)`` mesh (`parallel.mesh.make_mesh`, over the
-    world that `init` formed): ``tokens`` is this rank's block [B/dp,
-    S/sp] (`parallel.mesh.shard_batch`), the model runs under the mesh
-    (global positions; ``attn_impl`` ring or Ulysses for seq > 1), the
+    Without ``mesh``: data parallel, ``tokens`` this rank's rows [B, S];
+    the optimizer's step averages the gradients over the ranks, so at
+    world size > 1 it must be an `optim.DistributedOptimizer` (a plain
+    one would let the replicas drift apart).
+
+    With a mesh (`parallel.mesh.make_mesh` over ``data``, ``seq`` and
+    ``model``, over the world that `init` formed), as the JAX package's
+    mesh step takes a plain optax transform: ``tokens`` is this rank's
+    block [B/dp, S/sp] (`parallel.mesh.shard_batch`; the model ranks of
+    one data rank read the same block), the model runs under the mesh
+    (global positions; ``attn_impl`` ring or Ulysses for seq > 1; with
+    ``model`` > 1 the tensor-parallel shard built over ``mesh``), the
     loss is the one mean over the global batch's B * (S - 1) labels,
-    and the gradients are averaged over the data and seq ranks, as the
-    parameters are replicated over both."""
+    and the step itself averages the gradients over the data and seq
+    ranks (`_GRAD_AXES`), never over ``model``, before the update of
+    ``optimizer``, which must not be a `DistributedOptimizer`."""
+    _check_tp_model(model, mesh)
+
     def step(tokens: torch.Tensor) -> torch.Tensor:
         if mesh is not None:
             _check_mesh_world(mesh, optimizer)
@@ -593,6 +774,7 @@ def make_lm_train_step(model: TransformerLM,
             with use(mesh):
                 loss = _lm_shard_loss(model, tokens, mesh, loss_chunk)
                 loss.backward()
+            _replica_average(model, mesh)
         optimizer.step()
         return optim.mean_over_ranks(loss.detach())
 
@@ -605,6 +787,8 @@ def make_lm_eval_step(model: TransformerLM, mesh=None, *,
     """``eval(tokens) -> mean next-token cross entropy`` (nats), the
     forward-only twin of `make_lm_train_step` (same loss sites, same
     ``mesh`` contract), averaged over ranks; perplexity = exp(loss)."""
+    _check_tp_model(model, mesh)
+
     @torch.no_grad()
     def ev(tokens: torch.Tensor) -> torch.Tensor:
         if mesh is None:
@@ -625,12 +809,79 @@ def init_lm_state(model: TransformerLM, optimizer: torch.optim.Optimizer,
     and optimizer state from rank 0, so every rank starts identically
     (a no-op broadcast at world size 1 or before `init()`); under a
     (data, seq) mesh the parameters are replicated over the whole
-    world, so this is its placement too. Returns ``(model,
+    world, so this is its placement too. A tensor-parallel model draws
+    the whole model and keeps its shard on every rank, so nothing is
+    broadcast (the shards differ by model rank). Returns ``(model,
     optimizer)``."""
     model.init_weights(seed)
+    if model.tp > 1:
+        return model, optimizer
     optim.broadcast_parameters(model.state_dict(), root_rank=0)
     optim.broadcast_optimizer_state(optimizer, root_rank=0)
     return model, optimizer
+
+
+def lm_param_specs(model: TransformerLM) -> dict:
+    """{state-dict name: partition spec} of every parameter of
+    ``model``, by the JAX package's rules (its `lm_param_specs`): the
+    blocks' dense pairs as `parallel.tensor.param_specs` gives them,
+    ``embed`` and ``lm_head`` ``('model', None)``, ``pos`` and the norms
+    replicated ``()``. For inspection; `tp_specs` gives the layout a
+    shard is actually cut by."""
+    from horovod_tpu_torch.parallel.tensor import param_specs
+    specs = param_specs(model)
+    for name in ("embed", "lm_head"):
+        if name in specs:
+            specs[name] = (AXIS_MODEL, None)
+    return specs
+
+
+def adopt_state(model: nn.Module, state: dict) -> nn.Module:
+    """Point every parameter and buffer of ``model`` at the tensor of
+    ``state`` under its name, storage and dtype included (no copy, no
+    cast), keeping the parameter objects and the gradient hooks they
+    carry (`ParallelSelfAttention`'s shared-kv sum), which
+    ``load_state_dict(assign=True)`` would replace. The names must
+    match exactly. Returns ``model``."""
+    own = model.state_dict(keep_vars=True)
+    if set(own) != set(state):
+        raise KeyError(f"state names differ from the model's: missing "
+                       f"{sorted(set(own) - set(state))}, unexpected "
+                       f"{sorted(set(state) - set(own))}")
+    for name, t in own.items():
+        if tuple(t.shape) != tuple(state[name].shape):
+            raise ValueError(f"{name}: shape {tuple(state[name].shape)}, "
+                             f"the model holds {tuple(t.shape)}")
+        t.data = state[name]
+    return model
+
+
+def shard_model(model: TransformerLM, mesh) -> TransformerLM:
+    """The tensor-parallel twin of the whole ``model`` over ``mesh``
+    (same configuration, built with ``mesh=``) holding this rank's
+    shard of its weights, each at the dtype ``model`` keeps it (a
+    serving model's bf16 kernels stay bf16). The shard owns its
+    storage, so ``model`` can be freed."""
+    from horovod_tpu_torch.compat.from_jax import shard_state_dict
+    sharded = model.clone(mesh=mesh)
+    sd = shard_state_dict(sharded, model.state_dict(), mesh)
+    adopt_state(sharded, {k: v.clone() for k, v in sd.items()})
+    return sharded.train(model.training)
+
+
+def tp_specs(model: TransformerLM, mesh=None) -> dict:
+    """`lm_param_specs` degraded as `parallel.mesh.safe_spec` degrades
+    them on the whole model's shapes over ``mesh`` (default the
+    model's): ``embed`` / ``lm_head`` stay whole when tp does not divide
+    the vocab."""
+    from horovod_tpu_torch.parallel.mesh import model_degree
+    tp = model.tp if mesh is None else model_degree(mesh)
+    specs = lm_param_specs(model)
+    if tp == 1 or model.vocab_size % tp:
+        for name in ("embed", "lm_head"):
+            if name in specs:
+                specs[name] = (None, None)
+    return specs
 
 
 def serving_params(model: TransformerLM,
@@ -651,7 +902,7 @@ def init_cache(model: TransformerLM, lanes: int) -> KVCache:
     the window would evict in-band keys once positions pass max_len);
     int8 rows plus f32 scales under ``kv_quant``."""
     W = model.max_len if model.window is None else model.window
-    shape = (lanes, W, model.num_kv, model.head_dim)
+    shape = (lanes, W, model.local_kv, model.head_dim)
     dev = model.device
     L = model.num_layers
 
@@ -711,7 +962,7 @@ def _last_logits(model: TransformerLM, cache: KVCache, toks, *,
     hidden, head = model(toks, cache, prefix_len=prefix_len,
                          return_hidden=True)
     cache.index += toks.shape[1]
-    return (hidden[:, -1] @ head.to(hidden.dtype).T).float()
+    return project_logits(hidden[:, -1], head).float()
 
 
 @torch.no_grad()
@@ -891,7 +1142,7 @@ def slot_prefill_chunk(dec_model: Callable, cache: KVCache, slot: int,
         chunk[None, :], sub,
         prefix_len=None if fill is None else fill + chunk.shape[0])
     sub.index += chunk.shape[0]
-    return (hidden[0, -1] @ head.to(hidden.dtype).T).float()
+    return project_logits(hidden[0, -1], head).float()
 
 
 def prefill_chunks(length: int, max_chunk: Optional[int] = None) -> list:
@@ -941,7 +1192,7 @@ def slot_decode_tick(dec_model: Callable, cache: KVCache,
     hidden, head = dec_model(toks[:, None], cache)
     old = cache.index.clone()
     cache.index.copy_(_freeze_cache_indices(old + 1, old, live & ~done))
-    logits = (hidden[:, -1] @ head.to(hidden.dtype).T).float()
+    logits = project_logits(hidden[:, -1], head).float()
     nxt = sample_token(logits, temps, top_ps, noise)
     emit = torch.where(done, eos.to(nxt.dtype), nxt)
     return emit, done | (emit == eos)
@@ -1018,7 +1269,7 @@ def init_paged_pools(model: TransformerLM, spec: PagedCacheSpec,
         raise ValueError(
             f"num_blocks must be >= 2 (block 0 is the reserved null "
             f"block), got {num_blocks}")
-    shape = (num_blocks, spec.block_size, model.num_kv, model.head_dim)
+    shape = (num_blocks, spec.block_size, model.local_kv, model.head_dim)
     dev = model.device
     if model.kv_quant is None:
         return [tuple(torch.zeros(shape, dtype=model.dtype, device=dev)
@@ -1028,6 +1279,66 @@ def init_paged_pools(model: TransformerLM, spec: PagedCacheSpec,
                   for _ in range(2))
             + tuple(torch.zeros(shape[:-1], device=dev) for _ in range(2))
             for _ in range(model.num_layers)]
+
+
+def _serve_kv_axis(axis: Optional[str] = None) -> str:
+    """The mesh axis serving KV shards ride (``HVD_SERVE_MESH_AXIS``,
+    default ``model``: kv heads live with their query groups). The port
+    serves over ``model`` only; any other axis raises."""
+    if axis is None:
+        from horovod_tpu_torch.runtime.config import config as _cfg
+        axis = _cfg.serve_mesh_axis or AXIS_MODEL
+    if axis != AXIS_MODEL:
+        raise NotImplementedError(
+            f"serving mesh axis {axis!r} (HVD_SERVE_MESH_AXIS): the port "
+            f"shards serving over the 'model' axis only")
+    return axis
+
+
+def _kv_index(mesh, hkv: int, num_heads: Optional[int]) -> Optional[list]:
+    """The kv heads this rank keeps of a whole cache's ``hkv``, or None
+    to keep them all: Hkv/tp contiguous heads when tp divides Hkv; else
+    (given ``num_heads``) the one its query group reads, as a
+    tensor-parallel model's cache holds it, and (without it) all of
+    them, the JAX package's `safe_spec` degrade."""
+    from horovod_tpu_torch.parallel.mesh import axis_index, model_degree
+    tp = model_degree(mesh)
+    if tp == 1 or (hkv % tp and num_heads is None):
+        return None
+    return kv_heads_of(axis_index(AXIS_MODEL, mesh),
+                       num_heads or hkv, hkv, tp)
+
+
+def shard_slot_cache(cache: KVCache, mesh, axis: Optional[str] = None, *,
+                     num_heads: Optional[int] = None) -> KVCache:
+    """This rank's kv heads of a whole slot-pool cache (`init_slot_cache`
+    of the unsharded model): K/V and their int8 scales cut on the heads
+    dim over the serving axis (`_serve_kv_axis`); the fill index stays
+    whole. ``num_heads`` (the model's query heads) picks a GQA rank's
+    one kv head when tp does not divide Hkv."""
+    _serve_kv_axis(axis)
+    idx = _kv_index(mesh, cache.k[0].shape[2], num_heads)
+
+    def cut(ts):
+        if ts is None or idx is None:
+            return ts
+        return [t[:, :, idx].contiguous() for t in ts]
+    return KVCache(cut(cache.k), cut(cache.v), cache.index,
+                   cut(cache.k_scale), cut(cache.v_scale))
+
+
+def shard_paged_pools(pools, mesh, axis: Optional[str] = None, *,
+                      num_heads: Optional[int] = None) -> list:
+    """This rank's kv heads of whole paged block pools (`init_paged_pools`
+    of the unsharded model): every pool cut on its heads dim (dim 2 of
+    [num_blocks, block_size, Hkv, ...]), so a host block id names the
+    same block on every rank. Same GQA rule as `shard_slot_cache`."""
+    _serve_kv_axis(axis)
+    idx = _kv_index(mesh, pools[0][0].shape[2], num_heads)
+    if idx is None:
+        return pools
+    return [tuple(t[:, :, idx].contiguous() for t in layer)
+            for layer in pools]
 
 
 def _pools_cache(pools) -> tuple:
@@ -1135,7 +1446,7 @@ def paged_prefill_chunk(model: TransformerLM, spec: PagedCacheSpec, pools,
         pos % spec.block_size, paged_kernel,
         None if fill is None else fill + C)
     f += C
-    return (hidden[0, -1] @ head.to(hidden.dtype).T).float()
+    return project_logits(hidden[0, -1], head).float()
 
 
 @torch.no_grad()
@@ -1164,7 +1475,7 @@ def paged_decode_logits(model: TransformerLM, spec: PagedCacheSpec, pools,
                                 toks[:, None], bids[:, None],
                                 offs[:, None], paged_kernel, prefix_len)
     fills.copy_(torch.where(adv, fills + 1, fills))
-    return (hidden[:, -1] @ head.to(hidden.dtype).T).float()
+    return project_logits(hidden[:, -1], head).float()
 
 
 @torch.no_grad()
@@ -1240,7 +1551,7 @@ def _rewind_indices(cache: KVCache, pre: torch.Tensor, delta: torch.Tensor):
 def _greedy(hidden: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """Argmax over the vocabulary of ``hidden`` [..., d] through the LM
     head, at the hidden dtype (as the JAX round's einsum)."""
-    return torch.argmax(hidden @ head.to(hidden.dtype).T, dim=-1)
+    return torch.argmax(project_logits(hidden, head), dim=-1)
 
 
 def _spec_draft_chain(drf_dec: Callable, drf_cache: KVCache,

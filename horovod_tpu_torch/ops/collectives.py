@@ -44,7 +44,7 @@ from horovod_tpu_torch.resilience import chaos
 Tensors = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 _staged_lock = threading.Lock()
-_staged = {"bytes": 0}
+_staged = {"bytes": 0, "model": 0}
 
 
 def staged_bytes() -> int:
@@ -57,6 +57,23 @@ def staged_bytes() -> int:
 def reset_staged_bytes() -> None:
     with _staged_lock:
         _staged["bytes"] = 0
+
+
+def model_bytes() -> int:
+    """Bytes this process contributed to the ``model`` axis's
+    collectives (f's and g's sums, the logits gathers, the max) since
+    the last `reset_model_bytes`: each call's input once."""
+    return _staged["model"]
+
+
+def reset_model_bytes() -> None:
+    with _staged_lock:
+        _staged["model"] = 0
+
+
+def _count_model(x: torch.Tensor) -> None:
+    with _staged_lock:
+        _staged["model"] += x.numel() * x.element_size()
 
 
 def _count_staged(n: int) -> None:
@@ -301,3 +318,92 @@ def alltoall(x: Tensors, *, axis_name: str = "data", split_axis: int = 0,
     nd = xs[0].ndim
     out = _AllToAll.apply(group, split_axis % nd, concat_axis % nd, *xs)
     return out[0] if isinstance(x, torch.Tensor) else out
+
+
+# ---------------------------------------------------------------------------
+# Megatron's operators over the ``model`` axis (tensor parallelism).
+# ---------------------------------------------------------------------------
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    _count_model(x)
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _sum(g, ctx.group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        ctx.width = x.shape[-1]
+        _count_model(x)
+        return torch.cat(_gather(x.detach(), group), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return None, g[..., r * ctx.width:(r + 1) * ctx.width].contiguous()
+
+
+def _model_group(axis_name: str, mesh):
+    group = _mesh.axis_group(axis_name, mesh)
+    _chaos_collective(axis_name)
+    return group
+
+
+def copy_to_model(x: torch.Tensor, axis_name: str = "model",
+                  mesh=None) -> torch.Tensor:
+    """Megatron's f: the identity forward, the gradient summed over the
+    axis backward. It opens a column-parallel region: every rank holds
+    the whole input and its gradient is the sum of the ranks' parts.
+    The axis group is the ambient mesh's (or ``mesh``'s); an unbound
+    axis raises `NameError`."""
+    return _CopyToModel.apply(_model_group(axis_name, mesh), x)
+
+
+def reduce_from_model(x: torch.Tensor, axis_name: str = "model",
+                      mesh=None) -> torch.Tensor:
+    """Megatron's g: the sum over the axis forward, the identity
+    backward. It closes a row-parallel region: the ranks' partial
+    products become the whole product on every rank."""
+    return _ReduceFromModel.apply(_model_group(axis_name, mesh), x)
+
+
+def gather_from_model(x: torch.Tensor, axis_name: str = "model",
+                      mesh=None) -> torch.Tensor:
+    """The ranks' last-dim blocks concatenated in axis order forward
+    (vocab-sharded logits into whole ones), this rank's block of the
+    gradient backward."""
+    return _GatherFromModel.apply(_model_group(axis_name, mesh), x)
+
+
+def max_over(x: torch.Tensor, axis_name: str = "model",
+             mesh=None) -> torch.Tensor:
+    """Elementwise max over the axis (not differentiable: the
+    vocab-parallel softmax's shift)."""
+    _count_model(x)
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                    group=_model_group(axis_name, mesh))
+    return out

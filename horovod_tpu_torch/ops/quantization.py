@@ -109,10 +109,22 @@ def quantize_lm(model):
     configuration with ``weight_quant="int8"``, its block kernels
     quantized from ``model``'s and every other tensor shared with
     ``model`` (same storage, dtype and device). A model that is already
-    int8 is returned as it is."""
+    int8 is returned as it is. A tensor-parallel model quantizes the
+    WHOLE kernels and then keeps its shard (a collective over its
+    ``model`` axis): a row-parallel kernel's scale runs over its whole
+    input dim, so quantizing the row shard alone would give other
+    scales; the int8 codes slice with their kernel, a column kernel's
+    scales with its columns, and a row kernel's scales stay whole."""
+    from horovod_tpu_torch.models.transformer import adopt_state
     if model.weight_quant == "int8":
         return model
     qmodel = model.clone(weight_quant="int8")
-    qmodel.load_state_dict(quantize_lm_params(model.state_dict()),
-                           assign=True)
+    sd = model.state_dict()
+    if getattr(model, "tp", 1) > 1:
+        from horovod_tpu_torch.compat.from_jax import (gather_state_dict,
+                                                       shard_state_dict)
+        full = quantize_lm_params(gather_state_dict(model, sd, model.mesh))
+        adopt_state(qmodel, shard_state_dict(qmodel, full, model.mesh))
+    else:
+        adopt_state(qmodel, quantize_lm_params(sd))
     return qmodel.train(model.training)

@@ -13,10 +13,13 @@ installs a mesh as the ambient one (a context variable) for the
 collectives of `ops.collectives` and the sequence-parallel attention;
 `shard_batch` cuts this rank's block out of a host batch.
 
-This slice of the port covers the ``data`` and ``seq`` axes: a mesh
-with ``model``, ``pipe`` or ``expert`` > 1 raises, and so do the
-placement helpers of tensor parallelism (`sharding`, `place_with_specs`,
-`put_like`, `constrain`), which come with that later slice.
+The port covers the ``data``, ``seq`` and ``model`` axes: a mesh with
+``pipe`` or ``expert`` > 1 raises, naming its later slice. The
+placement helpers of tensor parallelism have their SPMD meaning:
+`sharding` names a layout (`Sharding`), `place_with_specs` and
+`put_like` return THIS rank's block of each full leaf, and `constrain`
+is the identity (a layout is explicit in an SPMD program; there is no
+partitioner to pin it for).
 """
 
 from __future__ import annotations
@@ -40,8 +43,7 @@ AXIS_EXPERT = "expert"
 _CANONICAL_ORDER = (AXIS_PIPE, AXIS_DATA, AXIS_SEQ, AXIS_EXPERT, AXIS_MODEL)
 
 # The axes of later slices of the port, and the slice each belongs to.
-_LATER_AXES = {AXIS_MODEL: "tensor-parallel placement",
-               AXIS_PIPE: "pipeline parallelism",
+_LATER_AXES = {AXIS_PIPE: "pipeline parallelism",
                AXIS_EXPERT: "expert parallelism"}
 
 _AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
@@ -82,12 +84,6 @@ class MeshSpec:
         return MeshSpec(**fixed)
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to tensor-parallel placement, a later slice of "
-        f"the PyTorch port (this slice shards data and seq only)")
-
-
 def make_mesh(spec: Optional[MeshSpec] = None,
               devices: Optional[Sequence[int]] = None, *,
               device_type: str = "cuda", **axis_sizes: int):
@@ -117,8 +113,8 @@ def make_mesh(spec: Optional[MeshSpec] = None,
         if getattr(spec, axis) > 1:
             raise NotImplementedError(
                 f"a mesh with {axis}={getattr(spec, axis)} needs {what}, a "
-                f"later slice of the PyTorch port (this slice shards data "
-                f"and seq only)")
+                f"later slice of the PyTorch port (ROADMAP Queue A 5; the "
+                f"port shards data, seq and model)")
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs the world's process group: call "
@@ -325,17 +321,84 @@ def replicate(mesh, tree):
     return _tree_map(bcast, tree)
 
 
-def sharding(mesh, *spec):
-    raise _later_slice("sharding (a NamedSharding over the mesh)")
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A layout over ``mesh``: one partition-spec entry per dimension (an
+    axis name, a tuple of names, or None), the `NamedSharding` of the
+    JAX package. `place_with_specs` and `put_like` read it."""
+
+    mesh: object
+    spec: tuple
+
+
+def sharding(mesh, *spec) -> Sharding:
+    """`Sharding(mesh, spec)` shorthand (the JAX ``sharding(mesh,
+    *spec)``)."""
+    return Sharding(mesh, tuple(spec))
+
+
+def model_degree(mesh=None) -> int:
+    """Size of the ``model`` axis of ``mesh`` (else the ambient mesh);
+    1 off-mesh."""
+    mesh = mesh if mesh is not None else abstract_mesh()
+    return 1 if mesh is None else axis_size(AXIS_MODEL, mesh)
+
+
+def _place(x, mesh, spec):
+    """This rank's block of the full leaf ``x`` under ``spec``, degraded
+    through `safe_spec` first: each dimension split over its axes (the
+    first outermost) by this rank's coordinates on them. A leaf with no
+    sharded dimension comes back as it is."""
+    spec = safe_spec(mesh, spec, tuple(x.shape))
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        x = _block(x, dim, axes, mesh)
+    return x.contiguous()
 
 
 def place_with_specs(mesh, tree, specs):
-    raise _later_slice("place_with_specs")
+    """This rank's block of every full leaf of ``tree`` (a tensor, or a
+    dict / list / tuple of them) under the matching spec of ``specs``
+    (a tuple of entries per leaf, or a `Sharding`), each degraded
+    through `safe_spec`: a dimension the axis does not divide stays
+    whole. The SPMD form of committing a host tree onto the mesh: each
+    rank keeps only its block."""
+    def go(x, s):
+        if isinstance(x, dict):
+            return {k: go(v, s[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)) and not _is_spec(s):
+            return type(x)(go(v, t) for v, t in zip(x, s))
+        if isinstance(s, Sharding):
+            s = s.spec
+        return _place(torch.as_tensor(x), mesh, s)
+    return go(tree, specs)
+
+
+def _is_spec(s) -> bool:
+    return isinstance(s, tuple) and all(
+        e is None or isinstance(e, (str, tuple)) for e in s)
 
 
 def put_like(x, ref):
-    raise _later_slice("put_like")
+    """``x`` (a full leaf) cut to ``ref``'s layout: ``ref`` is a
+    `Sharding`, or a tensor carrying one as ``ref.sharding``; anything
+    else keeps ``x`` whole. Lands on ``ref``'s device when ``ref`` is a
+    tensor."""
+    sh = ref if isinstance(ref, Sharding) else getattr(ref, "sharding",
+                                                       None)
+    x = torch.as_tensor(x)
+    if isinstance(sh, Sharding):
+        x = _place(x, sh.mesh, sh.spec)
+    if isinstance(ref, torch.Tensor):
+        x = x.to(ref.device)
+    return x
 
 
 def constrain(x, *spec):
-    raise _later_slice("constrain (a sharding constraint)")
+    """The identity. In the JAX package this pins an intermediate's
+    layout for the GSPMD partitioner; in the port every rank holds its
+    own block explicitly, so there is nothing to pin."""
+    del spec
+    return x

@@ -1,11 +1,31 @@
-"""The transformer's layers on one device: dense pairs, MLPs, rotary
-embeddings and self-attention with its decode-cache paths.
+"""The transformer's layers, tensor parallel over the ``model`` axis:
+dense pairs, MLPs, rotary embeddings and self-attention with its
+decode-cache paths.
 
-Counterpart of `horovod_tpu.parallel.tensor`, single-device: the
-column/row-parallel names are kept so each module's counterpart is
-easy to find, but no weight is sharded (tensor parallelism over NCCL is
-a later slice). Dense kernels keep the JAX package's [in, out] layout,
-so `compat.from_jax.params_from_jax` maps the flax tree one to one.
+Counterpart of `horovod_tpu.parallel.tensor`. The JAX package marks
+each kernel with its partition spec and lets GSPMD place it and insert
+the collectives; the port is SPMD, so each layer built with ``tp`` > 1
+holds THIS rank's shard and names its collectives (Megatron-LM's
+layout, `ops.collectives`):
+
+* `ColumnParallelDense`: kernel [in, out/tp] and its bias slice, the
+  input through f (`copy_to_model`: identity forward, gradient summed
+  over ``model`` backward);
+* `RowParallelDense`: kernel [in/tp, out], its product through g
+  (`reduce_from_model`: sum over ``model`` forward), the bias added once
+  after the reduction;
+* `ParallelSelfAttention`: H/tp query heads a rank, and the kv heads
+  those heads read (`kv_heads_of`): Hkv/tp when tp divides Hkv, else
+  the one kv head its query group shares. Its fused qkv shard is this
+  rank's q columns, then its k and its v columns (`qkv_columns`), not
+  a contiguous block of the fused dim.
+
+`param_specs` gives the JAX package's spec of every parameter,
+`shard_params` cuts a full state dict into a rank's shard and
+`gather_params` reassembles it. With ``tp`` = 1 (the default) no
+weight is sharded and no collective runs. Dense kernels keep the JAX
+package's [in, out] layout, so `compat.from_jax.params_from_jax` maps
+the flax tree one to one.
 
 Decode state is explicit: a `LayerCache` carries one layer's K/V rows
 [B, W, Hkv, D] and the per-lane fill index [B] (int32, on the device).
@@ -17,6 +37,8 @@ scale per (lane, position, head) beside them (`_kv_quantize`), and
 every read dequantizes at the module dtype. Under a ``window`` the
 cache is a ROLLING buffer of W = window slots (position p lives in
 slot p mod W), so with RoPE a lane's position grows past max_len.
+Under tensor parallelism the cache holds the rank's kv heads only, and
+the decode kernels run on its local heads.
 
 Weights: ``weight_quant="int8"`` stores each dense kernel as int8
 codes plus one f32 scale per output channel (`ops.quantization`),
@@ -42,7 +64,7 @@ from torch import nn
 from horovod_tpu_torch.ops.quantization import (check_quant,
                                                 dequantize_int8,
                                                 quantize_int8)
-from horovod_tpu_torch.parallel.mesh import seq_offset
+from horovod_tpu_torch.parallel.mesh import AXIS_MODEL, seq_offset
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  check_window)
 
@@ -63,6 +85,13 @@ def lecun_normal_(t: torch.Tensor, generator=None) -> torch.Tensor:
                                  generator=generator)
 
 
+def _split(n: int, tp: int, what: str) -> int:
+    if n % tp:
+        raise ValueError(f"{what} ({n}) does not split over tp={tp} "
+                         f"model ranks")
+    return n // tp
+
+
 class _Dense(nn.Module):
     """``x @ kernel (+ bias)`` at the module dtype; kernel [in, out] is
     stored f32 (or pre-cast by `serving_params`) and cast at use, the
@@ -70,7 +99,8 @@ class _Dense(nn.Module):
     the kernel is the buffers ``kernel_q`` (int8 [in, out]) and
     ``kernel_scale`` (f32 [out]), dequantized at the module dtype
     before the product, as the JAX package's ``_dense_kernel`` does
-    (scaling after the product would not be bitwise the same)."""
+    (scaling after the product would not be bitwise the same). The
+    shapes given are this rank's (the subclasses cut them)."""
 
     def __init__(self, in_features: int, features: int, *,
                  use_bias: bool = True, dtype=None,
@@ -101,24 +131,99 @@ class _Dense(nn.Module):
         if self.bias is not None:
             self.bias.data.zero_()
 
+    def _weight(self, dt):
+        return (self.kernel.to(dt) if self.kernel is not None else
+                dequantize_int8(self.kernel_q, self.kernel_scale, dt))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
-        w = (self.kernel.to(dt) if self.kernel is not None else
-             dequantize_int8(self.kernel_q, self.kernel_scale, dt))
-        y = x.to(dt) @ w
+        y = x.to(dt) @ self._weight(dt)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
 
 
 class ColumnParallelDense(_Dense):
-    """Dense whose output dim the JAX package shards over ``model``
-    (one device here)."""
+    """Dense with the kernel's output dim sharded over ``axis``: this
+    rank holds kernel [in, features/tp] and its bias slice, and its
+    input passes f (`copy_to_model`) so the input's gradient is summed
+    over the ranks."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 axis: str = AXIS_MODEL, tp: int = 1, **kw):
+        super().__init__(in_features,
+                         _split(features, tp, "column features"), **kw)
+        self.axis, self.tp = axis, tp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp > 1:
+            from horovod_tpu_torch.ops.collectives import copy_to_model
+            x = copy_to_model(x, self.axis)
+        return super().forward(x)
+
+
+class _HalfProductF32(torch.autograd.Function):
+    """``x @ w`` of two bf16 / f16 CUDA operands, accumulated and
+    returned in f32 by one GEMM on the tensor cores
+    (``torch.mm(..., out_dtype=torch.float32)``). The backward's
+    products run at the operands' dtype, as the unsharded layer's do:
+    the incoming gradient comes through a cast of this output to that
+    dtype, so it is exact in it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = (x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in f32 from operands of one dtype: the product itself
+    at f32, on the tensor cores for half CUDA operands
+    (`_HalfProductF32`), else through an f32 upcast (a bf16 or f16
+    product is exact in f32)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        return _HalfProductF32.apply(x, w)
+    return x.float() @ w.float()
 
 
 class RowParallelDense(_Dense):
-    """Dense whose input dim the JAX package shards over ``model``
-    (one device here)."""
+    """Dense with the kernel's input dim sharded over ``axis``: this
+    rank holds kernel [in/tp, features]; the partial products are summed
+    over the ranks by g (`reduce_from_model`), and the (replicated)
+    bias is added once, after the reduction. Each partial product is
+    kept in f32 (`f32_product`), summed in f32 and rounded to the
+    module dtype once, after the sum, as the unsharded product rounds
+    its f32 accumulator once."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 axis: str = AXIS_MODEL, tp: int = 1, **kw):
+        super().__init__(_split(in_features, tp, "row features"),
+                         features, **kw)
+        self.axis, self.tp = axis, tp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        if self.tp > 1:
+            from horovod_tpu_torch.ops.collectives import reduce_from_model
+            y = f32_product(x.to(dt), self._weight(dt))
+            y = reduce_from_model(y, self.axis).to(dt)
+        else:
+            y = x.to(dt) @ self._weight(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
 
 
 class ParallelMLP(nn.Module):
@@ -126,9 +231,11 @@ class ParallelMLP(nn.Module):
     both with biases (flax's `nn.gelu` default is the tanh form)."""
 
     def __init__(self, d: int, hidden: int, out: int, *, dtype=None,
-                 weight_quant: Optional[str] = None, device=None):
+                 weight_quant: Optional[str] = None, device=None,
+                 tp: int = 1):
         super().__init__()
-        kw = dict(dtype=dtype, weight_quant=weight_quant, device=device)
+        kw = dict(dtype=dtype, weight_quant=weight_quant, device=device,
+                  tp=tp)
         self.wi = ColumnParallelDense(d, hidden, **kw)
         self.wo = RowParallelDense(hidden, out, **kw)
 
@@ -142,14 +249,15 @@ class ParallelSwiGLU(nn.Module):
 
     def __init__(self, d: int, hidden: int, out: int, *, dtype=None,
                  activation: str = "silu",
-                 weight_quant: Optional[str] = None, device=None):
+                 weight_quant: Optional[str] = None, device=None,
+                 tp: int = 1):
         super().__init__()
         if activation not in ("silu", "gelu_tanh"):
             raise ValueError(f"activation must be silu|gelu_tanh, got "
                              f"{activation!r}")
         self.activation = activation
         kw = dict(use_bias=False, dtype=dtype, weight_quant=weight_quant,
-                  device=device)
+                  device=device, tp=tp)
         self.gate = ColumnParallelDense(d, hidden, **kw)
         self.up = ColumnParallelDense(d, hidden, **kw)
         self.down = RowParallelDense(hidden, out, **kw)
@@ -201,7 +309,13 @@ class PagedLayerCache:
 
 
 class ParallelSelfAttention(nn.Module):
-    """Multi-head self-attention (GQA when ``num_kv_heads`` < heads).
+    """Multi-head self-attention (GQA when ``num_kv_heads`` < heads),
+    its heads sharded over ``model`` when ``tp`` > 1: rank
+    ``tp_rank`` runs query heads [r H/tp, (r+1) H/tp) and the kv heads
+    they read (`kv_heads_of`), end to end through the softmax and the
+    decode caches; the output projection is row parallel (one g a
+    block). ``num_heads`` / ``num_kv_heads`` then read this rank's
+    counts, ``heads_total`` / ``kv_total`` the layer's.
 
     ``attn_fn`` plugs in the inner attention (None = the dot baseline,
     which takes the explicit mask). Called with a `LayerCache`, the
@@ -233,7 +347,8 @@ class ParallelSelfAttention(nn.Module):
                  decode_prefix_block: Optional[int] = 256,
                  decode_prefix_impl: str = "lax", use_bias: bool = False,
                  out_bias: Optional[bool] = None,
-                 weight_quant: Optional[str] = None, device=None):
+                 weight_quant: Optional[str] = None, device=None,
+                 tp: int = 1, tp_rank: int = 0):
         super().__init__()
         H = num_heads
         Hkv = num_kv_heads or H
@@ -244,7 +359,12 @@ class ParallelSelfAttention(nn.Module):
         if decode_prefix_impl not in ("lax", "pallas"):
             raise ValueError(f"decode_prefix_impl must be lax|pallas, got "
                              f"{decode_prefix_impl!r}")
-        self.num_heads, self.num_kv_heads = H, Hkv
+        # The whole layer's head counts, and this rank's: num_heads /
+        # num_kv_heads are the LOCAL counts every path below runs on.
+        self.heads_total, self.kv_total = H, Hkv
+        self.tp, self.tp_rank = tp, tp_rank
+        kv = kv_heads_of(tp_rank, H, Hkv, tp)
+        self.num_heads, self.num_kv_heads = H // tp, len(kv)
         self.head_dim = head_dim
         self.dtype = dtype
         self.attn_fn = attn_fn
@@ -254,13 +374,36 @@ class ParallelSelfAttention(nn.Module):
         self.decode_prefix_block = decode_prefix_block
         self.decode_prefix_impl = decode_prefix_impl
         features = H * head_dim
+        local = (self.num_heads + 2 * self.num_kv_heads) * head_dim
         self.qkv = ColumnParallelDense(
-            features, features + 2 * Hkv * head_dim, use_bias=use_bias,
-            dtype=dtype, weight_quant=weight_quant, device=device)
+            features, local * tp, use_bias=use_bias, dtype=dtype,
+            weight_quant=weight_quant, device=device, tp=tp)
         ob = use_bias if out_bias is None else out_bias
         self.out = RowParallelDense(features, features, use_bias=ob,
                                     dtype=dtype, weight_quant=weight_quant,
-                                    device=device)
+                                    device=device, tp=tp)
+        if tp > 1 and Hkv % tp:
+            # Several ranks hold the same kv head: each one's k/v weight
+            # gradient is the part its own query heads contribute, so
+            # the parts are summed over the ranks that share the head.
+            for p in (self.qkv.kernel, self.qkv.bias):
+                if p is not None:
+                    p.register_hook(self._sum_shared_kv_grad)
+
+    def _sum_shared_kv_grad(self, grad: torch.Tensor) -> torch.Tensor:
+        """The qkv weight gradient with its k/v columns summed over the
+        model ranks holding the same kv head: each rank scatters its
+        part into a [..., 2, Hkv, D] buffer, one all-reduce over
+        ``model`` sums it, and each reads back its head."""
+        from horovod_tpu_torch.ops.collectives import reduce_from_model
+        D, q = self.head_dim, self.num_heads * self.head_dim
+        (h,) = kv_heads_of(self.tp_rank, self.heads_total, self.kv_total,
+                           self.tp)
+        kv = grad[..., q:].unflatten(-1, (2, D))
+        buf = grad.new_zeros(*grad.shape[:-1], 2, self.kv_total, D)
+        buf[..., h, :] = kv
+        summed = reduce_from_model(buf)[..., h, :].flatten(-2)
+        return torch.cat([grad[..., :q], summed], dim=-1)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 cache: Optional[LayerCache] = None,
@@ -587,3 +730,227 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("...hqk,...khd->...qhd", probs, v)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel layout: which heads a rank holds, the specs, and the
+# cut of a full state dict into a rank's shard (and back).
+# ---------------------------------------------------------------------------
+
+def kv_heads_of(rank: int, num_heads: int, num_kv_heads: int,
+                tp: int) -> list:
+    """The kv heads that model rank ``rank`` of ``tp`` holds: Hkv/tp
+    contiguous heads when tp divides Hkv, else the ONE kv head its H/tp
+    query heads share, (r H/tp) // (H/Hkv) (MQA, or Gemma-2B's one kv
+    head over two ranks). A layout where a rank's query heads would span
+    kv heads unevenly raises before any work."""
+    H, Hkv = num_heads, num_kv_heads
+    if tp < 1 or H % tp:
+        raise ValueError(f"num_heads={H} does not split over tp={tp} "
+                         f"model ranks")
+    if Hkv % tp == 0:
+        n = Hkv // tp
+        return list(range(rank * n, (rank + 1) * n))
+    group, local = H // Hkv, H // tp
+    if group % local:
+        raise ValueError(
+            f"tp={tp}: {local} query heads a rank straddle the groups of "
+            f"{group} query heads per kv head (num_heads={H}, "
+            f"num_kv_heads={Hkv})")
+    return [rank * local // group]
+
+
+def qkv_columns(rank: int, num_heads: int, num_kv_heads: int,
+                head_dim: int, tp: int) -> torch.Tensor:
+    """The columns of the fused qkv dim [(H + 2 Hkv) D] that rank
+    ``rank`` holds, in its local order: its q heads, then its kv heads'
+    k columns, then their v columns. (A contiguous block of the fused
+    dim would mix q heads with k heads.)"""
+    H, Hkv, D = num_heads, num_kv_heads, head_dim
+    local = H // tp
+    ar = torch.arange(D)
+    kv = kv_heads_of(rank, H, Hkv, tp)
+    q = torch.arange(rank * local * D, (rank + 1) * local * D)
+    k = [H * D + h * D + ar for h in kv]
+    v = [(H + Hkv) * D + h * D + ar for h in kv]
+    return torch.cat([q, *k, *v])
+
+
+def column_parallel_matmul(x: torch.Tensor,
+                           w_shard: torch.Tensor) -> torch.Tensor:
+    """``x @ W[:, shard]``: input replicated, output column-sharded. No
+    communication; the pairing row-parallel matmul carries the sum."""
+    return x @ w_shard
+
+
+def row_parallel_matmul(x_shard: torch.Tensor, w_shard: torch.Tensor,
+                        axis_name: str = AXIS_MODEL) -> torch.Tensor:
+    """``sum_tp(x[:, shard] @ W[shard, :])``: the one all-reduce of a
+    column -> row pair (Megatron's g), over ``axis_name`` of the ambient
+    mesh."""
+    from horovod_tpu_torch.ops.collectives import reduce_from_model
+    return reduce_from_model(x_shard @ w_shard, axis_name)
+
+
+def allgather_matmul(x_shard: torch.Tensor, w: torch.Tensor,
+                     axis_name: str = AXIS_MODEL) -> torch.Tensor:
+    """``all_gather(x_shard) @ w`` without the gathered input: ``x_shard``
+    [s, K] is this rank's row block of a [N s, K] input, ``w`` [K, F]
+    resident. Each step multiplies the block in hand while the next
+    blocks travel the ring in both directions (`ppermute`), so the
+    gather takes N/2 steps. Returns the whole [N s, F] product in
+    source-rank order; differentiable."""
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.parallel.mesh import (axis_index, axis_size,
+                                                 ring_perms)
+    n, idx = axis_size(axis_name), axis_index(axis_name)
+    fwd, bwd = ring_perms(axis_name)
+    parts = [None] * n
+    parts[idx] = x_shard @ w
+    hi = lo = x_shard
+    for step in range(1, n // 2 + 1):
+        # After `step` hops `hi` holds rank (idx - step)'s block and
+        # `lo` rank (idx + step)'s; they meet at the even-N half step.
+        last = step == n // 2 and n % 2 == 0
+        if last:
+            hi = collectives.ppermute(hi, axis_name, fwd)
+        else:
+            hi, lo = (collectives.ppermute(hi, axis_name, fwd),
+                      collectives.ppermute(lo, axis_name, bwd))
+        parts[(idx - step) % n] = hi @ w
+        if not last:
+            parts[(idx + step) % n] = lo @ w
+    return torch.cat(parts, dim=0)
+
+
+def matmul_reducescatter(x: torch.Tensor, w_shard: torch.Tensor,
+                         axis_name: str = AXIS_MODEL) -> torch.Tensor:
+    """``reduce_scatter(x @ w_shard)`` with each block's product made as
+    its accumulator rides the ring: ``x`` [R, Ks] holds this rank's
+    contraction shard (R divisible by N), ``w_shard`` [Ks, F] the
+    matching rows of W. Returns this rank's [R/N, F] block of the summed
+    product; differentiable."""
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.parallel.mesh import (axis_index, axis_size,
+                                                 ring_perms)
+    n, idx = axis_size(axis_name), axis_index(axis_name)
+    if x.shape[0] % n:
+        raise ValueError(
+            f"leading dim {x.shape[0]} not divisible by axis size {n}")
+    c = x.shape[0] // n
+    fwd, _ = ring_perms(axis_name)
+
+    def chunk_mm(j):
+        return x[j * c:(j + 1) * c] @ w_shard
+
+    # Block j enters the ring at rank j + 1 and lands on rank j after
+    # n - 1 hops, holding every rank's partial product.
+    acc = chunk_mm((idx - 1) % n)
+    for t in range(1, n):
+        acc = collectives.ppermute(acc, axis_name, fwd)
+        acc = acc + chunk_mm((idx - t - 1) % n)
+    return acc
+
+
+def param_specs(module: nn.Module) -> dict:
+    """{state-dict name: partition spec} of every parameter and buffer
+    of ``module``, by the JAX package's rules: a column-parallel kernel
+    ``(None, 'model')`` with its bias and scale ``('model',)``, a
+    row-parallel kernel ``('model', None)`` with its scale ``(None,)``
+    and its bias replicated ``()``, everything else ``()``."""
+    specs = {}
+    for prefix, mod in module.named_modules():
+        if isinstance(mod, ColumnParallelDense):
+            rule = {"kernel": (None, mod.axis), "kernel_q": (None, mod.axis),
+                    "kernel_scale": (mod.axis,), "bias": (mod.axis,)}
+        elif isinstance(mod, RowParallelDense):
+            rule = {"kernel": (mod.axis, None), "kernel_q": (mod.axis, None),
+                    "kernel_scale": (None,), "bias": ()}
+        else:
+            continue
+        for leaf, spec in rule.items():
+            specs[f"{prefix}.{leaf}" if prefix else leaf] = spec
+    return {name: specs.get(name, ())
+            for name in module.state_dict(keep_vars=True)}
+
+
+def _qkv_owners(module: nn.Module) -> dict:
+    """{state-dict name of a fused qkv leaf: its attention module}."""
+    out = {}
+    for prefix, mod in module.named_modules():
+        if isinstance(mod, ParallelSelfAttention):
+            base = f"{prefix}.qkv." if prefix else "qkv."
+            for leaf in ("kernel", "kernel_q", "kernel_scale", "bias"):
+                out[base + leaf] = mod
+    return out
+
+
+def shard_params(mesh, module: nn.Module, state_dict=None,
+                 specs=None) -> dict:
+    """This rank's shard of a FULL state dict (default ``module``'s own)
+    of ``module`` (the layer or model, sharded or not: only its
+    structure is read): every leaf cut by its spec (`param_specs`
+    unless given) through `parallel.mesh.place_with_specs`'s rule, and
+    each fused qkv leaf by `qkv_columns`. Load the result into the
+    layer built with ``tp`` = the mesh's ``model`` size. The SPMD form
+    of the JAX package's ``shard_params(mesh, variables)``."""
+    from horovod_tpu_torch.parallel.mesh import (axis_index, model_degree,
+                                                 place_with_specs)
+    sd = module.state_dict() if state_dict is None else state_dict
+    specs = param_specs(module) if specs is None else specs
+    tp = model_degree(mesh)
+    r = axis_index(AXIS_MODEL, mesh) if tp > 1 else 0
+    owners = _qkv_owners(module)
+    out = {}
+    for name, t in sd.items():
+        attn = owners.get(name)
+        if attn is not None and tp > 1:
+            cols = qkv_columns(r, attn.heads_total, attn.kv_total,
+                               attn.head_dim, tp).to(t.device)
+            out[name] = t.index_select(t.ndim - 1, cols).contiguous()
+        else:
+            out[name] = place_with_specs(mesh, t, specs.get(name, ()))
+    return out
+
+
+def gather_params(mesh, module: nn.Module, state_dict=None,
+                  specs=None) -> dict:
+    """The inverse of `shard_params`: the FULL state dict from every
+    model rank's shard (default ``module``'s own; a collective over the
+    mesh's ``model`` axis, so every rank of it calls it). ``specs`` must
+    be the effective ones the shards were cut by (a dimension kept
+    whole by `safe_spec` has no ``model`` entry)."""
+    from horovod_tpu_torch.ops.collectives import _gather
+    from horovod_tpu_torch.parallel.mesh import axis_group, model_degree
+    sd = module.state_dict() if state_dict is None else state_dict
+    specs = param_specs(module) if specs is None else specs
+    tp = model_degree(mesh)
+    if tp == 1:
+        return dict(sd)
+    group = axis_group(AXIS_MODEL, mesh)
+    owners = _qkv_owners(module)
+    out = {}
+    for name, t in sd.items():
+        spec = specs.get(name, ())
+        dims = [d for d, e in enumerate(spec) if e == AXIS_MODEL]
+        attn = owners.get(name)
+        if attn is None and not dims:
+            out[name] = t
+            continue
+        parts = _gather(t.detach(), group)
+        if attn is None:
+            out[name] = torch.cat(parts, dim=dims[0])
+            continue
+        H, Hkv, D = attn.heads_total, attn.kv_total, attn.head_dim
+        full = t.new_zeros(*t.shape[:-1], (H + 2 * Hkv) * D)
+        for rank, part in enumerate(parts):
+            cols = qkv_columns(rank, H, Hkv, D, tp).to(t.device)
+            full.index_copy_(t.ndim - 1, cols, part)
+        out[name] = full
+    return out
+
+
+def unbox(state_dict: dict) -> dict:
+    """A plain copy of ``state_dict``: the port's parameters carry no
+    partitioning boxes to strip (the JAX package's ``unbox``)."""
+    return dict(state_dict)

@@ -14,8 +14,8 @@ the metrics exporter, profiling, elastic membership, checkpoints,
 its consumer; ROADMAP.md lists them until then. ``HOROVOD_COORDINATOR``
 (the ``jax.distributed`` address) has no reader over
 `torch.distributed` and stays unregistered.
-``HVD_SERVE_MESH`` and ``HVD_WEIGHT_QUANT`` are read so that a setting
-raises `NotImplementedError` instead of being ignored.
+``HVD_SERVE_MESH_AXIS`` is read so that any axis but ``model`` raises
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -204,9 +204,15 @@ register_knob(
     "anything else raises ValueError)")
 register_knob(
     "HVD_SERVE_MESH", "str", "(unset)", "serving/engine.py",
-    "Serving: the engine's model-parallel mesh; any setting raises "
-    "NotImplementedError until the sharded-serving slice of the port "
-    "lands")
+    "Serving: the engine's tensor-parallel serving mesh when mesh= "
+    "isn't passed: a rank count ('2') or 'axis=N' sizes ('model=2'); "
+    "every rank of the world builds the engine, model rank 0 leads "
+    "and the others follow() in lockstep")
+register_knob(
+    "HVD_SERVE_MESH_AXIS", "str", "model", "models/transformer.py",
+    "Serving: the mesh axis the KV heads (and an int HVD_SERVE_MESH) "
+    "shard over; the port serves over 'model' only, any other axis "
+    "raises NotImplementedError")
 register_knob(
     "HOROVOD_STALL_CHECK_TIME", "float", str(DEFAULT_STALL_WARNING_TIME),
     "serving/engine.py",
@@ -412,7 +418,7 @@ register_knob(
     "serving/transfer.py",
     "KV-block transfer mode between pools: 'host' bounces rows "
     "through host memory, 'device' keeps them on the card for the "
-    "graft (one card; a cross-mesh re-commit is ROADMAP Queue A 8)")
+    "graft (one card; a cross-mesh re-commit is ROADMAP Queue A 5)")
 
 register_knob(
     "HVD_CKPT_KEEP", "int", "0", "utils/checkpoint.py",
@@ -473,9 +479,10 @@ class Config:
     swap_bytes: int = DEFAULT_SWAP_BYTES
     # Speculative decoding: draft proposals per round.
     spec_k: int = DEFAULT_SPEC_K
-    # Later slices: read only so that a setting raises.
     weight_quant: str = ""
+    # Sharded serving: the mesh and its KV axis.
     serve_mesh: str = ""
+    serve_mesh_axis: str = "model"
     # Overload control plane: token-exact preemption switch,
     # per-tenant WFQ weights, and the brownout ladder switch.
     preempt: bool = False
@@ -509,6 +516,7 @@ class Config:
         self.spec_k = env_int("HVD_SPEC_K", DEFAULT_SPEC_K)
         self.weight_quant = env_str("HVD_WEIGHT_QUANT")
         self.serve_mesh = env_str("HVD_SERVE_MESH")
+        self.serve_mesh_axis = env_str("HVD_SERVE_MESH_AXIS", "model")
         self.router_replicas = env_int("HVD_ROUTER_REPLICAS",
                                        DEFAULT_ROUTER_REPLICAS)
         self.router_poll_s = env_float("HVD_ROUTER_POLL",

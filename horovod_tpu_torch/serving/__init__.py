@@ -24,6 +24,10 @@
   shelves and re-grafts.
 * `admission`, `metrics`, `overload` — admission control, request
   metrics, preemption/brownout.
+* `lockstep` — sharded serving over a tensor-parallel mesh
+  (``ServingEngine(mesh=...)``): the leader's pool calls mirrored to
+  the followers (`ServingEngine.follow`), `ShardDivergence` when a
+  follower's state leaves the leader's.
 """
 
 from horovod_tpu_torch.serving.admission import (
@@ -32,6 +36,7 @@ from horovod_tpu_torch.serving.admission import (
 )
 from horovod_tpu_torch.serving.disagg import DisaggRouter
 from horovod_tpu_torch.serving.engine import RequestHandle, ServingEngine
+from horovod_tpu_torch.serving.lockstep import ShardDivergence
 from horovod_tpu_torch.serving.metrics import EngineMetrics
 from horovod_tpu_torch.serving.scheduler import (
     CompletedRequest, ContinuousBatchingScheduler,
@@ -57,4 +62,5 @@ __all__ = [
     "DisaggRouter", "BlockTransfer", "TransferError",
     "TransferExportError", "TransferCompatError",
     "TransferVerifyError", "export_blocks", "ingest_blocks",
+    "ShardDivergence",
 ]

@@ -68,6 +68,7 @@ from horovod_tpu_torch.serving.admission import (
     ServingError,
 )
 from horovod_tpu_torch.serving.router import (
+    _unsharded,
     REPLICA_DEAD, REPLICA_UP, RouterHandle, ServingRouter, _Replica,
     _RouterRequest, _release_device_memory,
 )
@@ -144,7 +145,7 @@ class DisaggRouter(ServingRouter):
                          else n_decode, **kwargs)
         try:
             for _ in range(self._n_prefill):
-                eng = self._prefill_factory()
+                eng = _unsharded(self._prefill_factory())
                 rep = _Replica(next(self._rep_ids), eng)
                 with self._lock:
                     self._prefill[rep.id] = rep
@@ -602,7 +603,7 @@ class DisaggRouter(ServingRouter):
 
     def _build_prefill_replacement(self):
         try:
-            eng = self._prefill_factory()
+            eng = _unsharded(self._prefill_factory())
         # hvd: disable=HVD006(a failing factory must shrink the prefill tier loudly, not kill the builder — requests degrade to the shared-program path)
         except Exception as e:  # noqa: BLE001
             sys.stderr.write(

@@ -30,6 +30,12 @@ Usage::
 
 Every request is traced as a causal span tree (`obs.spans`): queue
 wait, admission, prefill and decode under one root per request.
+
+Sharded serving (``mesh=``, ``HVD_SERVE_MESH``): the engine serves a
+tensor-parallel model over the mesh's ``model`` axis, one process a
+rank. Every rank builds the same engine; model rank 0 (the leader)
+runs it, and every other rank calls `ServingEngine.follow`, which
+replays the leader's pool calls in lockstep (`serving.lockstep`).
 """
 
 from __future__ import annotations
@@ -79,6 +85,67 @@ _IDLE_WAIT_S = 0.05
 # Process-unique engine numbers for /healthz provider keys (several
 # engines can coexist; each reports its own dispatch generation).
 _ENGINE_IDS = itertools.count()
+
+# What stays single-device on a serving mesh, and where ROADMAP lists it.
+_MESH_LATER = "a later slice of the PyTorch port (ROADMAP Queue A 5)"
+
+
+def _resolve_serving_mesh(mesh, device_type: str = "cuda"):
+    """Normalize `ServingEngine`'s ``mesh`` argument to a built mesh (or
+    None = unsharded), with the JAX package's forms and errors:
+
+    * None — read ``HVD_SERVE_MESH`` (unset keeps the engine unsharded);
+    * a built mesh (`parallel.mesh.make_mesh`) — used as it is;
+    * a ``MeshSpec`` — resolved over the world's ranks;
+    * an int N — a mesh of N ranks on the serving axis
+      (``HVD_SERVE_MESH_AXIS``, ``model``);
+    * a str — a rank count ("2") or comma-separated "axis=N" sizes
+      ("model=2").
+
+    Each rank of the world is one device here, so the mesh needs a
+    world of exactly that many ranks (`horovod_tpu_torch.init`); a
+    trivial one-rank mesh in a process with no world is no mesh."""
+    if mesh is None:
+        from horovod_tpu_torch.runtime.config import config as _cfg
+        mesh = _cfg.serve_mesh.strip() or None
+    if mesh is None:
+        return None
+    from horovod_tpu_torch import optim
+    from horovod_tpu_torch.models.transformer import _serve_kv_axis
+    from horovod_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    if hasattr(mesh, "mesh_dim_names"):
+        return mesh
+    if isinstance(mesh, MeshSpec):
+        return make_mesh(spec=mesh, device_type=device_type)
+    if isinstance(mesh, str):
+        s = mesh.strip()
+        if "=" in s:
+            sizes = {}
+            for part in s.split(","):
+                k, _, v = part.partition("=")
+                sizes[k.strip()] = int(v)
+        else:
+            sizes = None
+            mesh = int(s)
+    if isinstance(mesh, int):
+        if mesh < 1:
+            raise ValueError(
+                f"serving mesh device count must be >= 1, got {mesh}")
+        sizes = {_serve_kv_axis(): mesh}
+    elif not isinstance(mesh, str):
+        raise TypeError(
+            f"mesh must be None, an int device count, a 'axis=N' str, a "
+            f"MeshSpec, or a built mesh; got {type(mesh).__name__}")
+    need = int(np.prod(list(sizes.values())))
+    world = optim.world_size()
+    if need > world:
+        raise ValueError(
+            f"serving mesh {sizes} needs {need} devices, only {world} "
+            f"visible (HVD_SERVE_MESH; each rank of the world is one)")
+    if need == 1 and world == 1:
+        return None
+    sizes.setdefault("data", 1)
+    return make_mesh(device_type=device_type, **sizes)
 
 
 class RequestHandle:
@@ -192,8 +259,14 @@ class ServingEngine:
         scale per output channel); None reads HVD_WEIGHT_QUANT. A model
         already int8 passes through as it is; anything but "int8" or
         None raises `ValueError`.
-    mesh : a later slice of the port — anything but None (and an
-        HVD_SERVE_MESH setting) raises `NotImplementedError`.
+    mesh : shard the model over a tensor-parallel serving mesh (None
+        reads HVD_SERVE_MESH; the forms of `_resolve_serving_mesh`).
+        Every rank of its ``model`` axis builds the engine with the same
+        arguments and a model of the same weights; the weights are
+        sharded at the door (after the int8 clone), the pools hold each
+        rank's kv heads, and model rank 0 leads while the others run
+        `follow`. Only ``model`` may exceed 1; speculative decoding
+        and ``auto_restart`` under a mesh raise.
     slo : an `obs.slo.SLOMonitor`; None reads ``HVD_SLO``.
     preempt, tenant_weights, brownout : the overload control plane.
         On the paged pool preemption swaps the victim's KV blocks to a
@@ -233,10 +306,16 @@ class ServingEngine:
                 f"eos_id must be in [0, vocab_size={model.vocab_size}"
                 f"), got {eos_id}")
         from horovod_tpu_torch.runtime.config import config as _cfg
-        if mesh is not None or _cfg.serve_mesh.strip():
+        if spec_draft is not None and (mesh is not None
+                                       or _cfg.serve_mesh.strip()):
             raise NotImplementedError(
-                "mesh / HVD_SERVE_MESH (sharded serving): a later slice "
-                "of the PyTorch port (ROADMAP Queue A 8)")
+                f"speculative decoding on a serving mesh: {_MESH_LATER}")
+        mesh = _resolve_serving_mesh(mesh, model.device.type)
+        if mesh is not None and auto_restart:
+            # A restart swaps the pool while a follower may sit inside a
+            # model-axis all-reduce the leader will never issue.
+            raise NotImplementedError(
+                f"auto_restart on a serving mesh: {_MESH_LATER}")
         # Weight-only int8 at the engine door: the block kernels become
         # int8 codes plus per-channel scales.
         if weight_quant is None:
@@ -249,6 +328,11 @@ class ServingEngine:
             from horovod_tpu_torch.ops.quantization import quantize_lm
             model = quantize_lm(model)
         self.weight_quant = model.weight_quant
+        self.mesh = mesh
+        self._channel = None
+        self._follower = False
+        if mesh is not None:
+            model = self._shard_at_the_door(model, mesh)
         # Speculative decoding: rounds are synchronous, so the tick ring
         # is off (the multi-token retire is the amortization).
         self.spec_k = 0
@@ -269,7 +353,7 @@ class ServingEngine:
         self.slo = slo
         self.metrics = EngineMetrics(
             engine_label=str(self._engine_id), slo=slo)
-        self.metrics.observe_mesh(1, None)
+        self.metrics.observe_mesh(self.mesh_devices, self._mesh_shape())
         self.auto_restart = auto_restart
         self.max_restarts = max_restarts
         self.tick_deadline_s = tick_deadline_s
@@ -300,10 +384,18 @@ class ServingEngine:
                 **spec_kw)
         else:
             self.pool = SlotPool(model, num_slots, eos_id=eos_id, **spec_kw)
+        if self.mesh is not None:
+            from horovod_tpu_torch.serving.lockstep import (LeaderPool,
+                                                            SideChannel)
+            self._channel = SideChannel(self.mesh)
+            self._follower = model.tp_rank != 0
+            if not self._follower:
+                self.pool = LeaderPool(self.pool, self._channel)
         # Warmup runs on the constructor thread BEFORE the dispatch
-        # thread exists, so the single-device-thread contract holds.
+        # thread exists, so the single-device-thread contract holds. A
+        # follower warms up when the leader's descriptor arrives.
         self.warmup_info = None
-        if warmup:
+        if warmup and not self._follower:
             self.warmup_info = self.pool.warmup(
                 max_chunk=(self.prefill_chunk_budget
                            if self.prefill_chunk_budget > 0 else None))
@@ -331,7 +423,11 @@ class ServingEngine:
         self._overload = None
         if self.preempt:
             swap = None
-            if self.paged and self.pool.blocks.prefix_cache:
+            # On a serving mesh every preemption recomputes: the swap
+            # shelf's export and re-graft are not mirrored to the
+            # followers (a later slice, with device-mode transfer).
+            if (self.paged and self.pool.blocks.prefix_cache
+                    and self.mesh is None):
                 sb = int(_cfg.swap_bytes if swap_bytes is None
                          else swap_bytes)
                 if sb > 0:
@@ -376,7 +472,8 @@ class ServingEngine:
             target=self._dispatch_loop,
             args=(0, self.scheduler, self.queue),
             name="serving-dispatch", daemon=True)
-        self._thread.start()
+        if not self._follower:
+            self._thread.start()
         # Observability plane (docs/observability.md): the engine
         # reports its dispatch generation + liveness at /healthz (so a
         # prober can tell an in-place watchdog restart from a process
@@ -412,6 +509,61 @@ class ServingEngine:
                 target=self._watchdog_loop, name="serving-watchdog",
                 daemon=True)
             self._watchdog.start()
+
+    def _shard_at_the_door(self, model: TransformerLM, mesh):
+        """This rank's tensor-parallel shard of ``model`` over ``mesh``:
+        checks that only the serving axis is > 1, and shards a whole
+        model (`models.transformer.shard_model`); a model already built
+        over ``mesh`` passes through."""
+        from horovod_tpu_torch.models.transformer import _serve_kv_axis
+        from horovod_tpu_torch.parallel.mesh import mesh_shape
+        axis = _serve_kv_axis()
+        others = {k: v for k, v in mesh_shape(mesh).items()
+                  if k != axis and v > 1}
+        if others:
+            raise ValueError(
+                f"serving mesh axes {others}: the port shards serving "
+                f"over {axis!r} only (each other axis must be 1)")
+        if model.mesh is mesh:
+            return model
+        if model.tp > 1:
+            raise ValueError("the model is sharded over another mesh "
+                             "than the serving mesh")
+        from horovod_tpu_torch.models.transformer import shard_model
+        return shard_model(model, mesh)
+
+    @property
+    def mesh_devices(self) -> int:
+        """Devices (ranks) in the serving mesh (1 = unsharded)."""
+        return 1 if self.mesh is None else int(self.mesh.size())
+
+    def _mesh_shape(self):
+        """Non-trivial mesh axes as {axis: size} (None = unsharded): the
+        stamp /healthz, the metrics snapshot and flight-recorder bundles
+        carry; size-1 axes are dropped."""
+        if self.mesh is None:
+            return None
+        from horovod_tpu_torch.parallel.mesh import mesh_shape
+        return {k: int(v) for k, v in mesh_shape(self.mesh).items()
+                if v > 1}
+
+    @property
+    def is_follower(self) -> bool:
+        """True on a model rank > 0 of a serving mesh: the engine takes
+        no submits and runs `follow`."""
+        return self._follower
+
+    def follow(self, *, drop: Optional[str] = None):
+        """A follower's whole job: replay the leader's pool calls in
+        lockstep until the leader's engine stops (`serving.lockstep.
+        follow`), then return. Raises `ShardDivergence` when this rank's
+        tokens or host state leave the leader's. ``drop`` is a planted
+        fault for tests (skip the first descriptor of that name)."""
+        if not self._follower:
+            raise RuntimeError("follow() runs on a follower rank (model "
+                               "rank > 0 of a serving mesh)")
+        from horovod_tpu_torch.serving import lockstep
+        self.pool = lockstep.follow(self.pool, self._channel, drop=drop)
 
     def _inflight_states(self) -> list:
         """Flight-recorder provider: every request this engine
@@ -455,8 +607,8 @@ class ServingEngine:
                 # bundle's health snapshot) names the layout a
                 # replica is serving from — a sharded and an
                 # unsharded replica are otherwise indistinguishable.
-                "mesh_devices": 1,
-                "mesh": None,
+                "mesh_devices": self.mesh_devices,
+                "mesh": self._mesh_shape(),
                 # Drives /healthz's HTTP code: a dead (or draining)
                 # dispatch thread must read 503 to a status-code
                 # probe, not 200-with-fine-print.
@@ -527,6 +679,10 @@ class ServingEngine:
         trace, opens the ``serving.request`` root span, and records
         the arrival in the ``HVD_REQLOG`` request log.
         """
+        if self._follower:
+            raise RuntimeError(
+                "submit on a follower rank of a serving mesh: requests go "
+                "to the leader (model rank 0); this rank runs follow()")
         prompt = np.asarray(prompt)
         if prompt.ndim != 1 or prompt.shape[0] == 0:
             raise ValueError(
@@ -680,7 +836,8 @@ class ServingEngine:
         matched. False when this engine cannot ingest (non-paged pool,
         or closing) — the caller's submit still works, it just
         re-prefills."""
-        if transfer is None or not self.paged or self._closing:
+        if (transfer is None or not self.paged or self._closing
+                or self.mesh is not None):
             return False
         self._grafts.append(transfer)
         return True
@@ -976,6 +1133,13 @@ class ServingEngine:
             self._closing = True
             self._drain = self._drain and drain
             effective_drain = self._drain
+        if self._follower:
+            # No dispatch thread: follow() returned when the leader
+            # stopped.
+            self.queue.close(drain=False)
+            self.stall.stop()
+            self._unregister()
+            return
         # close() is idempotent; re-closing after a drain→no-drain
         # downgrade (force-stop following a timed-out graceful
         # shutdown) fails whatever is STILL queued instead of leaving
@@ -988,6 +1152,10 @@ class ServingEngine:
                 f"serving dispatch thread still draining after "
                 f"{timeout}s (queue={len(self.queue)}, "
                 f"active={self.pool.busy_slots})")
+        if self.mesh is not None:
+            # The followers leave follow() once the dispatch thread is
+            # gone (the stop descriptor carries the final digest).
+            self.pool.stop()
         self.stall.stop()
         # The dispatcher is gone. A submit racing the close above (its
         # offer landed after the dispatcher saw `closing` and exited,
@@ -1005,6 +1173,9 @@ class ServingEngine:
                 f"engine shut down while request {req.id} was in "
                 f"flight"))
         self.metrics.count("aborted", n)
+        self._unregister()
+
+    def _unregister(self):
         # The engine is gone from /healthz AND its labeled gauge rows
         # leave the registry (idempotent: double shutdown removes
         # missing keys harmlessly) — scrape cardinality tracks live

@@ -118,6 +118,18 @@ _HEDGE_MIN_SAMPLES = 8
 _ROUTER_IDS = itertools.count()
 
 
+
+def _unsharded(eng):
+    """``eng`` when it serves on one device; a replica on a serving mesh
+    is shut down and refused (a router over sharded replicas is a later
+    slice of the PyTorch port, ROADMAP Queue A 5)."""
+    if getattr(eng, "mesh_devices", 1) > 1:
+        eng.shutdown(drain=False)
+        raise NotImplementedError(
+            "a router over sharded (mesh) replicas: a later slice of the "
+            "PyTorch port (ROADMAP Queue A 5)")
+    return eng
+
 class RetryBudget:
     """Token bucket over retries (the SRE retry-budget shape): spend
     one token per retry, refill at ``capacity / refill_window_s``
@@ -375,7 +387,7 @@ class ServingRouter:
         self._detector_deaths: List[int] = []
         try:
             for _ in range(num_replicas):
-                eng = factory()
+                eng = _unsharded(factory())
                 rep = _Replica(next(self._rep_ids), eng)
                 with self._lock:
                     self._replicas[rep.id] = rep
@@ -1320,7 +1332,7 @@ class ServingRouter:
 
     def _build_replacement(self, rep: "_Replica"):
         try:
-            eng = self._factory()
+            eng = _unsharded(self._factory())
         # hvd: disable=HVD006(a failing factory must shrink the fleet loudly, not kill the builder — the remaining replicas still serve)
         except Exception as e:  # noqa: BLE001
             sys.stderr.write(

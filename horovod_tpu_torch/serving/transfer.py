@@ -28,7 +28,7 @@ token-exact either way. The digests read host bytes once per export
 in either mode (a host sync, once per handoff, off the tick ring).
 A re-commit of the rows under another mesh's layouts (the JAX
 package's ``shard_paged_pools`` after a cross-mesh graft) belongs to
-the multi-GPU slice of the port (ROADMAP Queue A 8) and raises.
+a later slice of the port (ROADMAP Queue A 5) and raises.
 """
 
 from __future__ import annotations
@@ -234,8 +234,8 @@ def ingest_blocks(pool, tr: BlockTransfer) -> int:
     if getattr(pool, "mesh", None) is not None:
         raise NotImplementedError(
             "re-committing transferred blocks under a mesh's layouts "
-            "(sharded serving): a later slice of the PyTorch port "
-            "(ROADMAP Queue A 8)")
+            "(device-mode transfer, disagg's cross-mesh handoff): a later "
+            "slice of the PyTorch port (ROADMAP Queue A 5)")
     m = tr.num_blocks
     vsid = _spans.begin_span("transfer.verify", trace_id=tr.trace_id,
                              parent_id=tr.parent_span, blocks=m)

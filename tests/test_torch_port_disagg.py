@@ -11,7 +11,7 @@ device transfer mode — and against every way the handoff can go wrong
 transfer layer's unit surface (export/ingest round trip, idempotent
 re-ingest, tamper / chain / geometry rejection) is tested at pool level
 first. Pools on different meshes are the multi-GPU slice of the port
-(ROADMAP Queue A 8): their counterpart asserts the refusal.
+(ROADMAP Queue A 5): their counterpart asserts the refusal.
 
 The model is the JAX disagg tests' toy (vocab 64, 2 layers, 4 heads of
 8, max_len 64, float32, blocks of 8), loaded with `params_from_jax`.
@@ -329,11 +329,14 @@ class TestCrossLayout:
                              ids=["mesh2-to-mesh4", "sharded-to-unsharded",
                                   "unsharded-to-sharded"])
     def test_cross_mesh_handoff_bitwise(self, lm, src, dst):
-        """Pools on different meshes are the multi-GPU slice: the
-        sharded engine and a graft into a pool laid out on a mesh both
-        raise `NotImplementedError` naming ROADMAP Queue A 8."""
+        """Cross-mesh handoff is a later slice: in one process a
+        sharded replica cannot be built (a mesh wider than the world
+        raises the JAX package's ValueError; the router refuses a
+        sharded replica outright, `tests/test_torch_port_tensor.py`),
+        and a graft into a pool laid out on a mesh raises
+        `NotImplementedError` naming ROADMAP Queue A 5."""
         _, _, tm = lm
-        with pytest.raises(NotImplementedError, match="Queue A 8"):
+        with pytest.raises(ValueError, match="HVD_SERVE_MESH"):
             ServingRouter(
                 _factory(tm, mesh=None if dst is None else dst),
                 disagg={"prefill": 1, "decode": 1,
@@ -344,7 +347,7 @@ class TestCrossLayout:
         with ServingEngine(tm, num_slots=2, paged=True,
                            kv_block_size=BS) as eng:
             eng.pool.mesh = dst or src
-            with pytest.raises(NotImplementedError, match="Queue A 8"):
+            with pytest.raises(NotImplementedError, match="Queue A 5"):
                 ingest_blocks(eng.pool, tr)
             eng.pool.blocks.check_invariants()
 

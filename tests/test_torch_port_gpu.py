@@ -1064,3 +1064,104 @@ def test_cuda_ring_rotations_with_a_masked_rotation(dtype):
         if d == sp - 1:
             assert torch.isneginf(lse).all() and not out.any()
             assert not any(t.any() for t in got)
+
+
+# -- tensor parallelism: the decode kernels at a model rank's heads ---------
+
+TP_RANK_SHAPES = {"gemma-4:1-d256": (4, 1, 256), "qwen2-7:1-d64": (7, 1, 64),
+                  "lm-4:4-d128": (4, 4, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(TP_RANK_SHAPES))
+def test_cuda_decode_kernels_at_tp_rank_heads(shape, dtype):
+    """Both decode kernels at the heads one rank of a model=2 mesh holds
+    (chip_smoke.py phase 15): Gemma-2B's 4 query heads over its one kv
+    head at D 256, Qwen2-0.5B's 7 over 1 at D 64, and the repo LM's 4
+    over 4 at D 128, against their plain versions; lanes at fill 0, a
+    block boundary and a full cache."""
+    dev = _card()
+    dt = getattr(torch, dtype)
+    atol, rtol = (2e-5, 0.0) if dt == torch.float32 else (2e-3, 1e-2)
+    H, Hkv, D = TP_RANK_SHAPES[shape]
+    L, W, bs = 4, 128, 16
+    q = _randn(60, L, 1, H, D).to(dev, dt)
+    kc = _randn(61, L, W, Hkv, D).to(dev, dt)
+    vc = _randn(62, L, W, Hkv, D).to(dev, dt)
+    length = torch.tensor([1, 16, 77, W], dtype=torch.int32, device=dev)
+    out = tfa.flash_decode_cuda(q, kc, vc, length)
+    ref = tfa.flash_decode_plain(q, kc, vc, length)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    T = W // bs
+    nb = L * T + 1
+    rs = np.random.RandomState(63)
+    kp = _randn(64, nb, bs, Hkv, D).to(dev, dt)
+    vp = _randn(65, nb, bs, Hkv, D).to(dev, dt)
+    tables = torch.from_numpy(np.stack(
+        [rs.permutation(np.arange(1, nb))[:T] for _ in range(L)]
+    ).astype(np.int32)).to(dev)
+    args = (q[:, 0], _randn(66, L, Hkv, D).to(dev, dt),
+            _randn(67, L, Hkv, D).to(dev, dt), tables,
+            torch.tensor([0, bs, 77, W], dtype=torch.int32, device=dev),
+            kp, vp)
+    out = tpa.paged_decode_cuda(*args)
+    ref = tpa.paged_decode_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_cuda_vocab_parallel_ce_equals_full_ce(tmp_path):
+    """The vocab-parallel cross entropy on CUDA logits over a one-rank
+    gloo world (its model axis of size 1: every max, sum and target
+    logit reduced over the axis) equals the plain cross entropy, and so
+    do their gradients."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models.transformer import vocab_parallel_ce
+    from horovod_tpu_torch.parallel import mesh as pmesh
+    dev = _card()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(model=1, device_type="cuda")
+        logits = (3 * _randn(70, 64, 1000)).to(dev).requires_grad_()
+        targets = torch.from_numpy(
+            np.random.RandomState(71).randint(0, 1000, 64)).to(dev)
+        with pmesh.use(mesh):
+            got = vocab_parallel_ce(logits, targets, 0, mesh)
+        (g_got,) = torch.autograd.grad(got.sum(), logits)
+        want = F.cross_entropy(logits, targets, reduction="none")
+        (g_want,) = torch.autograd.grad(want.sum(), logits)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(g_got, g_want, atol=1e-6, rtol=1e-5)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cuda_f32_product_matches_upcast(dtype):
+    """`parallel.tensor.f32_product` of half CUDA operands (the
+    row-parallel partial product, one tensor-core GEMM with an f32
+    output) against the f32 upcast product: every product is exact in
+    f32, so they differ by f32 summation order only (1e-5 relative);
+    its gradients, through a cast of the output to the operands'
+    dtype, are the half product's (the same GEMMs; held at the dtype's
+    default tolerance)."""
+    from horovod_tpu_torch.parallel.tensor import f32_product
+    dev = _card()
+    dt = getattr(torch, dtype)
+    x = _randn(80, 2, 64, 512).to(dev, dt).requires_grad_()
+    w = (_randn(81, 512, 256) * 512 ** -0.5).to(dev, dt).requires_grad_()
+    cot = _randn(82, 2, 64, 256).to(dev, dt)
+    y = f32_product(x, w)
+    assert y.dtype == torch.float32 and y.shape == (2, 64, 256)
+    want = x.detach().float() @ w.detach().float()
+    torch.testing.assert_close(y.detach(), want, atol=1e-5, rtol=1e-5)
+    gx, gw = torch.autograd.grad(y.to(dt), (x, w), cot)
+    hx, hw = torch.autograd.grad((x @ w), (x, w), cot)
+    torch.testing.assert_close(gx, hx)      # the dtype's own tolerance
+    torch.testing.assert_close(gw, hw)

@@ -172,15 +172,16 @@ def test_serving_params_casts_matrices_only(pairs):
 
 
 def test_later_slices_raise():
-    """Sequence parallelism is ported (`tests/test_torch_port_sequence.py`);
-    a tensor-parallel mesh is still a later slice. int8 KV and the
+    """Sequence and tensor parallelism are ported
+    (`tests/test_torch_port_sequence.py`, `tests/test_torch_port_tensor.py`);
+    an expert-parallel mesh is still a later slice. int8 KV and the
     rolling window cache are ported, so what remains is the reference's
     own refusals: an unknown quantization and a learned-position window
     model generating past max_len (only RoPE + window is unbounded)."""
     from horovod_tpu_torch.parallel.mesh import make_mesh
     assert tt.make_attn_fn("ring").native_gqa is False
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        make_mesh(model=2, device_type="cpu")
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        make_mesh(expert=2, device_type="cpu")
     with pytest.raises(ValueError, match="kv_quant"):
         tt.TransformerLM(VOCAB, 1, 2, 8, device="cpu", kv_quant="int4")
     m = tt.TransformerLM(VOCAB, 1, 2, 8, max_len=16, window=4,

@@ -175,17 +175,17 @@ for name, (impl, pos_emb, kv) in spec["lm"].items():
 m = tt.TransformerLM(64, 2, 4, 8, max_len=32, dtype=torch.float32,
                      attn_impl="ring_flash", device="cpu")
 m.load_state_dict(torch.load(f"{work}/lm-step.pt"))
-opt = hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1))
+opt = torch.optim.SGD(m.parameters(), lr=0.1)
 toks = M.shard_batch(mesh, T(inp["tokens"]))
 res["eval"] = tt.make_lm_eval_step(m, mesh)(toks)
 res["step_loss"] = tt.make_lm_train_step(m, opt, mesh)(toks)
 res["step_state"] = m.state_dict()
 try:
-    tt.make_lm_train_step(m, torch.optim.SGD(m.parameters(), lr=0.1),
-                          mesh)(toks)
-    errors.append("plain optimizer: no error")
+    tt.make_lm_train_step(m, hvd.DistributedOptimizer(
+        torch.optim.SGD(m.parameters(), lr=0.1)), mesh)(toks)
+    errors.append("distributed optimizer: no error")
 except ValueError as e:
-    errors.append(f"plain optimizer: ValueError {e}")
+    errors.append(f"distributed optimizer: ValueError {e}")
 try:
     with M.use(mesh):
         tt.TransformerLM(64, 1, 4, 8, max_len=32, attn_impl="flash",
@@ -198,7 +198,7 @@ except ValueError as e:
 m = tt.TransformerLM(64, 2, 4, 8, num_kv_heads=2, pos_emb="rope",
                      window=8, max_len=32, dtype=torch.bfloat16,
                      attn_impl="ring_flash", device="cpu")
-opt = hvd.DistributedOptimizer(torch.optim.AdamW(m.parameters(), lr=1e-2))
+opt = torch.optim.AdamW(m.parameters(), lr=1e-2)
 tt.init_lm_state(m, opt, seed=0)
 step = tt.make_lm_train_step(m, opt, mesh)
 toks = M.shard_batch(mesh, T(inp["flagship_tokens"]))
@@ -528,12 +528,17 @@ def test_mesh_spec_resolve_matches_jax():
 
 
 def test_tensor_parallel_axes_raise_naming_their_slice():
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    """The model axis is ported (`tests/test_torch_port_tensor.py`): a
+    model mesh only wants a world, and `constrain` is the identity. The
+    pipe and expert axes still raise, naming their slices."""
+    with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_mesh(model=2, device_type="cpu")
     with pytest.raises(NotImplementedError, match="pipeline"):
         tmesh.make_mesh(pipe=2, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tmesh.constrain(torch.zeros(2), "data")
+    with pytest.raises(NotImplementedError, match="expert"):
+        tmesh.make_mesh(expert=2, device_type="cpu")
+    x = torch.zeros(2)
+    assert tmesh.constrain(x, "data") is x
 
 
 @pytest.mark.parametrize("name", list(LM_CASES))
@@ -559,8 +564,9 @@ def test_train_step_over_mesh_matches_jax(world):
     """One SGD step of the ring_flash LM over (data=2, seq=2): the loss
     (and the eval step's) and every updated parameter against the JAX
     package's make_lm_train_step on its mesh, from the same weights and
-    global batch; a plain optimizer and a local-only attention under
-    seq > 1 are refused."""
+    global batch; a DistributedOptimizer (the step averages over the
+    data and seq ranks itself) and a local-only attention under seq > 1
+    are refused."""
     ranks, inp, params = world
     # The JAX package's own layout for this step (tests/test_transformer.py
     # shards the step over data=2, seq=2, model=2; on four devices its
@@ -583,9 +589,9 @@ def test_train_step_over_mesh_matches_jax(world):
                                        want.numpy(), atol=TOL, rtol=0,
                                        err_msg=f"rank {r} {n}")
         errs = dict(e.split(": ", 1) for e in ranks[r]["errors"])
-        assert errs["plain optimizer"].startswith(
-            "ValueError make_lm_train_step over a mesh needs a "
-            "DistributedOptimizer")
+        assert errs["distributed optimizer"].startswith(
+            "ValueError make_lm_train_step over a mesh averages the "
+            "gradients")
         assert errs["local impl"].startswith("ValueError attn_impl='flash'")
 
 

@@ -232,11 +232,14 @@ def test_priority_preemption_recompute_token_exact(lm):
 
 
 def test_later_slices_raise(lm):
-    """Sharded serving is still a later slice (int8 weights are ported:
-    `tests/test_torch_port_quant.py`)."""
+    """Sharded serving is ported (`tests/test_torch_port_tensor.py`);
+    speculative decoding on a serving mesh is still a later slice. A
+    mesh wider than the world raises the JAX package's ValueError."""
     _, _, port = lm
     m = port()
     with pytest.raises(NotImplementedError, match="later slice"):
+        ServingEngine(m, mesh=2, spec_draft=m)
+    with pytest.raises(ValueError, match="needs 2 devices"):
         ServingEngine(m, mesh=2)
 
 
