@@ -5,9 +5,10 @@ of `chip_smoke.py`.
 
     python3 chip_probe.py [fwd] [decode] [paged] [sweep] [spec] [hf]
                           [bwd256] [train12] [lr12] [loader] [elastic13]
-                          [sp14] [tp15] [rowmm15]
+                          [sp14] [tp15] [rowmm15] [moe16] [moe16c]
                           # default: all but spec, hf, bwd256, train12,
-                          # loader, elastic13, sp14, tp15 and rowmm15;
+                          # loader, elastic13, sp14, tp15, rowmm15,
+                          # moe16 and moe16c;
                           # one card, ~1 min each (hf: ~5 min); loader
                           # and rowmm15 alone build no kernel
 
@@ -76,6 +77,9 @@ sources) and then, per part asked for:
   (`ROWMM15_CASES`), bf16 operands, forward and forward + backward, as
   the f32 upcast, as `parallel.tensor.f32_product` and as a bf16
   product (`probe_rowmm15`); builds no kernel.
+* moe16: `chip_smoke.py` phase 16 alone (the MoE model served,
+  trained, and trained over expert=2 on two ranks sharing the card);
+  moe16c: its 16c alone.
 
 A failing case is printed and the probe goes on to the next. With
 decode or paged it then times both decode ticks as `chip_smoke.py`
@@ -709,7 +713,7 @@ def main() -> int:
     parts = set(sys.argv[1:]) or every
     if not parts <= every | {"spec", "hf", "bwd256", "train12", "lr12",
                              "loader", "elastic13", "sp14", "tp15",
-                             "rowmm15"}:
+                             "rowmm15", "moe16", "moe16c"}:
         print(f"chip_probe: unknown parts {sorted(parts)}", file=sys.stderr)
         return 2
     import chip_smoke as cs
@@ -785,6 +789,16 @@ def main() -> int:
         probe_sp14(cs, tfa, dev)
     if "tp15" in parts:
         probe_tp15(cs, tfa, dev)
+    if parts & {"moe16", "moe16c"}:
+        t = time.time()
+        try:
+            if "moe16" in parts:
+                cs.run_phase16(tfa, tpa, dev)
+            else:
+                cs.run_moe16c(dev)
+        except Exception:
+            traceback.print_exc()
+        print(f"phase 16: {time.time() - t:.1f} s", flush=True)
     print(f"nvidia-smi: {cs.nvidia_smi_line()}", flush=True)
     return 0
 

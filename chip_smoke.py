@@ -3,7 +3,7 @@
 NVIDIA H100: the quickest proof that the port builds, is right and
 serves on the card.
 
-    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~13 minutes
+    python3 chip_smoke.py [--json PATH]   # needs one CUDA card; ~15 minutes
 
 Phases (any failure exits nonzero; nothing is caught and passed over):
 
@@ -360,6 +360,33 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
    same streams. Planted faults: Qwen2-0.5B's fused qkv cut
    contiguously must fail the logits rule, and a follower that drops
    one free descriptor must raise `ShardDivergence`.
+16. Mixture of experts and expert parallelism (after phase 15;
+   MOE16_MODEL: the flagship with every second block a mixture of 8
+   experts, the top 2 a token, capacity factor 1.25). (a) Served in
+   bf16: `generate` 4 x 512 -> 128 through the forward and decode
+   kernels; its teacher-forced logits (prefill + 8 ticks) against the
+   plain versions under the MoE rule (MOE16_FLIP_MAX: routing flips
+   counted, rows whose own token kept its experts held to
+   MOE16_LOGIT_TOL); a burst of 16 requests (64..512 prompt tokens, 64
+   new) through the fixed engine (8 slots) and the paged engine (16
+   slots, the paged kernel) at the drop-free factor 8.0 and at 1.25
+   (walls, TPOT p50, the dropped share of prefill chunks and of ticks,
+   which route each lane alone and never drop); the kernels line's
+   ``@moe`` rows at this model's shapes; then an f32 twin of
+   MOE16_F32_LAYERS layers, whose logits must refuse the decode one key
+   short and whose fixed engine, paged engine and `generate` streams
+   must agree at 8.0. (b) Trained at B = 2 x 2048 (AdamW, f32 params,
+   bf16 compute, flash attention, the aux term at 0.01): step time,
+   tokens/s, MFU counted with k experts a token, peak memory, the aux
+   loss and the dropped share; the step through the kernels against
+   the plain versions (and its f32 twin, which holds the MoE blocks'
+   gradients too), the plain dK/dV one query row short refused. (c)
+   expert=2 over two rank processes sharing ``cuda:0`` over gloo
+   (`chip_smoke.py --ep-rank R WORKDIR`), the model cut to 2 layers,
+   AdamW steps against the same steps in one process (first-step
+   gradients, every loss, the last parameters), the step medians and
+   the expert axis's bytes a step printed; the experts' input gradient
+   left unsummed over the axis (a planted fault) must be refused.
 
 Launch counts: every kernel wrapper counts its launches; the counts are
 set to 0 just before each main-path phase (generate, engine, paged
@@ -368,9 +395,11 @@ phase-9 generate and engine run, each phase-10 generate, engine,
 router and disagg run, each phase-11 generate and engine run, 12b's
 training steps, 13a's control and chaos legs, each run of 14b in each
 rank, each step run of 15a and each logits and burst run of 15b in each
-rank) and read just after.
+rank, 16a's generate and each burst, 16b's steps and each step run of
+16c in each rank) and read just after.
 Each HF model's runs count into its own rows of the kernels line (12b
-into Gemma-2B's). Launches made to compare or time a kernel, and the
+into Gemma-2B's), and phase 16's into the ``@moe`` rows (its backward
+launches into the backward rows). Launches made to compare or time a kernel, and the
 traced step and tick, do not count.
 ``--json PATH`` also writes every number to a JSON file.
 """
@@ -2024,12 +2053,12 @@ def perturbed_draft(model, share, seed=SPEC_NOISE_SEED):
     return draft
 
 
-def stream_verdict(model, prompt, plain, spec):
+def stream_verdict(model, prompt, plain, spec, tol=LOGIT_TOL):
     """The tie-aware stream rule: None when ``spec`` equals ``plain``;
     else, at their first difference d, the plain stream's teacher-forced
     logits for token d (one forward of the prompt and the plain stream's
     first d tokens) and whether the difference is a near tie: the logit of ``spec[d]`` there
-    within LOGIT_TOL of the row's top, so that the two picks are the top
+    within ``tol`` (LOGIT_TOL by default) of the row's top, so that the two picks are the top
     two within LOGIT_TOL (bf16 logits tie exactly often, and three-way
     ties occur). The verify's S=k+1 logits on the plain prefix loop and
     the tick's S=1 logits on the decode kernel differ by summation order
@@ -2045,7 +2074,7 @@ def stream_verdict(model, prompt, plain, spec):
         hidden, head = model(seq, return_hidden=True)
         row = (hidden[0, -1] @ head.to(hidden.dtype).T).float()
     gap = float(row.max() - row[int(spec[d])])
-    return dict(position=d, gap=gap, near_tie=gap < LOGIT_TOL)
+    return dict(position=d, gap=gap, near_tie=gap < tol)
 
 
 def check_streams(model, prompts, plain, spec, what, *, fault=False):
@@ -5515,12 +5544,12 @@ def paged_lane_logits(model, prompt, forced):
         paged_kernel="pallas", fill=0) for b in range(B)])]
     live = torch.ones(B, dtype=torch.bool, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
-    collectives.reset_model_bytes()
+    collectives.reset_axis_bytes("model")
     for t in range(forced.shape[1]):
         outs.append(tt.paged_decode_logits(
             model, spec, pools, tables, fills, forced[:, t], live, done,
             paged_kernel="pallas", prefix_len=P + t + 1))
-    tick_bytes = collectives.model_bytes() / forced.shape[1]
+    tick_bytes = collectives.axis_bytes("model") / forced.shape[1]
     del pools
     return torch.stack(outs, 1), tick_bytes
 
@@ -5903,6 +5932,783 @@ def run_phase15(tfa, dev):
                       enumerate(a["main_runs"] + b["main_runs"])})
 
 
+# -- phase 16: mixture of experts and expert parallelism --------------------
+
+# The flagship at full width and depth with every second block a mixture
+# of experts (`examples/transformer_lm.py --moe-every 2`, the JAX
+# package's MoE defaults: 8 experts, the top 2 a token, capacity factor
+# 1.25), random weights from MOE16_SEED. 8.0 is a drop-free factor (an
+# expert's capacity holds every token of a call, as
+# tests/test_decode.py's drop-free MoE case uses).
+MOE16_MODEL = dict(vocab=32768, layers=12, heads=8, head_dim=128,
+                   max_len=2048, moe_every=2, num_experts=8, moe_k=2)
+MOE16_SEED = 16
+MOE16_FACTOR = 1.25
+MOE16_DROPFREE = 8.0
+# The rule the bf16 MoE model's teacher-forced logits (prefill + 8
+# ticks, kernels vs plain versions) are held to, written before its
+# first card run. bf16 roundings move the router's input, and a token
+# whose 2nd and 3rd expert scores lie within that noise goes to another
+# expert: its own hidden state moves by O(1). So (i) at most
+# MOE16_FLIP_MAX of the (token, MoE layer) routing decisions may change
+# their top-k SET between the two runs; (ii) on the logits rows whose
+# own token keeps its top-k sets in every MoE layer, max |k - p| <=
+# MOE16_LOGIT_TOL and the tie-aware argmax agreement >=
+# MIN_ARGMAX_AGREEMENT. MOE16_LOGIT_TOL is 2.5x phase 3's LOGIT_TOL: the
+# dense model reads 0.0293 there, and a flip upstream of a row (in its
+# prompt) reaches it through attention. That bf16 limit is too wide to
+# see the decode one key short (0.0929 on the dense model), so the f32
+# twin (MOE16_F32_LAYERS deep, the same rule at MOE16_F32_TOL, where
+# the two runs differ by summation order only: phase 11's f32 readings
+# are 6e-6 to 3.5e-5) must see that fault.
+MOE16_FLIP_MAX = 0.01
+MOE16_LOGIT_TOL = 0.15
+MOE16_F32_TOL = 1e-3
+MOE16_F32_LAYERS = 4
+# The f32 twin's stream check at the drop-free factor: the fixed engine
+# (8 slots), the paged engine (16 slots) and `generate` give the same
+# greedy streams for the burst's first MOE16_F32_STREAMS prompts,
+# MOE16_F32_NEW tokens each (a difference off a near tie within
+# MOE16_F32_TOL of the row's top is the one exception, as phase 8's
+# rule).
+MOE16_F32_STREAMS, MOE16_F32_NEW = 8, 32
+MOE16_BURST_SEED = 16          # the engine burst: 16 x 64..512 tokens
+# 16b: the model trained at B = 2 x 2048 (f32 params, bf16 compute,
+# flash attention, AdamW, moe_aux_weight 0.01, loss_chunk 512). The
+# step through the kernels against the same step on the plain
+# versions: loss within STEP_LOSS_TOL, and every parameter outside the
+# MoE blocks within STEP_GRAD_TOL (a routing flip moves a token's
+# gradient between experts, so the MoE blocks' gradients are printed
+# beside the flip share); the f32 twin (MOE16_F32_LAYERS deep) holds
+# every parameter, MoE blocks included, to phase 14b's f32 limits, and
+# the plain dK/dV one query row short must fail it.
+MOE16_BATCH, MOE16_SEQ = 2, 2048
+MOE16_LR = 3e-4
+MOE16_STEPS = 4
+MOE16_CHUNK = 512
+# 16c: expert=2 over two rank processes sharing cuda:0 over gloo, the
+# model cut to 2 layers (one MoE block, 4 experts a rank) at B = 2 x
+# 2048, MOE16_EP_STEPS AdamW steps against the same steps in one
+# process: the first step's gradients gathered over the expert axis
+# within STEP_GRAD_TOL (phase 15a's rule), every step's loss within
+# STEP_LOSS_TOL, and the parameters after the last step within
+# MOE16_EP_PARAM_TOL x lr x steps in mean |difference| (AdamW turns
+# the bf16 gradients' rounding into sign-level steps where a gradient
+# is near 0, so the bound is on the mean). The step with the experts'
+# input gradients left unsummed over the axis (a planted fault) must
+# fail the gradient rule.
+# On the card (H100 80GB HBM3, 700 W) that fault read 0.0437 against
+# the gradient rule's 0.05 (a token's experts carry half or less of its
+# gradient, and most pairs drop at this router), so a second rule
+# joins it: every parameter outside the experts has the same first-step
+# gradient on both expert ranks (max |g0 - g1| / max |g0| <=
+# MOE16_EP_REPLICA_TOL; both ranks run the same ops on the same inputs,
+# and f sums the experts' parts into each), which the fault must fail.
+MOE16_EP = 2
+MOE16_EP_LAYERS = 2
+MOE16_EP_STEPS = 4
+MOE16_EP_PARAM_TOL = 0.05
+MOE16_EP_REPLICA_TOL = 1e-6
+MOE16_EP_TIMEOUT_S = 300.0
+
+
+def moe16_model(dev, dtype, *, layers=None, factor=MOE16_FACTOR, mesh=None,
+                **kw):
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerLM
+    c = MOE16_MODEL
+    return TransformerLM(
+        c["vocab"], layers or c["layers"], c["heads"], c["head_dim"],
+        max_len=c["max_len"], dtype=getattr(torch, dtype),
+        attn_impl="flash", moe_every=c["moe_every"],
+        num_experts=c["num_experts"], moe_k=c["moe_k"],
+        moe_capacity_factor=factor, mesh=mesh, device=dev, **kw)
+
+
+def moe16_params(model):
+    """(all parameters, expert parameters, active a token: k of the E
+    experts of each MoE block plus everything else)."""
+    n = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for name, p in model.named_parameters()
+                  if name.endswith((".moe.w1", ".moe.w2")))
+    c = MOE16_MODEL
+    return n, experts, n - experts + experts * c["moe_k"] // c[
+        "num_experts"]
+
+
+def set_capacity_factor(model, factor):
+    from horovod_tpu_torch.parallel.expert import moe_layers
+    for m in moe_layers(model):
+        m.capacity_factor = factor
+
+
+class routing_record:
+    """Context: the top-k expert SET (ids sorted) of every MoE layer call,
+    in call order, recorded from `parallel.expert._top_k`."""
+
+    def __enter__(self):
+        from horovod_tpu_torch.parallel import expert as tex
+        self.tex, self.saved, self.calls = tex, tex._top_k, []
+
+        def rec(probs, k):
+            vals, idx = self.saved(probs, k)
+            self.calls.append(idx.sort(-1).values)
+            return vals, idx
+        tex._top_k = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.tex._top_k = self.saved
+
+
+def routing_flips(a, b, n_moe, steps):
+    """Two recordings of the same teacher-forced calls: (share of (token,
+    layer) decisions whose top-k set differs, [lanes, steps] bool: the
+    row's own token (the last position of the call) kept its sets in
+    every MoE layer)."""
+    import torch
+    if len(a.calls) != len(b.calls) or len(a.calls) != n_moe * steps:
+        raise AssertionError(f"recorded {len(a.calls)} / {len(b.calls)} "
+                             f"MoE calls, expected {n_moe * steps}")
+    changed = total = 0
+    keep = []
+    for s in range(steps):
+        own = None
+        for j in range(n_moe):
+            x, y = a.calls[s * n_moe + j], b.calls[s * n_moe + j]
+            diff = (x != y).any(-1)                    # [G, T]
+            changed += int(diff.sum())
+            total += diff.numel()
+            last = ~diff[:, -1]
+            own = last if own is None else own & last
+        keep.append(own)
+    return changed / total, torch.stack(keep, 1)
+
+
+def moe_forced_rule(model, tfa, prompt, forced, tol, what):
+    """16a's logits rule (see MOE16_FLIP_MAX): teacher-forced logits
+    through the kernels and the plain versions, each run's routing
+    recorded, then the plain decode one key short. Returns the
+    readings; raises when the rule fails."""
+    import torch
+    n_moe = sum(model.is_moe_block(i) for i in range(model.num_layers))
+    steps = forced.shape[1] + 1
+    with torch.no_grad():
+        with routing_record() as rk:
+            k_logits = teacher_forced_logits(model, prompt, forced, steps - 1)
+        with plain_attention(model, tfa), routing_record() as rp:
+            p_logits = teacher_forced_logits(model, prompt, forced, steps - 1)
+        with plain_attention(model, tfa, decode=one_key_short(tfa)), \
+                routing_record() as rf:
+            f_logits = teacher_forced_logits(model, prompt, forced, steps - 1)
+    torch.cuda.synchronize()
+    flips, keep = routing_flips(rk, rp, n_moe, steps)
+    fflips, fkeep = routing_flips(rf, rp, n_moe, steps)
+    rows = keep.reshape(-1)
+    k2, p2 = k_logits.flatten(0, 1), p_logits.flatten(0, 1)
+    err = float((k2[rows] - p2[rows]).abs().max()) if rows.any() else 0.0
+    agree = argmax_agreement(k2[rows], p2[rows]) if rows.any() else 0.0
+    frows = (fkeep & keep).reshape(-1)
+    ferr = float((f_logits.flatten(0, 1)[frows] - p2[frows]).abs().max())
+    info = dict(logits_max_abs_err=err, logits_tol=tol, flip_share=flips,
+                rows_kept=int(rows.sum()), rows=int(rows.numel()),
+                argmax_agreement=agree, planted_fault_logits_err=ferr,
+                planted_fault_flip_share=fflips,
+                all_rows_max_abs_err=float((k2 - p2).abs().max()),
+                logit_scale=float(p2.abs().max()))
+    log(f"16a {what} teacher-forced logits (prefill + {steps - 1} ticks), "
+        f"kernels vs plain: routing flips {flips:.5f} of (token, MoE "
+        f"layer) decisions (max {MOE16_FLIP_MAX}); {info['rows_kept']} of "
+        f"{info['rows']} rows keep their own token's experts: max_abs_err "
+        f"{err:.4g} (tol {tol}), argmax agreement {agree:.3f}; every row "
+        f"{info['all_rows_max_abs_err']:.4g} at a logit scale of "
+        f"{info['logit_scale']:.3f}; planted fault (decode one key short) "
+        f"{ferr:.4g}, flips {fflips:.5f} [{nvidia_smi_line()}]")
+    if not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError(f"16a {what}: logits not finite")
+    if flips > MOE16_FLIP_MAX:
+        raise AssertionError(f"16a {what}: routing flips {flips}")
+    if err > tol or agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"16a {what}: logits differ: {err}, argmax "
+                             f"agreement {agree}")
+    return info, k_logits
+
+
+def moe_burst(model, prompts, new, kernels, *, paged, split=False):
+    """One burst through the fixed (8 slots) or paged (16 slots over
+    1025 blocks of 16, the paged kernel) engine, the MoE layers'
+    (routed, dropped) pairs counted over it, split into prefill calls
+    and ticks when ``split`` (a counting wrapper on the layers)."""
+    from horovod_tpu_torch.parallel import expert as tex
+    kw = (dict(num_slots=16, paged=True, paged_kernel="pallas",
+               kv_block_size=16, kv_blocks=1025) if paged
+          else dict(num_slots=8))
+    tex.reset_moe_counts(model)
+    acc = {"prefill": [], "tick": []}
+    saved = tex.MoELayer.forward
+    if split:
+        def forward(self, x, route_rows=False):
+            # A tick is one call over every lane, one token each.
+            before = self.counts.clone()
+            out = saved(self, x, route_rows)
+            tick = x.shape[0] > 1 and x.shape[-2] == 1
+            acc["tick" if tick else "prefill"].append(self.counts - before)
+            return out
+        tex.MoELayer.forward = forward
+    try:
+        info = serve_burst(model, prompts, new, kernels, **kw)
+    finally:
+        tex.MoELayer.forward = saved
+    routed, dropped = tex.moe_counts(model)
+    info.update(routed=routed, dropped=dropped,
+                drop_share=dropped / max(routed, 1))
+    if split:
+        for key, deltas in acc.items():
+            r, d = ([int(v) for v in sum(deltas).tolist()] if deltas
+                    else (0, 0))
+            info[f"{key}_routed"], info[f"{key}_dropped"] = r, d
+            info[f"{key}_drop_share"] = d / max(r, 1)
+    return info
+
+
+def moe_stream_verdicts(model, prompts, ref, got, tol):
+    """Each stream of ``got`` against ``ref`` under the tie-aware rule
+    at ``tol``: (equal, near ties, faults)."""
+    equal, ties, faults = 0, [], []
+    for i, (p, a, b) in enumerate(zip(prompts, ref, got)):
+        v = stream_verdict(model, p, a, b, tol=tol)
+        if v is None:
+            equal += 1
+        elif v["near_tie"]:
+            ties.append(dict(stream=i, **v))
+        else:
+            faults.append(dict(stream=i, **v))
+    return equal, ties, faults
+
+
+def run_moe16_f32(tfa, tpa, dev, prompt, gen, burst):
+    """16a's f32 twin (MOE16_F32_LAYERS deep): the logits rule at
+    MOE16_F32_TOL with the decode one key short refused, then at the
+    drop-free factor the fixed engine, the paged engine and `generate`
+    on the burst's first prompts, which must agree (the tie-aware rule
+    at MOE16_F32_TOL)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import generate_bucketed
+    t0 = time.time()
+    model = moe16_model(dev, "float32", layers=MOE16_F32_LAYERS,
+                        decode_prefix_impl="pallas").init_weights(MOE16_SEED)
+    model.eval()
+    info, _ = moe_forced_rule(model, tfa, prompt, gen[:, :8], MOE16_F32_TOL,
+                              f"f32 twin ({MOE16_F32_LAYERS} layers)")
+    if info["planted_fault_logits_err"] <= MOE16_F32_TOL:
+        raise AssertionError(f"16a f32: the logits rule does not see the "
+                             f"decode one key short "
+                             f"({info['planted_fault_logits_err']})")
+    set_capacity_factor(model, MOE16_DROPFREE)
+    prompts = burst[:MOE16_F32_STREAMS]
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda,
+               "paged_decode": tpa.paged_decode_cuda}
+    fixed = moe_burst(model, prompts, MOE16_F32_NEW, kernels, paged=False)
+    paged = moe_burst(model, prompts, MOE16_F32_NEW, kernels, paged=True)
+    with torch.no_grad():
+        gen_streams = [g[len(p):].tolist() for p, g in zip(
+            prompts, generate_bucketed(model, [torch.as_tensor(p)
+                                               for p in prompts],
+                                       MOE16_F32_NEW))]
+    verdicts = {}
+    for name, ref, got in (("paged vs fixed", fixed["streams"],
+                            paged["streams"]),
+                           ("generate vs fixed", fixed["streams"],
+                            gen_streams)):
+        equal, ties, faults = moe_stream_verdicts(model, prompts, ref, got,
+                                                  MOE16_F32_TOL)
+        verdicts[name] = dict(equal=equal, ties=ties, faults=faults)
+        log(f"16a f32 twin streams at factor {MOE16_DROPFREE}, {name}: "
+            f"{equal} of {len(prompts)} equal, near ties {ties}, faults "
+            f"{faults} [{nvidia_smi_line()}]")
+        if faults:
+            raise AssertionError(f"16a f32 {name}: streams differ off a "
+                                 f"near tie: {faults}")
+    for run in (fixed, paged):
+        if run["dropped"]:
+            raise AssertionError(f"16a f32: {run['dropped']} pairs dropped "
+                                 f"at the drop-free factor")
+    del model
+    torch.cuda.empty_cache()
+    return dict(forced=info, streams=verdicts, seconds=time.time() - t0,
+                runs={"fixed": fixed, "paged": paged})
+
+
+def run_moe16a(tfa, tpa, dev):
+    """16a: the MoE model served in bf16 at full width (see the phase
+    docstring)."""
+    import torch
+    from horovod_tpu_torch.models.transformer import generate, serving_params
+    t0 = time.time()
+    model = moe16_model(dev, "bfloat16", decode_prefix_block=256,
+                        decode_prefix_impl="pallas").init_weights(MOE16_SEED)
+    serving_params(model)
+    model.eval()
+    n, experts, active = moe16_params(model)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    label = f"[{nvidia_smi_line()}]"
+    log(f"16a MoE model: {n / 1e6:.1f} M params ({experts / 1e6:.1f} M in "
+        f"experts, {active / 1e6:.1f} M active a token), {nbytes / 1e9:.3f}"
+        f" GB bf16, built in {time.time() - t0:.1f} s {label}")
+    prompt = hf_prompt(model, dev, seed=MOE16_SEED)
+    kernels = {"flash_fwd": tfa.flash_fwd_cuda,
+               "flash_decode": tfa.flash_decode_cuda,
+               "paged_decode": tpa.paged_decode_cuda}
+    runs = {}
+    with counting(kernels) as c:
+        t1 = time.time()
+        out = generate(model, prompt, 128)
+        torch.cuda.synchronize()
+        gen_s = time.time() - t1
+    want = {"flash_fwd": model.num_layers,
+            "flash_decode": 127 * model.num_layers, "paged_decode": 0}
+    log(f"16a generate 4x512 -> 128 greedy at factor {MOE16_FACTOR}: "
+        f"{gen_s:.3f} s wall, launches {c.launches} {label}")
+    if out.shape != (4, 640) or not bool(((out >= 0)
+                                         & (out < model.vocab_size)).all()):
+        raise AssertionError("16a generate output invalid")
+    if c.launches != want:
+        raise AssertionError(f"16a generate launches {c.launches} != {want}")
+    runs["generate"] = dict(seconds=gen_s, launches=c.launches)
+    gen = out[:, 512:]
+    forced, k_logits = moe_forced_rule(model, tfa, prompt, gen[:, :8],
+                                       MOE16_LOGIT_TOL, "bf16")
+    if not torch.equal(k_logits.argmax(-1)[:, :-1], gen[:, :8]):
+        raise AssertionError("16a generate's greedy tokens are not the "
+                             "argmax of its own teacher-forced logits")
+    burst = hf_prompts(model.vocab_size, MOE16_BURST_SEED)
+    bursts = {}
+    for factor in (MOE16_DROPFREE, MOE16_FACTOR):
+        set_capacity_factor(model, factor)
+        for paged in (False, True):
+            name = f"{'paged' if paged else 'fixed'}@{factor}"
+            info = moe_burst(model, burst, 64, kernels, paged=paged,
+                             split=factor == MOE16_FACTOR)
+            kern = "paged_decode" if paged else "flash_decode"
+            if info["launches"][kern] < info["ticks"] * model.num_layers:
+                raise AssertionError(f"16a {name}: {kern} launches "
+                                     f"{info['launches'][kern]} < ticks x "
+                                     f"layers")
+            bursts[name] = info
+            runs[name] = info
+            log(f"16a {name} engine, 16 req x 64 new: {info['seconds']:.2f}"
+                f" s, {info['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                f"{info['ttft_ms_p50']} ms, TPOT p50 {info['tpot_ms_p50']} "
+                f"ms, {info['ticks']} ticks, dropped {info['dropped']} of "
+                f"{info['routed']} (token, choice) pairs"
+                + (f" (prefill {info['prefill_drop_share']:.4f} of "
+                   f"{info['prefill_routed']}, ticks "
+                   f"{info['tick_drop_share']:.4f} of "
+                   f"{info['tick_routed']})" if "tick_routed" in info
+                   else "")
+                + f", launches {info['launches']} {label}")
+        if factor == MOE16_DROPFREE and any(
+                bursts[f"{p}@{factor}"]["dropped"] for p in ("fixed",
+                                                             "paged")):
+            raise AssertionError("16a: tokens dropped at the drop-free "
+                                 "factor")
+    agreement = stream_agreement(bursts[f"fixed@{MOE16_DROPFREE}"]["streams"],
+                                 bursts[f"paged@{MOE16_DROPFREE}"]["streams"])
+    log(f"16a bf16 streams at factor {MOE16_DROPFREE}, paged vs fixed: "
+        f"agreement {agreement:.4f} of positions up to each first "
+        f"difference (bf16 near ties and routing flips; the f32 twin holds "
+        f"them equal) {label}")
+    if bursts[f"fixed@{MOE16_FACTOR}"]["tick_dropped"] or bursts[
+            f"paged@{MOE16_FACTOR}"]["tick_dropped"]:
+        raise AssertionError("16a: a one-lane tick dropped a token")
+    cfg = dict(num_attention_heads=model.num_heads,
+               num_key_value_heads=model.num_kv, head_dim=model.head_dim,
+               max_position_embeddings=model.max_len,
+               vocab_size=model.vocab_size)
+    timing = time_coverage(tfa, tpa, dev, cfg, MOE16_BURST_SEED)
+    del model
+    torch.cuda.empty_cache()
+    f32 = run_moe16_f32(tfa, tpa, dev, prompt, gen, burst)
+    return dict(params=n, expert_params=experts, active_params=active,
+                bf16_bytes=nbytes, generate=runs["generate"],
+                forced=forced, bursts={k: {kk: vv for kk, vv in v.items()
+                                           if kk != "streams"}
+                                       for k, v in bursts.items()},
+                stream_agreement=agreement, timing=timing, f32=f32,
+                runs=runs, seconds=time.time() - t0)
+
+
+def moe16_tokens(batch=MOE16_BATCH):
+    import numpy as np
+    return np.random.RandomState(MOE16_SEED).randint(
+        0, MOE16_MODEL["vocab"], (batch, MOE16_SEQ))
+
+
+def moe_step_errors(model, tfa, tokens):
+    """One step's loss (with the aux term) and every parameter's gradient
+    through the kernels against the plain versions, and against the
+    plain dK/dV one query row short: per-parameter max |k - p| / max
+    |p|, and the routing flip share of each run against the plain one."""
+    import torch
+    from horovod_tpu_torch.models.transformer import _lm_data_loss
+    named = list(model.named_parameters())
+    n_moe = sum(model.is_moe_block(i) for i in range(model.num_layers))
+
+    def backward():
+        model.zero_grad(set_to_none=True)
+        with routing_record() as rec:
+            loss = _lm_data_loss(model, tokens, MOE16_CHUNK, 0.01)
+        loss.backward()
+        return float(loss.detach()), rec
+
+    with plain_training_attention(tfa):
+        p_loss, p_rec = backward()
+    p_grads = [p.grad for _, p in named]
+
+    def errors():
+        return {n: float((p.grad - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                for (n, p), g in zip(named, p_grads)}
+
+    k_loss, k_rec = backward()
+    per = errors()
+    with plain_training_attention(tfa, planted_short_backward(tfa)):
+        f_loss, _ = backward()
+    fper = errors()
+    model.zero_grad(set_to_none=True)
+    flips, _ = routing_flips(k_rec, p_rec, n_moe, 1)
+    return dict(loss=k_loss, plain_loss=p_loss, fault_loss=f_loss,
+                per=per, fault_per=fper, flip_share=flips)
+
+
+def check_moe_step(model, tfa, tokens, what, loss_tol, grad_tol, *,
+                   hold_moe):
+    r = moe_step_errors(model, tfa, tokens)
+
+    def worst(per, moe):
+        vals = {n: e for n, e in per.items() if (".moe." in n) == moe}
+        return max(vals.values()) if vals else 0.0
+    dense, moe = worst(r["per"], False), worst(r["per"], True)
+    held = max(dense, moe) if hold_moe else dense
+    fault = max(r["fault_per"].values())
+    log(f"16b {what} step, kernels vs plain: loss {r['loss']:.6f} vs "
+        f"{r['plain_loss']:.6f} (|diff| {abs(r['loss'] - r['plain_loss']):.2e}"
+        f", tol {loss_tol}), worst gradient error outside the MoE blocks "
+        f"{dense:.3e}, in them {moe:.3e} (tol {grad_tol}"
+        f"{'' if hold_moe else ' outside them'}), routing flips "
+        f"{r['flip_share']:.5f}; planted fault (dK/dV one query row short) "
+        f"{fault:.3e} [{nvidia_smi_line()}]")
+    if abs(r["loss"] - r["plain_loss"]) > loss_tol or held > grad_tol:
+        raise AssertionError(f"16b {what}: the step through the kernels "
+                             f"differs: {r['loss']} vs {r['plain_loss']}, "
+                             f"{dense} / {moe}")
+    if r["flip_share"] > MOE16_FLIP_MAX:
+        raise AssertionError(f"16b {what}: routing flips {r['flip_share']}")
+    if fault <= grad_tol:
+        raise AssertionError(f"16b {what}: the check does not see the dK/dV "
+                             f"one query row short ({fault})")
+    return dict(loss=r["loss"], plain_loss=r["plain_loss"], grad_err=dense,
+                moe_grad_err=moe, flip_share=r["flip_share"],
+                planted_fault_grad_err=fault)
+
+
+def run_moe16b(tfa, dev):
+    """16b: the MoE model trained at B = 2 x 2048 (see MOE16_BATCH)."""
+    import numpy as np
+    import torch
+    from horovod_tpu_torch.models.transformer import make_lm_train_step
+    from horovod_tpu_torch.parallel import expert as tex
+    t0 = time.time()
+    model = moe16_model(dev, "bfloat16").init_weights(MOE16_SEED)
+    opt = torch.optim.AdamW(model.parameters(), lr=MOE16_LR,
+                            weight_decay=1e-4)
+    step = make_lm_train_step(model, opt, loss_chunk=MOE16_CHUNK)
+    tokens = torch.from_numpy(moe16_tokens()).to(dev)
+    wrappers = {"flash_fwd": tfa.flash_fwd_cuda,
+                "flash_bwd_dq": tfa.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": tfa.flash_bwd_dkv_cuda}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tex.reset_moe_counts(model)
+    losses, walls = [], []
+    with counting(wrappers) as c:
+        for _ in range(MOE16_STEPS):
+            t1 = time.perf_counter()
+            loss = float(step(tokens))
+            walls.append(time.perf_counter() - t1)
+            losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    routed, dropped = tex.moe_counts(model)
+    with torch.no_grad():
+        _, aux = model(tokens, return_aux=True)
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    n, experts, active = moe16_params(model)
+    c_ = MOE16_MODEL
+    d = c_["heads"] * c_["head_dim"]
+    flops_tok = 6 * active + 6 * c_["layers"] * MOE16_SEQ * d
+    ntok = MOE16_BATCH * MOE16_SEQ
+    mfu = flops_tok * ntok / steady / PEAK_BF16_FLOPS
+    label = f"[{nvidia_smi_line()}]"
+    log(f"16b MoE training B={MOE16_BATCH} x {MOE16_SEQ}, {MOE16_STEPS} AdamW"
+        f" steps: losses {[round(x, 4) for x in losses]}, step s "
+        f"{[round(t, 4) for t in walls]}, median after the first "
+        f"{steady * 1e3:.1f} ms = {ntok / steady:.0f} tokens/s, MFU "
+        f"{mfu:.4f} of 989 TFLOP/s ({active / 1e6:.1f} M active params a "
+        f"token), peak memory {peak / 1e9:.2f} GB, aux {float(aux):.4f}, "
+        f"dropped {dropped} of {routed} (token, choice) pairs "
+        f"({dropped / max(routed, 1):.4f}), launches {c.launches} {label}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"16b losses not finite and falling: {losses}")
+    need = model.num_layers * MOE16_STEPS
+    if min(c.launches.values()) < need:
+        raise AssertionError(f"16b launches {c.launches} < {need}")
+    check = check_moe_step(model, tfa, tokens, "bf16", STEP_LOSS_TOL,
+                           STEP_GRAD_TOL, hold_moe=False)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    twin = moe16_model(dev, "float32", layers=MOE16_F32_LAYERS).init_weights(
+        MOE16_SEED)
+    f32 = check_moe_step(twin, tfa, tokens, f"f32 twin ({MOE16_F32_LAYERS} "
+                         f"layers)", SP14_F32_LOSS_TOL, SP14_F32_GRAD_TOL,
+                         hold_moe=True)
+    del twin
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_s=walls,
+                step_ms_median_after_first=steady * 1e3,
+                tokens_per_s=ntok / steady, mfu=mfu, active_params=active,
+                max_memory_allocated=peak, aux=float(aux), routed=routed,
+                dropped=dropped, drop_share=dropped / max(routed, 1),
+                launches=c.launches, check=check, f32_check=f32,
+                seconds=time.time() - t0)
+
+
+def moe16c_reference(dev, path):
+    """16c's one-process side: the same steps of the same 2-layer model,
+    the first step's gradients, every loss and the last parameters
+    saved to ``path``."""
+    import torch
+    from horovod_tpu_torch.models.transformer import make_lm_train_step
+    model = moe16_model(dev, "bfloat16", layers=MOE16_EP_LAYERS).init_weights(
+        MOE16_SEED)
+    opt = torch.optim.AdamW(model.parameters(), lr=MOE16_LR)
+    step = make_lm_train_step(model, opt, loss_chunk=MOE16_CHUNK)
+    tokens = torch.from_numpy(moe16_tokens()).to(dev)
+    losses, grads = [], None
+    for i in range(MOE16_EP_STEPS):
+        losses.append(float(step(tokens)))
+        if i == 0:
+            grads = {n: p.grad.float().cpu()
+                     for n, p in model.named_parameters()}
+    torch.save({"losses": losses, "grads": grads,
+                "params": {n: p.detach().float().cpu()
+                           for n, p in model.named_parameters()}}, path)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def moe16c_rank(rank, work):
+    """One rank of 16c (``chip_smoke.py --ep-rank R WORKDIR``): a gloo
+    world of MOE16_EP ranks on cuda:0, an expert=MOE16_EP mesh, then
+    `moe16c_steps`; results land in WORKDIR."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.parallel import mesh as pmesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.build_all()
+    hvd.init(device="cpu", rank=rank, size=MOE16_EP,
+             init_method=f"file://{work}/store")
+    mesh = pmesh.make_mesh(expert=MOE16_EP, device_type="cuda")
+    runs = moe16c_steps(rank, work, mesh, dev)
+    with open(f"{work}/rank{rank}.json", "w") as f:
+        json.dump(runs, f)
+    hvd.shutdown()
+    return 0
+
+
+def moe16c_steps(rank, work, mesh, dev):
+    """16c in one rank: the 2-layer model built over ``mesh`` (its
+    experts cut over the ranks), the AdamW steps against the
+    one-process reference, then the planted fault."""
+    import torch
+    from horovod_tpu_torch.compat.from_jax import gather_state_dict
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.ops import flash_attention as tfa
+    from horovod_tpu_torch.parallel.mesh import axis_group
+    group = axis_group("expert", mesh)
+    tokens = torch.from_numpy(moe16_tokens()).to(dev)
+    wrappers = {"flash_fwd": tfa.flash_fwd_cuda,
+                "flash_bwd_dq": tfa.flash_bwd_dq_cuda,
+                "flash_bwd_dkv": tfa.flash_bwd_dkv_cuda}
+    ref = torch.load(f"{work}/ref.pt")
+    runs = []
+    saved_f = collectives.copy_to_model
+    for fault in (None, "unsummed"):
+        model = moe16_model(dev, "bfloat16", layers=MOE16_EP_LAYERS,
+                            mesh=mesh).init_weights(MOE16_SEED)
+        opt = torch.optim.AdamW(model.parameters(), lr=MOE16_LR)
+        step = tt.make_lm_train_step(model, opt, mesh, loss_chunk=MOE16_CHUNK)
+        if fault:
+            collectives.copy_to_model = lambda x, *a, **k: x
+        steps = MOE16_EP_STEPS if not fault else 1
+        try:
+            losses, walls, nbytes, check = [], [], [], None
+            with counting(wrappers) as c:
+                for i in range(steps):
+                    collectives.reset_axis_bytes("expert")
+                    t0 = time.perf_counter()
+                    losses.append(float(step(tokens)))
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    nbytes.append(collectives.axis_bytes("expert"))
+                    if i == 0:
+                        grads = gather_state_dict(
+                            model, {n: p.grad for n, p in
+                                    model.named_parameters()}, mesh)
+                        per = {n: float((g.float().cpu() - ref["grads"][n])
+                                        .abs().max() / ref["grads"][n]
+                                        .abs().max().clamp_min(1e-30))
+                               for n, g in grads.items()}
+                        check = dict(grad_err=max(per.values()),
+                                     top=sorted(per.items(),
+                                                key=lambda kv: -kv[1])[:3])
+                        del grads
+                        # The replicated parameters' gradients on every
+                        # expert rank.
+                        check["replica_err"] = max(
+                            float((parts[0] - parts[-1]).abs().max()
+                                  / parts[0].abs().max().clamp_min(1e-30))
+                            for parts in (collectives._gather(
+                                p.grad.detach(), group)
+                                for n, p in model.named_parameters()
+                                if not n.endswith((".moe.w1", ".moe.w2"))))
+        finally:
+            collectives.copy_to_model = saved_f
+        final = gather_state_dict(model, model.state_dict(), mesh)
+        diff = [(final[n].float().cpu() - p).abs()
+                for n, p in ref["params"].items()]
+        runs.append(dict(rank=rank, fault=fault, losses=losses,
+                         walls_ms=walls, expert_bytes=nbytes, check=check,
+                         launches=c.launches, steps=steps,
+                         local_experts=int(model.blocks[1].moe.w1.shape[0]),
+                         # (the planted run stops after one step)
+                         param_mean_abs_diff=None if fault else float(
+                             sum(d.sum() for d in diff)
+                             / sum(d.numel() for d in diff)),
+                         param_max_abs_diff=None if fault else float(
+                             max(d.max() for d in diff))))
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return runs
+
+
+def moe16c_world(work):
+    """Start the MOE16_EP rank processes in their own sessions and wait
+    for them within MOE16_EP_TIMEOUT_S; every process is stopped when
+    this returns."""
+    import signal
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ep-rank", str(r),
+         work], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for r in range(MOE16_EP)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, MOE16_EP_TIMEOUT_S - (time.time() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError("16c: the ranks outlived their budget")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"16c rank {r} exit {p.returncode}: "
+                                 f"{text[-4000:]}")
+    return time.time() - t0
+
+
+def run_moe16c(dev):
+    """16c: expert parallelism on the card (see MOE16_EP)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="hvd_phase16_")
+    try:
+        moe16c_reference(dev, f"{work}/ref.pt")
+        import torch
+        ref_losses = torch.load(f"{work}/ref.pt")["losses"]
+        seconds = moe16c_world(work)
+        runs = [run for r in range(MOE16_EP)
+                for run in json.load(open(f"{work}/rank{r}.json"))]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    label = f"[{nvidia_smi_line()}]"
+    bound = MOE16_EP_PARAM_TOL * MOE16_LR * MOE16_EP_STEPS
+    main_runs = []
+    for run in runs:
+        chk = run["check"]
+        loss_err = max(abs(a - b) for a, b in zip(run["losses"], ref_losses))
+        what = (f"16c rank {run['rank']}"
+                + (f" planted fault ({run['fault']})" if run["fault"] else ""))
+        walls = run["walls_ms"][1:] or run["walls_ms"]
+        median = sorted(walls)[len(walls) // 2]
+        log(f"{what}: {run['local_experts']} experts a rank, losses "
+            f"{[round(x, 4) for x in run['losses']]} vs one process "
+            f"{[round(x, 4) for x in ref_losses[:run['steps']]]} (max "
+            f"|diff| {loss_err:.2e}, tol {STEP_LOSS_TOL}), first-step "
+            f"gradient error {chk['grad_err']:.3e} (tol {STEP_GRAD_TOL}; "
+            f"top {chk['top']}), replicated gradients across the expert "
+            f"ranks {chk['replica_err']:.3e} (tol {MOE16_EP_REPLICA_TOL}), "
+            f"parameters after {run['steps']} steps: mean |diff| "
+            f"{run['param_mean_abs_diff']} (tol {bound:.3e}), max "
+            f"{run['param_max_abs_diff']}; step walls ms "
+            f"{[round(x, 1) for x in run['walls_ms']]} (median {median:.1f})"
+            f", expert-axis bytes a step {run['expert_bytes']}, launches "
+            f"{run['launches']} {label}")
+        ok = (chk["grad_err"] <= STEP_GRAD_TOL and loss_err <= STEP_LOSS_TOL
+              and chk["replica_err"] <= MOE16_EP_REPLICA_TOL)
+        if run["fault"]:
+            if ok:
+                raise AssertionError(f"{what}: not caught")
+            continue
+        if not ok or run["param_mean_abs_diff"] > bound:
+            raise AssertionError(f"{what}: the expert-parallel steps differ "
+                                 f"from the one-process steps")
+        if not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"{what}: losses not finite")
+        need = MOE16_EP_LAYERS * run["steps"]
+        if min(run["launches"].values()) < need:
+            raise AssertionError(f"{what}: launches {run['launches']} < "
+                                 f"{need}")
+        run["step_ms_median"] = median
+        main_runs.append({"launches": run["launches"]})
+    return dict(runs=runs, seconds=time.time() - t0, world_seconds=seconds,
+                main_runs=main_runs)
+
+
+def run_phase16(tfa, tpa, dev):
+    """Phase 16 (16a, 16b, 16c)."""
+    t0 = time.time()
+    a = run_moe16a(tfa, tpa, dev)
+    b = run_moe16b(tfa, dev)
+    c = run_moe16c(dev)
+    runs = dict(a.pop("runs"))
+    runs["train"] = {"launches": b["launches"]}
+    runs.update({f"ep{i}": r for i, r in enumerate(c.pop("main_runs"))})
+    return dict(a=a, b=b, c=c, runs=runs, seconds=time.time() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", metavar="PATH",
@@ -5912,6 +6718,8 @@ def main() -> int:
     ap.add_argument("--tp-rank", nargs=3, metavar=("RANK", "WORKDIR",
                                                    "PART"),
                     help=argparse.SUPPRESS)   # phase 15's rank processes
+    ap.add_argument("--ep-rank", nargs=2, metavar=("RANK", "WORKDIR"),
+                    help=argparse.SUPPRESS)   # phase 16c's rank processes
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5923,6 +6731,8 @@ def main() -> int:
     if args.tp_rank:
         return tp15_rank(int(args.tp_rank[0]), args.tp_rank[1],
                          args.tp_rank[2])
+    if args.ep_rank:
+        return moe16c_rank(int(args.ep_rank[0]), args.ep_rank[1])
     # Imported before anything is printed: a checkout without the
     # package fails here with no result.
     from horovod_tpu_torch.models.transformer import (TransformerLM,
@@ -6073,11 +6883,32 @@ def main() -> int:
         f"{b15['gemma_burst']['unsharded_tpot_ms_p50']} ms unsharded "
         f"{label}")
 
+    p16 = run_phase16(tfa, tpa, dev)
+    a16, b16, c16 = p16["a"], p16["b"], p16["c"]
+    ep_ms = [r["step_ms_median"] for r in c16["runs"] if not r["fault"]]
+    ep_bytes = [r["expert_bytes"][-1] for r in c16["runs"] if not r["fault"]]
+    log(f"mixture of experts (phase 16) in {p16['seconds']:.1f} s: 16a "
+        f"{a16['params'] / 1e6:.1f} M params in {a16['seconds']:.1f} s, "
+        f"TPOT p50 at factor {MOE16_FACTOR} fixed "
+        f"{a16['bursts'][f'fixed@{MOE16_FACTOR}']['tpot_ms_p50']} ms, paged "
+        f"{a16['bursts'][f'paged@{MOE16_FACTOR}']['tpot_ms_p50']} ms; 16b "
+        f"{b16['step_ms_median_after_first']:.1f} ms a step at B = "
+        f"{MOE16_BATCH} x {MOE16_SEQ}, {b16['tokens_per_s']:.0f} tokens/s, "
+        f"MFU {b16['mfu']:.4f}, peak {b16['max_memory_allocated'] / 1e9:.2f}"
+        f" GB in {b16['seconds']:.1f} s; 16c expert={MOE16_EP} step median "
+        f"{ep_ms} ms, {ep_bytes} expert-axis bytes a step, in "
+        f"{c16['seconds']:.1f} s {label}")
+
     timing = time_kernels(tfa, dev)
+    # 16b's and 16c's backward launches count into the backward rows
+    # (their attention is the flagship's, 8 heads x 128).
+    bwd16 = [{"launches": {k: r["launches"].get(k, 0)
+                           for k in ("flash_bwd_dq", "flash_bwd_dkv")}}
+             for r in p16["runs"].values()]
     main_runs = (gen, eng, peng, train, psgd, *spec["runs"].values(),
                  *variants["runs"].values(), *fleet["runs"].values(),
                  *p13["runs"].values(), *p14["runs"].values(),
-                 *p15["runs"].values())
+                 *p15["runs"].values(), *bwd16)
     main_launches = {k: sum(run["launches"].get(k, 0) for run in main_runs)
                      for k in REPLACES}
     kernels = []
@@ -6126,6 +6957,30 @@ def main() -> int:
                 f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']}"
                 f", max_abs_err {t['max_abs_err']:.3e} on these inputs, "
                 f"launches {launches} {label}")
+    # 16: the MoE model's forward, decode and paged rows (timed at its
+    # own path's shapes), launched on 16a's serving runs and 16b's and
+    # 16c's training forwards.
+    for kern in ("flash_fwd", "flash_decode", "paged_decode"):
+        t = a16["timing"][kern]
+        name = f"{kern}@moe"
+        launches = sum(run["launches"].get(kern, 0)
+                       for run in p16["runs"].values())
+        if launches <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"horovod_tpu_torch/csrc/{kern}.cu",
+            "replaces": REPLACES[kern], "launches": launches,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"], "planted_fault_err": t["planted_fault_err"],
+            **{k: t[k] for k in ("splits", "bound_share") if k in t}})
+        log(f"{name}: {t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms "
+            f"plain, {t['library_ms']:.4f} ms library, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) at {t['shape']}, "
+            f"max_abs_err {t['max_abs_err']:.3e} on these inputs, launches "
+            f"{launches} {label}")
     # 12a/12b: the backward kernels at D = 256, timed at Gemma-2B's
     # training attention, launched on 12b's path.
     for kern, name in zip(("flash_bwd_dq", "flash_bwd_dkv"), BWD256_NAMES):
@@ -6189,6 +7044,7 @@ def main() -> int:
                   phase13={k: v for k, v in p13.items() if k != "runs"},
                   phase14={k: v for k, v in p14.items() if k != "runs"},
                   phase15={k: v for k, v in p15.items() if k != "runs"},
+                  phase16={k: v for k, v in p16.items() if k != "runs"},
                   wgmma_kernels=wgmma_report,
                   seconds=time.time() - t_start)
     if args.json:

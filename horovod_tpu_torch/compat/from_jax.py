@@ -11,6 +11,7 @@ one:
     block_i/ln_attn|ln_mlp/{scale,bias}    -> blocks.i.ln_attn|ln_mlp.*
     block_i/attn/{qkv,out}/{kernel,bias}   -> blocks.i.attn.{qkv,out}.*
     block_i/mlp/{wi,wo,gate,up,down}/...   -> blocks.i.mlp.*
+    block_i/moe/{router,w1,w2}             -> blocks.i.moe.*
     ln_f/{scale,bias}                      -> ln_f.*
 
 A quantized tree (`horovod_tpu.ops.quantization.quantize_lm_params`)
@@ -32,9 +33,10 @@ carries across with its weights.
 
 `shard_state_dict(model, sd, mesh)` cuts a full state dict (from
 `params_from_jax`, or a whole model's) into this rank's shard of a
-tensor-parallel model, and `gather_state_dict` reassembles it: the
-fused qkv leaves by `parallel.tensor.qkv_columns` (this rank's q heads,
-then its k and v heads), every other leaf by its spec.
+tensor- or expert-parallel model, and `gather_state_dict` reassembles
+it: the fused qkv leaves by `parallel.tensor.qkv_columns` (this rank's
+q heads, then its k and v heads), every other leaf by its spec (the
+experts' ``w1`` / ``w2`` over ``expert``).
 
 `word2vec_params_from_jax(tree)` maps a `horovod_tpu.models.word2vec.
 Word2Vec` param tree (``embeddings``, ``nce_weights``) onto the port's
@@ -82,10 +84,10 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             parts = ["blocks", m.group(1)] + parts[1:]
         elif parts[0] not in ("embed", "pos", "lm_head", "ln_f"):
             raise KeyError(f"unexpected param {'/'.join(path)}")
-        if any(p in ("lora_a", "lora_b", "moe") for p in parts):
+        if any(p in ("lora_a", "lora_b") for p in parts):
             raise NotImplementedError(
-                f"param {'/'.join(path)}: LoRA and MoE weights are "
-                f"later slices of the PyTorch port")
+                f"param {'/'.join(path)}: LoRA weights are a later "
+                f"slice of the PyTorch port (ROADMAP Queue A 6)")
         if arr.dtype.name == "bfloat16":   # ml_dtypes bf16 (serving casts)
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
@@ -222,8 +224,8 @@ def powersgd_state_from_jax(state, params
 
 def shard_state_dict(model, sd: Mapping[str, torch.Tensor],
                      mesh) -> Dict[str, torch.Tensor]:
-    """This rank's state dict of the tensor-parallel ``model`` over
-    ``mesh`` from the FULL one ``sd`` (the whole model's names and
+    """This rank's state dict of the tensor- or expert-parallel ``model``
+    over ``mesh`` from the FULL one ``sd`` (the whole model's names and
     shapes, e.g. `params_from_jax`'s). ``model`` gives the structure
     (sharded or not); the leaves come back on their input device."""
     from horovod_tpu_torch.models.transformer import lm_param_specs
@@ -234,8 +236,8 @@ def shard_state_dict(model, sd: Mapping[str, torch.Tensor],
 def gather_state_dict(model, sd: Mapping[str, torch.Tensor],
                       mesh) -> Dict[str, torch.Tensor]:
     """The inverse of `shard_state_dict`: the whole model's state dict
-    from every model rank's shard ``sd`` (a collective over the mesh's
-    ``model`` axis: every rank of it calls it)."""
+    from every rank's shard ``sd`` (a collective over the mesh's
+    ``model`` and ``expert`` axes: every rank of them calls it)."""
     from horovod_tpu_torch.models.transformer import tp_specs
     from horovod_tpu_torch.parallel.tensor import gather_params
     return gather_params(mesh, model, dict(sd), tp_specs(model, mesh))

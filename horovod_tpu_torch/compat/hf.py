@@ -88,6 +88,11 @@ def from_hf_state_dict(family: str, config: Mapping, state_dict: Mapping,
     if family not in FAMILIES:
         raise ValueError(f"family must be one of {FAMILIES}, got "
                          f"{family!r}")
+    if model_kw.get("moe_every", 0):
+        raise ValueError(
+            f"{family} checkpoints are dense: HF import of a "
+            f"mixture-of-experts family (Mixtral, Qwen2-MoE) is in "
+            f"neither package")
     cfg = dict(config)
     sd = _strip(state_dict)
     kw = dict(dtype=dtype, attn_impl=attn_impl, device=device, **model_kw)

@@ -26,14 +26,17 @@ rotating, the flash kernels on every rotation) and ``ulysses`` /
 tables). Training: `lm_loss`, `chunked_lm_loss` (the fused head + CE
 over sequence chunks), `make_lm_train_step`, `make_lm_eval_step` and
 `init_lm_state`, data-parallel over `torch.distributed` through
-`horovod_tpu_torch.optim`, or over a mesh of ``data``, ``seq`` and
-``model`` (`parallel.mesh`). A model built with ``mesh=`` whose
-``model`` axis is > 1 is tensor parallel: each rank holds its shard of
-the blocks (`parallel.tensor`), the embedding and an untied head hold
-its vocab rows (``lm_param_specs``), the loss is a vocab-parallel cross
-entropy, and `generate` and the serving pools run on the rank's local
-heads (every rank of the axis makes the same call). MoE and LoRA are
-later slices; int8 weights come from `ops.quantization.quantize_lm`.
+`horovod_tpu_torch.optim`, or over a mesh of ``data``, ``seq``,
+``expert`` and ``model`` (`parallel.mesh`). A model built with ``mesh=``
+whose ``model`` axis is > 1 is tensor parallel: each rank holds its
+shard of the blocks (`parallel.tensor`), the embedding and an untied
+head hold its vocab rows (``lm_param_specs``), the loss is a
+vocab-parallel cross entropy, and `generate` and the serving pools run
+on the rank's local heads (every rank of the axis makes the same call).
+``moe_every`` > 0 puts mixture-of-experts blocks in (`parallel.expert`),
+whose experts a mesh's ``expert`` axis shards; the train step adds
+their load-balancing term. LoRA is a later slice; int8 weights come
+from `ops.quantization.quantize_lm`.
 """
 
 from __future__ import annotations
@@ -195,9 +198,14 @@ def _make_norm(kind: str, d: int, dtype, eps: float, device):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: attention + MLP (gelu, swiglu or geglu)."""
+    """Pre-LN block: attention + MLP (gelu, swiglu or geglu), or with
+    ``moe`` a mixture of experts in place of the MLP (`parallel.expert.
+    MoELayer`, hidden ``mlp_ratio * d``, float even in an int8-weight
+    model, as the JAX block gives the experts no ``weight_quant``).
+    ``forward`` returns ``(x, aux)``: aux the MoE layer's
+    load-balancing term, None in a dense block."""
 
-    def __init__(self, cfg: "TransformerLM", device):
+    def __init__(self, cfg: "TransformerLM", device, moe: bool = False):
         super().__init__()
         d = cfg.num_heads * cfg.head_dim
         self.window = cfg.window
@@ -215,7 +223,14 @@ class TransformerBlock(nn.Module):
             tp_rank=cfg.tp_rank)
         self.ln_mlp = _make_norm(cfg.norm, d, cfg.dtype, cfg.ln_eps, device)
         hidden = cfg.mlp_hidden or cfg.mlp_ratio * d
-        if cfg.mlp_impl in ("swiglu", "geglu"):
+        self.moe = None
+        if moe:
+            from horovod_tpu_torch.parallel.expert import MoELayer
+            self.moe = MoELayer(
+                cfg.num_experts, cfg.mlp_ratio * d, d, k=cfg.moe_k,
+                capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype,
+                mesh=cfg.mesh if cfg.ep > 1 else None, device=device)
+        elif cfg.mlp_impl in ("swiglu", "geglu"):
             self.mlp = ParallelSwiGLU(
                 d, hidden, d, dtype=cfg.dtype, device=device,
                 activation="gelu_tanh" if cfg.mlp_impl == "geglu"
@@ -230,14 +245,17 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, cache: Optional[LayerCache] = None,
                 chunked_prefill: bool = False,
-                prefix_len: Optional[int] = None):
+                prefix_len: Optional[int] = None, route_rows: bool = False):
         mask = None
         if self.attn_fn is None and cache is None:
             pos = torch.arange(x.shape[-2], device=x.device)
             mask = banded_causal_mask(pos, pos, self.window)[None, None]
         x = x + self.attn(self.ln_attn(x), mask, cache, chunked_prefill,
                           prefix_len)
-        return x + self.mlp(self.ln_mlp(x))
+        if self.moe is None:
+            return x + self.mlp(self.ln_mlp(x)), None
+        y, aux = self.moe(self.ln_mlp(x), route_rows)
+        return x + y, aux
 
 
 @dataclass
@@ -292,15 +310,26 @@ class TransformerLM(nn.Module):
     matmul kernels as int8 codes plus per-channel scales (load them
     with `ops.quantization.quantize_lm`); ``kv_quant="int8"`` stores
     the decode cache as int8 plus per-(position, head) scales.
-    ``moe_every`` > 0 (mixture of experts) is a later slice and raises.
-    ``mesh`` (`parallel.mesh.make_mesh`) with ``model`` > 1 builds this
+    ``moe_every`` > 0 makes block i a mixture of experts iff (i + 1) %
+    moe_every == 0 (``num_experts`` experts, the top ``moe_k`` a token,
+    ``moe_capacity_factor``; `parallel.expert.MoELayer`). ``mesh``
+    (`parallel.mesh.make_mesh`) with ``model`` > 1 builds this
     rank's tensor-parallel shard: H/tp query heads a block and the kv
     heads they read, column/row-parallel dense pairs, and the
     embedding's (and an untied head's) vocab rows [r V/tp, (r+1) V/tp)
-    when tp divides the vocab (else both stay whole). Its collectives
-    run over the mesh's ``model`` axis; load a full state dict with
-    ``compat.from_jax.shard_state_dict``. `clone(**changes)` builds the
-    same configuration with some fields changed (weights not copied).
+    when tp divides the vocab (else both stay whole); the MoE blocks
+    stay whole over ``model``, as in the JAX package. With ``expert``
+    > 1 each MoE block holds this rank's E/ep experts. Its collectives
+    run over the mesh's ``model`` and ``expert`` axes; load a full
+    state dict with ``compat.from_jax.shard_state_dict``.
+    `clone(**changes)` builds the same configuration with some fields
+    changed (weights not copied).
+
+    ``forward(..., return_aux=True)`` returns ``(out, aux)``, aux the
+    sum of the MoE blocks' load-balancing terms (0 in a dense model);
+    ``route_rows=True`` routes each row of the batch through the MoE
+    blocks alone, with its own capacity (the serving pools' calls,
+    where the JAX package vmaps a one-lane call over the slots).
     """
 
     def __init__(self, vocab_size: int, num_layers: int, num_heads: int,
@@ -317,15 +346,13 @@ class TransformerLM(nn.Module):
                  norm: str = "layernorm", mlp_impl: str = "gelu",
                  mlp_hidden: Optional[int] = None, tied_head: bool = True,
                  embed_scale: Optional[float] = None, remat: bool = False,
-                 moe_every: int = 0, mesh=None, device=None):
+                 moe_every: int = 0, num_experts: int = 8, moe_k: int = 2,
+                 moe_capacity_factor: float = 1.25, mesh=None,
+                 device=None):
         config = dict(locals())
         super().__init__()
         self._config = {k: v for k, v in config.items()
                         if k not in ("self", "device", "__class__")}
-        if moe_every > 0:
-            raise NotImplementedError(
-                "mixture-of-experts blocks (moe_every > 0) are a later "
-                "slice of the PyTorch port (expert parallelism)")
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"pos_emb must be 'learned' or 'rope', got "
                              f"{pos_emb!r}")
@@ -345,10 +372,14 @@ class TransformerLM(nn.Module):
         self.mlp_hidden, self.tied_head = mlp_hidden, tied_head
         self.embed_scale = embed_scale
         self.remat = remat
-        from horovod_tpu_torch.parallel.mesh import axis_index, model_degree
+        self.moe_every, self.num_experts = moe_every, num_experts
+        self.moe_k, self.moe_capacity_factor = moe_k, moe_capacity_factor
+        from horovod_tpu_torch.parallel.mesh import (AXIS_EXPERT, axis_index,
+                                                     axis_size, model_degree)
         self.mesh = mesh
         self.tp = model_degree(mesh) if mesh is not None else 1
         self.tp_rank = axis_index(AXIS_MODEL, mesh) if self.tp > 1 else 0
+        self.ep = axis_size(AXIS_EXPERT, mesh) if mesh is not None else 1
         # Raises before any work on a head layout tp cannot split.
         kv_heads_of(self.tp_rank, num_heads, self.num_kv, self.tp)
         self.vocab_parallel = self.tp > 1 and vocab_size % self.tp == 0
@@ -360,7 +391,8 @@ class TransformerLM(nn.Module):
         self.pos = (nn.Parameter(torch.empty(max_len, d, device=dev))
                     if pos_emb != "rope" else None)
         self.blocks = nn.ModuleList(
-            TransformerBlock(self, dev) for _ in range(num_layers))
+            TransformerBlock(self, dev, moe=self.is_moe_block(i))
+            for i in range(num_layers))
         self.ln_f = _make_norm(norm, d, dtype, ln_eps, dev)
         self.lm_head = (None if tied_head else
                         nn.Parameter(torch.empty(rows, d, device=dev)))
@@ -368,6 +400,16 @@ class TransformerLM(nn.Module):
     @property
     def num_kv(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    def is_moe_block(self, i: int) -> bool:
+        """Block ``i`` is a mixture of experts (the JAX package's rule)."""
+        return self.moe_every > 0 and (i + 1) % self.moe_every == 0
+
+    @property
+    def sharded(self) -> bool:
+        """Built over a mesh that cuts its weights (``model`` or
+        ``expert`` > 1): each rank holds its own shard."""
+        return self.tp > 1 or self.ep > 1
 
     @property
     def local_kv(self) -> int:
@@ -392,10 +434,11 @@ class TransformerLM(nn.Module):
         """Draw every weight from ``seed`` with a `torch.Generator` on
         the model's device, with the JAX module's initializers: N(0,
         0.02) embedding / positions / untied head, lecun-normal dense
-        kernels, zero biases, unit norm scales. A tensor-parallel model
-        draws the whole model's weights and keeps its shard, so every
-        tp gives the same model."""
-        if self.tp > 1:
+        kernels and experts, zero biases, unit norm scales. A sharded
+        model (tensor or expert parallel) draws the whole model's
+        weights and keeps its shard, so every layout gives the same
+        model."""
+        if self.sharded:
             from horovod_tpu_torch.compat.from_jax import shard_state_dict
             full = self.clone(mesh=None).init_weights(seed)
             self.load_state_dict(shard_state_dict(self, full.state_dict(),
@@ -426,7 +469,8 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, cache: Optional[KVCache] = None,
                 *, chunked_prefill: bool = False,
                 prefix_len: Optional[int] = None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, return_aux: bool = False,
+                route_rows: bool = False):
         """``cache`` None: the training-mode forward. With a `KVCache`:
         a decode call appending ``tokens`` [lanes, S] at each lane's
         fill (the caller advances ``cache.index`` afterwards);
@@ -436,14 +480,17 @@ class TransformerLM(nn.Module):
         the plain prefix loop to the filled slices (None: all of them).
         ``return_hidden`` returns ``(hidden [B, S, d], head)`` instead
         of logits, ``head`` as `logits_head` gives it (the [V, d]
-        weight, or a `VocabShard`): project with `project_logits`."""
-        if self.tp > 1 and abstract_mesh() is None:
+        weight, or a `VocabShard`): project with `project_logits`.
+        ``return_aux`` and ``route_rows``: see the class docstring."""
+        if self.sharded and abstract_mesh() is None:
             from horovod_tpu_torch.parallel.mesh import use
             with use(self.mesh):
                 return self.forward(tokens, cache,
                                     chunked_prefill=chunked_prefill,
                                     prefix_len=prefix_len,
-                                    return_hidden=return_hidden)
+                                    return_hidden=return_hidden,
+                                    return_aux=return_aux,
+                                    route_rows=route_rows)
         B, S = tokens.shape
         offset = 0
         if cache is None:
@@ -469,17 +516,20 @@ class TransformerLM(nn.Module):
                 # global positions.
                 x = x + self.pos[offset:offset + S]
         x = x.to(self.dtype)
+        aux = x.new_zeros((), dtype=torch.float32)
         for i, blk in enumerate(self.blocks):
             if cache is None and self.remat:
-                x = checkpoint(blk, x, use_reentrant=False)
+                x, a = checkpoint(blk, x, None, False, None, route_rows,
+                                  use_reentrant=False)
             else:
-                x = blk(x, None if cache is None else cache.layer(i),
-                        chunked_prefill, prefix_len)
+                x, a = blk(x, None if cache is None else cache.layer(i),
+                           chunked_prefill, prefix_len, route_rows)
+            if a is not None:
+                aux = aux + a
         x = self.ln_f(x)
         head = self.logits_head()
-        if return_hidden:
-            return x, head
-        return project_logits(x, head)
+        out = (x, head) if return_hidden else project_logits(x, head)
+        return (out, aux) if return_aux else out
 
     def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
         """The embedding rows of ``tokens``; vocab parallel, each rank
@@ -617,13 +667,20 @@ def chunked_lm_loss(hidden: torch.Tensor, embed: torch.Tensor,
 
 
 def _lm_data_loss(model: TransformerLM, tokens: torch.Tensor,
-                  loss_chunk: Optional[int]) -> torch.Tensor:
+                  loss_chunk: Optional[int], aux_weight: float = 0.0
+                  ) -> torch.Tensor:
     """Chunked-vs-plain loss dispatch shared by the train and eval steps
-    (one site, so eval == train loss cannot drift)."""
+    (one site, so eval == train loss cannot drift), plus ``aux_weight``
+    times the MoE blocks' load-balancing terms (the train step's; the
+    eval step passes 0, pure cross entropy)."""
     if loss_chunk:
-        hidden, head = model(tokens, return_hidden=True)
-        return chunked_lm_loss(hidden, head, tokens, chunk=loss_chunk)
-    return lm_loss(model(tokens), tokens)
+        (hidden, head), aux = model(tokens, return_hidden=True,
+                                    return_aux=True)
+        loss = chunked_lm_loss(hidden, head, tokens, chunk=loss_chunk)
+    else:
+        logits, aux = model(tokens, return_aux=True)
+        loss = lm_loss(logits, tokens)
+    return loss + aux_weight * aux if aux_weight else loss
 
 
 def _shard_targets(tokens: torch.Tensor):
@@ -649,18 +706,24 @@ def _shard_targets(tokens: torch.Tensor):
 
 
 def _lm_shard_loss(model: TransformerLM, tokens: torch.Tensor, mesh,
-                   loss_chunk: Optional[int]) -> torch.Tensor:
+                   loss_chunk: Optional[int],
+                   aux_weight: float = 0.0) -> torch.Tensor:
     """This rank's share of the global next-token cross entropy under
     ``mesh``: the SUM of its block's CE (boundary labels from the next
-    seq rank) over the global label count B * (S - 1), times the mesh's
-    rank count. Averaging the ranks' gradients (or values) then gives
-    the gradient (value) of the one global mean, as the JAX package's
-    loss over the whole [B, S] batch."""
+    seq rank) over the global label count B * (S - 1), plus
+    ``aux_weight`` times its share of the MoE blocks' load-balancing
+    terms (`parallel.expert`: the data x seq ranks' shares sum to the
+    global term), all times the data x seq rank count. Averaging those
+    ranks' gradients (or values) then gives the gradient (value) of the
+    one global mean, as the JAX package's loss over the whole [B, S]
+    batch; the model and expert ranks hold replicas of it."""
     from horovod_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_SEQ, axis_size
     targets, weights = _shard_targets(tokens)
     B, S = tokens.shape
-    count = (B * axis_size(AXIS_DATA)) * (S * axis_size(AXIS_SEQ) - 1)
-    hidden, head = model(tokens, return_hidden=True)
+    dp, sp = axis_size(AXIS_DATA, mesh), axis_size(AXIS_SEQ, mesh)
+    count = (B * dp) * (S * sp - 1)
+    (hidden, head), aux = model(tokens, return_hidden=True,
+                                return_aux=True)
     if loss_chunk:
         total = chunked_weighted_ce(hidden, head, targets, weights,
                                     chunk=loss_chunk)
@@ -676,9 +739,10 @@ def _lm_shard_loss(model: TransformerLM, tokens: torch.Tensor, mesh,
         ce = F.cross_entropy(logits.float().flatten(0, 1),
                              targets.reshape(-1).long(), reduction="none")
         total = (ce * weights.reshape(-1)).sum()
-    # The model ranks hold one replica of the loss; the gradients are
-    # averaged over the data and seq ranks only.
-    return total * (mesh.size() / axis_size(AXIS_MODEL, mesh) / count)
+    # The model and expert ranks hold replicas of the loss; the
+    # gradients are averaged over the data and seq ranks only.
+    loss = total * (dp * sp / count)
+    return loss + (dp * sp * aux_weight) * aux if aux_weight else loss
 
 
 # The axes the train step averages gradients over. Never ``model``: its
@@ -708,12 +772,15 @@ def _replica_average(model: nn.Module, mesh) -> None:
 
 
 def _check_tp_model(model: TransformerLM, mesh) -> None:
-    from horovod_tpu_torch.parallel.mesh import model_degree
-    tp_mesh = mesh is not None and model_degree(mesh) > 1
-    if (tp_mesh or model.tp > 1) and model.mesh is not mesh:
+    from horovod_tpu_torch.parallel.mesh import (AXIS_EXPERT, axis_size,
+                                                 model_degree)
+    cut_mesh = mesh is not None and (model_degree(mesh) > 1
+                                     or axis_size(AXIS_EXPERT, mesh) > 1)
+    if (cut_mesh or model.sharded) and model.mesh is not mesh:
         raise ValueError("a mesh with model > 1 needs the model built "
-                         "over it (TransformerLM(..., mesh=mesh)), and a "
-                         "tensor-parallel model runs over its own mesh")
+                         "over it (TransformerLM(..., mesh=mesh)), as does "
+                         "one with expert > 1, and a sharded model runs "
+                         "over its own mesh")
 
 
 def _check_mesh_world(mesh, optimizer=None) -> None:
@@ -731,13 +798,16 @@ def _check_mesh_world(mesh, optimizer=None) -> None:
 
 def make_lm_train_step(model: TransformerLM,
                        optimizer: torch.optim.Optimizer, mesh=None, *,
+                       moe_aux_weight: float = 0.01,
                        loss_chunk: Optional[int] = None) -> Callable:
     """``step(tokens) -> loss``: one train step of ``model`` -- loss,
     gradients, their average, then ``optimizer.step()``. Returns the
     loss averaged over ranks as a 0-d device tensor (the JAX step's
     ``lax.pmean``): no ``.item()`` and no host sync inside the step.
     ``loss_chunk`` runs the fused head + CE in chunks of that many
-    positions. Each call is a ``train_step`` span on the timeline
+    positions. An MoE model's loss adds ``moe_aux_weight`` times the sum
+    of its blocks' load-balancing terms, as the JAX step does. Each call
+    is a ``train_step`` span on the timeline
     (`utils.timeline.step_bracket`), as in the JAX package.
 
     Without ``mesh``: data parallel, ``tokens`` this rank's rows [B, S];
@@ -745,17 +815,19 @@ def make_lm_train_step(model: TransformerLM,
     world size > 1 it must be an `optim.DistributedOptimizer` (a plain
     one would let the replicas drift apart).
 
-    With a mesh (`parallel.mesh.make_mesh` over ``data``, ``seq`` and
-    ``model``, over the world that `init` formed), as the JAX package's
-    mesh step takes a plain optax transform: ``tokens`` is this rank's
-    block [B/dp, S/sp] (`parallel.mesh.shard_batch`; the model ranks of
-    one data rank read the same block), the model runs under the mesh
-    (global positions; ``attn_impl`` ring or Ulysses for seq > 1; with
-    ``model`` > 1 the tensor-parallel shard built over ``mesh``), the
-    loss is the one mean over the global batch's B * (S - 1) labels,
-    and the step itself averages the gradients over the data and seq
-    ranks (`_GRAD_AXES`), never over ``model``, before the update of
-    ``optimizer``, which must not be a `DistributedOptimizer`."""
+    With a mesh (`parallel.mesh.make_mesh` over ``data``, ``seq``,
+    ``expert`` and ``model``, over the world that `init` formed), as the
+    JAX package's mesh step takes a plain optax transform: ``tokens`` is
+    this rank's block [B/dp, S/sp] (`parallel.mesh.shard_batch`; the
+    model and expert ranks of one data rank read the same block), the
+    model runs under the mesh (global positions and global MoE routing;
+    ``attn_impl`` ring or Ulysses for seq > 1; with ``model`` or
+    ``expert`` > 1 the shard built over ``mesh``), the loss is the one
+    mean over the global batch's B * (S - 1) labels, and the step itself
+    averages the gradients over the data and seq ranks (`_GRAD_AXES`),
+    never over ``model`` or ``expert`` (an expert rank's experts are its
+    own), before the update of ``optimizer``, which must not be a
+    `DistributedOptimizer`."""
     _check_tp_model(model, mesh)
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
@@ -767,12 +839,13 @@ def make_lm_train_step(model: TransformerLM,
                 "DistributedOptimizer (it averages the gradients)")
         optimizer.zero_grad(set_to_none=True)
         if mesh is None:
-            loss = _lm_data_loss(model, tokens, loss_chunk)
+            loss = _lm_data_loss(model, tokens, loss_chunk, moe_aux_weight)
             loss.backward()
         else:
             from horovod_tpu_torch.parallel.mesh import use
             with use(mesh):
-                loss = _lm_shard_loss(model, tokens, mesh, loss_chunk)
+                loss = _lm_shard_loss(model, tokens, mesh, loss_chunk,
+                                      moe_aux_weight)
                 loss.backward()
             _replica_average(model, mesh)
         optimizer.step()
@@ -786,7 +859,11 @@ def make_lm_eval_step(model: TransformerLM, mesh=None, *,
                       loss_chunk: Optional[int] = None) -> Callable:
     """``eval(tokens) -> mean next-token cross entropy`` (nats), the
     forward-only twin of `make_lm_train_step` (same loss sites, same
-    ``mesh`` contract), averaged over ranks; perplexity = exp(loss)."""
+    ``mesh`` contract), averaged over ranks; perplexity = exp(loss).
+    For an MoE model this is PURE cross entropy: the train step's
+    load-balancing term is a regularizer, not part of the likelihood,
+    so the train step's loss sits ``moe_aux_weight * aux`` above it on
+    the same batch, as in the JAX package."""
     _check_tp_model(model, mesh)
 
     @torch.no_grad()
@@ -809,12 +886,12 @@ def init_lm_state(model: TransformerLM, optimizer: torch.optim.Optimizer,
     and optimizer state from rank 0, so every rank starts identically
     (a no-op broadcast at world size 1 or before `init()`); under a
     (data, seq) mesh the parameters are replicated over the whole
-    world, so this is its placement too. A tensor-parallel model draws
-    the whole model and keeps its shard on every rank, so nothing is
-    broadcast (the shards differ by model rank). Returns ``(model,
-    optimizer)``."""
+    world, so this is its placement too. A sharded model (tensor or
+    expert parallel) draws the whole model and keeps its shard on every
+    rank, so nothing is broadcast (the shards differ by rank). Returns
+    ``(model, optimizer)``."""
     model.init_weights(seed)
-    if model.tp > 1:
+    if model.sharded:
         return model, optimizer
     optim.broadcast_parameters(model.state_dict(), root_rank=0)
     optim.broadcast_optimizer_state(optimizer, root_rank=0)
@@ -824,10 +901,10 @@ def init_lm_state(model: TransformerLM, optimizer: torch.optim.Optimizer,
 def lm_param_specs(model: TransformerLM) -> dict:
     """{state-dict name: partition spec} of every parameter of
     ``model``, by the JAX package's rules (its `lm_param_specs`): the
-    blocks' dense pairs as `parallel.tensor.param_specs` gives them,
-    ``embed`` and ``lm_head`` ``('model', None)``, ``pos`` and the norms
-    replicated ``()``. For inspection; `tp_specs` gives the layout a
-    shard is actually cut by."""
+    blocks' dense pairs and the experts as `parallel.tensor.param_specs`
+    gives them, ``embed`` and ``lm_head`` ``('model', None)``, ``pos``,
+    the routers and the norms replicated ``()``. For inspection;
+    `tp_specs` gives the layout a shard is actually cut by."""
     from horovod_tpu_torch.parallel.tensor import param_specs
     specs = param_specs(model)
     for name in ("embed", "lm_head"):
@@ -1108,9 +1185,12 @@ def generate_bucketed(model: TransformerLM, prompts, steps: int, **kw):
 
 def slot_decode_model(model: TransformerLM) -> Callable:
     """The decode call every slot primitive shares: any-fill
-    (``chunked_prefill``) appends returning ``(hidden, head)``."""
+    (``chunked_prefill``) appends returning ``(hidden, head)``, each
+    lane routed through the MoE blocks alone (``route_rows``: the JAX
+    package vmaps a one-lane call over the slots, so a lane's capacity
+    counts its own tokens only)."""
     return functools.partial(model, chunked_prefill=True,
-                             return_hidden=True)
+                             return_hidden=True, route_rows=True)
 
 
 def init_slot_cache(model: TransformerLM, num_slots: int) -> KVCache:
@@ -1375,7 +1455,8 @@ def _paged_apply(model: TransformerLM, spec: PagedCacheSpec, pools,
     if paged_kernel == "off":
         view = _paged_view(pools, tables, fills)
         hidden, head = model(toks, view, chunked_prefill=True,
-                             prefix_len=prefix_len, return_hidden=True)
+                             prefix_len=prefix_len, return_hidden=True,
+                             route_rows=True)
         # The rows the linear path just wrote (its start clamps to
         # W - S, as the write did).
         start = fills.long().clamp(max=spec.view_len - S)
@@ -1390,7 +1471,7 @@ def _paged_apply(model: TransformerLM, spec: PagedCacheSpec, pools,
                          decode_impl=("pallas" if paged_kernel == "pallas"
                                       else None), k_scale=ks, v_scale=vs)
     return model(toks, cache, chunked_prefill=True, prefix_len=prefix_len,
-                 return_hidden=True)
+                 return_hidden=True, route_rows=True)
 
 
 @dataclass

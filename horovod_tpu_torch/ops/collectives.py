@@ -44,7 +44,9 @@ from horovod_tpu_torch.resilience import chaos
 Tensors = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 _staged_lock = threading.Lock()
-_staged = {"bytes": 0, "model": 0}
+_staged = {"bytes": 0}
+# Bytes each process gave each axis's f / g collectives, by axis name.
+_axis_bytes: dict = {}
 
 
 def staged_bytes() -> int:
@@ -59,21 +61,22 @@ def reset_staged_bytes() -> None:
         _staged["bytes"] = 0
 
 
-def model_bytes() -> int:
-    """Bytes this process contributed to the ``model`` axis's
-    collectives (f's and g's sums, the logits gathers, the max) since
-    the last `reset_model_bytes`: each call's input once."""
-    return _staged["model"]
+def axis_bytes(axis_name: str) -> int:
+    """Bytes this process contributed to the Megatron operators run over
+    ``axis_name`` (f's and g's sums, the logits gathers, the max) since
+    the last `reset_axis_bytes`: each call's input once."""
+    return _axis_bytes.get(axis_name, 0)
 
 
-def reset_model_bytes() -> None:
+def reset_axis_bytes(axis_name: str) -> None:
     with _staged_lock:
-        _staged["model"] = 0
+        _axis_bytes[axis_name] = 0
 
 
-def _count_model(x: torch.Tensor) -> None:
+def _count_axis(axis_name: str, x: torch.Tensor) -> None:
     with _staged_lock:
-        _staged["model"] += x.numel() * x.element_size()
+        _axis_bytes[axis_name] = (_axis_bytes.get(axis_name, 0)
+                                  + x.numel() * x.element_size())
 
 
 def _count_staged(n: int) -> None:
@@ -321,11 +324,12 @@ def alltoall(x: Tensors, *, axis_name: str = "data", split_axis: int = 0,
 
 
 # ---------------------------------------------------------------------------
-# Megatron's operators over the ``model`` axis (tensor parallelism).
+# Megatron's operators over the ``model`` axis (tensor parallelism), or
+# any other axis named (the ``expert`` axis of expert parallelism).
 # ---------------------------------------------------------------------------
 
-def _sum(x: torch.Tensor, group) -> torch.Tensor:
-    _count_model(x)
+def _sum(x: torch.Tensor, group, axis_name: str) -> torch.Tensor:
+    _count_axis(axis_name, x)
     out = x.detach().contiguous().clone()
     dist.all_reduce(out, group=group)
     return out
@@ -333,37 +337,38 @@ def _sum(x: torch.Tensor, group) -> torch.Tensor:
 
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, group, x):
-        ctx.group = group
+    def forward(ctx, group, axis_name, x):
+        ctx.group, ctx.axis_name = group, axis_name
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return None, _sum(g, ctx.group)
+        return None, None, _sum(g, ctx.group, ctx.axis_name)
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, group, x):
-        return _sum(x, group)
+    def forward(ctx, group, axis_name, x):
+        return _sum(x, group, axis_name)
 
     @staticmethod
     def backward(ctx, g):
-        return None, g
+        return None, None, g
 
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, group, x):
+    def forward(ctx, group, axis_name, x):
         ctx.group = group
         ctx.width = x.shape[-1]
-        _count_model(x)
+        _count_axis(axis_name, x)
         return torch.cat(_gather(x.detach(), group), dim=-1)
 
     @staticmethod
     def backward(ctx, g):
         r = dist.get_rank(ctx.group)
-        return None, g[..., r * ctx.width:(r + 1) * ctx.width].contiguous()
+        return (None, None,
+                g[..., r * ctx.width:(r + 1) * ctx.width].contiguous())
 
 
 def _model_group(axis_name: str, mesh):
@@ -379,7 +384,7 @@ def copy_to_model(x: torch.Tensor, axis_name: str = "model",
     the whole input and its gradient is the sum of the ranks' parts.
     The axis group is the ambient mesh's (or ``mesh``'s); an unbound
     axis raises `NameError`."""
-    return _CopyToModel.apply(_model_group(axis_name, mesh), x)
+    return _CopyToModel.apply(_model_group(axis_name, mesh), axis_name, x)
 
 
 def reduce_from_model(x: torch.Tensor, axis_name: str = "model",
@@ -387,7 +392,8 @@ def reduce_from_model(x: torch.Tensor, axis_name: str = "model",
     """Megatron's g: the sum over the axis forward, the identity
     backward. It closes a row-parallel region: the ranks' partial
     products become the whole product on every rank."""
-    return _ReduceFromModel.apply(_model_group(axis_name, mesh), x)
+    return _ReduceFromModel.apply(_model_group(axis_name, mesh), axis_name,
+                                  x)
 
 
 def gather_from_model(x: torch.Tensor, axis_name: str = "model",
@@ -395,14 +401,15 @@ def gather_from_model(x: torch.Tensor, axis_name: str = "model",
     """The ranks' last-dim blocks concatenated in axis order forward
     (vocab-sharded logits into whole ones), this rank's block of the
     gradient backward."""
-    return _GatherFromModel.apply(_model_group(axis_name, mesh), x)
+    return _GatherFromModel.apply(_model_group(axis_name, mesh), axis_name,
+                                  x)
 
 
 def max_over(x: torch.Tensor, axis_name: str = "model",
              mesh=None) -> torch.Tensor:
     """Elementwise max over the axis (not differentiable: the
     vocab-parallel softmax's shift)."""
-    _count_model(x)
+    _count_axis(axis_name, x)
     out = x.detach().contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX,
                     group=_model_group(axis_name, mesh))

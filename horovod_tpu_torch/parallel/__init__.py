@@ -1,18 +1,25 @@
 """Parallelism over a device mesh: the mesh, the transformer's layers,
-and ring / Ulysses sequence parallelism.
+ring / Ulysses sequence parallelism and mixture of experts.
 
 Counterpart of `horovod_tpu.parallel`, for the names the port has:
 `parallel.mesh` (a `DeviceMesh` over the world's ranks with the five
-canonical axes; the port shards ``data``, ``seq`` and ``model``, and
-the placement helpers cut a rank's block), `parallel.tensor` (the
-transformer's layers, tensor parallel over ``model``: column/row
-dense pairs, head-sharded attention, the collective matmuls, the
-specs and the shard/gather of a state dict) and `parallel.sequence`
-(blockwise, ring and Ulysses attention, SPMD over the ambient mesh's
-``seq`` axis). Pipeline, FSDP and experts are later slices of the
-port.
+canonical axes; the port shards ``data``, ``seq``, ``expert`` and
+``model``, and the placement helpers cut a rank's block),
+`parallel.tensor` (the transformer's layers, tensor parallel over
+``model``: column/row dense pairs, head-sharded attention, the
+collective matmuls, the specs and the shard/gather of a state dict),
+`parallel.sequence` (blockwise, ring and Ulysses attention, SPMD over
+the ambient mesh's ``seq`` axis) and `parallel.expert` (the top-k
+router, `MoELayer`, its experts sharded over ``expert``, and the
+all-to-all shuffle). Pipeline and FSDP are later slices of the port.
 """
 
+from horovod_tpu_torch.parallel.expert import (
+    MoELayer,
+    expert_alltoall_combine,
+    expert_alltoall_dispatch,
+    top_k_gating,
+)
 from horovod_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_EXPERT,
@@ -69,4 +76,6 @@ __all__ = [
     "param_specs", "shard_params", "gather_params", "unbox",
     "ring_attention", "ring_attention_gspmd", "ulysses_attention",
     "ulysses_attention_gspmd", "blockwise_attention",
+    "MoELayer", "top_k_gating", "expert_alltoall_dispatch",
+    "expert_alltoall_combine",
 ]

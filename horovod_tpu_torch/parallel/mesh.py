@@ -13,8 +13,8 @@ installs a mesh as the ambient one (a context variable) for the
 collectives of `ops.collectives` and the sequence-parallel attention;
 `shard_batch` cuts this rank's block out of a host batch.
 
-The port covers the ``data``, ``seq`` and ``model`` axes: a mesh with
-``pipe`` or ``expert`` > 1 raises, naming its later slice. The
+The port covers the ``data``, ``seq``, ``expert`` and ``model`` axes: a
+mesh with ``pipe`` > 1 raises, naming its later slice. The
 placement helpers of tensor parallelism have their SPMD meaning:
 `sharding` names a layout (`Sharding`), `place_with_specs` and
 `put_like` return THIS rank's block of each full leaf, and `constrain`
@@ -43,8 +43,7 @@ AXIS_EXPERT = "expert"
 _CANONICAL_ORDER = (AXIS_PIPE, AXIS_DATA, AXIS_SEQ, AXIS_EXPERT, AXIS_MODEL)
 
 # The axes of later slices of the port, and the slice each belongs to.
-_LATER_AXES = {AXIS_PIPE: "pipeline parallelism",
-               AXIS_EXPERT: "expert parallelism"}
+_LATER_AXES = {AXIS_PIPE: "pipeline parallelism"}
 
 _AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
     "horovod_tpu_torch_mesh", default=None)
@@ -114,7 +113,7 @@ def make_mesh(spec: Optional[MeshSpec] = None,
             raise NotImplementedError(
                 f"a mesh with {axis}={getattr(spec, axis)} needs {what}, a "
                 f"later slice of the PyTorch port (ROADMAP Queue A 5; the "
-                f"port shards data, seq and model)")
+                f"port shards data, seq, expert and model)")
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs the world's process group: call "

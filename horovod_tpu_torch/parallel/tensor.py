@@ -64,7 +64,7 @@ from torch import nn
 from horovod_tpu_torch.ops.quantization import (check_quant,
                                                 dequantize_int8,
                                                 quantize_int8)
-from horovod_tpu_torch.parallel.mesh import AXIS_MODEL, seq_offset
+from horovod_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_MODEL, seq_offset
 from horovod_tpu_torch.parallel.sequence import (banded_causal_mask,
                                                  check_window)
 
@@ -857,10 +857,16 @@ def param_specs(module: nn.Module) -> dict:
     of ``module``, by the JAX package's rules: a column-parallel kernel
     ``(None, 'model')`` with its bias and scale ``('model',)``, a
     row-parallel kernel ``('model', None)`` with its scale ``(None,)``
-    and its bias replicated ``()``, everything else ``()``."""
+    and its bias replicated ``()``, an MoE layer's ``w1`` / ``w2``
+    ``('expert', None, None)`` and its router ``()``, everything else
+    ``()``."""
+    from horovod_tpu_torch.parallel.expert import MoELayer
     specs = {}
     for prefix, mod in module.named_modules():
-        if isinstance(mod, ColumnParallelDense):
+        if isinstance(mod, MoELayer):
+            rule = {"w1": (AXIS_EXPERT, None, None),
+                    "w2": (AXIS_EXPERT, None, None)}
+        elif isinstance(mod, ColumnParallelDense):
             rule = {"kernel": (None, mod.axis), "kernel_q": (None, mod.axis),
                     "kernel_scale": (mod.axis,), "bias": (mod.axis,)}
         elif isinstance(mod, RowParallelDense):
@@ -916,31 +922,28 @@ def shard_params(mesh, module: nn.Module, state_dict=None,
 def gather_params(mesh, module: nn.Module, state_dict=None,
                   specs=None) -> dict:
     """The inverse of `shard_params`: the FULL state dict from every
-    model rank's shard (default ``module``'s own; a collective over the
-    mesh's ``model`` axis, so every rank of it calls it). ``specs`` must
-    be the effective ones the shards were cut by (a dimension kept
-    whole by `safe_spec` has no ``model`` entry)."""
+    rank's shard (default ``module``'s own; a collective over the mesh's
+    ``model`` and ``expert`` axes, so every rank of them calls it).
+    ``specs`` must be the effective ones the shards were cut by (a
+    dimension kept whole by `safe_spec` names no axis)."""
     from horovod_tpu_torch.ops.collectives import _gather
-    from horovod_tpu_torch.parallel.mesh import axis_group, model_degree
+    from horovod_tpu_torch.parallel.mesh import axis_group, axis_size
     sd = module.state_dict() if state_dict is None else state_dict
     specs = param_specs(module) if specs is None else specs
-    tp = model_degree(mesh)
-    if tp == 1:
-        return dict(sd)
-    group = axis_group(AXIS_MODEL, mesh)
-    owners = _qkv_owners(module)
+    cut = {a: axis_size(a, mesh) for a in (AXIS_MODEL, AXIS_EXPERT)}
+    tp = cut[AXIS_MODEL]
+    owners = _qkv_owners(module) if tp > 1 else {}
     out = {}
     for name, t in sd.items():
-        spec = specs.get(name, ())
-        dims = [d for d, e in enumerate(spec) if e == AXIS_MODEL]
         attn = owners.get(name)
-        if attn is None and not dims:
+        if attn is None:
+            for dim, entry in enumerate(specs.get(name, ())):
+                if cut.get(entry, 1) > 1:
+                    t = torch.cat(_gather(t.detach(),
+                                          axis_group(entry, mesh)), dim=dim)
             out[name] = t
             continue
-        parts = _gather(t.detach(), group)
-        if attn is None:
-            out[name] = torch.cat(parts, dim=dims[0])
-            continue
+        parts = _gather(t.detach(), axis_group(AXIS_MODEL, mesh))
         H, Hkv, D = attn.heads_total, attn.kv_total, attn.head_dim
         full = t.new_zeros(*t.shape[:-1], (H + 2 * Hkv) * D)
         for rank, part in enumerate(parts):

@@ -518,6 +518,12 @@ class ServingEngine:
         from horovod_tpu_torch.models.transformer import _serve_kv_axis
         from horovod_tpu_torch.parallel.mesh import mesh_shape
         axis = _serve_kv_axis()
+        if mesh_shape(mesh).get("expert", 1) > 1:
+            raise NotImplementedError(
+                f"serving over the 'expert' axis (experts sharded across "
+                f"the serving ranks): {_MESH_LATER}; an MoE model serves "
+                f"whole on each rank, or over 'model' (its MoE blocks "
+                f"replicated)")
         others = {k: v for k, v in mesh_shape(mesh).items()
                   if k != axis and v > 1}
         if others:

@@ -1165,3 +1165,95 @@ def test_cuda_f32_product_matches_upcast(dtype):
     hx, hw = torch.autograd.grad((x @ w), (x, w), cot)
     torch.testing.assert_close(gx, hx)      # the dtype's own tolerance
     torch.testing.assert_close(gw, hw)
+
+
+def _moe_pair(dev, cf, seed=90):
+    """The same f32 MoE layer on the card and on the CPU."""
+    from horovod_tpu_torch.parallel.expert import MoELayer
+    layers = [MoELayer(8, 64, 32, k=2, capacity_factor=cf,
+                       dtype=torch.float32, device=d) for d in (dev, "cpu")]
+    layers[1].reset_parameters(torch.Generator().manual_seed(seed))
+    layers[0].load_state_dict(layers[1].state_dict())
+    return layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [0.5, 1.25, 8.0])
+def test_cuda_moe_layer_matches_cpu_and_never_syncs(cf):
+    """The MoE layer on CUDA tensors against the same layer on the CPU
+    (its plain run: the expert math has no kernel of its own): output,
+    aux, the input's and every parameter's gradient, the routed and
+    dropped counts, batched and one row at a time. Under CUDA's sync
+    debug mode set to "error" the forward and backward make no host
+    synchronization: the routing, capacity and dispatch stay on the
+    card."""
+    dev = _card()
+    gpu, cpu = _moe_pair(dev, cf)
+    x = _randn(91, 4, 24, 32)
+    cot = _randn(92, 4, 24, 32)
+    outs = []
+    for layer, d in ((gpu, dev), (cpu, "cpu")):
+        xx, cd = x.to(d).requires_grad_(), cot.to(d)
+        torch.cuda.set_sync_debug_mode("error" if d == dev else 0)
+        try:
+            y, aux = layer(xx)
+            yr, _ = layer(xx.detach(), route_rows=True)
+            ((y * cd).sum() + 0.3 * aux).backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert y.device.type == xx.device.type
+        outs.append([y.detach().cpu(), aux.detach().cpu(), yr.cpu(),
+                     xx.grad.cpu()]
+                    + [p.grad.cpu() for p in layer.parameters()]
+                    + [layer.counts.cpu()])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_block_through_the_kernels_matches_plain(dtype):
+    """One MoE block (a one-layer ``moe_every=1`` LM, flash attention) on
+    the card: logits and the loss's gradients through the flash forward
+    and backward kernels against the same model on their plain
+    versions (f32: 1e-4; bf16 at its rounding, 2e-2 on the logits and
+    0.05 of each gradient's largest entry, chip_smoke's step rule)."""
+    from horovod_tpu_torch.models.transformer import TransformerLM, lm_loss
+    dev = _card()
+    dt = getattr(torch, dtype)
+    model = TransformerLM(64, 1, 2, 64, max_len=64, dtype=dt,
+                          attn_impl="flash", moe_every=1, num_experts=4,
+                          device=dev).init_weights(93)
+    toks = torch.from_numpy(np.random.RandomState(94).randint(
+        0, 64, (2, 48))).to(dev)
+    launches = tfa.flash_fwd_cuda.launches
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        logits, aux = model(toks, return_aux=True)
+        (lm_loss(logits, toks) + 0.01 * aux).backward()
+        return logits.detach().float(), [p.grad.float() for p in
+                                         model.parameters()]
+    k_logits, k_grads = run()
+    assert tfa.flash_fwd_cuda.launches == launches + 1
+    saved = (tfa._flash_forward, tfa.flash_backward)
+
+    def plain_forward(q, k, v, causal, window, q_offset, k_offset):
+        return tfa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, q_offset=q_offset,
+                                         k_offset=k_offset)
+    tfa._flash_forward, tfa.flash_backward = (plain_forward,
+                                              tfa.flash_backward_plain)
+    try:
+        p_logits, p_grads = run()
+    finally:
+        tfa._flash_forward, tfa.flash_backward = saved
+    if dt == torch.float32:
+        torch.testing.assert_close(k_logits, p_logits, atol=1e-4, rtol=1e-4)
+        for a, b in zip(k_grads, p_grads):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    else:
+        assert float((k_logits - p_logits).abs().max()) <= 2e-2
+        for a, b in zip(k_grads, p_grads):
+            assert float((a - b).abs().max()) <= 0.05 * float(
+                b.abs().max().clamp_min(1e-30))

@@ -528,14 +528,15 @@ def test_mesh_spec_resolve_matches_jax():
 
 
 def test_tensor_parallel_axes_raise_naming_their_slice():
-    """The model axis is ported (`tests/test_torch_port_tensor.py`): a
-    model mesh only wants a world, and `constrain` is the identity. The
-    pipe and expert axes still raise, naming their slices."""
+    """The model and expert axes are ported
+    (`tests/test_torch_port_tensor.py`, `tests/test_torch_port_moe.py`):
+    a model or expert mesh only wants a world, and `constrain` is the
+    identity. The pipe axis still raises, naming its slice."""
     with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_mesh(model=2, device_type="cpu")
     with pytest.raises(NotImplementedError, match="pipeline"):
         tmesh.make_mesh(pipe=2, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="expert"):
+    with pytest.raises(RuntimeError, match="process group"):
         tmesh.make_mesh(expert=2, device_type="cpu")
     x = torch.zeros(2)
     assert tmesh.constrain(x, "data") is x

@@ -353,5 +353,11 @@ def test_adam_state_from_jax_continues_a_jax_run(params):
 
 
 def test_later_slices_raise():
+    """Mixture of experts is ported (`tests/test_torch_port_moe.py`);
+    LoRA weights and a pipeline mesh are still later slices."""
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+    tree = {"block_0": {"mlp": {"wi": {"lora_a": np.zeros((4, 2))}}}}
     with pytest.raises(NotImplementedError, match="later slice"):
-        tt.TransformerLM(VOCAB, 1, 2, 8, moe_every=1, device="cpu")
+        params_from_jax(tree)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        make_mesh(pipe=2, device_type="cpu")
